@@ -1,0 +1,51 @@
+"""apex_tpu_torch — the PyTorch/CUDA port of apex_tpu, for NVIDIA Hopper.
+
+The JAX package ``apex_tpu`` stays the reference; this package is held
+against it slice by slice.  The first slice is paged serving of a
+GPT-2-style LM: the model's serving forward, the page pool, the
+decoder's paged programs and the continuous-batching engine, with the
+two kernels on that path (LayerNorm forward and paged attention)
+written by hand in CUDA C++ for sm_90a (``csrc/``, built with ``nvcc``
+at first use into ``build/apex_tpu_torch/``).
+
+Entry points run on the CUDA device unless the caller passes
+``device="cpu"``, where every kernel wrapper runs its plain PyTorch
+version instead.  This package imports neither JAX nor ``apex_tpu``.
+"""
+from apex_tpu_torch.amp import Dense  # noqa: F401
+from apex_tpu_torch.models import GPTConfig, GPTLM, GPTLayer, init_params  # noqa: F401
+from apex_tpu_torch.normalization import FusedLayerNorm  # noqa: F401
+from apex_tpu_torch.ops import launch_counts, reset_launch_counts  # noqa: F401
+from apex_tpu_torch.serve import (  # noqa: F401
+    GPTDecoder,
+    PagePool,
+    PagedKVCache,
+    Request,
+    SamplingParams,
+    ServeEngine,
+    init_paged_cache,
+    sample_tokens,
+)
+from apex_tpu_torch.weights import from_jax_params  # noqa: F401
+
+__version__ = "0.1.0"
+
+__all__ = [
+    "Dense",
+    "FusedLayerNorm",
+    "GPTConfig",
+    "GPTDecoder",
+    "GPTLM",
+    "GPTLayer",
+    "PagePool",
+    "PagedKVCache",
+    "Request",
+    "SamplingParams",
+    "ServeEngine",
+    "from_jax_params",
+    "init_paged_cache",
+    "init_params",
+    "launch_counts",
+    "reset_launch_counts",
+    "sample_tokens",
+]

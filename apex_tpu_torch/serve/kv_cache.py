@@ -1,0 +1,327 @@
+"""Paged KV cache — the global page pool and its host-side allocator.
+
+Counterpart of the paged half of ``apex_tpu/serve/kv_cache.py``.  K/V
+live in a global pool of fixed-size pages ``(num_pages, layers, heads,
+page_len, head_dim)`` on the device; a host-side :class:`PagePool` maps
+each slot's logical positions to physical pages and hands the
+``(slots, pages_per_slot)`` int32 page table to every dispatch.  Page
+:data:`TRASH_PAGE` is never allocated: free and unmapped table entries
+point at it, so inactive slots' masked writes land in a sink.
+
+Where the JAX cache is an immutable pytree donated through each
+dispatch, :class:`PagedKVCache` holds device tensors that the prefill,
+decode and copy programs update IN PLACE.  Int8 pools carry per-token
+fp32 scales (``k_scale``/``v_scale``) beside the pages.  The allocator
+classes are host code with no framework in them; the port keeps its
+own copy rather than importing the JAX package.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, List, Optional, Tuple, Union
+
+import numpy as np
+import torch
+
+from apex_tpu_torch.ops._common import resolve_device
+
+__all__ = [
+    "TRASH_PAGE",
+    "PagePool",
+    "PagedKVCache",
+    "SlotAllocator",
+    "auto_page_len",
+    "init_paged_cache",
+]
+
+TRASH_PAGE = 0  # physical page 0 is never allocated (see module docs)
+
+
+@dataclasses.dataclass
+class PagedKVCache:
+    """Device state of the paged decode engine, updated in place."""
+
+    k: torch.Tensor        # (num_pages, layers, heads, page_len, head_dim)
+    v: torch.Tensor        # (num_pages, layers, heads, page_len, head_dim)
+    lengths: torch.Tensor  # (slots,) int32 valid prefix per slot
+    decoded: torch.Tensor  # () int64 total generated tokens (device meter)
+    k_scale: Optional[torch.Tensor] = None  # (num_pages, layers, heads, page_len)
+    v_scale: Optional[torch.Tensor] = None
+
+    @property
+    def layers(self) -> int:
+        return self.k.shape[1]
+
+    @property
+    def heads(self) -> int:
+        return self.k.shape[2]
+
+    @property
+    def page_len(self) -> int:
+        return self.k.shape[3]
+
+    @property
+    def head_dim(self) -> int:
+        return self.k.shape[4]
+
+    @property
+    def slots(self) -> int:
+        return self.lengths.shape[0]
+
+    @property
+    def quantized(self) -> bool:
+        return self.k_scale is not None
+
+    @property
+    def bytes_per_page(self) -> int:
+        """K+V bytes one physical page pins while allocated (including
+        the per-token scales in int8 mode)."""
+        per = self.layers * self.heads * self.page_len * self.head_dim
+        n = 2 * per * self.k.element_size()
+        if self.k_scale is not None:
+            n += 2 * self.layers * self.heads * self.page_len * 4
+        return n
+
+
+def auto_page_len(max_len: int, preferred: int = 16) -> int:
+    """Largest power-of-two page length <= ``preferred`` dividing
+    ``max_len``."""
+    p = preferred
+    while p > 1 and max_len % p:
+        p //= 2
+    return p
+
+
+def init_paged_cache(
+    cfg,
+    num_pages: int,
+    slots: int,
+    page_len: int,
+    dtype: Optional[torch.dtype] = None,
+    device: Optional[Union[str, torch.device]] = None,
+) -> PagedKVCache:
+    """A zeroed page pool (page 0 is the trash page) on ``device`` (None:
+    the CUDA device).  ``dtype`` None -> ``cfg.compute_dtype``;
+    ``torch.int8`` adds per-token scales, initialised to 1."""
+    if num_pages < 2:
+        raise ValueError("need at least one real page beyond the trash page")
+    if page_len < 1:
+        raise ValueError("page_len must be >= 1")
+    dev = resolve_device(device)
+    dtype = cfg.compute_dtype if dtype is None else dtype
+    shape = (num_pages, cfg.num_layers, cfg.num_heads, page_len,
+             cfg.hidden_size // cfg.num_heads)
+    quant = dtype == torch.int8
+    return PagedKVCache(
+        k=torch.zeros(shape, dtype=dtype, device=dev),
+        v=torch.zeros(shape, dtype=dtype, device=dev),
+        lengths=torch.zeros((slots,), dtype=torch.int32, device=dev),
+        decoded=torch.zeros((), dtype=torch.int64, device=dev),
+        k_scale=torch.ones(shape[:4], device=dev) if quant else None,
+        v_scale=torch.ones(shape[:4], device=dev) if quant else None,
+    )
+
+
+class SlotAllocator:
+    """Host-side FIFO free list over the cache's slot axis."""
+
+    def __init__(self, n_slots: int):
+        if n_slots < 1:
+            raise ValueError("need at least one slot")
+        self.n_slots = n_slots
+        self._free: List[int] = list(range(n_slots))
+
+    @property
+    def n_free(self) -> int:
+        return len(self._free)
+
+    def allocate(self) -> Optional[int]:
+        """Pop a free slot id, or None when every slot is taken."""
+        if not self._free:
+            return None
+        return self._free.pop(0)
+
+    def free(self, slot: int) -> None:
+        if slot in self._free:
+            raise ValueError(f"slot {slot} double-freed")
+        if not 0 <= slot < self.n_slots:
+            raise ValueError(f"slot {slot} out of range")
+        self._free.append(slot)
+
+
+class PagePool:
+    """Host-side allocator over the physical page axis: free list,
+    refcounts, per-slot page tables and the shared-prefix registry.
+
+    - a physical page may back the same logical page of several slots
+      (refcount > 1) when their prompts agree on every token up to the
+      end of that page's coverage — prefix reuse;
+    - appends need exclusive ownership: :meth:`ensure_writable` maps
+      fresh pages for unmapped logical pages and splits shared ones
+      copy-on-write, returning the ``(src, dst)`` page copies the caller
+      runs on the device before its write;
+    - freeing decrements refcounts; a page back on the free list leaves
+      the prefix registry.
+
+    Registry keys are full token prefixes: causal attention makes a
+    page's K/V a function of every token up to its coverage, so equal
+    keys mean equal pages.
+    """
+
+    def __init__(self, num_pages: int, page_len: int, slots: int,
+                 pages_per_slot: int):
+        if num_pages - 1 < pages_per_slot:
+            raise ValueError(
+                f"pool of {num_pages} pages (1 reserved) cannot hold even "
+                f"one full-length sequence ({pages_per_slot} pages)")
+        self.num_pages = num_pages
+        self.page_len = page_len
+        self.pages_per_slot = pages_per_slot
+        self._free: List[int] = list(range(1, num_pages))
+        self.ref = np.zeros((num_pages,), np.int32)
+        self.tables = np.zeros((slots, pages_per_slot), np.int32)
+        self._prefix: Dict[Tuple[int, ...], int] = {}
+        self._rev: Dict[int, Tuple[int, ...]] = {}
+        self.peak_in_use = 0
+        self.cow_copies = 0
+        self.prefix_hits = 0
+        self.prefix_hit_tokens = 0
+
+    @property
+    def n_free(self) -> int:
+        return len(self._free)
+
+    @property
+    def in_use(self) -> int:
+        return self.num_pages - 1 - len(self._free)
+
+    def _alloc(self) -> Optional[int]:
+        if not self._free:
+            return None
+        page = self._free.pop(0)
+        self.ref[page] = 1
+        self.peak_in_use = max(self.peak_in_use, self.in_use)
+        return page
+
+    def _decref(self, page: int) -> None:
+        self.ref[page] -= 1
+        if self.ref[page] < 0:
+            raise ValueError(f"page {page} refcount underflow")
+        if self.ref[page] == 0:
+            key = self._rev.pop(page, None)
+            if key is not None:
+                self._prefix.pop(key, None)
+            self._free.append(page)
+
+    # -- prefix sharing -------------------------------------------------
+
+    def match_prefix(self, prompt: List[int]) -> Tuple[List[int], int]:
+        """Longest registered prefix of ``prompt``: the shared physical
+        pages in logical order and the tokens they cover.  Full pages
+        match greedily, then at most one trailing partial page (the
+        longest registered tail)."""
+        pl = self.page_len
+        pages: List[int] = []
+        pos = 0
+        while pos + pl <= len(prompt):
+            page = self._prefix.get(tuple(prompt[: pos + pl]))
+            if page is None:
+                break
+            pages.append(page)
+            pos += pl
+        rem = min(pl - 1, len(prompt) - pos)
+        for m in range(rem, 0, -1):
+            page = self._prefix.get(tuple(prompt[: pos + m]))
+            if page is not None:
+                pages.append(page)
+                pos += m
+                break
+        return pages, pos
+
+    def share(self, slot: int, pages: List[int], tokens: int) -> None:
+        """Map ``pages`` (from :meth:`match_prefix`) as the first logical
+        pages of ``slot``, increffing each."""
+        for i, page in enumerate(pages):
+            if self.tables[slot, i]:
+                raise ValueError(f"slot {slot} logical page {i} occupied")
+            self.tables[slot, i] = page
+            self.ref[page] += 1
+        if pages:
+            self.prefix_hits += 1
+            self.prefix_hit_tokens += tokens
+
+    def register(self, slot: int, prompt: List[int]) -> None:
+        """Publish ``slot``'s prefilled prompt pages for reuse: one key
+        per full page plus the partial tail."""
+        pl = self.page_len
+        n = len(prompt)
+        for i in range((n + pl - 1) // pl):
+            key = tuple(prompt[: min((i + 1) * pl, n)])
+            page = int(self.tables[slot, i])
+            if page == TRASH_PAGE or key in self._prefix:
+                continue
+            if page in self._rev:  # a page holds at most one key
+                continue
+            self._prefix[key] = page
+            self._rev[page] = key
+
+    # -- write ownership ------------------------------------------------
+
+    def ensure_writable(self, slot: int, start: int, end: int):
+        """Make positions ``[start, end)`` of ``slot`` exclusively
+        writable.  Returns the ``(src, dst)`` page copies to run on the
+        device before the write, or None when the pool is exhausted
+        (pages allocated so far stay mapped; :meth:`release_slot`
+        reclaims them)."""
+        pl = self.page_len
+        end = min(end, self.pages_per_slot * pl)
+        copies: List[Tuple[int, int]] = []
+        if start >= end:
+            return copies
+        for pidx in range(start // pl, (end - 1) // pl + 1):
+            cur = int(self.tables[slot, pidx])
+            if cur == TRASH_PAGE:
+                page = self._alloc()
+                if page is None:
+                    return None
+                self.tables[slot, pidx] = page
+            elif self.ref[cur] > 1:
+                page = self._alloc()
+                if page is None:
+                    return None
+                copies.append((cur, page))
+                self.tables[slot, pidx] = page
+                self._decref(cur)
+                self.cow_copies += 1
+        return copies
+
+    def release_slot(self, slot: int) -> None:
+        """Decref every page the slot maps and point its table row back
+        at the trash page."""
+        for pidx in range(self.pages_per_slot):
+            page = int(self.tables[slot, pidx])
+            if page != TRASH_PAGE:
+                self._decref(page)
+        self.tables[slot, :] = TRASH_PAGE
+
+    def slot_pages(self, slot: int) -> List[int]:
+        """Physical pages currently mapped by ``slot``."""
+        return [int(p) for p in self.tables[slot] if p != TRASH_PAGE]
+
+    # -- out-of-band reservations ---------------------------------------
+
+    def reserve(self, n: int) -> List[int]:
+        """Take up to ``n`` pages out of circulation without mapping them
+        (page pressure on demand, or a static headroom reservation).
+        Give them back with :meth:`unreserve`."""
+        pages: List[int] = []
+        for _ in range(max(0, int(n))):
+            page = self._alloc()
+            if page is None:
+                break
+            pages.append(page)
+        return pages
+
+    def unreserve(self, pages: List[int]) -> None:
+        for page in pages:
+            self._decref(int(page))
