@@ -3,10 +3,14 @@
 The JAX package ``apex_tpu`` stays the reference; this package is held
 against it slice by slice.  The first slice is paged serving of a
 GPT-2-style LM: the model's serving forward, the page pool, the
-decoder's paged programs and the continuous-batching engine, with the
-two kernels on that path (LayerNorm forward and paged attention)
-written by hand in CUDA C++ for sm_90a (``csrc/``, built with ``nvcc``
-at first use into ``build/apex_tpu_torch/``).
+decoder's paged programs and the continuous-batching engine.  The second
+is O2 training of the same LM: the training forward and loss, the
+``amp`` policies, loss scaler and ``AmpOptimizer``, ``fused_adam`` and
+the K-step ``FusedTrainDriver``.  Every kernel on those paths (LayerNorm
+forward and backward, paged attention, flash attention forward and
+backward, fused cross-entropy forward and backward) is written by hand in
+CUDA C++ for sm_90a (``csrc/``, built with ``nvcc`` at first use into
+``build/apex_tpu_torch/``).
 
 Entry points run on the CUDA device unless the caller passes
 ``device="cpu"``, where every kernel wrapper runs its plain PyTorch
@@ -26,13 +30,15 @@ from apex_tpu_torch.serve import (  # noqa: F401
     init_paged_cache,
     sample_tokens,
 )
-from apex_tpu_torch.weights import from_jax_params  # noqa: F401
+from apex_tpu_torch.train import FusedTrainDriver, read_metrics  # noqa: F401
+from apex_tpu_torch.weights import from_jax_opt_state, from_jax_params  # noqa: F401
 
-__version__ = "0.1.0"
+__version__ = "0.2.0"
 
 __all__ = [
     "Dense",
     "FusedLayerNorm",
+    "FusedTrainDriver",
     "GPTConfig",
     "GPTDecoder",
     "GPTLM",
@@ -42,10 +48,12 @@ __all__ = [
     "Request",
     "SamplingParams",
     "ServeEngine",
+    "from_jax_opt_state",
     "from_jax_params",
     "init_paged_cache",
     "init_params",
     "launch_counts",
+    "read_metrics",
     "reset_launch_counts",
     "sample_tokens",
 ]

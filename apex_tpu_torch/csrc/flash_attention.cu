@@ -1,0 +1,466 @@
+// Flash attention, forward and combined backward, no bias, head_dim 64.
+//
+// Replaces:
+// - apex_tpu/ops/attention.py::_fwd_kernel_nobias (body _fwd_kernel,
+//   launched by _flash_fwd) with apex_flash_fwd;
+// - apex_tpu/ops/attention.py::_bwd_fused_nobias (body _bwd_dkv_body with
+//   the per-tile dq output, launched by _flash_bwd) with apex_flash_bwd.
+//
+// Semantics, as the reference's: s = (q . k) * scale with fp32
+// accumulation; causal keys (col > row, local coordinates) get -1e30; an
+// online softmax in fp32 (m, l, acc); dropout after the l sum, from the
+// murmur3-fmix32 counter hash of (seed, batch*head, global row, global
+// col) (_keep_mask), normaliser l * (1 - rate); p.V is an fp32 product
+// (V upcast).  The forward writes O in the input dtype and lse = m +
+// log(l) in fp32.  The backward recomputes p = exp(s - lse) and, with
+// delta = rowsum(dO * O) from the wrapper: dp = dO . V^T; pd and dp masked
+// and scaled by 1 / (1 - rate); dV = pd^T . dO; ds = p * (dp - delta) *
+// scale; dK = ds^T . Q; dQ = ds . K, all in fp32, outputs in the input
+// dtype.  The products of bf16 inputs are exact in fp32, so the QK^T and
+// dO.V^T products done here in fp32 FMAs are the reference's bf16 MXU dots
+// with fp32 accumulation up to summation order; p and ds are never
+// rounded to bf16 (that is the reference's opt-in probs_bf16, a different
+// function).
+//
+// Bound on the H100: operations.  At the training shape (B 16, H 12,
+// S 1024, causal) each product is B*H*S^2*D = 12.9 GFLOP.  The forward's
+// fp32 p.V alone takes 0.19 ms at 67 TFLOP/s (QK^T at the bf16 tensor-core
+// rate 13 us; its 101 MB of bytes 30 us); the backward's three fp32
+// products and two bf16 ones about 0.6 ms.
+//
+// Design.  Both kernels work on 64 x 64 tiles with 256 threads, each
+// thread owning a 4 x 4 micro-tile of every product, fed by float4 reads
+// from shared memory (one operand stored transposed, so a thread's four
+// rows are one float4): per step 2 float4 reads feed 16 FMAs, which keeps
+// the FMA pipes, not shared memory, the limit.  All products run on the
+// CUDA cores in fp32; moving QK^T onto the tensor cores (mma on bf16) and
+// the fp32 products onto them by splitting p into bf16 parts is later
+// work.
+// Forward: one block per (64-query tile, batch*head) walks the key tiles
+// up to the diagonal (fully masked tiles are skipped), keeps m, l and the
+// 4 x 4 accumulator of its rows in registers, and stages p^T in shared
+// memory for the p.V product.  Row max and row sum reduce over the 16
+// threads of a half-warp that share the rows, by shuffles.
+// Backward: one block per (64-key tile, batch*head) walks the query tiles
+// from the diagonal down, keeps its dK and dV tiles in registers, and
+// writes each visited tile's dQ contribution (ds . K) to an fp32 partials
+// buffer; apex_flash_bwd then adds the partials of each query tile in key
+// order with a second small kernel.  dQ so never needs float atomics and
+// comes out the same on every run, as the reference's does.  The
+// partials hold only the visited tiles: q*(q+1)/2 + k for causal, q*nk + k
+// otherwise.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kD = 64;        // head_dim
+constexpr int kB = 64;        // query and key tile
+constexpr int kLd = kB + 4;   // padded row of a shared-memory tile
+constexpr int kThreads = 256;
+constexpr int kTile = kB * kLd;  // floats per shared-memory tile
+constexpr float kNegInf = -1e30f;
+
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+__device__ __forceinline__ void store_f32(float* p, float v) { *p = v; }
+__device__ __forceinline__ void store_f32(__nv_bfloat16* p, float v) {
+  *p = __float2bfloat16_rn(v);
+}
+
+// apex_tpu/ops/attention.py::_keep_mask for one element: keep iff the
+// hash of (seed, bh, row, col) is below thresh = (1 - rate) * 2^32.
+__device__ __forceinline__ bool keep_elem(uint32_t seed, uint32_t bh,
+                                          uint32_t row, uint32_t col,
+                                          uint32_t thresh) {
+  uint32_t x = (row * 0x9E3779B1u + col * 0x85EBCA77u + bh * 0xC2B2AE3Du) ^
+               seed;
+  x ^= x >> 16;
+  x *= 0x7FEB352Du;
+  x ^= x >> 15;
+  x *= 0x846CA68Bu;
+  x ^= x >> 16;
+  return x < thresh;
+}
+
+// The dropout stream's coordinates: seed_pack = [seed, row offset, col
+// offset, head offset] on the device (_pack_seed); the batch*head index
+// the hash is keyed on maps the local bh through (h_local, h_total).
+struct DropCtx {
+  uint32_t seed, bh;
+  int row_off, col_off;
+};
+
+__device__ __forceinline__ DropCtx drop_ctx(const int* seed_pack, int bh,
+                                            int h_local, int h_total) {
+  DropCtx c;
+  c.seed = static_cast<uint32_t>(seed_pack[0]);
+  c.row_off = seed_pack[1];
+  c.col_off = seed_pack[2];
+  c.bh = static_cast<uint32_t>((bh / h_local) * h_total + seed_pack[3] +
+                               bh % h_local);
+  return c;
+}
+
+__device__ __forceinline__ float half_warp_max(float v) {
+  for (int o = 8; o > 0; o >>= 1)
+    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+__device__ __forceinline__ float half_warp_sum(float v) {
+  for (int o = 8; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// Rows [r0, r0 + 64) of a (rows, 64) matrix into shared memory as fp32:
+// to `nat` as [row][d] and/or to `tr` as [d][row] (either may be null).
+// Rows past `rows` read as 0.
+template <typename T>
+__device__ __forceinline__ void load_tile(const T* __restrict__ g, int r0,
+                                          int rows, float* nat, float* tr) {
+  for (int e = threadIdx.x; e < kB * kD; e += kThreads) {
+    const int r = e / kD, d = e % kD;
+    const float v = r0 + r < rows ? to_f32(g[(int64_t)(r0 + r) * kD + d])
+                                  : 0.f;
+    if (nat != nullptr) nat[r * kLd + d] = v;
+    if (tr != nullptr) tr[d * kLd + r] = v;
+  }
+}
+
+// acc[i][j] += sum_t a[t][ra + i] * b[t][cb + j] over t < 64, with a and
+// b shared-memory tiles whose rows are kLd floats.
+__device__ __forceinline__ void mma_4x4(const float* a, int ra,
+                                        const float* b, int cb,
+                                        float (&acc)[4][4]) {
+#pragma unroll 8
+  for (int t = 0; t < kB; ++t) {
+    const float4 x = *reinterpret_cast<const float4*>(a + t * kLd + ra);
+    const float4 y = *reinterpret_cast<const float4*>(b + t * kLd + cb);
+    const float xa[4] = {x.x, x.y, x.z, x.w};
+    const float yb[4] = {y.x, y.y, y.z, y.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(xa[i], yb[j], acc[i][j]);
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                 const T* __restrict__ v, T* __restrict__ o,
+                 float* __restrict__ lse, const int* __restrict__ seed_pack,
+                 int sq, int sk, int h_local, int h_total, float scale,
+                 int causal, float rate, uint32_t thresh) {
+  extern __shared__ float smem[];
+  float* qt = smem;            // [d][q]
+  float* kt = qt + kTile;      // [d][k]
+  float* vs = kt + kTile;      // [k][d]
+  float* pt = vs + kTile;      // [k][q]
+  const int bh = blockIdx.y;
+  const int q0 = blockIdx.x * kB;
+  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
+  const int64_t base_q = (int64_t)bh * sq * kD;
+  const int64_t base_k = (int64_t)bh * sk * kD;
+  const DropCtx dc = drop_ctx(seed_pack, bh, h_local, h_total);
+
+  load_tile(q + base_q, q0, sq, nullptr, qt);
+  float m[4], l[4], acc[4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    m[i] = kNegInf;
+    l[i] = 0.f;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+  }
+  const int nk = (sk + kB - 1) / kB;
+  // tiles with a key at or left of the block's last row
+  const int kend = causal ? min(nk, static_cast<int>(blockIdx.x) + 1) : nk;
+  for (int kb = 0; kb < kend; ++kb) {
+    const int k0 = kb * kB;
+    __syncthreads();  // the previous tile's p^T and V are consumed
+    load_tile(k + base_k, k0, sk, nullptr, kt);
+    load_tile(v + base_k, k0, sk, vs, nullptr);
+    __syncthreads();
+    float s[4][4] = {};
+    mma_4x4(qt, ty * 4, kt, tx * 4, s);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int row = q0 + ty * 4 + i;
+      float mx = kNegInf;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int col = k0 + tx * 4 + j;
+        float x = s[i][j] * scale;
+        if (col >= sk || (causal && col > row)) x = kNegInf;
+        s[i][j] = x;
+        mx = fmaxf(mx, x);
+      }
+      const float m_new = fmaxf(m[i], half_warp_max(mx));
+      const float alpha = expf(m[i] - m_new);
+      float rs = 0.f;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        s[i][j] = expf(s[i][j] - m_new);
+        rs += s[i][j];
+      }
+      l[i] = alpha * l[i] + half_warp_sum(rs);
+      m[i] = m_new;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        acc[i][j] *= alpha;
+        float p = s[i][j];
+        if (rate > 0.f &&
+            !keep_elem(dc.seed, dc.bh, static_cast<uint32_t>(dc.row_off + row),
+                       static_cast<uint32_t>(dc.col_off + k0 + tx * 4 + j),
+                       thresh))
+          p = 0.f;
+        pt[(tx * 4 + j) * kLd + ty * 4 + i] = p;
+      }
+    }
+    __syncthreads();
+    mma_4x4(pt, ty * 4, vs, tx * 4, acc);
+  }
+  T* ob = o + base_q;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int row = q0 + ty * 4 + i;
+    if (row >= sq) continue;
+    const float l_safe = l[i] == 0.f ? 1.f : l[i];
+    const float denom = rate > 0.f ? l_safe * (1.f - rate) : l_safe;
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      store_f32(ob + (int64_t)row * kD + tx * 4 + j, acc[i][j] / denom);
+    if (tx == 0) lse[(int64_t)bh * sq + row] = m[i] + logf(l_safe);
+  }
+}
+
+__device__ __forceinline__ int64_t tile_index(int qb, int kb, int nk,
+                                              int causal) {
+  return causal ? (int64_t)qb * (qb + 1) / 2 + kb : (int64_t)qb * nk + kb;
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+flash_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                 const T* __restrict__ v, const T* __restrict__ dout,
+                 const float* __restrict__ lse,
+                 const float* __restrict__ delta,
+                 const int* __restrict__ seed_pack, T* __restrict__ dk,
+                 T* __restrict__ dv, float* __restrict__ dq_part, int sq,
+                 int sk, int h_local, int h_total, float scale, int causal,
+                 float rate, uint32_t thresh, int64_t tiles_per_bh) {
+  extern __shared__ float smem[];
+  float* kt = smem;             // [d][k]   s = q . k
+  float* ks = kt + kTile;       // [k][d]   dq = ds . k
+  float* vt = ks + kTile;       // [d][k]   dp = do . v
+  float* qt = vt + kTile;       // [d][q]
+  float* qs = qt + kTile;       // [q][d]   dk = ds^T . q
+  float* dot_ = qs + kTile;     // [d][q]
+  float* dos = dot_ + kTile;    // [q][d]   dv = pd^T . do
+  float* pds = dos + kTile;     // [q][k]
+  float* dss = pds + kTile;     // [q][k]
+  float* dst = dss + kTile;     // [k][q]
+  float* lse_s = dst + kTile;   // [q]
+  float* delta_s = lse_s + kB;  // [q]
+  const int bh = blockIdx.y;
+  const int kb = blockIdx.x;
+  const int k0 = kb * kB;
+  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
+  const int64_t base_q = (int64_t)bh * sq * kD;
+  const int64_t base_k = (int64_t)bh * sk * kD;
+  const DropCtx dc = drop_ctx(seed_pack, bh, h_local, h_total);
+  const float inv_keep = rate > 0.f ? 1.f / (1.f - rate) : 1.f;
+
+  load_tile(k + base_k, k0, sk, ks, kt);
+  load_tile(v + base_k, k0, sk, nullptr, vt);
+  float dk_acc[4][4] = {}, dv_acc[4][4] = {};
+  const int nq = (sq + kB - 1) / kB;
+  const int nk = (sk + kB - 1) / kB;
+  for (int qb = causal ? kb : 0; qb < nq; ++qb) {
+    const int q0 = qb * kB;
+    __syncthreads();  // the previous q tile's operands are consumed
+    load_tile(q + base_q, q0, sq, qs, qt);
+    load_tile(dout + base_q, q0, sq, dos, dot_);
+    if (threadIdx.x < kB) {
+      const int row = q0 + threadIdx.x;
+      lse_s[threadIdx.x] = row < sq ? lse[(int64_t)bh * sq + row] : 0.f;
+      delta_s[threadIdx.x] = row < sq ? delta[(int64_t)bh * sq + row] : 0.f;
+    }
+    __syncthreads();
+    float s[4][4] = {}, dp[4][4] = {};
+    mma_4x4(qt, ty * 4, kt, tx * 4, s);
+    mma_4x4(dot_, ty * 4, vt, tx * 4, dp);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int r = ty * 4 + i;
+      const int row = q0 + r;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int c = tx * 4 + j;
+        const int col = k0 + c;
+        const bool vis = row < sq && col < sk && !(causal && col > row);
+        const float p = vis ? expf(s[i][j] * scale - lse_s[r]) : 0.f;
+        float pd = p, dpv = dp[i][j];
+        if (rate > 0.f) {
+          const bool keep = keep_elem(
+              dc.seed, dc.bh, static_cast<uint32_t>(dc.row_off + row),
+              static_cast<uint32_t>(dc.col_off + col), thresh);
+          pd = keep ? p * inv_keep : 0.f;
+          dpv = keep ? dpv * inv_keep : 0.f;
+        }
+        const float ds = p * (dpv - delta_s[r]) * scale;
+        pds[r * kLd + c] = pd;
+        dss[r * kLd + c] = ds;
+        dst[c * kLd + r] = ds;
+      }
+    }
+    __syncthreads();
+    mma_4x4(pds, ty * 4, dos, tx * 4, dv_acc);
+    mma_4x4(dss, ty * 4, qs, tx * 4, dk_acc);
+    float dqp[4][4] = {};
+    mma_4x4(dst, ty * 4, ks, tx * 4, dqp);
+    float* part = dq_part +
+                  ((int64_t)bh * tiles_per_bh + tile_index(qb, kb, nk, causal)) *
+                      (kB * kD);
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      *reinterpret_cast<float4*>(part + (ty * 4 + i) * kD + tx * 4) =
+          make_float4(dqp[i][0], dqp[i][1], dqp[i][2], dqp[i][3]);
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int row = k0 + ty * 4 + i;
+    if (row >= sk) continue;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      store_f32(dk + base_k + (int64_t)row * kD + tx * 4 + j, dk_acc[i][j]);
+      store_f32(dv + base_k + (int64_t)row * kD + tx * 4 + j, dv_acc[i][j]);
+    }
+  }
+}
+
+// dQ of one (64-query tile, batch*head): the visited key tiles' partials
+// added in key order.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+flash_dq_kernel(const float* __restrict__ dq_part, T* __restrict__ dq,
+                int sq, int sk, int causal, int64_t tiles_per_bh) {
+  const int bh = blockIdx.y;
+  const int qb = blockIdx.x;
+  const int nk = (sk + kB - 1) / kB;
+  const int kend = causal ? min(nk, qb + 1) : nk;
+  const float* base = dq_part + (int64_t)bh * tiles_per_bh * (kB * kD);
+  for (int e = threadIdx.x; e < kB * kD; e += kThreads) {
+    const int row = qb * kB + e / kD;
+    if (row >= sq) break;
+    float acc = 0.f;
+    for (int kb = 0; kb < kend; ++kb)
+      acc += base[tile_index(qb, kb, nk, causal) * (kB * kD) + e];
+    store_f32(dq + ((int64_t)bh * sq + row) * kD + e % kD, acc);
+  }
+}
+
+constexpr size_t kFwdSmem = 4 * kTile * sizeof(float);
+constexpr size_t kBwdSmem = (10 * kTile + 2 * kB) * sizeof(float);
+
+template <typename T>
+int launch_fwd(const void* q, const void* k, const void* v, void* o,
+               float* lse, const int* seed, int bh, int sq, int sk,
+               int h_local, int h_total, float scale, int causal, float rate,
+               uint32_t thresh, cudaStream_t s) {
+  cudaError_t e = cudaFuncSetAttribute(
+      flash_fwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(kFwdSmem));
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const dim3 grid((sq + kB - 1) / kB, bh);
+  flash_fwd_kernel<T><<<grid, kThreads, kFwdSmem, s>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<T*>(o), lse, seed, sq, sk,
+      h_local, h_total, scale, causal, rate, thresh);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch_bwd(const void* q, const void* k, const void* v, const void* dout,
+               const float* lse, const float* delta, const int* seed,
+               void* dq, void* dk, void* dv, float* dq_part, int bh, int sq,
+               int sk, int h_local, int h_total, float scale, int causal,
+               float rate, uint32_t thresh, long long tiles_per_bh,
+               cudaStream_t s) {
+  cudaError_t e = cudaFuncSetAttribute(
+      flash_bwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(kBwdSmem));
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const dim3 grid_k((sk + kB - 1) / kB, bh);
+  flash_bwd_kernel<T><<<grid_k, kThreads, kBwdSmem, s>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<const T*>(dout), lse, delta,
+      seed, static_cast<T*>(dk), static_cast<T*>(dv), dq_part, sq, sk,
+      h_local, h_total, scale, causal, rate, thresh, tiles_per_bh);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const dim3 grid_q((sq + kB - 1) / kB, bh);
+  flash_dq_kernel<T><<<grid_q, kThreads, 0, s>>>(
+      dq_part, static_cast<T*>(dq), sq, sk, causal, tiles_per_bh);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// Tiles of the dq partials buffer per batch*head: the buffer holds
+// bh * tiles * 64 * 64 floats.
+extern "C" long long apex_flash_dq_tiles(int sq, int sk, int causal) {
+  const long long nq = (sq + kB - 1) / kB, nk = (sk + kB - 1) / kB;
+  return causal ? nq * (nq + 1) / 2 : nq * nk;
+}
+
+// q: (bh, sq, 64), k/v: (bh, sk, 64), o like q, lse: (bh, sq) fp32;
+// dtype 0 = float32, 1 = bfloat16.  seed: device int32[4] = [seed, row
+// offset, col offset, head offset]; thresh = (1 - rate) * 2^32 clamped.
+// Returns cudaGetLastError().
+extern "C" int apex_flash_fwd(const void* q, const void* k, const void* v,
+                              void* o, float* lse, const int* seed, int bh,
+                              int sq, int sk, int h_local, int h_total,
+                              float scale, int causal, float rate,
+                              unsigned int thresh, int dtype, void* stream) {
+  if (bh <= 0 || sq <= 0) return 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return launch_fwd<float>(q, k, v, o, lse, seed, bh, sq, sk, h_local,
+                             h_total, scale, causal, rate, thresh, s);
+  if (dtype == 1)
+    return launch_fwd<__nv_bfloat16>(q, k, v, o, lse, seed, bh, sq, sk,
+                                     h_local, h_total, scale, causal, rate,
+                                     thresh, s);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// dout like q; lse, delta: (bh, sq) fp32 (delta = rowsum(dout * o));
+// dq, dk, dv like q, k, v; dq_part: fp32 scratch of
+// bh * apex_flash_dq_tiles(...) * 64 * 64.  Returns cudaGetLastError().
+extern "C" int apex_flash_bwd(const void* q, const void* k, const void* v,
+                              const void* dout, const float* lse,
+                              const float* delta, const int* seed, void* dq,
+                              void* dk, void* dv, float* dq_part, int bh,
+                              int sq, int sk, int h_local, int h_total,
+                              float scale, int causal, float rate,
+                              unsigned int thresh, int dtype, void* stream) {
+  if (bh <= 0 || sq <= 0 || sk <= 0) return 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const long long tiles = apex_flash_dq_tiles(sq, sk, causal);
+  if (dtype == 0)
+    return launch_bwd<float>(q, k, v, dout, lse, delta, seed, dq, dk, dv,
+                             dq_part, bh, sq, sk, h_local, h_total, scale,
+                             causal, rate, thresh, tiles, s);
+  if (dtype == 1)
+    return launch_bwd<__nv_bfloat16>(q, k, v, dout, lse, delta, seed, dq, dk,
+                                     dv, dq_part, bh, sq, sk, h_local,
+                                     h_total, scale, causal, rate, thresh,
+                                     tiles, s);
+  return static_cast<int>(cudaErrorInvalidValue);
+}

@@ -1,23 +1,33 @@
-"""GPT-2-style causal LM — the serving forward over the paged KV pool.
+"""GPT-2-style causal LM: the training forward and the serving forward
+over the paged KV pool.
 
-Counterpart of ``apex_tpu/models/gpt.py``, serving half: the decode
-branch of ``GPTLayer`` and ``GPTLM``'s paged prefill-chunk and
-decode-step methods, with the same pre-LN blocks, tied head and dtype
-discipline:
+Counterpart of ``apex_tpu/models/gpt.py``, with the same pre-LN blocks,
+tied head and dtype discipline:
 
 - the residual stream is in the compute dtype, every LayerNorm input is
   fp32 (:class:`~apex_tpu_torch.normalization.FusedLayerNorm`, the
-  LayerNorm kernel on the card);
+  LayerNorm kernels on the card);
 - GELU is the tanh form (``jax.nn.gelu``'s default);
-- the head is a compute-dtype product with fp32 accumulation and fp32
-  logits (``_logits``);
-- each layer's history is read through the page table by
-  :func:`~apex_tpu_torch.ops.attention.paged_fused_attention` (the
-  paged-attention kernel on the card, its plain version on the CPU).
+- training (``GPTLM.forward``): the embeddings are an fp32 lookup of the
+  (possibly bf16) tables, summed and dropped out in fp32, then cast to
+  the compute dtype; each block runs causal
+  :func:`~apex_tpu_torch.ops.attention.flash_attention` with its
+  attention-dropout seed drawn from the caller's generator, and residual
+  dropout after the projection and the MLP; the loss is
+  :func:`~apex_tpu_torch.ops.softmax_xentropy.softmax_cross_entropy` on
+  compute-dtype logits (a compute-dtype head product with fp32
+  accumulation: the JAX package rounds its fp32 logits to that dtype
+  before the loss), the mean over labels >= 0;
+- serving: the head is a compute-dtype product with fp32 accumulation
+  and fp32 logits (``_logits``), and each layer's history is read
+  through the page table by
+  :func:`~apex_tpu_torch.ops.attention.paged_fused_attention`.
 
-Where the JAX methods return updated (donated) pools, these write the
-new tokens' K/V into the pool tensors IN PLACE and return the logits.
-The training forward (``GPTLM.__call__``) belongs to the training slice.
+Where the JAX serving methods return updated (donated) pools, these write
+the new tokens' K/V into the pool tensors IN PLACE and return the logits.
+Dropout draws from an explicit ``torch.Generator`` on the model's device,
+never the global RNG; its bits cannot match flax's, except the attention
+dropout mask, which is the JAX package's counter hash.
 """
 from __future__ import annotations
 
@@ -31,6 +41,7 @@ from torch import nn
 from apex_tpu_torch.amp.layers import Dense
 from apex_tpu_torch.normalization import FusedLayerNorm
 from apex_tpu_torch.ops import attention as _attn
+from apex_tpu_torch.ops.softmax_xentropy import softmax_cross_entropy
 
 __all__ = ["GPTConfig", "GPTLayer", "GPTLM", "init_params"]
 
@@ -42,6 +53,8 @@ class GPTConfig:
     num_layers: int = 12
     num_heads: int = 12
     max_position: int = 1024
+    dropout_rate: float = 0.1
+    attn_dropout_rate: float = 0.1
     compute_dtype: torch.dtype = torch.bfloat16
 
     @property
@@ -80,6 +93,37 @@ class GPTLayer(nn.Module):
         self.ln2 = FusedLayerNorm(h)
         self.ffn_in = Dense(h, cfg.intermediate_size, dtype=dt)
         self.ffn_out = Dense(cfg.intermediate_size, h, dtype=dt)
+
+    def forward(self, x: torch.Tensor, deterministic: bool = True,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """The training branch: ``x`` (B, S, h) in the compute dtype.
+        Without ``deterministic``, attention dropout takes a per-layer
+        int32 seed in [0, 2^31 - 1) from ``generator`` (kept on the
+        device) and residual dropout draws its masks from it."""
+        cfg = self.cfg
+        b, s, h = x.shape
+        nh, d, dt = cfg.num_heads, cfg.head_dim, cfg.compute_dtype
+        y = self.ln1(x.float()).to(dt)
+        q, k, v = self.qkv(y).split(h, dim=-1)
+        split = lambda t: t.reshape(b, s, nh, d).transpose(1, 2)  # noqa: E731
+        drop_attn = cfg.attn_dropout_rate > 0 and not deterministic
+        seed = None
+        if drop_attn:
+            seed = torch.randint(0, 2 ** 31 - 1, (), generator=_gen(generator),
+                                 device=x.device, dtype=torch.int32)
+        attn = _attn.flash_attention(
+            split(q), split(k), split(v), causal=True,
+            dropout_rate=cfg.attn_dropout_rate if drop_attn else 0.0,
+            dropout_seed=seed)
+        attn = self.proj(attn.transpose(1, 2).reshape(b, s, h))
+        if not deterministic:
+            attn = _dropout(attn, cfg.dropout_rate, generator)
+        x = x + attn.to(x.dtype)
+        y = self.ln2(x.float()).to(dt)
+        y = self.ffn_out(F.gelu(self.ffn_in(y), approximate="tanh"))
+        if not deterministic:
+            y = _dropout(y, cfg.dropout_rate, generator)
+        return x + y.to(x.dtype)
 
     def decode(self, x, *, layer, positions, pool_k, pool_v, page_table,
                cache_lengths, pool_k_scale=None, pool_v_scale=None):
@@ -128,6 +172,24 @@ class GPTLayer(nn.Module):
         return x, k, v
 
 
+def _gen(generator: Optional[torch.Generator]) -> torch.Generator:
+    if generator is None:
+        raise ValueError("training with dropout (deterministic=False) needs "
+                         "a torch.Generator on the model's device")
+    return generator
+
+
+def _dropout(x: torch.Tensor, rate: float,
+             generator: Optional[torch.Generator]) -> torch.Tensor:
+    """flax ``nn.Dropout``: keep with probability 1 - rate, scale kept
+    values by 1 / (1 - rate); the mask from ``generator``."""
+    if rate <= 0.0:
+        return x
+    keep = torch.rand(x.shape, generator=_gen(generator),
+                      device=x.device) < 1.0 - rate
+    return torch.where(keep, x / (1.0 - rate), 0.0)
+
+
 def _paged_write(pool, scale_arr, li, phys, off, kv):
     """Write new-token K/V into the pool IN PLACE through the page
     table: ``kv`` is the layer's return — (B, H, T, D) floats, or a
@@ -159,6 +221,45 @@ class GPTLM(nn.Module):
                                     for _ in range(cfg.num_layers))
         self.ln_f = FusedLayerNorm(cfg.hidden_size)
         self._head: Optional[torch.Tensor] = None
+
+    def forward(self, input_ids: torch.Tensor,
+                labels: Optional[torch.Tensor] = None,
+                deterministic: bool = True,
+                generator: Optional[torch.Generator] = None):
+        """The training forward on (B, S) ``input_ids``.
+
+        Without ``labels``, returns fp32 (B, S, V) logits (``_logits``).
+        With ``labels`` (next-token ids, negative = ignore), returns
+        ``(logits, loss)``: the logits in the compute dtype (the loss
+        path's, so no fp32 copy of the largest activation is made) and
+        the fp32 mean loss over labels >= 0, ignored labels replaced by 0
+        before the fused cross-entropy.  ``deterministic=False`` applies
+        dropout from ``generator``."""
+        cfg = self.cfg
+        b, s = input_ids.shape
+        if s > cfg.max_position:
+            raise ValueError(f"sequence length {s} > max_position "
+                             f"{cfg.max_position}")
+        pos = torch.arange(s, device=input_ids.device)
+        # flax nn.Embed(dtype=float32): the table is promoted, then looked up
+        x = (F.embedding(input_ids, self.wte.weight.float())
+             + F.embedding(pos, self.wpe.weight.float())[None])
+        if not deterministic:
+            x = _dropout(x, cfg.dropout_rate, generator)
+        x = x.to(cfg.compute_dtype)
+        for layer in self.layers:
+            x = layer(x, deterministic, generator)
+        x = self.ln_f(x.float())
+        if labels is None:
+            return self._logits(x)
+        dt = cfg.compute_dtype
+        logits = torch.matmul(x.to(dt), self.wte.weight.to(dt).T)
+        valid = labels >= 0
+        per_tok = softmax_cross_entropy(logits,
+                                        torch.where(valid, labels, 0))
+        n = valid.sum().clamp_min(1)
+        loss = torch.where(valid, per_tok, 0.0).sum() / n
+        return logits, loss
 
     @torch.no_grad()
     def cast_for_serving(self) -> None:

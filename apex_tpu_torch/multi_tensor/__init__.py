@@ -1,0 +1,80 @@
+"""Multi-tensor primitives over lists or dicts of tensors.
+
+Counterpart of ``apex_tpu/multi_tensor/__init__.py`` (apex's ``amp_C``
+multi-tensor kernels): scale, unscale, L2 and max norms and the
+non-finite check, over a "tree" that is a dict (name -> tensor) or a
+list/tuple of tensors; outputs keep the container type.  The reductions
+use ``torch._foreach_norm`` (one multi-tensor launch) and accumulate in
+fp32 whatever the leaf dtype; the found_inf flag is a 0-d bool tensor on
+the device, never read on the host.
+"""
+from __future__ import annotations
+
+import math
+from typing import Callable, List, Mapping, Sequence, Tuple, TypeVar, Union
+
+import torch
+
+__all__ = ["multi_tensor_l2norm", "multi_tensor_scale",
+           "multi_tensor_unscale", "tree_finite", "tree_leaves", "tree_map"]
+
+Tree = TypeVar("Tree", bound=Union[Mapping[str, torch.Tensor],
+                                   Sequence[torch.Tensor]])
+
+
+def tree_leaves(tree) -> List[torch.Tensor]:
+    """The tensors of a dict (in key order) or a list/tuple."""
+    return list(tree.values()) if isinstance(tree, Mapping) else list(tree)
+
+
+def tree_map(fn: Callable, tree, *rest):
+    """``fn`` leaf by leaf over a dict or list/tuple and matching
+    ``rest``; the result has the first tree's container type."""
+    if isinstance(tree, Mapping):
+        return {k: fn(v, *(r[k] for r in rest)) for k, v in tree.items()}
+    out = [fn(*args) for args in zip(tree, *rest)]
+    return tuple(out) if isinstance(tree, tuple) else out
+
+
+def tree_finite(tree) -> torch.Tensor:
+    """True iff every element of every leaf is finite (0-d bool)."""
+    leaves = tree_leaves(tree)
+    if not leaves:
+        return torch.tensor(True)
+    return torch.isfinite(multi_tensor_l2norm(tree, max_norm=True))
+
+
+def multi_tensor_scale(tree: Tree, scale) -> Tuple[Tree, torch.Tensor]:
+    """``out = in * scale`` (bf16 leaves scaled in fp32 and rounded back),
+    plus a found_inf flag over the outputs."""
+    def one(x):
+        if x.dtype == torch.bfloat16:
+            return (x.float() * scale).to(x.dtype)
+        return x * scale
+    scaled = tree_map(one, tree)
+    return scaled, torch.logical_not(tree_finite(scaled))
+
+
+def multi_tensor_l2norm(tree, *, per_tensor: bool = False,
+                        max_norm: bool = False):
+    """Global L2 (or max-abs) norm over all leaves, in fp32; with
+    ``per_tensor`` also the per-leaf norms in the tree's container."""
+    leaves = tree_leaves(tree)
+    if not leaves:
+        total = torch.tensor(0.0)
+        return (total, tree_map(lambda x: x, tree)) if per_tensor else total
+    ord_ = math.inf if max_norm else 2.0
+    norms = torch._foreach_norm(leaves, ord_, dtype=torch.float32)
+    stacked = torch.stack(norms)
+    total = stacked.max() if max_norm else torch.linalg.vector_norm(stacked)
+    if not per_tensor:
+        return total
+    if isinstance(tree, Mapping):
+        return total, dict(zip(tree.keys(), norms))
+    return total, type(tree)(norms) if isinstance(tree, tuple) else norms
+
+
+def multi_tensor_unscale(tree: Tree, inv_scale) -> Tuple[Tree, torch.Tensor]:
+    """Gradient unscale: fp32 ``g * inv_scale`` plus a found_inf flag."""
+    out = tree_map(lambda g: g.float() * inv_scale, tree)
+    return out, torch.logical_not(tree_finite(out))

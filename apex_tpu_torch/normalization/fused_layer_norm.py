@@ -1,8 +1,12 @@
-"""FusedLayerNorm — an ``nn.Module`` over the LayerNorm kernel.
+"""FusedLayerNorm — an ``nn.Module`` over the LayerNorm kernels.
 
 Counterpart of ``apex_tpu/normalization/fused_layer_norm.py`` as the
-model uses it: LayerNorm over the last axis with fp32 ``weight`` and
-``bias`` (the flax module's ``scale`` and ``bias``).
+model uses it: differentiable LayerNorm over the last axis with
+``weight`` and ``bias`` (the flax module's ``scale`` and ``bias``),
+created in fp32.  The parameters follow the dtype an AMP cast gives
+them: under O2 they are bf16 (the JAX policy's BatchNorm heuristic keeps
+no LayerNorm in fp32), the kernels upcast them, and their gradients come
+back in bf16.
 """
 from __future__ import annotations
 
@@ -16,7 +20,7 @@ __all__ = ["FusedLayerNorm"]
 
 class FusedLayerNorm(nn.Module):
     """LayerNorm over the last axis of width ``normalized_shape``, with
-    ``weight`` (init 1) and ``bias`` (init 0) in fp32."""
+    ``weight`` (init 1) and ``bias`` (init 0), fp32 until cast."""
 
     def __init__(self, normalized_shape: int, eps: float = 1e-5):
         super().__init__()

@@ -9,17 +9,36 @@ from __future__ import annotations
 from typing import Dict
 
 from apex_tpu_torch.ops.attention import (  # noqa: F401
+    attention_ref,
     cached_attention,
+    flash_attention,
+    flash_attention_bwd,
+    flash_attention_fwd,
     paged_cached_attention,
     paged_fused_attention,
     quantize_kv,
 )
-from apex_tpu_torch.ops.layer_norm import layer_norm, layer_norm_ref  # noqa: F401
+from apex_tpu_torch.ops.layer_norm import (  # noqa: F401
+    layer_norm,
+    layer_norm_bwd,
+    layer_norm_ref,
+)
+from apex_tpu_torch.ops.softmax_xentropy import (  # noqa: F401
+    softmax_cross_entropy,
+    softmax_cross_entropy_bwd,
+    softmax_cross_entropy_fwd,
+    softmax_cross_entropy_ref,
+)
 
 #: every kernel wrapper of the package, by name
 KERNELS = {
     "layer_norm": layer_norm,
+    "layer_norm_bwd": layer_norm_bwd,
     "paged_fused_attention": paged_fused_attention,
+    "flash_attention_fwd": flash_attention_fwd,
+    "flash_attention_bwd": flash_attention_bwd,
+    "softmax_xentropy_fwd": softmax_cross_entropy_fwd,
+    "softmax_xentropy_bwd": softmax_cross_entropy_bwd,
 }
 
 
@@ -35,12 +54,21 @@ def reset_launch_counts() -> None:
 
 __all__ = [
     "KERNELS",
+    "attention_ref",
     "cached_attention",
+    "flash_attention",
+    "flash_attention_bwd",
+    "flash_attention_fwd",
     "launch_counts",
     "layer_norm",
+    "layer_norm_bwd",
     "layer_norm_ref",
     "paged_cached_attention",
     "paged_fused_attention",
     "quantize_kv",
     "reset_launch_counts",
+    "softmax_cross_entropy",
+    "softmax_cross_entropy_bwd",
+    "softmax_cross_entropy_fwd",
+    "softmax_cross_entropy_ref",
 ]

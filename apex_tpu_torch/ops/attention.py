@@ -1,7 +1,7 @@
-"""Serving-side attention: the paged-attention CUDA kernel and its plain
-versions.
+"""Attention: the paged-attention and flash-attention CUDA kernels and
+their plain versions.
 
-Counterpart of the decode-path half of ``apex_tpu/ops/attention.py``:
+Counterpart of ``apex_tpu/ops/attention.py``.  The serving half:
 
 - :func:`cached_attention`, :func:`quantize_kv` and the materializing
   :func:`paged_cached_attention` are plain PyTorch, written op for op
@@ -11,24 +11,41 @@ Counterpart of the decode-path half of ``apex_tpu/ops/attention.py``:
   ``_paged_fused_kernel``.  On CPU tensors it runs
   :func:`paged_cached_attention` instead.
 
+The training half:
+
+- :func:`attention_ref` and the counter-hash dropout mask
+  :func:`_keep_mask` (bit for bit the JAX function), plain PyTorch;
+- :func:`flash_attention`, a ``torch.autograd.Function`` over
+  :func:`flash_attention_fwd` and :func:`flash_attention_bwd`, the
+  wrappers of ``csrc/flash_attention.cu`` (ports of the Pallas
+  ``_fwd_kernel_nobias`` and ``_bwd_fused_nobias``).  On CPU tensors they
+  run their plain versions :func:`flash_attention_fwd_ref` and
+  :func:`flash_attention_bwd_ref`.
+
 All softmax and accumulation math is fp32 whatever the input, cache or
 pool dtype; masked scores are the finite ``_NEG_INF`` (never ``-inf``),
-as in the JAX package.  The flash-attention training kernels are not
-part of this module yet.
+as in the JAX package.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Optional, Tuple
+from typing import Optional, Tuple, Union
 
 import torch
 
 from apex_tpu_torch.ops import _build
 from apex_tpu_torch.ops._common import use_kernel
+from apex_tpu_torch.ops.softmax_xentropy import _logsumexp
 
 __all__ = [
+    "attention_ref",
     "cached_attention",
+    "flash_attention",
+    "flash_attention_bwd",
+    "flash_attention_bwd_ref",
+    "flash_attention_fwd",
+    "flash_attention_fwd_ref",
     "paged_cached_attention",
     "paged_fused_attention",
     "quantize_kv",
@@ -282,3 +299,345 @@ def paged_fused_attention(
 
 
 paged_fused_attention.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# flash attention (training): the dropout hash, plain versions, kernels
+# ---------------------------------------------------------------------------
+
+_M32 = 0xFFFFFFFF
+_FLASH_D = 64
+
+
+def _mul32(a: torch.Tensor, c: int) -> torch.Tensor:
+    """``(a * c) mod 2^32`` for an int64 ``a`` in [0, 2^32) and a 32-bit
+    constant ``c``, in int64 without overflow: the uint32 wrap-around
+    multiply of the JAX hash (torch's uint32 support is partial)."""
+    return ((a & 0xFFFF) * c + ((((a >> 16) * c) & 0xFFFF) << 16)) & _M32
+
+
+def _keep_mask(seed, bh, row0, col0, shape, rate: float) -> torch.Tensor:
+    """Bernoulli(1 - rate) keep mask from the murmur3-fmix32-style hash
+    of (seed, batch*head index, global row, global col) — bit for bit
+    ``apex_tpu.ops.attention._keep_mask``.
+
+    ``seed``, ``bh``, ``row0``, ``col0`` are ints or int tensors that
+    broadcast against the (rows, cols) ``shape`` (``bh`` of shape
+    (BH, 1, 1) gives a (BH, rows, cols) mask)."""
+    dev = next((t.device for t in (seed, bh, row0, col0)
+                if isinstance(t, torch.Tensor)), None)
+    i64 = lambda t: torch.as_tensor(t, device=dev).long()  # noqa: E731
+    rows = i64(row0) + torch.arange(shape[0], device=dev)[:, None]
+    cols = i64(col0) + torch.arange(shape[1], device=dev)[None, :]
+    x = (_mul32(rows & _M32, 0x9E3779B1) + _mul32(cols & _M32, 0x85EBCA77)
+         + _mul32(i64(bh) & _M32, 0xC2B2AE3D)) & _M32
+    x = x ^ (i64(seed) & _M32)
+    x = x ^ (x >> 16)
+    x = _mul32(x, 0x7FEB352D)
+    x = x ^ (x >> 15)
+    x = _mul32(x, 0x846CA68B)
+    x = x ^ (x >> 16)
+    return x < _keep_thresh(rate)
+
+
+def _keep_thresh(rate: float) -> int:
+    """keep iff hash < (1 - rate) * 2^32 (``attention.py:154``)."""
+    return min(int((1.0 - rate) * 2 ** 32), 2 ** 32 - 1)
+
+
+def attention_ref(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    bias: Optional[torch.Tensor] = None,
+    causal: bool = False,
+    scale: Optional[float] = None,
+    dropout_rate: float = 0.0,
+    dropout_seed=None,
+    dropout_heads=None,
+) -> torch.Tensor:
+    """Plain attention.  q, k, v: (B, H, S, D); bias: (B, Sq, Sk) additive.
+
+    ``dropout_rate`` > 0 applies probability dropout with the same
+    counter-based mask as the kernel; ``dropout_heads=(h_total,
+    head_offset)`` keys it on global head indices."""
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    b, h, sq, _ = q.shape
+    sk = k.shape[2]
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * scale
+    if bias is not None:
+        s = s + bias[:, None].float()
+    if causal:
+        s = torch.where(_causal(sq, sk, q.device), s, _NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    if dropout_rate > 0.0:
+        if dropout_seed is None:
+            raise ValueError("dropout_rate > 0 requires dropout_seed")
+        h_total, head0 = (h, 0) if dropout_heads is None else dropout_heads
+        i = torch.arange(b * h, device=q.device)
+        bhg = (i // h) * h_total + torch.as_tensor(head0).long() + i % h
+        keep = _keep_mask(dropout_seed, bhg[:, None, None], 0, 0, (sq, sk),
+                          dropout_rate).reshape(b, h, sq, sk)
+        p = torch.where(keep, p / (1.0 - dropout_rate), 0.0)
+    return torch.einsum("bhqk,bhkd->bhqd", p, v.float()).to(q.dtype)
+
+
+def _causal(sq: int, sk: int, device) -> torch.Tensor:
+    row = torch.arange(sq, device=device)[:, None]
+    return row >= torch.arange(sk, device=device)[None, :]
+
+
+def _pack_seed(dropout_seed, row_offset=0, col_offset=0, head_offset=0, *,
+               device) -> torch.Tensor:
+    """The kernel's device int32[4]: [dropout seed, row offset, col
+    offset, head offset] (``attention.py::_pack_seed``).  Built on the
+    device (a tensor seed stays there), so it costs no host sync."""
+    if isinstance(dropout_seed, torch.Tensor):
+        seed = dropout_seed.to(device=device, dtype=torch.int32).reshape(1)
+    else:
+        seed = torch.full((1,), 0 if dropout_seed is None
+                          else int(dropout_seed), dtype=torch.int32,
+                          device=device)
+    offs = [torch.full((1,), int(o), dtype=torch.int32, device=device)
+            for o in (row_offset, col_offset, head_offset)]
+    return torch.cat([seed, *offs])
+
+
+def _drop_keep(seed_pack, bh_count, h_map, sq, sk, rate):
+    """The (BH, sq, sk) keep mask the kernels draw from ``seed_pack``."""
+    h_local, h_total = h_map
+    i = torch.arange(bh_count, device=seed_pack.device)
+    bh = (i // h_local) * h_total + seed_pack[3].long() + i % h_local
+    return _keep_mask(seed_pack[0], bh[:, None, None], seed_pack[1],
+                      seed_pack[2], (sq, sk), rate)
+
+
+def flash_attention_fwd_ref(q3, k3, v3, seed_pack, scale: float,
+                            causal: bool, rate: float, h_map):
+    """Plain version of the forward kernel on (BH, S, D): returns
+    ``(o, lse)``, o in q's dtype and the fp32 per-row logsumexp."""
+    sq, sk = q3.shape[1], k3.shape[1]
+    s = torch.einsum("bqd,bkd->bqk", q3.float(), k3.float()) * scale
+    if causal:
+        s = torch.where(_causal(sq, sk, q3.device), s, _NEG_INF)
+    lse = _logsumexp(s)
+    p = torch.exp(s - lse[..., None])
+    if rate > 0.0:
+        keep = _drop_keep(seed_pack, q3.shape[0], h_map, sq, sk, rate)
+        p = torch.where(keep, p / (1.0 - rate), 0.0)
+    o = torch.einsum("bqk,bkd->bqd", p, v3.float()).to(q3.dtype)
+    return o, lse
+
+
+def flash_attention_bwd_ref(q3, k3, v3, o, lse, do, seed_pack,
+                            scale: float, causal: bool, rate: float, h_map):
+    """Plain version of the combined backward kernel on (BH, S, D):
+    recomputes p from lse, takes delta = rowsum(do * o), returns
+    ``(dq, dk, dv)`` in q's dtype; every product in fp32."""
+    sq, sk = q3.shape[1], k3.shape[1]
+    q32, k32, v32, do32 = q3.float(), k3.float(), v3.float(), do.float()
+    delta = (do32 * o.float()).sum(dim=-1)
+    s = torch.einsum("bqd,bkd->bqk", q32, k32) * scale
+    if causal:
+        s = torch.where(_causal(sq, sk, q3.device), s, _NEG_INF)
+    p = torch.exp(s - lse[..., None])
+    dp = torch.einsum("bqd,bkd->bqk", do32, v32)
+    if rate > 0.0:
+        keep = _drop_keep(seed_pack, q3.shape[0], h_map, sq, sk, rate)
+        inv = 1.0 / (1.0 - rate)
+        pd = torch.where(keep, p * inv, 0.0)
+        dp = torch.where(keep, dp * inv, 0.0)
+    else:
+        pd = p
+    ds = p * (dp - delta[..., None]) * scale
+    dv = torch.einsum("bqk,bqd->bkd", pd, do32)
+    dk = torch.einsum("bqk,bqd->bkd", ds, q32)
+    dq = torch.einsum("bqk,bkd->bqd", ds, k32)
+    dt = q3.dtype
+    return dq.to(dt), dk.to(dt), dv.to(dt)
+
+
+@functools.lru_cache(maxsize=None)
+def _flash_lib():
+    lib = _build.load("flash_attention")
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.apex_flash_fwd.argtypes = [p, p, p, p, p, p, i, i, i, i, i, f, i, f,
+                                   ctypes.c_uint, i, p]
+    lib.apex_flash_fwd.restype = i
+    lib.apex_flash_bwd.argtypes = [p, p, p, p, p, p, p, p, p, p, p, i, i, i,
+                                   i, i, f, i, f, ctypes.c_uint, i, p]
+    lib.apex_flash_bwd.restype = i
+    lib.apex_flash_dq_tiles.argtypes = [i, i, i]
+    lib.apex_flash_dq_tiles.restype = ctypes.c_longlong
+    return lib
+
+
+def _flash_check(q3, k3, v3, seed_pack) -> None:
+    """What the flash kernels take; raises on anything else."""
+    bh, sq, d = q3.shape
+    if q3.dtype not in _Q_CODE or k3.dtype != q3.dtype \
+            or v3.dtype != q3.dtype:
+        raise ValueError(f"flash attention kernel takes fp32/bf16 q, k, v of "
+                         f"one dtype, got {q3.dtype}/{k3.dtype}/{v3.dtype}")
+    if d != _FLASH_D or k3.shape[2] != d or v3.shape != k3.shape \
+            or k3.shape[0] != bh:
+        raise ValueError(f"flash attention kernel takes head_dim {_FLASH_D} "
+                         f"and matching k/v, got q {tuple(q3.shape)}, k "
+                         f"{tuple(k3.shape)}, v {tuple(v3.shape)}")
+    if not 1 <= bh <= 65535 or sq < 1 or k3.shape[1] < 1:
+        raise ValueError(f"flash attention kernel takes 1..65535 "
+                         f"batch*heads and non-empty sequences, got "
+                         f"{tuple(q3.shape)}")
+    if not (q3.is_contiguous() and k3.is_contiguous()
+            and v3.is_contiguous()):
+        raise ValueError("flash attention kernel takes contiguous q, k, v")
+    if seed_pack.dtype != torch.int32 or seed_pack.shape != (4,):
+        raise ValueError("flash attention kernel takes an int32[4] seed pack")
+
+
+def flash_attention_fwd(q3, k3, v3, seed_pack, scale: float, causal: bool,
+                        rate: float, h_map):
+    """Forward on (BH, S, 64): ``(o, lse)``.  CUDA tensors run
+    ``apex_flash_fwd``; CPU tensors :func:`flash_attention_fwd_ref`."""
+    if not use_kernel(q3, k3, v3, seed_pack):
+        return flash_attention_fwd_ref(q3, k3, v3, seed_pack, scale, causal,
+                                       rate, h_map)
+    _flash_check(q3, k3, v3, seed_pack)
+    bh, sq, _ = q3.shape
+    o = torch.empty_like(q3)
+    lse = torch.empty(bh, sq, dtype=torch.float32, device=q3.device)
+    with torch.cuda.device(q3.device):
+        err = _flash_lib().apex_flash_fwd(
+            q3.data_ptr(), k3.data_ptr(), v3.data_ptr(), o.data_ptr(),
+            lse.data_ptr(), seed_pack.data_ptr(), bh, sq, k3.shape[1],
+            h_map[0], h_map[1], float(scale), int(causal), float(rate),
+            _keep_thresh(rate), _Q_CODE[q3.dtype],
+            torch.cuda.current_stream(q3.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"flash attention forward kernel launch failed: "
+                           f"CUDA error {err}")
+    flash_attention_fwd.launches += 1
+    return o, lse
+
+
+def flash_attention_bwd(q3, k3, v3, o, lse, do, seed_pack, scale: float,
+                        causal: bool, rate: float, h_map):
+    """Backward on (BH, S, 64): ``(dq, dk, dv)``.  CUDA tensors run
+    ``apex_flash_bwd`` (the combined dk/dv/dq-partials kernel, then the
+    fixed-order dq sum); CPU tensors :func:`flash_attention_bwd_ref`."""
+    if not use_kernel(q3, k3, v3, o, lse, do, seed_pack):
+        return flash_attention_bwd_ref(q3, k3, v3, o, lse, do, seed_pack,
+                                       scale, causal, rate, h_map)
+    _flash_check(q3, k3, v3, seed_pack)
+    if do.shape != q3.shape or do.dtype != q3.dtype or o.shape != q3.shape:
+        raise ValueError("flash attention backward takes do and o like q")
+    do = do.contiguous()
+    bh, sq, d = q3.shape
+    sk = k3.shape[1]
+    delta = (do.float() * o.float()).sum(dim=-1)
+    lse = lse.contiguous()
+    lib = _flash_lib()
+    tiles = lib.apex_flash_dq_tiles(sq, sk, int(causal))
+    part = torch.empty(bh * tiles * 64 * d, dtype=torch.float32,
+                       device=q3.device)
+    dq, dk, dv = (torch.empty_like(t) for t in (q3, k3, v3))
+    with torch.cuda.device(q3.device):
+        err = lib.apex_flash_bwd(
+            q3.data_ptr(), k3.data_ptr(), v3.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), seed_pack.data_ptr(),
+            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), part.data_ptr(),
+            bh, sq, sk, h_map[0], h_map[1], float(scale), int(causal),
+            float(rate), _keep_thresh(rate), _Q_CODE[q3.dtype],
+            torch.cuda.current_stream(q3.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"flash attention backward kernel launch failed: "
+                           f"CUDA error {err}")
+    flash_attention_bwd.launches += 1
+    return dq, dk, dv
+
+
+class _Flash(torch.autograd.Function):
+    """The custom VJP: residuals are (q, k, v, o, lse, seed pack)."""
+
+    @staticmethod
+    def forward(ctx, q3, k3, v3, seed_pack, scale, causal, rate, h_map):
+        o, lse = flash_attention_fwd(q3, k3, v3, seed_pack, scale, causal,
+                                     rate, h_map)
+        ctx.save_for_backward(q3, k3, v3, o, lse, seed_pack)
+        ctx.cfg = (scale, causal, rate, h_map)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q3, k3, v3, o, lse, seed_pack = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q3, k3, v3, o, lse, do, seed_pack,
+                                         *ctx.cfg)
+        return dq, dk, dv, None, None, None, None, None
+
+
+def flash_attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    bias: Optional[torch.Tensor] = None,
+    causal: bool = False,
+    scale: Optional[float] = None,
+    *,
+    dropout_rate: float = 0.0,
+    dropout_seed: Union[None, int, torch.Tensor] = None,
+    dropout_heads=None,
+    bias_grad: bool = False,
+    probs_bf16: bool = False,
+) -> torch.Tensor:
+    """Differentiable flash attention.  q, k, v: (B, H, S, D); optional
+    additive bias (B, Sq, Sk).
+
+    ``dropout_rate`` > 0 applies attention-probability dropout from the
+    counter hash keyed on ``dropout_seed`` (an int32 in [0, 2^31 - 1), a
+    0-d device tensor on the hot path so no host sync is needed); the
+    forward and backward regenerate the same mask, and it is the JAX
+    package's mask bit for bit.  ``dropout_heads=(h_total,
+    head_offset)`` keys it on global head indices.
+
+    CUDA tensors run ``csrc/flash_attention.cu``: fp32/bf16 q, k, v with
+    head_dim 64 and no bias, ``bias_grad``, ``probs_bf16`` or
+    ``dropout_heads`` (those raise ``NotImplementedError`` for now).  CPU
+    tensors run the plain versions; with a bias, :func:`attention_ref`
+    (the bias a constant unless ``bias_grad``).  ``probs_bf16`` is a
+    no-op on the CPU, as on the JAX package's jnp path.
+    """
+    b, h, sq, d = q.shape
+    sk = k.shape[2]
+    if bias is not None and tuple(bias.shape) != (b, sq, sk):
+        raise ValueError(f"bias shape {tuple(bias.shape)} != expected "
+                         f"({b}, {sq}, {sk})")
+    if scale is None:
+        scale = d ** -0.5
+    if dropout_rate > 0.0 and dropout_seed is None:
+        raise ValueError("dropout_rate > 0 requires dropout_seed")
+    seed_t = dropout_seed if isinstance(dropout_seed, torch.Tensor) else None
+    if use_kernel(q, k, v, bias, seed_t):
+        if bias is not None or bias_grad or probs_bf16 \
+                or dropout_heads is not None:
+            raise NotImplementedError(
+                "flash attention on CUDA takes the no-bias path without "
+                "bias_grad, probs_bf16 or dropout_heads for now")
+    elif bias is not None:
+        return attention_ref(
+            q, k, v, bias if bias_grad else bias.detach(), causal, scale,
+            dropout_rate=dropout_rate, dropout_seed=dropout_seed,
+            dropout_heads=dropout_heads)
+    h_total, head0 = (h, 0) if dropout_heads is None else dropout_heads
+    seed_pack = _pack_seed(dropout_seed, 0, 0, head0, device=q.device)
+    out = _Flash.apply(
+        q.reshape(b * h, sq, d).contiguous(),
+        k.reshape(b * h, sk, d).contiguous(),
+        v.reshape(b * h, sk, d).contiguous(),
+        seed_pack, float(scale), bool(causal), float(dropout_rate),
+        (h, int(h_total)))
+    return out.reshape(b, h, sq, d)
+
+
+flash_attention_fwd.launches = 0
+flash_attention_bwd.launches = 0

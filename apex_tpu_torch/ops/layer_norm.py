@@ -1,27 +1,33 @@
-"""LayerNorm forward: a hand-written CUDA kernel plus its plain version.
+"""LayerNorm forward and backward: hand-written CUDA kernels plus their
+plain versions.
 
 Counterpart of ``apex_tpu/ops/layer_norm.py``.  :func:`layer_norm_ref` is
 the plain PyTorch version of ``layer_norm_ref`` (fp32 stats, variance as
-E[x^2] - mean^2, output in ``x.dtype``); :func:`layer_norm` runs
-``csrc/layer_norm.cu`` on a CUDA tensor and the plain version on a CPU
-tensor.  Forward only: the backward kernels belong to the training
-slice, so a CUDA call that would need a gradient raises.
+E[x^2] - mean^2, output in ``x.dtype``) and :func:`layer_norm_bwd_ref`
+the plain version of the backward (the reference's jnp ``_ln_bwd_rule``
+branch: mean and rstd recomputed from x, dgamma/dbeta as fp32 column sums
+cast to the weight's dtype).  :func:`layer_norm` is a
+``torch.autograd.Function``: on CUDA tensors its forward runs
+``apex_ln_fwd`` and its backward ``apex_ln_bwd`` of ``csrc/layer_norm.cu``
+(the dx kernel plus the deterministic dgamma/dbeta reduction; with no
+weight, the dx-only variant); on CPU tensors both run the plain versions.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
 from apex_tpu_torch.ops import _build
 from apex_tpu_torch.ops._common import use_kernel
 
-__all__ = ["MAX_N", "layer_norm", "layer_norm_ref"]
+__all__ = ["MAX_N", "layer_norm", "layer_norm_bwd", "layer_norm_bwd_ref",
+           "layer_norm_ref"]
 
-# widest row the kernel takes (the block strides the row, so this is a
-# sanity bound on inputs, not a shared-memory limit)
+# widest row the kernels take (the backward keeps ceil(n / 256) <= 32
+# columns per thread in registers)
 MAX_N = 8192
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -44,14 +50,151 @@ def layer_norm_ref(
     return y.to(x.dtype)
 
 
+def layer_norm_bwd_ref(
+    x2: torch.Tensor,
+    weight: Optional[torch.Tensor],
+    dy2: torch.Tensor,
+    eps: float = 1e-5,
+) -> Tuple[torch.Tensor, Optional[torch.Tensor], Optional[torch.Tensor]]:
+    """(dx, dgamma, dbeta) of LayerNorm over (rows, n) ``x2``; dgamma and
+    dbeta in the weight's dtype, None without a weight."""
+    x32 = x2.float()
+    dy32 = dy2.float()
+    n = x2.shape[-1]
+    mean = x32.mean(dim=-1, keepdim=True)
+    var = (x32 * x32).mean(dim=-1, keepdim=True) - mean * mean
+    rstd = torch.rsqrt(var + eps)
+    xhat = (x32 - mean) * rstd
+    dxhat = dy32 * weight.float() if weight is not None else dy32
+    m1 = dxhat.sum(dim=-1, keepdim=True) / n
+    m2 = (dxhat * xhat).sum(dim=-1, keepdim=True) / n
+    dx = (rstd * (dxhat - m1 - xhat * m2)).to(x2.dtype)
+    if weight is None:
+        return dx, None, None
+    dw = (dy32 * xhat).sum(dim=0).to(weight.dtype)
+    db = dy32.sum(dim=0).to(weight.dtype)
+    return dx, dw, db
+
+
 @functools.lru_cache(maxsize=None)
-def _kernel_fn():
-    fn = _build.load("layer_norm").apex_ln_fwd
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
-                   ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
+def _lib():
+    lib = _build.load("layer_norm")
+    lib.apex_ln_fwd.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_longlong, ctypes.c_int, ctypes.c_float, ctypes.c_int,
+        ctypes.c_int, ctypes.c_void_p]
+    lib.apex_ln_fwd.restype = ctypes.c_int
+    lib.apex_ln_bwd.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_longlong, ctypes.c_int, ctypes.c_float, ctypes.c_int,
+        ctypes.c_int, ctypes.c_void_p]
+    lib.apex_ln_bwd.restype = ctypes.c_int
+    lib.apex_ln_bwd_rows_per_block.argtypes = []
+    lib.apex_ln_bwd_rows_per_block.restype = ctypes.c_int
+    return lib
+
+
+def _check(x: torch.Tensor, weight: Optional[torch.Tensor],
+           bias: Optional[torch.Tensor]) -> None:
+    """What the kernels take; raises on anything else."""
+    n = x.shape[-1]
+    if x.dtype not in _DTYPE_CODE:
+        raise ValueError(f"layer_norm kernel takes fp32/bf16 x, got {x.dtype}")
+    if not 1 <= n <= MAX_N:
+        raise ValueError(f"layer_norm kernel takes 1 <= n <= {MAX_N}, got {n}")
+    if not x.is_contiguous():
+        raise ValueError("layer_norm kernel takes a contiguous x")
+    for name, t in (("weight", weight), ("bias", bias)):
+        if t is not None and (t.dtype not in _DTYPE_CODE or t.shape != (n,)
+                              or not t.is_contiguous()):
+            raise ValueError(f"layer_norm kernel takes a contiguous fp32/bf16 "
+                             f"{name} of shape ({n},), got {t.dtype} "
+                             f"{tuple(t.shape)}")
+    if weight is not None and bias is not None and weight.dtype != bias.dtype:
+        raise ValueError(f"layer_norm kernel takes weight and bias of one "
+                         f"dtype, got {weight.dtype} and {bias.dtype}")
+
+
+def _launch_fwd(x2, weight, bias, eps) -> torch.Tensor:
+    y = torch.empty_like(x2)
+    rows, n = x2.shape
+    if rows == 0:
+        return y
+    w_code = _DTYPE_CODE[weight.dtype] if weight is not None else 0
+    with torch.cuda.device(x2.device):
+        err = _lib().apex_ln_fwd(
+            x2.data_ptr(),
+            None if weight is None else weight.data_ptr(),
+            None if bias is None else bias.data_ptr(),
+            y.data_ptr(), rows, n, eps, _DTYPE_CODE[x2.dtype], w_code,
+            torch.cuda.current_stream(x2.device).cuda_stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"layer_norm kernel launch failed: CUDA error {err}")
+    layer_norm.launches += 1
+    return y
+
+
+def layer_norm_bwd(x2: torch.Tensor, weight: Optional[torch.Tensor],
+                   dy2: torch.Tensor, eps: float = 1e-5):
+    """(dx, dgamma, dbeta) of LayerNorm over (rows, n) ``x2``: the backward
+    kernel on CUDA tensors (dgamma/dbeta None without a weight), the plain
+    :func:`layer_norm_bwd_ref` on CPU tensors."""
+    if not use_kernel(x2, weight, dy2):
+        return layer_norm_bwd_ref(x2, weight, dy2, eps)
+    _check(x2, weight, None)
+    if dy2.dtype != x2.dtype or dy2.shape != x2.shape:
+        raise ValueError(f"layer_norm backward takes dy like x, got "
+                         f"{dy2.dtype} {tuple(dy2.shape)}")
+    dy2 = dy2.contiguous()
+    rows, n = x2.shape
+    dx = torch.empty_like(x2)
+    dw = db = part = None
+    if weight is not None:
+        dw = torch.empty_like(weight)
+        db = torch.empty_like(weight)
+        rpb = _lib().apex_ln_bwd_rows_per_block()
+        part = torch.empty(-(-rows // rpb), 2, n, device=x2.device,
+                           dtype=torch.float32)
+    if rows == 0:
+        if dw is not None:
+            dw.zero_()
+            db.zero_()
+        return dx, dw, db
+    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+    with torch.cuda.device(x2.device):
+        err = _lib().apex_ln_bwd(
+            x2.data_ptr(), ptr(weight), dy2.data_ptr(), dx.data_ptr(),
+            ptr(part), ptr(dw), ptr(db), rows, n, eps,
+            _DTYPE_CODE[x2.dtype],
+            _DTYPE_CODE[weight.dtype] if weight is not None else 0,
+            torch.cuda.current_stream(x2.device).cuda_stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"layer_norm backward kernel launch failed: CUDA "
+                           f"error {err}")
+    layer_norm_bwd.launches += 1
+    return dx, dw, db
+
+
+class _LayerNorm(torch.autograd.Function):
+    """The custom VJP: residuals are (x, weight) only; the backward
+    recomputes the row stats from x."""
+
+    @staticmethod
+    def forward(ctx, x2, weight, bias, eps):
+        ctx.eps = eps
+        ctx.save_for_backward(x2, weight)
+        if use_kernel(x2, weight, bias):
+            return _launch_fwd(x2, weight, bias, eps)
+        return layer_norm_ref(x2, weight, bias, eps)
+
+    @staticmethod
+    def backward(ctx, dy2):
+        x2, weight = ctx.saved_tensors
+        dx, dw, db = layer_norm_bwd(x2, weight, dy2.contiguous(), ctx.eps)
+        return dx, dw, db, None
 
 
 def layer_norm(
@@ -60,54 +203,36 @@ def layer_norm(
     bias: Optional[torch.Tensor] = None,
     eps: float = 1e-5,
 ) -> torch.Tensor:
-    """LayerNorm over the last axis of ``x`` (any leading shape).
+    """Differentiable LayerNorm over the last axis of ``x`` (any leading
+    shape).
 
-    CUDA tensors run ``csrc/layer_norm.cu``: ``x`` contiguous fp32 or
-    bf16 with a last axis of at most :data:`MAX_N`, ``weight``/``bias``
-    fp32 of that length (or both None).  A one-sided affine is completed
-    with ones or zeros, as the JAX wrapper does.  CPU tensors run
-    :func:`layer_norm_ref`.
+    CUDA tensors run ``csrc/layer_norm.cu``: ``x`` contiguous fp32 or bf16
+    with a last axis of at most :data:`MAX_N`, ``weight``/``bias`` fp32 or
+    bf16 (one dtype) of that length, or both None.  Under O2 the affine
+    parameters are bf16 while x is fp32; they are upcast in the kernel and
+    their gradients come back in their own dtype.  A one-sided affine is
+    completed with ones or zeros (constants, so no gradient flows to
+    them), as the JAX wrapper does.  CPU tensors run the plain versions.
     """
-    if not use_kernel(x, weight, bias):
-        return layer_norm_ref(x, weight, bias, eps)
+    n = x.shape[-1]
+    if weight is None and bias is not None:
+        weight = torch.ones(n, dtype=bias.dtype, device=bias.device)
+    elif bias is None and weight is not None:
+        bias = torch.zeros(n, dtype=weight.dtype, device=weight.device)
+    kernel = use_kernel(x, weight, bias)
+    if kernel:
+        _check(x, weight, bias)
+    lead = x.shape[:-1]
+    x2 = x.reshape(-1, n)
     if torch.is_grad_enabled() and any(
             t is not None and t.requires_grad for t in (x, weight, bias)):
-        raise NotImplementedError(
-            "layer_norm on CUDA is forward-only: the backward kernels "
-            "belong to the training slice (run under torch.no_grad())")
-    n = x.shape[-1]
-    if x.dtype not in _DTYPE_CODE:
-        raise ValueError(f"layer_norm kernel takes fp32/bf16 x, got {x.dtype}")
-    if not 1 <= n <= MAX_N:
-        raise ValueError(f"layer_norm kernel takes 1 <= n <= {MAX_N}, got {n}")
-    if not x.is_contiguous():
-        raise ValueError("layer_norm kernel takes a contiguous x")
-    if weight is None and bias is not None:
-        weight = torch.ones_like(bias)
-    elif bias is None and weight is not None:
-        bias = torch.zeros_like(weight)
-    for name, t in (("weight", weight), ("bias", bias)):
-        if t is not None and (t.dtype != torch.float32 or t.shape != (n,)
-                              or not t.is_contiguous()):
-            raise ValueError(f"layer_norm kernel takes a contiguous fp32 "
-                             f"{name} of shape ({n},), got {t.dtype} "
-                             f"{tuple(t.shape)}")
-    y = torch.empty_like(x)
-    rows = x.numel() // n
-    if rows == 0:
-        return y
-    with torch.cuda.device(x.device):
-        err = _kernel_fn()(
-            x.data_ptr(),
-            None if weight is None else weight.data_ptr(),
-            None if bias is None else bias.data_ptr(),
-            y.data_ptr(), rows, n, eps, _DTYPE_CODE[x.dtype],
-            torch.cuda.current_stream(x.device).cuda_stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"layer_norm kernel launch failed: CUDA error {err}")
-    layer_norm.launches += 1
-    return y
+        y = _LayerNorm.apply(x2, weight, bias, eps)
+    elif kernel:  # no graph to record (serving): skip the Function
+        y = _launch_fwd(x2, weight, bias, eps)
+    else:
+        y = layer_norm_ref(x2, weight, bias, eps)
+    return y.reshape(*lead, n)
 
 
 layer_norm.launches = 0
+layer_norm_bwd.launches = 0

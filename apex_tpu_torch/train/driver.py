@@ -1,0 +1,192 @@
+"""K training steps per window, with on-device meters and one host read.
+
+Counterpart of ``apex_tpu/train/driver.py``.  ``step_fn(carry, batch) ->
+(carry, metrics)`` is the user's one-step function; ``carry`` is any
+state it threads (master weights, ``AmpOptState`` with the loss-scaler
+state, generators) and ``metrics`` a flat dict of 0-d tensors.  A window
+runs ``step_fn`` K times; each declared meter (``mean``, ``sum``,
+``last``, ``max``, ``min``) accumulates in fp32 on the device, and
+nothing in the window reads a device value on the host, so the host
+queues work ahead of the card.  :func:`read_metrics` makes the window's
+one host read.
+
+JAX compiles the window into one donated ``lax.scan`` dispatch; PyTorch
+runs eagerly, so here a window is a Python loop over the same step, the
+same function of the same state.  Not ported yet: save/restore, the
+``mesh``/``carry_spec`` SPMD modes, microbatched steps and CUDA graphs
+around the window.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import (Any, Callable, Dict, Iterable, Mapping, NamedTuple,
+                    Optional, Sequence, Tuple)
+
+import torch
+
+__all__ = ["DEFAULT_STEPS_PER_DISPATCH", "FusedTrainDriver", "WindowResult",
+           "read_metrics"]
+
+DEFAULT_STEPS_PER_DISPATCH = 10
+_REDUCTIONS = ("mean", "sum", "last", "max", "min")
+
+
+class WindowResult(NamedTuple):
+    """Device-side results of one window: ``metrics`` the finalized fp32
+    0-d meters, ``per_step`` the (K,) traces of the names asked for."""
+
+    metrics: Dict[str, torch.Tensor]
+    per_step: Dict[str, torch.Tensor]
+
+
+def read_metrics(tree: Any) -> Any:
+    """ONE device-to-host read of a dict (or :class:`WindowResult`) of
+    tensors: 0-d tensors come back as floats, others as lists."""
+    if isinstance(tree, WindowResult):
+        return WindowResult(read_metrics(tree.metrics),
+                            read_metrics(tree.per_step))
+    items = list(tree.items())
+    if not items:
+        return {}
+    flat = torch.cat([v.detach().float().reshape(-1) for _, v in items])
+    host = flat.cpu().tolist()
+    out, i = {}, 0
+    for k, v in items:
+        n = v.numel()
+        out[k] = host[i] if v.dim() == 0 else host[i:i + n]
+        i += n
+    return out
+
+
+def _acc_init(reduction: str, like: torch.Tensor) -> torch.Tensor:
+    fill = {"max": -float("inf"), "min": float("inf")}.get(reduction, 0.0)
+    return torch.full((), fill, dtype=torch.float32, device=like.device)
+
+
+def _acc_update(acc: torch.Tensor, val: torch.Tensor,
+                reduction: str) -> torch.Tensor:
+    v = val.detach().float()
+    if reduction in ("mean", "sum"):
+        return acc + v
+    if reduction == "last":
+        return v
+    if reduction == "max":
+        return torch.maximum(acc, v)
+    return torch.minimum(acc, v)
+
+
+def _index(batches: Any, i: int) -> Any:
+    """Step ``i`` of a window of batches (leading window axis)."""
+    if isinstance(batches, torch.Tensor):
+        return batches[i]
+    if isinstance(batches, Mapping):
+        return {k: _index(v, i) for k, v in batches.items()}
+    return type(batches)(_index(v, i) for v in batches)
+
+
+def _window_len(batches: Any) -> int:
+    if isinstance(batches, torch.Tensor):
+        return batches.shape[0]
+    leaves = [_window_len(v) for v in (batches.values()
+                                       if isinstance(batches, Mapping)
+                                       else batches)]
+    if not leaves or any(n != leaves[0] for n in leaves):
+        raise ValueError(f"window leaves disagree on the leading (step) "
+                         f"axis: {leaves}")
+    return leaves[0]
+
+
+@dataclasses.dataclass
+class FusedTrainDriver:
+    """Run ``step_fn`` in windows of K steps.
+
+    Args:
+      step_fn: ``(carry, batch) -> (carry, metrics)``, ``metrics`` a flat
+        dict of 0-d tensors; ``batch`` is None when the window runs on
+        closure-captured data.
+      steps_per_dispatch: K (None: :data:`DEFAULT_STEPS_PER_DISPATCH`).
+      metrics: ``{name: reduction}``; undeclared names are ``mean``.
+      per_step: names also returned as (K,) traces.
+    """
+
+    step_fn: Callable[[Any, Any], Tuple[Any, Mapping[str, torch.Tensor]]]
+    steps_per_dispatch: Optional[int] = None
+    metrics: Optional[Mapping[str, str]] = None
+    per_step: Sequence[str] = ()
+
+    def __post_init__(self):
+        if self.steps_per_dispatch is None:
+            self.steps_per_dispatch = DEFAULT_STEPS_PER_DISPATCH
+        if self.steps_per_dispatch < 1:
+            raise ValueError(f"steps_per_dispatch must be >= 1, got "
+                             f"{self.steps_per_dispatch}")
+        for name, red in (self.metrics or {}).items():
+            if red not in _REDUCTIONS:
+                raise ValueError(f"metric {name!r}: unknown reduction "
+                                 f"{red!r} (expected one of {_REDUCTIONS})")
+
+    def run_window(self, carry: Any, batches: Any = None
+                   ) -> Tuple[Any, WindowResult]:
+        """One window: ``batches`` with a leading window axis of length K
+        (this window's step count), or None for ``steps_per_dispatch``
+        steps on closure-captured data."""
+        if batches is None:
+            return self._window(carry, self.steps_per_dispatch, None)
+        return self._window(carry, _window_len(batches), batches)
+
+    def _window(self, carry, k: int, batches):
+        declared = dict(self.metrics or {})
+        acc: Dict[str, torch.Tensor] = {}
+        reductions: Dict[str, str] = {}
+        traces: Dict[str, list] = {n: [] for n in self.per_step}
+        for i in range(k):
+            batch = None if batches is None else _index(batches, i)
+            carry, m = self.step_fn(carry, batch)
+            if not isinstance(m, Mapping):
+                raise TypeError("step_fn must return (carry, metrics) with "
+                                "metrics a dict of 0-d tensors; got "
+                                f"{type(m).__name__}")
+            if i == 0:
+                reductions = {n: declared.get(n, "mean") for n in m}
+                missing = [n for n in self.per_step if n not in m]
+                if missing:
+                    raise KeyError(f"per_step names {missing} not in step "
+                                   f"metrics {sorted(m)}")
+                acc = {n: _acc_init(r, m[n]) for n, r in reductions.items()}
+            acc = {n: _acc_update(acc[n], m[n], r)
+                   for n, r in reductions.items()}
+            for n in self.per_step:
+                traces[n].append(m[n].detach().float())
+        meters = {n: acc[n] / k if r == "mean" else acc[n]
+                  for n, r in reductions.items()}
+        return carry, WindowResult(
+            metrics=meters,
+            per_step={n: torch.stack(v) for n, v in traces.items()})
+
+    def run(self, carry: Any, windows: Optional[Iterable[Any]] = None, *,
+            steps: Optional[int] = None,
+            on_window: Optional[Callable[[int, WindowResult], None]] = None
+            ) -> Tuple[Any, int]:
+        """Many windows; returns ``(carry, total_steps)``.  ``windows``
+        yields stacked batches; without it, ``steps`` closure-data steps
+        run in windows of K (the tail shorter).  ``on_window(done,
+        result)`` follows each window: the place for a host read."""
+        done = 0
+        if windows is not None:
+            if steps is not None:
+                raise ValueError("pass either windows or steps, not both")
+            for w in windows:
+                carry, res = self.run_window(carry, w)
+                done += _window_len(w)
+                if on_window is not None:
+                    on_window(done, res)
+            return carry, done
+        if steps is None:
+            raise ValueError("run() needs windows or steps")
+        while done < steps:
+            k = min(self.steps_per_dispatch, steps - done)
+            carry, res = self._window(carry, k, None)
+            done += k
+            if on_window is not None:
+                on_window(done, res)
+        return carry, done

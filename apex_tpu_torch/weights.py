@@ -1,10 +1,13 @@
-"""Carry weights from the JAX package's flax tree to the port's modules.
+"""Carry weights and optimizer state from the JAX package to the port.
 
 :func:`from_jax_params` maps a ``GPTLM`` params tree (nested dicts of
 numpy arrays, or anything ``np.asarray`` takes) to a state dict of
 :class:`apex_tpu_torch.models.GPTLM`, so both packages compute with the
 same numbers.  Dense kernels keep their flax ``(in, out)`` layout, so
-no transpose happens on the way.
+no transpose happens on the way.  :func:`from_jax_opt_state` maps an
+``AmpOptState`` over such a tree (FusedAdam's step, m and v, and each
+loss scaler's state) to the port's, so both packages can also continue
+training from the same optimizer state.
 """
 from __future__ import annotations
 
@@ -13,7 +16,11 @@ from typing import Any, Dict, Mapping
 import numpy as np
 import torch
 
-__all__ = ["from_jax_params"]
+from apex_tpu_torch.amp import AmpOptState, LossScalerState
+from apex_tpu_torch.ops._common import resolve_device
+from apex_tpu_torch.optimizers import FusedAdamState
+
+__all__ = ["from_jax_opt_state", "from_jax_params"]
 
 _DENSE = ("qkv", "proj", "ffn_in", "ffn_out")
 
@@ -51,3 +58,29 @@ def from_jax_params(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     if extra:
         raise ValueError(f"unmapped params {sorted(extra)}")
     return out
+
+
+def from_jax_opt_state(state: Any, device=None):
+    """JAX ``AmpOptState(FusedAdamState(step, m, v), scalers, stash=None)``
+    over a ``GPTLM`` params tree -> the port's
+    :class:`apex_tpu_torch.amp.AmpOptState` on ``device`` (None: the CUDA
+    device), m and v keyed like :func:`from_jax_params`."""
+    dev = resolve_device(device)
+    if state.stash is not None:
+        raise ValueError("a stashed (accumulating) state is not ported")
+    adam = state.opt_state
+
+    def scalar(x, dtype):
+        return torch.tensor(np.asarray(x).item(), dtype=dtype, device=dev)
+
+    def moments(tree):
+        return {k: v.to(dev) for k, v in from_jax_params(tree).items()}
+
+    return AmpOptState(
+        opt_state=FusedAdamState(step=scalar(adam.step, torch.int32),
+                                 m=moments(adam.m), v=moments(adam.v)),
+        scaler=tuple(LossScalerState(
+            loss_scale=scalar(s.loss_scale, torch.float32),
+            unskipped=scalar(s.unskipped, torch.int32),
+            overflows=scalar(s.overflows, torch.int32))
+            for s in state.scaler))
