@@ -6,18 +6,29 @@ GPT-2-style LM: the model's serving forward, the page pool, the
 decoder's paged programs and the continuous-batching engine.  The second
 is O2 training of the same LM: the training forward and loss, the
 ``amp`` policies, loss scaler and ``AmpOptimizer``, ``fused_adam`` and
-the K-step ``FusedTrainDriver``.  Every kernel on those paths (LayerNorm
-forward and backward, paged attention, flash attention forward and
-backward, fused cross-entropy forward and backward) is written by hand in
-CUDA C++ for sm_90a (``csrc/``, built with ``nvcc`` at first use into
-``build/apex_tpu_torch/``).
+the K-step ``FusedTrainDriver``.  The third is BERT MLM pretraining
+under O2 with ``fused_lamb`` on padded batches: ``BertForMLM``, the
+contrib ``SelfMultiheadAttn`` and the LAMB stage-1 kernel.  Every kernel
+on those paths (LayerNorm forward and backward, paged attention, flash
+attention forward and backward with and without an additive bias and its
+gradient, fused cross-entropy forward and backward, LAMB stage 1) is
+written by hand in CUDA C++ for sm_90a (``csrc/``, built with ``nvcc`` at
+first use into ``build/apex_tpu_torch/``).
 
 Entry points run on the CUDA device unless the caller passes
 ``device="cpu"``, where every kernel wrapper runs its plain PyTorch
 version instead.  This package imports neither JAX nor ``apex_tpu``.
 """
 from apex_tpu_torch.amp import Dense  # noqa: F401
-from apex_tpu_torch.models import GPTConfig, GPTLM, GPTLayer, init_params  # noqa: F401
+from apex_tpu_torch.models import (  # noqa: F401
+    BertConfig,
+    BertForMLM,
+    GPTConfig,
+    GPTLM,
+    GPTLayer,
+    init_bert_params,
+    init_params,
+)
 from apex_tpu_torch.normalization import FusedLayerNorm  # noqa: F401
 from apex_tpu_torch.ops import launch_counts, reset_launch_counts  # noqa: F401
 from apex_tpu_torch.serve import (  # noqa: F401
@@ -31,11 +42,17 @@ from apex_tpu_torch.serve import (  # noqa: F401
     sample_tokens,
 )
 from apex_tpu_torch.train import FusedTrainDriver, read_metrics  # noqa: F401
-from apex_tpu_torch.weights import from_jax_opt_state, from_jax_params  # noqa: F401
+from apex_tpu_torch.weights import (  # noqa: F401
+    from_jax_bert_params,
+    from_jax_opt_state,
+    from_jax_params,
+)
 
-__version__ = "0.2.0"
+__version__ = "0.3.0"
 
 __all__ = [
+    "BertConfig",
+    "BertForMLM",
     "Dense",
     "FusedLayerNorm",
     "FusedTrainDriver",
@@ -48,8 +65,10 @@ __all__ = [
     "Request",
     "SamplingParams",
     "ServeEngine",
+    "from_jax_bert_params",
     "from_jax_opt_state",
     "from_jax_params",
+    "init_bert_params",
     "init_paged_cache",
     "init_params",
     "launch_counts",

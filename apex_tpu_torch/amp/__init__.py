@@ -58,7 +58,7 @@ def default_is_batchnorm(path: Tuple[str, ...]) -> bool:
     BatchNorm?  The JAX package's name heuristic: 'BatchNorm_0',
     'batch_norm', 'bn', 'bn1', 'downsample_bn', ...  GPT's names match
     none, so under O2 every GPT float parameter is cast, LayerNorm's
-    included."""
+    included; BERT's match none either."""
     for name in path:
         low = str(name).lower()
         if "batchnorm" in low or "batch_norm" in low:
@@ -176,7 +176,8 @@ class AmpOptimizer:
     def __init__(self, tx: AmpFusedTransformation, amp_: Amp):
         if not isinstance(tx, AmpFusedTransformation):
             raise TypeError("AmpOptimizer takes an AMP-fused transform "
-                            "(fused_adam); the unfused path is not ported")
+                            "(fused_adam or fused_lamb); the unfused path "
+                            "is not ported")
         self.tx = tx
         self.amp = amp_
 

@@ -1,13 +1,22 @@
-// Flash attention, forward and combined backward, no bias, head_dim 64.
+// Flash attention, forward and combined backward, with an optional
+// additive bias and its gradient, head_dim 64.
 //
 // Replaces:
-// - apex_tpu/ops/attention.py::_fwd_kernel_nobias (body _fwd_kernel,
+// - apex_tpu/ops/attention.py::_fwd_kernel (and _fwd_kernel_nobias,
 //   launched by _flash_fwd) with apex_flash_fwd;
-// - apex_tpu/ops/attention.py::_bwd_fused_nobias (body _bwd_dkv_body with
-//   the per-tile dq output, launched by _flash_bwd) with apex_flash_bwd.
+// - apex_tpu/ops/attention.py::_bwd_fused_kernel and _bwd_fused_nobias
+//   (body _bwd_dkv_body with the per-tile dq output, launched by
+//   _flash_bwd) with apex_flash_bwd;
+// - the two-pass backward that bias_grad=True takes there
+//   (_bwd_dkv_kernel, then _bwd_dq_kernel with its per-tile dbias output,
+//   or _bwd_dq_bias/_bwd_dq_nobias past four key blocks): the combined
+//   backward here takes any length and writes dbias itself.
 //
 // Semantics, as the reference's: s = (q . k) * scale with fp32
-// accumulation; causal keys (col > row, local coordinates) get -1e30; an
+// accumulation, plus the bias in fp32 (read as fp32 or bf16 at
+// bias[bh / h], through its batch and row strides: a key-padding mask
+// broadcast over queries has row stride 0 and is never copied); causal
+// keys (col > row, local coordinates) get -1e30; an
 // online softmax in fp32 (m, l, acc); dropout after the l sum, from the
 // murmur3-fmix32 counter hash of (seed, batch*head, global row, global
 // col) (_keep_mask), normaliser l * (1 - rate); p.V is an fp32 product
@@ -16,7 +25,10 @@
 // delta = rowsum(dO * O) from the wrapper: dp = dO . V^T; pd and dp masked
 // and scaled by 1 / (1 - rate); dV = pd^T . dO; ds = p * (dp - delta) *
 // scale; dK = ds^T . Q; dQ = ds . K, all in fp32, outputs in the input
-// dtype.  The products of bf16 inputs are exact in fp32, so the QK^T and
+// dtype.  With a dbias buffer, the backward also writes
+// p * (dp - delta) for every (bh, row, col), without the scale factor
+// (the bias enters after it), as fp32 (BH, sq, sk); the caller sums it
+// over heads.  The products of bf16 inputs are exact in fp32, so the QK^T and
 // dO.V^T products done here in fp32 FMAs are the reference's bf16 MXU dots
 // with fp32 accumulation up to summation order; p and ds are never
 // rounded to bf16 (that is the reference's opt-in probs_bf16, a different
@@ -26,7 +38,9 @@
 // S 1024, causal) each product is B*H*S^2*D = 12.9 GFLOP.  The forward's
 // fp32 p.V alone takes 0.19 ms at 67 TFLOP/s (QK^T at the bf16 tensor-core
 // rate 13 us; its 101 MB of bytes 30 us); the backward's three fp32
-// products and two bf16 ones about 0.6 ms.
+// products and two bf16 ones about 0.6 ms.  At BERT-large's shape (B 12,
+// H 16, S 512, no causal mask, key-padding bias) each product is 6.44
+// GFLOP: the forward's bound is 0.103 ms, the backward's 0.301 ms.
 //
 // Design.  Both kernels work on 64 x 64 tiles with 256 threads, each
 // thread owning a 4 x 4 micro-tile of every product, fed by float4 reads
@@ -48,7 +62,14 @@
 // order with a second small kernel.  dQ so never needs float atomics and
 // comes out the same on every run, as the reference's does.  The
 // partials hold only the visited tiles: q*(q+1)/2 + k for causal, q*nk + k
-// otherwise.
+// otherwise.  dbias needs no such care: the block of a key tile is the
+// only writer of that tile's columns, so each element is written once,
+// directly, and the causally skipped tiles (the rows above the diagonal
+// block) are zero-filled by the same block.  The bias is read straight
+// from device memory in the elementwise step (16 values a thread, a
+// half-warp reading 64 consecutive columns of a row); at BERT-large's
+// shape it adds 12.6 MB to the forward's reads, against the 0.1 ms the
+// products need.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -106,6 +127,26 @@ __device__ __forceinline__ DropCtx drop_ctx(const int* seed_pack, int bh,
   return c;
 }
 
+// The additive bias: logically (B, sq, sk) with a unit column stride,
+// read at batch bh / h through the batch and row strides (in elements).
+struct Bias {
+  const void* p;  // null: no bias
+  int bf16;       // 0: fp32, 1: bf16
+  int h;          // batch*heads per bias batch
+  long long sb, sr;
+};
+
+__device__ __forceinline__ int64_t bias_base(const Bias& b, int bh) {
+  return b.p == nullptr ? 0 : (int64_t)(bh / b.h) * b.sb;
+}
+
+__device__ __forceinline__ float bias_at(const Bias& b, int64_t base, int row,
+                                         int col) {
+  const int64_t i = base + (int64_t)row * b.sr + col;
+  return b.bf16 ? __bfloat162float(static_cast<const __nv_bfloat16*>(b.p)[i])
+                : static_cast<const float*>(b.p)[i];
+}
+
 __device__ __forceinline__ float half_warp_max(float v) {
   for (int o = 8; o > 0; o >>= 1)
     v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
@@ -154,8 +195,8 @@ __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, T* __restrict__ o,
                  float* __restrict__ lse, const int* __restrict__ seed_pack,
-                 int sq, int sk, int h_local, int h_total, float scale,
-                 int causal, float rate, uint32_t thresh) {
+                 const Bias bias, int sq, int sk, int h_local, int h_total,
+                 float scale, int causal, float rate, uint32_t thresh) {
   extern __shared__ float smem[];
   float* qt = smem;            // [d][q]
   float* kt = qt + kTile;      // [d][k]
@@ -167,6 +208,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int64_t base_q = (int64_t)bh * sq * kD;
   const int64_t base_k = (int64_t)bh * sk * kD;
   const DropCtx dc = drop_ctx(seed_pack, bh, h_local, h_total);
+  const int64_t base_b = bias_base(bias, bh);
 
   load_tile(q + base_q, q0, sq, nullptr, qt);
   float m[4], l[4], acc[4][4];
@@ -196,7 +238,10 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       for (int j = 0; j < 4; ++j) {
         const int col = k0 + tx * 4 + j;
         float x = s[i][j] * scale;
-        if (col >= sk || (causal && col > row)) x = kNegInf;
+        if (col >= sk || (causal && col > row))
+          x = kNegInf;
+        else if (bias.p != nullptr && row < sq)
+          x += bias_at(bias, base_b, row, col);
         s[i][j] = x;
         mx = fmaxf(mx, x);
       }
@@ -250,10 +295,12 @@ flash_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, const T* __restrict__ dout,
                  const float* __restrict__ lse,
                  const float* __restrict__ delta,
-                 const int* __restrict__ seed_pack, T* __restrict__ dk,
-                 T* __restrict__ dv, float* __restrict__ dq_part, int sq,
-                 int sk, int h_local, int h_total, float scale, int causal,
-                 float rate, uint32_t thresh, int64_t tiles_per_bh) {
+                 const int* __restrict__ seed_pack, const Bias bias,
+                 T* __restrict__ dk, T* __restrict__ dv,
+                 float* __restrict__ dq_part, float* __restrict__ dbias,
+                 int sq, int sk, int h_local, int h_total, float scale,
+                 int causal, float rate, uint32_t thresh,
+                 int64_t tiles_per_bh) {
   extern __shared__ float smem[];
   float* kt = smem;             // [d][k]   s = q . k
   float* ks = kt + kTile;       // [k][d]   dq = ds . k
@@ -275,7 +322,18 @@ flash_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int64_t base_k = (int64_t)bh * sk * kD;
   const DropCtx dc = drop_ctx(seed_pack, bh, h_local, h_total);
   const float inv_keep = rate > 0.f ? 1.f / (1.f - rate) : 1.f;
+  const int64_t base_b = bias_base(bias, bh);
+  float* const db = dbias == nullptr ? nullptr : dbias + (int64_t)bh * sq * sk;
 
+  if (db != nullptr && causal) {
+    // the query tiles above this key tile's diagonal are never visited:
+    // their dbias is zero
+    const int rows = min(kb * kB, sq);
+    for (int e = threadIdx.x; e < rows * kB; e += kThreads) {
+      const int col = k0 + e % kB;
+      if (col < sk) db[(int64_t)(e / kB) * sk + col] = 0.f;
+    }
+  }
   load_tile(k + base_k, k0, sk, ks, kt);
   load_tile(v + base_k, k0, sk, nullptr, vt);
   float dk_acc[4][4] = {}, dv_acc[4][4] = {};
@@ -304,7 +362,9 @@ flash_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
         const int c = tx * 4 + j;
         const int col = k0 + c;
         const bool vis = row < sq && col < sk && !(causal && col > row);
-        const float p = vis ? expf(s[i][j] * scale - lse_s[r]) : 0.f;
+        float x = s[i][j] * scale;
+        if (vis && bias.p != nullptr) x += bias_at(bias, base_b, row, col);
+        const float p = vis ? expf(x - lse_s[r]) : 0.f;
         float pd = p, dpv = dp[i][j];
         if (rate > 0.f) {
           const bool keep = keep_elem(
@@ -313,7 +373,10 @@ flash_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
           pd = keep ? p * inv_keep : 0.f;
           dpv = keep ? dpv * inv_keep : 0.f;
         }
-        const float ds = p * (dpv - delta_s[r]) * scale;
+        const float dsb = p * (dpv - delta_s[r]);  // dL/dbias
+        const float ds = dsb * scale;
+        if (db != nullptr && row < sq && col < sk)
+          db[(int64_t)row * sk + col] = dsb;
         pds[r * kLd + c] = pd;
         dss[r * kLd + c] = ds;
         dst[c * kLd + r] = ds;
@@ -370,9 +433,9 @@ constexpr size_t kBwdSmem = (10 * kTile + 2 * kB) * sizeof(float);
 
 template <typename T>
 int launch_fwd(const void* q, const void* k, const void* v, void* o,
-               float* lse, const int* seed, int bh, int sq, int sk,
-               int h_local, int h_total, float scale, int causal, float rate,
-               uint32_t thresh, cudaStream_t s) {
+               float* lse, const int* seed, const Bias& bias, int bh, int sq,
+               int sk, int h_local, int h_total, float scale, int causal,
+               float rate, uint32_t thresh, cudaStream_t s) {
   cudaError_t e = cudaFuncSetAttribute(
       flash_fwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(kFwdSmem));
@@ -380,7 +443,7 @@ int launch_fwd(const void* q, const void* k, const void* v, void* o,
   const dim3 grid((sq + kB - 1) / kB, bh);
   flash_fwd_kernel<T><<<grid, kThreads, kFwdSmem, s>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), lse, seed, sq, sk,
+      static_cast<const T*>(v), static_cast<T*>(o), lse, seed, bias, sq, sk,
       h_local, h_total, scale, causal, rate, thresh);
   return static_cast<int>(cudaGetLastError());
 }
@@ -388,10 +451,10 @@ int launch_fwd(const void* q, const void* k, const void* v, void* o,
 template <typename T>
 int launch_bwd(const void* q, const void* k, const void* v, const void* dout,
                const float* lse, const float* delta, const int* seed,
-               void* dq, void* dk, void* dv, float* dq_part, int bh, int sq,
-               int sk, int h_local, int h_total, float scale, int causal,
-               float rate, uint32_t thresh, long long tiles_per_bh,
-               cudaStream_t s) {
+               const Bias& bias, void* dq, void* dk, void* dv,
+               float* dq_part, float* dbias, int bh, int sq, int sk,
+               int h_local, int h_total, float scale, int causal, float rate,
+               uint32_t thresh, long long tiles_per_bh, cudaStream_t s) {
   cudaError_t e = cudaFuncSetAttribute(
       flash_bwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(kBwdSmem));
@@ -400,8 +463,8 @@ int launch_bwd(const void* q, const void* k, const void* v, const void* dout,
   flash_bwd_kernel<T><<<grid_k, kThreads, kBwdSmem, s>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const T*>(dout), lse, delta,
-      seed, static_cast<T*>(dk), static_cast<T*>(dv), dq_part, sq, sk,
-      h_local, h_total, scale, causal, rate, thresh, tiles_per_bh);
+      seed, bias, static_cast<T*>(dk), static_cast<T*>(dv), dq_part, dbias,
+      sq, sk, h_local, h_total, scale, causal, rate, thresh, tiles_per_bh);
   e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
   const dim3 grid_q((sq + kB - 1) / kB, bh);
@@ -419,48 +482,75 @@ extern "C" long long apex_flash_dq_tiles(int sq, int sk, int causal) {
   return causal ? nq * (nq + 1) / 2 : nq * nk;
 }
 
+// The bias arguments: bias null for none, else bias_dtype 0 = float32,
+// 1 = bfloat16, logically (bh / bias_h, sq, sk) with a unit column stride
+// and batch/row strides bias_sb/bias_sr in elements (bias_sr may be 0).
+static Bias make_bias(const void* bias, int bias_dtype, int bias_h,
+                      long long bias_sb, long long bias_sr) {
+  Bias b;
+  b.p = bias;
+  b.bf16 = bias_dtype;
+  b.h = bias_h > 0 ? bias_h : 1;
+  b.sb = bias_sb;
+  b.sr = bias_sr;
+  return b;
+}
+
 // q: (bh, sq, 64), k/v: (bh, sk, 64), o like q, lse: (bh, sq) fp32;
 // dtype 0 = float32, 1 = bfloat16.  seed: device int32[4] = [seed, row
 // offset, col offset, head offset]; thresh = (1 - rate) * 2^32 clamped.
 // Returns cudaGetLastError().
 extern "C" int apex_flash_fwd(const void* q, const void* k, const void* v,
-                              void* o, float* lse, const int* seed, int bh,
+                              void* o, float* lse, const int* seed,
+                              const void* bias, int bias_dtype, int bias_h,
+                              long long bias_sb, long long bias_sr, int bh,
                               int sq, int sk, int h_local, int h_total,
                               float scale, int causal, float rate,
                               unsigned int thresh, int dtype, void* stream) {
   if (bh <= 0 || sq <= 0) return 0;
+  if (bias != nullptr && (bias_dtype < 0 || bias_dtype > 1))
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const Bias b = make_bias(bias, bias_dtype, bias_h, bias_sb, bias_sr);
   if (dtype == 0)
-    return launch_fwd<float>(q, k, v, o, lse, seed, bh, sq, sk, h_local,
+    return launch_fwd<float>(q, k, v, o, lse, seed, b, bh, sq, sk, h_local,
                              h_total, scale, causal, rate, thresh, s);
   if (dtype == 1)
-    return launch_fwd<__nv_bfloat16>(q, k, v, o, lse, seed, bh, sq, sk,
+    return launch_fwd<__nv_bfloat16>(q, k, v, o, lse, seed, b, bh, sq, sk,
                                      h_local, h_total, scale, causal, rate,
                                      thresh, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // dout like q; lse, delta: (bh, sq) fp32 (delta = rowsum(dout * o));
-// dq, dk, dv like q, k, v; dq_part: fp32 scratch of
-// bh * apex_flash_dq_tiles(...) * 64 * 64.  Returns cudaGetLastError().
+// the bias as for apex_flash_fwd; dq, dk, dv like q, k, v; dq_part: fp32
+// scratch of bh * apex_flash_dq_tiles(...) * 64 * 64; dbias: null, or an
+// fp32 (bh, sq, sk) output that every element of is written.  Returns
+// cudaGetLastError().
 extern "C" int apex_flash_bwd(const void* q, const void* k, const void* v,
                               const void* dout, const float* lse,
-                              const float* delta, const int* seed, void* dq,
-                              void* dk, void* dv, float* dq_part, int bh,
-                              int sq, int sk, int h_local, int h_total,
-                              float scale, int causal, float rate,
-                              unsigned int thresh, int dtype, void* stream) {
+                              const float* delta, const int* seed,
+                              const void* bias, int bias_dtype, int bias_h,
+                              long long bias_sb, long long bias_sr, void* dq,
+                              void* dk, void* dv, float* dq_part,
+                              float* dbias, int bh, int sq, int sk,
+                              int h_local, int h_total, float scale,
+                              int causal, float rate, unsigned int thresh,
+                              int dtype, void* stream) {
   if (bh <= 0 || sq <= 0 || sk <= 0) return 0;
+  if (bias != nullptr && (bias_dtype < 0 || bias_dtype > 1))
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const Bias b = make_bias(bias, bias_dtype, bias_h, bias_sb, bias_sr);
   const long long tiles = apex_flash_dq_tiles(sq, sk, causal);
   if (dtype == 0)
-    return launch_bwd<float>(q, k, v, dout, lse, delta, seed, dq, dk, dv,
-                             dq_part, bh, sq, sk, h_local, h_total, scale,
-                             causal, rate, thresh, tiles, s);
+    return launch_bwd<float>(q, k, v, dout, lse, delta, seed, b, dq, dk, dv,
+                             dq_part, dbias, bh, sq, sk, h_local, h_total,
+                             scale, causal, rate, thresh, tiles, s);
   if (dtype == 1)
-    return launch_bwd<__nv_bfloat16>(q, k, v, dout, lse, delta, seed, dq, dk,
-                                     dv, dq_part, bh, sq, sk, h_local,
-                                     h_total, scale, causal, rate, thresh,
-                                     tiles, s);
+    return launch_bwd<__nv_bfloat16>(q, k, v, dout, lse, delta, seed, b, dq,
+                                     dk, dv, dq_part, dbias, bh, sq, sk,
+                                     h_local, h_total, scale, causal, rate,
+                                     thresh, tiles, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -1,0 +1,230 @@
+"""BERT encoder with the tied MLM head — the FusedLAMB pretraining model.
+
+Counterpart of ``apex_tpu/models/bert.py``, with the same post-LN blocks,
+tied decoder and dtype discipline:
+
+- the embeddings are an fp32 lookup of the (possibly bf16) word and
+  position tables, summed, LayerNorm'd and cast to the compute dtype;
+  there is no token-type table (``BertForMLM`` never passes
+  ``token_type_ids``, so the flax model never creates one);
+- a padding ``attention_mask`` (B, S), 1 = token, becomes the additive
+  fp32 key bias ``(1 - mask) * -1e9``, which every layer's
+  :class:`~apex_tpu_torch.contrib.multihead_attn.SelfMultiheadAttn`
+  (``impl="fast"``: the flash kernels, with in-kernel attention dropout)
+  reads as a broadcast (B, S, S) view;
+- each block is post-LN with fp32 residual adds: ``LN(x + attn)``, then
+  ``LN(x + ffn)``, the FFN with tanh GELU (``jax.nn.gelu``'s default) and
+  residual dropout after the attention and the FFN;
+- the MLM head: a dense transform, GELU and LayerNorm, then the decoder
+  tied to the word table — a compute-dtype product with fp32 output
+  (an fp32 product of compute-dtype-rounded operands), plus the fp32
+  ``mlm_bias``, cast to the compute dtype before the fused cross-entropy;
+  the loss is the mean over labels >= 0.
+
+Dropout draws from an explicit ``torch.Generator`` on the model's device;
+its bits cannot match flax's, except the attention-dropout mask, which is
+the JAX package's counter hash.  Not ported yet: ``token_type_ids``,
+remat policies other than ``"none"`` and an untied decoder.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from apex_tpu_torch._random import dropout
+from apex_tpu_torch.amp.layers import Dense
+from apex_tpu_torch.contrib.multihead_attn import SelfMultiheadAttn
+from apex_tpu_torch.normalization import FusedLayerNorm
+from apex_tpu_torch.ops.softmax_xentropy import softmax_cross_entropy
+
+__all__ = ["BertConfig", "BertEncoder", "BertForMLM", "BertLayer",
+           "init_bert_params"]
+
+
+@dataclasses.dataclass(frozen=True)
+class BertConfig:
+    vocab_size: int = 30592  # BERT's 30522 padded to a multiple of 128
+    hidden_size: int = 1024  # BERT-large
+    num_layers: int = 24
+    num_heads: int = 16
+    intermediate_size: int = 4096
+    max_position: int = 512
+    dropout_rate: float = 0.1
+    attn_dropout_rate: float = 0.1
+    probs_bf16: bool = False
+    remat_policy: str = "none"
+    compute_dtype: torch.dtype = torch.bfloat16
+
+    def __post_init__(self):
+        if self.remat_policy != "none":
+            raise NotImplementedError(
+                f"remat_policy {self.remat_policy!r} is not ported yet; "
+                "use 'none'")
+
+    @staticmethod
+    def large(**kw) -> "BertConfig":
+        return BertConfig(**kw)
+
+    @staticmethod
+    def base(**kw) -> "BertConfig":
+        return BertConfig(hidden_size=768, num_layers=12, num_heads=12,
+                          intermediate_size=3072, **kw)
+
+    @staticmethod
+    def tiny(**kw) -> "BertConfig":
+        """For tests: 2 layers, 128 hidden."""
+        return BertConfig(vocab_size=1024, hidden_size=128, num_layers=2,
+                          num_heads=2, intermediate_size=512,
+                          max_position=128, **kw)
+
+
+class BertLayer(nn.Module):
+    """Post-LN encoder block."""
+
+    def __init__(self, cfg: BertConfig):
+        super().__init__()
+        h, dt = cfg.hidden_size, cfg.compute_dtype
+        self.cfg = cfg
+        self.self_attn = SelfMultiheadAttn(
+            h, cfg.num_heads, dropout=cfg.attn_dropout_rate, bias=True,
+            mask_additive=True, impl="fast", probs_bf16=cfg.probs_bf16,
+            dtype=dt)
+        self.attn_ln = FusedLayerNorm(h)
+        self.ffn_in = Dense(h, cfg.intermediate_size, dtype=dt)
+        self.ffn_out = Dense(cfg.intermediate_size, h, dtype=dt)
+        self.ffn_ln = FusedLayerNorm(h)
+
+    def forward(self, x: torch.Tensor, mask_bias: Optional[torch.Tensor] = None,
+                deterministic: bool = True,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """``x`` (B, S, h); ``mask_bias`` (B, S) additive fp32 key bias or
+        None.  Returns the block's output in the compute dtype."""
+        cfg, dt = self.cfg, self.cfg.compute_dtype
+        attn = self.self_attn(x.to(dt), key_padding_mask=mask_bias,
+                              is_training=not deterministic,
+                              generator=generator)
+        if not deterministic:
+            attn = dropout(attn, cfg.dropout_rate, generator)
+        x = self.attn_ln(x.float() + attn.float())
+        y = F.gelu(self.ffn_in(x.to(dt)), approximate="tanh")
+        y = self.ffn_out(y)
+        if not deterministic:
+            y = dropout(y, cfg.dropout_rate, generator)
+        x = self.ffn_ln(x.float() + y.float())
+        return x.to(dt)
+
+
+class BertEncoder(nn.Module):
+    """Embeddings and the encoder stack; :meth:`attend` is the tied
+    decoder over the word table."""
+
+    def __init__(self, cfg: BertConfig):
+        super().__init__()
+        self.cfg = cfg
+        h = cfg.hidden_size
+        self.word_embeddings = nn.Embedding(cfg.vocab_size, h)
+        self.position_embeddings = nn.Embedding(cfg.max_position, h)
+        self.embed_ln = FusedLayerNorm(h)
+        self.layers = nn.ModuleList(BertLayer(cfg)
+                                    for _ in range(cfg.num_layers))
+
+    def forward(self, input_ids: torch.Tensor, token_type_ids=None,
+                attention_mask: Optional[torch.Tensor] = None,
+                deterministic: bool = True,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """(B, S) ids -> (B, S, h) hidden states in the compute dtype;
+        ``attention_mask`` (B, S), 1 = token, 0 = padding."""
+        if token_type_ids is not None:
+            raise NotImplementedError("token_type_ids (the token-type "
+                                      "table) is not ported yet")
+        cfg = self.cfg
+        b, s = input_ids.shape
+        if s > cfg.max_position:
+            raise ValueError(f"sequence length {s} > max_position "
+                             f"{cfg.max_position}")
+        pos = torch.arange(s, device=input_ids.device)
+        # flax nn.Embed(dtype=float32): the table is promoted, then looked up
+        x = (F.embedding(input_ids, self.word_embeddings.weight.float())
+             + F.embedding(pos, self.position_embeddings.weight.float())[None])
+        x = self.embed_ln(x)
+        mask_bias = None
+        if attention_mask is not None:
+            mask_bias = (1.0 - attention_mask.float()) * -1e9
+        x = x.to(cfg.compute_dtype)
+        for layer in self.layers:
+            x = layer(x, mask_bias, deterministic, generator)
+        return x
+
+    def attend(self, x: torch.Tensor) -> torch.Tensor:
+        """Hidden states -> fp32 vocab logits through the word table: a
+        compute-dtype product with fp32 accumulation and output, computed
+        as an fp32 product of compute-dtype-rounded operands."""
+        dt = self.cfg.compute_dtype
+        table = self.word_embeddings.weight.to(dt).float()
+        return torch.matmul(x.to(dt).float(), table.T)
+
+
+class BertForMLM(nn.Module):
+    """Encoder + MLM head tied to the word table + fused cross-entropy.
+
+    Parameter names follow the flax tree (see
+    :func:`apex_tpu_torch.weights.from_jax_bert_params`)."""
+
+    def __init__(self, cfg: BertConfig):
+        super().__init__()
+        self.cfg = cfg
+        h, dt = cfg.hidden_size, cfg.compute_dtype
+        self.encoder = BertEncoder(cfg)
+        self.mlm_transform = Dense(h, h, dtype=dt)
+        self.mlm_ln = FusedLayerNorm(h)
+        self.mlm_bias = nn.Parameter(torch.zeros(cfg.vocab_size))
+
+    def forward(self, input_ids: torch.Tensor,
+                labels: Optional[torch.Tensor] = None,
+                attention_mask: Optional[torch.Tensor] = None,
+                deterministic: bool = True,
+                generator: Optional[torch.Generator] = None):
+        """Without ``labels``: fp32 (B, S, V) logits.  With ``labels``
+        (negative = ignore): ``(logits, loss)``, the logits in the compute
+        dtype (the loss path's) and the fp32 mean loss over labels >= 0,
+        ignored labels replaced by 0 before the fused cross-entropy.
+        ``deterministic=False`` applies dropout from ``generator``."""
+        cfg, dt = self.cfg, self.cfg.compute_dtype
+        x = self.encoder(input_ids, attention_mask=attention_mask,
+                         deterministic=deterministic, generator=generator)
+        x = F.gelu(self.mlm_transform(x.to(dt)), approximate="tanh")
+        x = self.mlm_ln(x.float())
+        logits = self.encoder.attend(x) + self.mlm_bias.float()
+        if labels is None:
+            return logits
+        logits = logits.to(dt)
+        valid = labels >= 0
+        per_tok = softmax_cross_entropy(logits, torch.where(valid, labels, 0))
+        n = valid.sum().clamp_min(1)
+        loss = torch.where(valid, per_tok, 0.0).sum() / n
+        return logits, loss
+
+
+def init_bert_params(cfg: BertConfig, generator: torch.Generator
+                     ) -> Dict[str, torch.Tensor]:
+    """Seeded fp32 weights for :class:`BertForMLM` (a state dict on the
+    generator's device): BERT's normal(0, 0.02) for the embeddings and
+    every projection, zero biases, unit LayerNorm scales."""
+    with torch.device("meta"):
+        shapes = BertForMLM(cfg).state_dict()
+    dev = generator.device
+    out = {}
+    for name, t in shapes.items():
+        leaf = name.rsplit(".", 1)[-1]
+        if "bias" in leaf:
+            out[name] = torch.zeros(t.shape, device=dev)
+        elif leaf == "weight" and "_ln" in name:
+            out[name] = torch.ones(t.shape, device=dev)
+        else:
+            out[name] = torch.empty(t.shape, device=dev).normal_(
+                0.0, 0.02, generator=generator)
+    return out

@@ -38,6 +38,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from apex_tpu_torch._random import attention_seed, dropout
 from apex_tpu_torch.amp.layers import Dense
 from apex_tpu_torch.normalization import FusedLayerNorm
 from apex_tpu_torch.ops import attention as _attn
@@ -109,20 +110,19 @@ class GPTLayer(nn.Module):
         drop_attn = cfg.attn_dropout_rate > 0 and not deterministic
         seed = None
         if drop_attn:
-            seed = torch.randint(0, 2 ** 31 - 1, (), generator=_gen(generator),
-                                 device=x.device, dtype=torch.int32)
+            seed = attention_seed(generator, x.device)
         attn = _attn.flash_attention(
             split(q), split(k), split(v), causal=True,
             dropout_rate=cfg.attn_dropout_rate if drop_attn else 0.0,
             dropout_seed=seed)
         attn = self.proj(attn.transpose(1, 2).reshape(b, s, h))
         if not deterministic:
-            attn = _dropout(attn, cfg.dropout_rate, generator)
+            attn = dropout(attn, cfg.dropout_rate, generator)
         x = x + attn.to(x.dtype)
         y = self.ln2(x.float()).to(dt)
         y = self.ffn_out(F.gelu(self.ffn_in(y), approximate="tanh"))
         if not deterministic:
-            y = _dropout(y, cfg.dropout_rate, generator)
+            y = dropout(y, cfg.dropout_rate, generator)
         return x + y.to(x.dtype)
 
     def decode(self, x, *, layer, positions, pool_k, pool_v, page_table,
@@ -170,24 +170,6 @@ class GPTLayer(nn.Module):
         if quant:
             return x, (k, k_s), (v, v_s)
         return x, k, v
-
-
-def _gen(generator: Optional[torch.Generator]) -> torch.Generator:
-    if generator is None:
-        raise ValueError("training with dropout (deterministic=False) needs "
-                         "a torch.Generator on the model's device")
-    return generator
-
-
-def _dropout(x: torch.Tensor, rate: float,
-             generator: Optional[torch.Generator]) -> torch.Tensor:
-    """flax ``nn.Dropout``: keep with probability 1 - rate, scale kept
-    values by 1 / (1 - rate); the mask from ``generator``."""
-    if rate <= 0.0:
-        return x
-    keep = torch.rand(x.shape, generator=_gen(generator),
-                      device=x.device) < 1.0 - rate
-    return torch.where(keep, x / (1.0 - rate), 0.0)
 
 
 def _paged_write(pool, scale_arr, li, phys, off, kv):
@@ -245,7 +227,7 @@ class GPTLM(nn.Module):
         x = (F.embedding(input_ids, self.wte.weight.float())
              + F.embedding(pos, self.wpe.weight.float())[None])
         if not deterministic:
-            x = _dropout(x, cfg.dropout_rate, generator)
+            x = dropout(x, cfg.dropout_rate, generator)
         x = x.to(cfg.compute_dtype)
         for layer in self.layers:
             x = layer(x, deterministic, generator)

@@ -18,6 +18,7 @@ from apex_tpu_torch.ops.attention import (  # noqa: F401
     paged_fused_attention,
     quantize_kv,
 )
+from apex_tpu_torch.ops.fused_optim import lamb_stage1  # noqa: F401
 from apex_tpu_torch.ops.layer_norm import (  # noqa: F401
     layer_norm,
     layer_norm_bwd,
@@ -39,6 +40,7 @@ KERNELS = {
     "flash_attention_bwd": flash_attention_bwd,
     "softmax_xentropy_fwd": softmax_cross_entropy_fwd,
     "softmax_xentropy_bwd": softmax_cross_entropy_bwd,
+    "lamb_stage1": lamb_stage1,
 }
 
 
@@ -59,6 +61,7 @@ __all__ = [
     "flash_attention",
     "flash_attention_bwd",
     "flash_attention_fwd",
+    "lamb_stage1",
     "launch_counts",
     "layer_norm",
     "layer_norm_bwd",

@@ -18,8 +18,10 @@ The training half:
 - :func:`flash_attention`, a ``torch.autograd.Function`` over
   :func:`flash_attention_fwd` and :func:`flash_attention_bwd`, the
   wrappers of ``csrc/flash_attention.cu`` (ports of the Pallas
-  ``_fwd_kernel_nobias`` and ``_bwd_fused_nobias``).  On CPU tensors they
-  run their plain versions :func:`flash_attention_fwd_ref` and
+  ``_fwd_kernel``/``_fwd_kernel_nobias`` and of the combined backward
+  ``_bwd_fused_kernel``/``_bwd_fused_nobias``, which here also writes
+  the bias gradient of the two-pass ``_bwd_dq_kernel``).  On CPU tensors
+  they run their plain versions :func:`flash_attention_fwd_ref` and
   :func:`flash_attention_bwd_ref`.
 
 All softmax and accumulation math is fp32 whatever the input, cache or
@@ -413,12 +415,26 @@ def _drop_keep(seed_pack, bh_count, h_map, sq, sk, rate):
                       seed_pack[2], (sq, sk), rate)
 
 
+def _bias_scores(s, bias):
+    """``s`` (BH, Sq, Sk) plus the (B, Sq, Sk) ``bias`` of each
+    batch*head's batch, ``bh // (BH / B)``, in fp32 (no copy of the bias
+    per head)."""
+    if bias is None:
+        return s
+    bh, sq, sk = s.shape
+    b = bias.shape[0]
+    return (s.reshape(b, bh // b, sq, sk) + bias.float()[:, None]).reshape(
+        bh, sq, sk)
+
+
 def flash_attention_fwd_ref(q3, k3, v3, seed_pack, scale: float,
-                            causal: bool, rate: float, h_map):
-    """Plain version of the forward kernel on (BH, S, D): returns
-    ``(o, lse)``, o in q's dtype and the fp32 per-row logsumexp."""
+                            causal: bool, rate: float, h_map, bias=None):
+    """Plain version of the forward kernel on (BH, S, D), with an optional
+    additive (B, Sq, Sk) ``bias``: returns ``(o, lse)``, o in q's dtype
+    and the fp32 per-row logsumexp."""
     sq, sk = q3.shape[1], k3.shape[1]
-    s = torch.einsum("bqd,bkd->bqk", q3.float(), k3.float()) * scale
+    s = _bias_scores(
+        torch.einsum("bqd,bkd->bqk", q3.float(), k3.float()) * scale, bias)
     if causal:
         s = torch.where(_causal(sq, sk, q3.device), s, _NEG_INF)
     lse = _logsumexp(s)
@@ -431,14 +447,18 @@ def flash_attention_fwd_ref(q3, k3, v3, seed_pack, scale: float,
 
 
 def flash_attention_bwd_ref(q3, k3, v3, o, lse, do, seed_pack,
-                            scale: float, causal: bool, rate: float, h_map):
+                            scale: float, causal: bool, rate: float, h_map,
+                            bias=None, bias_grad: bool = False):
     """Plain version of the combined backward kernel on (BH, S, D):
     recomputes p from lse, takes delta = rowsum(do * o), returns
-    ``(dq, dk, dv)`` in q's dtype; every product in fp32."""
+    ``(dq, dk, dv, dbias)`` with the grads in q's dtype and, with
+    ``bias_grad``, ``dbias = p * (dp - delta)`` (no ``scale`` factor)
+    per batch*head as fp32 (BH, Sq, Sk), else None; every product in
+    fp32."""
     sq, sk = q3.shape[1], k3.shape[1]
     q32, k32, v32, do32 = q3.float(), k3.float(), v3.float(), do.float()
     delta = (do32 * o.float()).sum(dim=-1)
-    s = torch.einsum("bqd,bkd->bqk", q32, k32) * scale
+    s = _bias_scores(torch.einsum("bqd,bkd->bqk", q32, k32) * scale, bias)
     if causal:
         s = torch.where(_causal(sq, sk, q3.device), s, _NEG_INF)
     p = torch.exp(s - lse[..., None])
@@ -450,30 +470,35 @@ def flash_attention_bwd_ref(q3, k3, v3, o, lse, do, seed_pack,
         dp = torch.where(keep, dp * inv, 0.0)
     else:
         pd = p
-    ds = p * (dp - delta[..., None]) * scale
+    dsb = p * (dp - delta[..., None])
+    ds = dsb * scale
     dv = torch.einsum("bqk,bqd->bkd", pd, do32)
     dk = torch.einsum("bqk,bqd->bkd", ds, q32)
     dq = torch.einsum("bqk,bkd->bqd", ds, k32)
     dt = q3.dtype
-    return dq.to(dt), dk.to(dt), dv.to(dt)
+    return (dq.to(dt), dk.to(dt), dv.to(dt),
+            dsb if bias is not None and bias_grad else None)
 
 
 @functools.lru_cache(maxsize=None)
 def _flash_lib():
     lib = _build.load("flash_attention")
-    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.apex_flash_fwd.argtypes = [p, p, p, p, p, p, i, i, i, i, i, f, i, f,
-                                   ctypes.c_uint, i, p]
+    p, i, f, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, \
+        ctypes.c_longlong
+    bias = [p, i, i, ll, ll]  # pointer, dtype code, heads, batch/row strides
+    lib.apex_flash_fwd.argtypes = [p, p, p, p, p, p, *bias, i, i, i, i, i,
+                                   f, i, f, ctypes.c_uint, i, p]
     lib.apex_flash_fwd.restype = i
-    lib.apex_flash_bwd.argtypes = [p, p, p, p, p, p, p, p, p, p, p, i, i, i,
-                                   i, i, f, i, f, ctypes.c_uint, i, p]
+    lib.apex_flash_bwd.argtypes = [p, p, p, p, p, p, p, *bias, p, p, p, p,
+                                   p, i, i, i, i, i, f, i, f, ctypes.c_uint,
+                                   i, p]
     lib.apex_flash_bwd.restype = i
     lib.apex_flash_dq_tiles.argtypes = [i, i, i]
     lib.apex_flash_dq_tiles.restype = ctypes.c_longlong
     return lib
 
 
-def _flash_check(q3, k3, v3, seed_pack) -> None:
+def _flash_check(q3, k3, v3, seed_pack, bias) -> None:
     """What the flash kernels take; raises on anything else."""
     bh, sq, d = q3.shape
     if q3.dtype not in _Q_CODE or k3.dtype != q3.dtype \
@@ -494,25 +519,48 @@ def _flash_check(q3, k3, v3, seed_pack) -> None:
         raise ValueError("flash attention kernel takes contiguous q, k, v")
     if seed_pack.dtype != torch.int32 or seed_pack.shape != (4,):
         raise ValueError("flash attention kernel takes an int32[4] seed pack")
+    if bias is not None:
+        b = bias.shape[0]
+        if bias.dim() != 3 or b < 1 or bh % b \
+                or tuple(bias.shape[1:]) != (sq, k3.shape[1]):
+            raise ValueError(f"flash attention kernel takes a (B, Sq, Sk) "
+                             f"bias with B dividing {bh}, got "
+                             f"{tuple(bias.shape)}")
+        if bias.dtype not in _Q_CODE or (bias.stride(2) != 1
+                                         and bias.shape[2] > 1):
+            raise ValueError(f"flash attention kernel takes an fp32/bf16 "
+                             f"bias with a unit last stride, got "
+                             f"{bias.dtype} strides {bias.stride()}")
+
+
+def _bias_args(bias, bh):
+    """(pointer, dtype code, batch*heads per bias batch, batch stride,
+    row stride) of the kernels' bias arguments."""
+    if bias is None:
+        return None, 0, 1, 0, 0
+    return (bias.data_ptr(), _Q_CODE[bias.dtype], bh // bias.shape[0],
+            bias.stride(0), bias.stride(1))
 
 
 def flash_attention_fwd(q3, k3, v3, seed_pack, scale: float, causal: bool,
-                        rate: float, h_map):
-    """Forward on (BH, S, 64): ``(o, lse)``.  CUDA tensors run
-    ``apex_flash_fwd``; CPU tensors :func:`flash_attention_fwd_ref`."""
-    if not use_kernel(q3, k3, v3, seed_pack):
+                        rate: float, h_map, bias=None):
+    """Forward on (BH, S, 64) with an optional (B, Sq, Sk) ``bias``
+    (any batch and row strides, so a broadcast key-padding mask is read
+    in place): ``(o, lse)``.  CUDA tensors run ``apex_flash_fwd``; CPU
+    tensors :func:`flash_attention_fwd_ref`."""
+    if not use_kernel(q3, k3, v3, seed_pack, bias):
         return flash_attention_fwd_ref(q3, k3, v3, seed_pack, scale, causal,
-                                       rate, h_map)
-    _flash_check(q3, k3, v3, seed_pack)
+                                       rate, h_map, bias)
+    _flash_check(q3, k3, v3, seed_pack, bias)
     bh, sq, _ = q3.shape
     o = torch.empty_like(q3)
     lse = torch.empty(bh, sq, dtype=torch.float32, device=q3.device)
     with torch.cuda.device(q3.device):
         err = _flash_lib().apex_flash_fwd(
             q3.data_ptr(), k3.data_ptr(), v3.data_ptr(), o.data_ptr(),
-            lse.data_ptr(), seed_pack.data_ptr(), bh, sq, k3.shape[1],
-            h_map[0], h_map[1], float(scale), int(causal), float(rate),
-            _keep_thresh(rate), _Q_CODE[q3.dtype],
+            lse.data_ptr(), seed_pack.data_ptr(), *_bias_args(bias, bh), bh,
+            sq, k3.shape[1], h_map[0], h_map[1], float(scale), int(causal),
+            float(rate), _keep_thresh(rate), _Q_CODE[q3.dtype],
             torch.cuda.current_stream(q3.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"flash attention forward kernel launch failed: "
@@ -522,19 +570,29 @@ def flash_attention_fwd(q3, k3, v3, seed_pack, scale: float, causal: bool,
 
 
 def flash_attention_bwd(q3, k3, v3, o, lse, do, seed_pack, scale: float,
-                        causal: bool, rate: float, h_map):
-    """Backward on (BH, S, 64): ``(dq, dk, dv)``.  CUDA tensors run
-    ``apex_flash_bwd`` (the combined dk/dv/dq-partials kernel, then the
-    fixed-order dq sum); CPU tensors :func:`flash_attention_bwd_ref`."""
-    if not use_kernel(q3, k3, v3, o, lse, do, seed_pack):
+                        causal: bool, rate: float, h_map, bias=None,
+                        bias_grad: bool = False):
+    """Backward on (BH, S, 64): ``(dq, dk, dv, dbias)``, dbias as for
+    :func:`flash_attention_bwd_ref`.  CUDA tensors run ``apex_flash_bwd``
+    (the combined dk/dv/dq-partials kernel, writing dbias with
+    ``bias_grad``, then the fixed-order dq sum); CPU tensors
+    :func:`flash_attention_bwd_ref`."""
+    if not use_kernel(q3, k3, v3, o, lse, do, seed_pack, bias):
         return flash_attention_bwd_ref(q3, k3, v3, o, lse, do, seed_pack,
-                                       scale, causal, rate, h_map)
-    _flash_check(q3, k3, v3, seed_pack)
+                                       scale, causal, rate, h_map, bias,
+                                       bias_grad)
+    _flash_check(q3, k3, v3, seed_pack, bias)
     if do.shape != q3.shape or do.dtype != q3.dtype or o.shape != q3.shape:
         raise ValueError("flash attention backward takes do and o like q")
-    do = do.contiguous()
     bh, sq, d = q3.shape
     sk = k3.shape[1]
+    # dbias is taken from the allocator first, so that a check can hand
+    # the kernel a poisoned block (one it has just freed) and see every
+    # tile written, causally skipped ones included
+    dbias = None
+    if bias is not None and bias_grad:
+        dbias = torch.empty(bh, sq, sk, dtype=torch.float32, device=q3.device)
+    do = do.contiguous()
     delta = (do.float() * o.float()).sum(dim=-1)
     lse = lse.contiguous()
     lib = _flash_lib()
@@ -546,34 +604,44 @@ def flash_attention_bwd(q3, k3, v3, o, lse, do, seed_pack, scale: float,
         err = lib.apex_flash_bwd(
             q3.data_ptr(), k3.data_ptr(), v3.data_ptr(), do.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), seed_pack.data_ptr(),
-            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), part.data_ptr(),
-            bh, sq, sk, h_map[0], h_map[1], float(scale), int(causal),
-            float(rate), _keep_thresh(rate), _Q_CODE[q3.dtype],
+            *_bias_args(bias, bh), dq.data_ptr(), dk.data_ptr(),
+            dv.data_ptr(), part.data_ptr(),
+            None if dbias is None else dbias.data_ptr(), bh, sq, sk,
+            h_map[0], h_map[1], float(scale), int(causal), float(rate),
+            _keep_thresh(rate), _Q_CODE[q3.dtype],
             torch.cuda.current_stream(q3.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"flash attention backward kernel launch failed: "
                            f"CUDA error {err}")
     flash_attention_bwd.launches += 1
-    return dq, dk, dv
+    return dq, dk, dv, dbias
 
 
 class _Flash(torch.autograd.Function):
-    """The custom VJP: residuals are (q, k, v, o, lse, seed pack)."""
+    """The custom VJP: residuals are (q, k, v, bias, o, lse, seed pack).
+    The bias gets a gradient only with ``bias_grad``: the per-head dbias
+    summed over heads in fp32, then cast to the bias dtype."""
 
     @staticmethod
-    def forward(ctx, q3, k3, v3, seed_pack, scale, causal, rate, h_map):
+    def forward(ctx, q3, k3, v3, bias, seed_pack, scale, causal, rate, h_map,
+                bias_grad):
         o, lse = flash_attention_fwd(q3, k3, v3, seed_pack, scale, causal,
-                                     rate, h_map)
-        ctx.save_for_backward(q3, k3, v3, o, lse, seed_pack)
+                                     rate, h_map, bias)
+        ctx.save_for_backward(q3, k3, v3, bias, o, lse, seed_pack)
         ctx.cfg = (scale, causal, rate, h_map)
+        ctx.bias_grad = bias_grad
         return o
 
     @staticmethod
     def backward(ctx, do):
-        q3, k3, v3, o, lse, seed_pack = ctx.saved_tensors
-        dq, dk, dv = flash_attention_bwd(q3, k3, v3, o, lse, do, seed_pack,
-                                         *ctx.cfg)
-        return dq, dk, dv, None, None, None, None, None
+        q3, k3, v3, bias, o, lse, seed_pack = ctx.saved_tensors
+        dq, dk, dv, dbias3 = flash_attention_bwd(
+            q3, k3, v3, o, lse, do, seed_pack, *ctx.cfg, bias, ctx.bias_grad)
+        dbias = None
+        if dbias3 is not None:
+            b, sq, sk = bias.shape
+            dbias = dbias3.reshape(b, -1, sq, sk).sum(dim=1).to(bias.dtype)
+        return dq, dk, dv, dbias, None, None, None, None, None, None
 
 
 def flash_attention(
@@ -591,7 +659,10 @@ def flash_attention(
     probs_bf16: bool = False,
 ) -> torch.Tensor:
     """Differentiable flash attention.  q, k, v: (B, H, S, D); optional
-    additive bias (B, Sq, Sk).
+    additive bias (B, Sq, Sk), fp32 or bf16, added to the scaled scores in
+    fp32 before the causal mask.  It may be a broadcast view (a (B, 1, Sk)
+    key-padding mask expanded over queries): it is read through its
+    strides and never copied per head or per query.
 
     ``dropout_rate`` > 0 applies attention-probability dropout from the
     counter hash keyed on ``dropout_seed`` (an int32 in [0, 2^31 - 1), a
@@ -600,12 +671,18 @@ def flash_attention(
     package's mask bit for bit.  ``dropout_heads=(h_total,
     head_offset)`` keys it on global head indices.
 
+    ``bias_grad=False`` keeps the bias a constant (a mask: no gradient
+    flows to it).  With ``bias_grad=True`` the backward also writes each
+    batch*head's ``p * (dp - delta)`` and sums it over heads in fp32
+    before the cast to the bias dtype, so a learned bias trains; that
+    costs an fp32 (B*H, Sq, Sk) buffer per call.
+
     CUDA tensors run ``csrc/flash_attention.cu``: fp32/bf16 q, k, v with
-    head_dim 64 and no bias, ``bias_grad``, ``probs_bf16`` or
-    ``dropout_heads`` (those raise ``NotImplementedError`` for now).  CPU
-    tensors run the plain versions; with a bias, :func:`attention_ref`
-    (the bias a constant unless ``bias_grad``).  ``probs_bf16`` is a
-    no-op on the CPU, as on the JAX package's jnp path.
+    head_dim 64, with or without a bias and ``bias_grad``;
+    ``probs_bf16`` and ``dropout_heads`` raise ``NotImplementedError``
+    there for now.  CPU tensors run the kernels' plain versions
+    (``dropout_heads`` included); ``probs_bf16`` is a no-op on the CPU, as
+    on the JAX package's jnp path.
     """
     b, h, sq, d = q.shape
     sk = k.shape[2]
@@ -617,25 +694,21 @@ def flash_attention(
     if dropout_rate > 0.0 and dropout_seed is None:
         raise ValueError("dropout_rate > 0 requires dropout_seed")
     seed_t = dropout_seed if isinstance(dropout_seed, torch.Tensor) else None
-    if use_kernel(q, k, v, bias, seed_t):
-        if bias is not None or bias_grad or probs_bf16 \
-                or dropout_heads is not None:
-            raise NotImplementedError(
-                "flash attention on CUDA takes the no-bias path without "
-                "bias_grad, probs_bf16 or dropout_heads for now")
-    elif bias is not None:
-        return attention_ref(
-            q, k, v, bias if bias_grad else bias.detach(), causal, scale,
-            dropout_rate=dropout_rate, dropout_seed=dropout_seed,
-            dropout_heads=dropout_heads)
+    if use_kernel(q, k, v, bias, seed_t) and (probs_bf16
+                                              or dropout_heads is not None):
+        raise NotImplementedError(
+            "flash attention on CUDA takes no probs_bf16 or dropout_heads "
+            "for now")
+    if bias is not None and not bias_grad:
+        bias = bias.detach()
     h_total, head0 = (h, 0) if dropout_heads is None else dropout_heads
     seed_pack = _pack_seed(dropout_seed, 0, 0, head0, device=q.device)
     out = _Flash.apply(
         q.reshape(b * h, sq, d).contiguous(),
         k.reshape(b * h, sk, d).contiguous(),
         v.reshape(b * h, sk, d).contiguous(),
-        seed_pack, float(scale), bool(causal), float(dropout_rate),
-        (h, int(h_total)))
+        bias, seed_pack, float(scale), bool(causal), float(dropout_rate),
+        (h, int(h_total)), bool(bias_grad))
     return out.reshape(b, h, sq, d)
 
 

@@ -2,12 +2,16 @@
 
 :func:`from_jax_params` maps a ``GPTLM`` params tree (nested dicts of
 numpy arrays, or anything ``np.asarray`` takes) to a state dict of
-:class:`apex_tpu_torch.models.GPTLM`, so both packages compute with the
-same numbers.  Dense kernels keep their flax ``(in, out)`` layout, so
-no transpose happens on the way.  :func:`from_jax_opt_state` maps an
-``AmpOptState`` over such a tree (FusedAdam's step, m and v, and each
-loss scaler's state) to the port's, so both packages can also continue
-training from the same optimizer state.
+:class:`apex_tpu_torch.models.GPTLM`, and :func:`from_jax_bert_params` a
+``BertForMLM`` tree to a state dict of
+:class:`apex_tpu_torch.models.BertForMLM`, so both packages compute with
+the same numbers.  Dense kernels and the attention projections keep
+their flax ``(in, out)`` layout, so no transpose happens on the way; a
+key the mapping does not know raises, so nothing is silently dropped.
+:func:`from_jax_opt_state` maps an ``AmpOptState`` over either tree
+(FusedAdam's or FusedLAMB's step, m and v, and each loss scaler's state)
+to the port's, so both packages can also continue training from the
+same optimizer state.
 """
 from __future__ import annotations
 
@@ -18,11 +22,14 @@ import torch
 
 from apex_tpu_torch.amp import AmpOptState, LossScalerState
 from apex_tpu_torch.ops._common import resolve_device
-from apex_tpu_torch.optimizers import FusedAdamState
+from apex_tpu_torch.optimizers import FusedAdamState, FusedLAMBState
 
-__all__ = ["from_jax_opt_state", "from_jax_params"]
+__all__ = ["from_jax_bert_params", "from_jax_opt_state", "from_jax_params"]
 
 _DENSE = ("qkv", "proj", "ffn_in", "ffn_out")
+_MHA = ("in_proj_weight", "in_proj_bias", "q_weight", "k_weight",
+        "v_weight", "q_bias", "k_bias", "v_bias", "out_proj_weight",
+        "out_proj_bias")
 
 
 def _t(x: Any) -> torch.Tensor:
@@ -60,25 +67,101 @@ def from_jax_params(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     return out
 
 
+def _join(prefix: str, name: str) -> str:
+    return f"{prefix}.{name}" if prefix else name
+
+
+def _ln(sub: Mapping[str, Any], prefix: str) -> Dict[str, torch.Tensor]:
+    return {_join(prefix, "weight"): _t(sub["scale"]),
+            _join(prefix, "bias"): _t(sub["bias"])}
+
+
+def _dense(sub: Mapping[str, Any], prefix: str) -> Dict[str, torch.Tensor]:
+    return {_join(prefix, "kernel"): _t(sub["kernel"]),
+            _join(prefix, "bias"): _t(sub["bias"])}
+
+
+def _check_keys(tree: Mapping[str, Any], known, where: str) -> None:
+    extra = set(tree) - set(known)
+    if extra:
+        raise ValueError(f"{where}unmapped params {sorted(extra)}")
+
+
+def _mha_state(sub: Mapping[str, Any], prefix: str
+               ) -> Dict[str, torch.Tensor]:
+    """A flax ``SelfMultiheadAttn`` params dict -> the port's module
+    state under ``prefix`` ('' for the module itself; the same names,
+    ``lyr_nrm`` as a LayerNorm)."""
+    _check_keys(sub, (*_MHA, "lyr_nrm"), f"{prefix}: ")
+    out = {_join(prefix, k): _t(sub[k]) for k in _MHA if k in sub}
+    if "lyr_nrm" in sub:
+        out.update(_ln(sub["lyr_nrm"], _join(prefix, "lyr_nrm")))
+    return out
+
+
+def from_jax_bert_params(tree: Mapping[str, Any]
+                         ) -> Dict[str, torch.Tensor]:
+    """flax ``BertForMLM`` params -> the port's ``BertForMLM`` state dict
+    (fp32, CPU).  Raises on a tree with keys this mapping does not know
+    (a token-type table or an untied head, for two)."""
+    _check_keys(tree, ("encoder", "mlm_transform", "mlm_ln", "mlm_bias"), "")
+    enc = tree["encoder"]
+    layers = sorted((k for k in enc if k.startswith("layer_")),
+                    key=lambda k: int(k.split("_")[1]))
+    _check_keys(enc, ("word_embeddings", "position_embeddings", "embed_ln",
+                      *layers), "encoder: ")
+    out = {
+        "encoder.word_embeddings.weight":
+            _t(enc["word_embeddings"]["embedding"]),
+        "encoder.position_embeddings.weight":
+            _t(enc["position_embeddings"]["embedding"]),
+        **_ln(enc["embed_ln"], "encoder.embed_ln"),
+    }
+    for i, name in enumerate(layers):
+        if name != f"layer_{i}":
+            raise ValueError(f"layer keys not contiguous: {layers}")
+        sub, pre = enc[name], f"encoder.layers.{i}"
+        _check_keys(sub, ("self_attn", "attn_ln", "ffn_in", "ffn_out",
+                          "ffn_ln"), f"{name}: ")
+        out.update(_mha_state(sub["self_attn"], f"{pre}.self_attn"))
+        for ln in ("attn_ln", "ffn_ln"):
+            out.update(_ln(sub[ln], f"{pre}.{ln}"))
+        for dense in ("ffn_in", "ffn_out"):
+            out.update(_dense(sub[dense], f"{pre}.{dense}"))
+    out.update(_dense(tree["mlm_transform"], "mlm_transform"))
+    out.update(_ln(tree["mlm_ln"], "mlm_ln"))
+    out["mlm_bias"] = _t(tree["mlm_bias"])
+    return out
+
+
 def from_jax_opt_state(state: Any, device=None):
-    """JAX ``AmpOptState(FusedAdamState(step, m, v), scalers, stash=None)``
-    over a ``GPTLM`` params tree -> the port's
-    :class:`apex_tpu_torch.amp.AmpOptState` on ``device`` (None: the CUDA
-    device), m and v keyed like :func:`from_jax_params`."""
+    """JAX ``AmpOptState(FusedAdamState | FusedLAMBState (step, m, v),
+    scalers, stash=None)`` over a ``GPTLM`` or ``BertForMLM`` params tree
+    -> the port's :class:`apex_tpu_torch.amp.AmpOptState` on ``device``
+    (None: the CUDA device), m and v keyed like :func:`from_jax_params`
+    or :func:`from_jax_bert_params`."""
     dev = resolve_device(device)
     if state.stash is not None:
         raise ValueError("a stashed (accumulating) state is not ported")
-    adam = state.opt_state
+    inner = state.opt_state
+    kinds = {"FusedAdamState": FusedAdamState,
+             "FusedLAMBState": FusedLAMBState}
+    kind = kinds.get(type(inner).__name__)
+    if kind is None:
+        raise ValueError(f"optimizer state {type(inner).__name__} is not "
+                         f"ported (expected one of {sorted(kinds)})")
 
     def scalar(x, dtype):
         return torch.tensor(np.asarray(x).item(), dtype=dtype, device=dev)
 
     def moments(tree):
-        return {k: v.to(dev) for k, v in from_jax_params(tree).items()}
+        mapping = from_jax_bert_params if "encoder" in tree \
+            else from_jax_params
+        return {k: v.to(dev) for k, v in mapping(tree).items()}
 
     return AmpOptState(
-        opt_state=FusedAdamState(step=scalar(adam.step, torch.int32),
-                                 m=moments(adam.m), v=moments(adam.v)),
+        opt_state=kind(step=scalar(inner.step, torch.int32),
+                       m=moments(inner.m), v=moments(inner.v)),
         scaler=tuple(LossScalerState(
             loss_scale=scalar(s.loss_scale, torch.float32),
             unskipped=scalar(s.unskipped, torch.int32),

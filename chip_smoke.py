@@ -11,9 +11,9 @@ line) on any failed check:
 1. card: name and power limit (``nvidia-smi``), kernel build time;
 2. kernels: each hand-written kernel against its plain PyTorch version
    on the card at the serving path's shapes (LayerNorm forward also at
-   the training shape, with O2's bf16 affine), with its time, the plain
-   version's time, one PyTorch library call's time as a yardstick and
-   the least time the card could take (``bound_ms``);
+   the GPT-2 and BERT-large training shapes, with O2's bf16 affine), with
+   its time, the plain version's time, one PyTorch library call's time
+   as a yardstick and the least time the card could take (``bound_ms``);
 3. parity: GPT-2 small at fp32 on the card against the same port on the
    CPU with the same seeded weights (one 64-token prefill chunk, one
    K=8 decode window, one more decode step);
@@ -24,8 +24,10 @@ line) on any failed check:
 5. training kernels: the LayerNorm backward, flash attention forward and
    backward and the fused cross-entropy forward and backward against
    their plain versions at the training shapes (GPT-2 small, batch
-   16 x 1024) and, for flash attention, at a few other shapes, each with
-   planted faults the check must reject, and the library yardsticks (``F.layer_norm``'s backward,
+   16 x 1024; the LayerNorm backward and the cross-entropy also at
+   BERT-large's 12 x 512, hidden 1024, vocabulary 30592) and, for flash
+   attention, at a few other shapes, each with planted faults the check
+   must reject, and the library yardsticks (``F.layer_norm``'s backward,
    ``F.scaled_dot_product_attention``, ``F.cross_entropy``);
 6. train parity: GPT-2 small at fp32 (O0, TF32 off, no dropout), batch
    2 x 256, loss and gradients on the card against the port on the CPU;
@@ -33,7 +35,24 @@ line) on any failed check:
    ``AmpOptimizer(fused_adam(6e-4, weight_decay=0.1))`` driven by
    ``FusedTrainDriver`` at K = 10 steps per window: tokens/s, losses,
    peak memory, the launch counts of one window, and a planted overflow
-   step that must be skipped; then one step under ``torch.profiler``.
+   step that must be skipped; then one step under ``torch.profiler``;
+8. BERT kernels: flash attention with an additive bias (BERT-large's
+   shape with the expanded key-padding mask, causal fp32 300 x 450 with
+   ``bias_grad`` and dbias, bf16 with a full bf16 bias) and LAMB stage 1
+   (word table, FFN kernel, bias and a ragged leaf, skip 0 and 1; then
+   one step over every BERT-large leaf, timed) against their plain
+   versions, with planted faults (bias batch bh % B, dbias times scale,
+   an unwritten skipped dbias tile, the ragged tail left out of the
+   sums, skip ignored) and SDPA with the float mask as the yardstick;
+9. BERT: BERT-large fp32 (O0) loss and four gradients, card against the
+   port on the CPU, batch 2 x 256 padded to lengths 200 and 256; then
+   O2 MLM training with ``AmpOptimizer(fused_lamb(1e-3,
+   weight_decay=0.01))`` at batch 12 x 512 padded (lengths 128-512),
+   K = 6: sequences/s and valid tokens/s, losses, peak memory, one
+   window's launches (K x (LN 50, LN backward 50, flash bias forward and
+   backward 24, cross-entropy 1 and 1, LAMB 297)), a planted overflow
+   that must be skipped with LAMB's m, v and step unchanged, and one
+   step under ``torch.profiler``.
 
 Then the ``nvidia-smi`` line, the ``{"kernels": [...]}`` summary and, as
 the last line, ``{"ok": true, "device": {...}}``.  Without a CUDA
@@ -53,12 +72,15 @@ import torch
 import torch.nn.functional as F
 
 from apex_tpu_torch import (
+    BertConfig,
+    BertForMLM,
     FusedTrainDriver,
     GPTConfig,
     GPTDecoder,
     GPTLM,
     ServeEngine,
     amp,
+    init_bert_params,
     init_params,
     read_metrics,
 )
@@ -66,6 +88,7 @@ from apex_tpu_torch.ops import _build, launch_counts, reset_launch_counts
 from apex_tpu_torch.ops.attention import (
     _pack_seed,
     attention_ref,
+    flash_attention,
     flash_attention_bwd,
     flash_attention_bwd_ref,
     flash_attention_fwd,
@@ -74,6 +97,7 @@ from apex_tpu_torch.ops.attention import (
     paged_fused_attention,
     quantize_kv,
 )
+from apex_tpu_torch.ops.fused_optim import lamb_stage1, lamb_stage1_ref
 from apex_tpu_torch.ops.layer_norm import (
     layer_norm,
     layer_norm_bwd,
@@ -86,7 +110,7 @@ from apex_tpu_torch.ops.softmax_xentropy import (
     softmax_cross_entropy_fwd,
     softmax_cross_entropy_fwd_ref,
 )
-from apex_tpu_torch.optimizers import fused_adam
+from apex_tpu_torch.optimizers import fused_adam, fused_lamb
 
 # published H100 SXM peaks (NVIDIA data sheet, dense, 700 W)
 HBM_BYTES_PER_S = 3.35e12  # device memory
@@ -154,12 +178,13 @@ def device_ms(fn, iters: int = 20) -> float:
     return total_us / iters / 1e3 if total_us > 0 else None
 
 
-def timings(fn, iters: int = 50) -> dict:
-    """``ms``: device time per call (profiler); ``events_ms``: CUDA-event
-    time per call over back-to-back calls, which includes the host's
-    enqueue time wherever the host is the slower side."""
+def timings(fn, iters: int = 50, prof_iters: int = 20) -> dict:
+    """``ms``: device time per call (profiler, over ``prof_iters`` calls);
+    ``events_ms``: CUDA-event time per call over back-to-back calls, which
+    includes the host's enqueue time wherever the host is the slower
+    side."""
     ev = time_ms(fn, iters=iters)
-    dev = device_ms(fn)
+    dev = device_ms(fn, iters=prof_iters)
     return {"ms": ev if dev is None else dev, "events_ms": ev,
             "ms_source": "events" if dev is None else "profiler"}
 
@@ -209,26 +234,34 @@ def _dt(t) -> str:
     return str(t).replace("torch.", "")
 
 
+def _case_name(c: dict) -> str:
+    """A kernel case's own name, or its LayerNorm shape and dtypes."""
+    return c.get("case") or (f"rows={c['rows']} n={c['n']} "
+                             f"{c.get('dtype') or c['x_dtype']}/"
+                             f"{c['w_dtype']}")
+
+
 # -- phase 2: kernels ------------------------------------------------------
 
 def phase_layer_norm(dev):
     """LayerNorm forward at the serving shapes (the decode step, 8 slots x
     1 token, and a 128-token prefill chunk; fp32 and bf16 x with fp32
-    affine) and at the training shape, (16384, 768) fp32 x with bf16
+    affine), at the GPT training shape, (16384, 768) fp32 x with bf16
     affine (O2 casts every GPT parameter, LayerNorm's included) and with
-    fp32 affine (O0).  fp32 output within 1e-5, bf16 within 1 bf16 ulp."""
+    fp32 affine (O0), and at the BERT-large training shape, (6144, 1024),
+    likewise.  fp32 output within 1e-5, bf16 within 1 bf16 ulp."""
     gen = torch.Generator(device=dev).manual_seed(1)
-    n = 768
-    w32 = 1 + 0.1 * torch.randn(n, device=dev, generator=gen)
-    b32 = 0.1 * torch.randn(n, device=dev, generator=gen)
     cases = []
-    for rows, dtype, w_dt in ((8, torch.float32, torch.float32),
-                              (8, torch.bfloat16, torch.float32),
-                              (128, torch.float32, torch.float32),
-                              (128, torch.bfloat16, torch.float32),
-                              (16384, torch.float32, torch.bfloat16),
-                              (16384, torch.float32, torch.float32)):
-        w, b = w32.to(w_dt), b32.to(w_dt)
+    for rows, n, dtype, w_dt in ((8, 768, torch.float32, torch.float32),
+                                 (8, 768, torch.bfloat16, torch.float32),
+                                 (128, 768, torch.float32, torch.float32),
+                                 (128, 768, torch.bfloat16, torch.float32),
+                                 (16384, 768, torch.float32, torch.bfloat16),
+                                 (16384, 768, torch.float32, torch.float32),
+                                 (6144, 1024, torch.float32, torch.bfloat16),
+                                 (6144, 1024, torch.float32, torch.float32)):
+        w = (1 + 0.1 * torch.randn(n, device=dev, generator=gen)).to(w_dt)
+        b = (0.1 * torch.randn(n, device=dev, generator=gen)).to(w_dt)
         x = (2 * torch.randn(rows, n, device=dev, generator=gen)
              + 0.5).to(dtype)
         got = layer_norm(x, w, b)
@@ -236,11 +269,11 @@ def phase_layer_norm(dev):
         torch.cuda.synchronize()
         err = (got.float() - want.float()).abs().max().item()
         if dtype == torch.float32:
-            check(err <= 1e-5, f"layer_norm fp32 rows={rows} affine "
+            check(err <= 1e-5, f"layer_norm fp32 rows={rows} n={n} affine "
                   f"{_dt(w_dt)}: {err}")
         else:
             check(bf16_ulp_ok(got, want),
-                  f"layer_norm bf16 rows={rows}: {err}")
+                  f"layer_norm bf16 rows={rows} n={n}: {err}")
         kern = timings(lambda: layer_norm(x, w, b))
         plain = timings(lambda: layer_norm_ref(x, w, b))
         wd, bd = w.to(dtype), b.to(dtype)
@@ -563,24 +596,30 @@ def phase_profile(dec):
 
 # -- phase 5: training kernels ------------------------------------------------
 
-def phase_layer_norm_bwd(dev, rows: int = 16384, n: int = 768):
-    """LayerNorm backward at the training shape: (16384, 768) fp32 x and
-    dy with bf16 (O2) and fp32 affine, a row count that is no multiple of
-    the kernel's 16-row block, bf16 x, and no affine (the port of
-    ``_ln_bwd_dx_kernel``: the same kernel without a weight).  dx within
-    1e-5 of max|dx|
-    (fp32) or 1 bf16 ulp; dgamma/dbeta within 1e-5 of their largest
-    magnitude (16384-row fp32 sums in two orders), plus 1 bf16 ulp for
-    bf16 weights.  Planted fault: the last row block dropped from
-    dgamma."""
+def phase_layer_norm_bwd(dev, rows: int = 16384, n: int = 768,
+                         bert_rows: int = 6144, bert_n: int = 1024):
+    """LayerNorm backward at the GPT training shape: (16384, 768) fp32 x
+    and dy with bf16 (O2) and fp32 affine, a row count that is no multiple
+    of the kernel's 16-row block, bf16 x, and no affine (the port of
+    ``_ln_bwd_dx_kernel``: the same kernel without a weight); and at the
+    BERT-large training shape, (6144, 1024) fp32 x and dy with bf16 and
+    fp32 affine (the kernel's 4-column instantiation; 768 takes 3).  dx
+    within 1e-5 of max|dx| (fp32) or 1 bf16 ulp; dgamma/dbeta within 1e-5
+    of their largest magnitude (fp32 sums over the rows in two orders),
+    plus 1 bf16 ulp for bf16 weights.  Planted fault: the last row block
+    dropped from dgamma."""
     gen = torch.Generator(device=dev).manual_seed(6)
     rpb = 16  # rows of one backward block (apex_ln_bwd_rows_per_block)
     cases = []
-    for r, x_dt, w_dt in ((rows, torch.float32, torch.bfloat16),
-                          (rows, torch.float32, torch.float32),
-                          (rows - 3, torch.float32, torch.bfloat16),
-                          (rows, torch.bfloat16, torch.bfloat16),
-                          (rows, torch.float32, None)):
+    for r, n, x_dt, w_dt in ((rows, n, torch.float32, torch.bfloat16),
+                             (rows, n, torch.float32, torch.float32),
+                             (rows - 3, n, torch.float32, torch.bfloat16),
+                             (rows, n, torch.bfloat16, torch.bfloat16),
+                             (rows, n, torch.float32, None),
+                             (bert_rows, bert_n, torch.float32,
+                              torch.bfloat16),
+                             (bert_rows, bert_n, torch.float32,
+                              torch.float32)):
         x = (2 * torch.randn(r, n, device=dev, generator=gen)
              + 0.5).to(x_dt)
         dy = torch.randn(r, n, device=dev, generator=gen).to(x_dt)
@@ -592,19 +631,20 @@ def phase_layer_norm_bwd(dev, rows: int = 16384, n: int = 768):
         pairs = [(a, b) for a, b in zip(got, want) if b is not None]
         errs = [_err(a, b) for a, b in pairs]
         check(_close(got[0], want[0], 1e-5, ulps=1),
-              f"layer_norm_bwd dx rows={r} {x_dt}: {errs[0]}")
+              f"layer_norm_bwd dx rows={r} n={n} {x_dt}: {errs[0]}")
         faults = {}
         if w is not None:
             for name, a, b in (("dgamma", got[1], want[1]),
                                ("dbeta", got[2], want[2])):
                 check(_close(a, b, 1e-5, ulps=1),
-                      f"layer_norm_bwd {name} rows={r} {w_dt}: {_err(a, b)}")
+                      f"layer_norm_bwd {name} rows={r} n={n} {w_dt}: "
+                      f"{_err(a, b)}")
             last = r % rpb or rpb
             bad = layer_norm_bwd(x[:r - last], w, dy[:r - last])[1]
             faults["last_row_block_dropped"] = _err(bad, want[1])
             check(not _close(bad, want[1], 1e-5, ulps=1),
-                  f"layer_norm_bwd rows={r}: the check misses the last row "
-                  f"block dropped from dgamma ({faults})")
+                  f"layer_norm_bwd rows={r} n={n}: the check misses the last "
+                  f"row block dropped from dgamma ({faults})")
         kern = timings(lambda: layer_norm_bwd(x, w, dy))
         plain = timings(lambda: layer_norm_bwd_ref(x, w, dy), iters=20)
         wl = torch.ones(n, device=dev, dtype=x_dt) if w is None \
@@ -636,22 +676,39 @@ def _strict_causal_bias(s: int, dev):
     return torch.where(i[None, :] < i[:, None], 0.0, -1e30)
 
 
-def _flash_bound(bh: int, s: int, d: int, dt, backward: bool):
-    """Visible (causal) query-key pairs; QK^T (and dO.V^T) at the rate
-    of the inputs' type, the fp32 products (p.V; pd^T.dO, ds^T.Q, ds.K)
-    at the fp32 rate; q, k, v, o (+ do, dq, dk, dv) and lse (+ delta)
-    moved once."""
-    pairs = bh * s * (s + 1) // 2
-    el = torch.tensor([], dtype=dt).element_size()
-    rate = BF16_FLOPS if dt == torch.bfloat16 else FP32_FLOPS
+def _stored_bytes(t) -> int:
+    """Bytes of the distinct elements of a (possibly broadcast) view."""
+    n = 1
+    for size, stride in zip(t.shape, t.stride()):
+        if stride != 0:
+            n *= size
+    return n * t.element_size()
+
+
+def _flash_bound(q, k, bias, backward: bool, causal: bool,
+                 dbias: bool = False):
+    """Visible query-key pairs; QK^T (and dO.V^T) at the rate of the
+    inputs' type, the fp32 products (p.V; pd^T.dO, ds^T.Q, ds.K) at the
+    fp32 rate; q, k, v, o (+ do, dq, dk, dv), lse (+ delta), the bias's
+    stored elements, if any, (and the fp32 per-batch*head dbias) moved
+    once."""
+    bh, sq, d = q.shape
+    sk = k.shape[1]
+    rows = torch.arange(sq)[:, None]
+    pairs = bh * int((rows >= torch.arange(sk)[None, :]).sum()) if causal \
+        else bh * sq * sk
+    el = q.element_size()
+    rate = BF16_FLOPS if q.dtype == torch.bfloat16 else FP32_FLOPS
+    nbytes = (0 if bias is None else _stored_bytes(bias)) \
+        + (2 * bh * sq + 2 * bh * sk) * d * el + bh * sq * 4
+    ops = {rate: 2 * pairs * d}
     if backward:
-        nbytes = 8 * bh * s * d * el + 2 * bh * s * 4
-        ops = {rate: 2 * 2 * pairs * d}
-        ops[FP32_FLOPS] = ops.get(FP32_FLOPS, 0) + 3 * 2 * pairs * d
-    else:
-        nbytes = 4 * bh * s * d * el + bh * s * 4
-        ops = {rate: 2 * pairs * d}
-        ops[FP32_FLOPS] = ops.get(FP32_FLOPS, 0) + 2 * pairs * d
+        nbytes += (2 * bh * sq + 2 * bh * sk) * d * el + bh * sq * 4
+        ops[rate] += 2 * pairs * d
+        if dbias:
+            nbytes += bh * sq * sk * 4
+    fp32 = (3 if backward else 1) * 2 * pairs * d
+    ops[FP32_FLOPS] = ops.get(FP32_FLOPS, 0) + fp32
     return _bound(nbytes, ops)
 
 
@@ -681,8 +738,8 @@ def phase_flash(dev, b: int = 16, h: int = 12, s: int = 1024,
         rtol_f, rtol_b = (1e-5, 1e-5) if dt == torch.float32 else (1e-4, 1e-4)
         o, lse = flash_attention_fwd(q, k, v, *args)
         o_ref, lse_ref = flash_attention_fwd_ref(q, k, v, *args)
-        grads = flash_attention_bwd(q, k, v, o, lse, do, *args)
-        want = flash_attention_bwd_ref(q, k, v, o, lse, do, *args)
+        grads = flash_attention_bwd(q, k, v, o, lse, do, *args)[:3]
+        want = flash_attention_bwd_ref(q, k, v, o, lse, do, *args)[:3]
         torch.cuda.synchronize()
         err_o, err_lse = _err(o, o_ref), _err(lse, lse_ref)
         errs_b = [_err(a, w) for a, w in zip(grads, want)]
@@ -713,7 +770,7 @@ def phase_flash(dev, b: int = 16, h: int = 12, s: int = 1024,
         if rate > 0:
             shifted = (_pack_seed(seed_int, 0, 1, 0, device=dev),) + args[1:]
             bad_o, _ = flash_attention_fwd(q, k, v, *shifted)
-            bad_g = flash_attention_bwd(q, k, v, o, lse, do, *shifted)
+            bad_g = flash_attention_bwd(q, k, v, o, lse, do, *shifted)[:3]
             torch.cuda.synchronize()
             faults["dropout_shifted_one_col_fwd"] = _err(bad_o, o_ref)
             faults["dropout_shifted_one_col_bwd"] = _err(bad_g[0], want[0])
@@ -744,7 +801,7 @@ def phase_flash(dev, b: int = 16, h: int = 12, s: int = 1024,
         base = {"case": name, "B": b, "H": h, "S": s, "D": d,
                 "dtype": _dt(dt), "dropout": rate,
                 "planted_fault_errs": faults}
-        bound, by = _flash_bound(bh, s, d, dt, backward=False)
+        bound, by = _flash_bound(q, k, None, backward=False, causal=True)
         fwd = {**base, "max_abs_err": max(err_o, err_lse),
                "errs_o_lse": [err_o, err_lse],
                "tol": f"{rtol_f} of max|want|" + (" + 2 bf16 ulps"
@@ -755,7 +812,7 @@ def phase_flash(dev, b: int = 16, h: int = 12, s: int = 1024,
                "library": "F.scaled_dot_product_attention(is_causal=True), "
                           "no dropout"}
         emit({"phase": "kernel", "kernel": "flash_attention_fwd", **fwd})
-        bound, by = _flash_bound(bh, s, d, dt, backward=True)
+        bound, by = _flash_bound(q, k, None, backward=True, causal=True)
         bwd = {**base, "max_abs_err": max(errs_b), "errs_dq_dk_dv": errs_b,
                "tol": fwd["tol"], **_merge(kern_b, plain_b, lib_fb),
                "bound_ms": bound, "bound_by": by,
@@ -791,8 +848,8 @@ def phase_flash_shapes(dev, h: int = 12, d: int = 64):
         rtol = 1e-5 if dt == torch.float32 else 1e-4
         o, lse = flash_attention_fwd(q, k, v, *args)
         o_ref, lse_ref = flash_attention_fwd_ref(q, k, v, *args)
-        grads = flash_attention_bwd(q, k, v, o, lse, do, *args)
-        want = flash_attention_bwd_ref(q, k, v, o, lse, do, *args)
+        grads = flash_attention_bwd(q, k, v, o, lse, do, *args)[:3]
+        want = flash_attention_bwd_ref(q, k, v, o, lse, do, *args)[:3]
         torch.cuda.synchronize()
         name = (f"B={b} H={h} Sq={sq} Sk={sk} causal={causal} {_dt(dt)} "
                 f"dropout={rate}")
@@ -818,11 +875,13 @@ def phase_flash_shapes(dev, h: int = 12, d: int = 64):
               "planted_fault_errs": faults})
 
 
-def phase_xent(dev, rows: int = 16384, v: int = 50304):
-    """Fused cross-entropy at the training shape (16384 x 50304 bf16
+def phase_xent(dev, rows: int = 16384, v: int = 50304,
+               bert_rows: int = 6144, bert_v: int = 30592):
+    """Fused cross-entropy at the GPT training shape (16384 x 50304 bf16
     logits), a ragged vocab (50257, rows not 16-byte aligned), label
-    smoothing, a row count that is no multiple of any tile, and fp32
-    logits; logits ~ 3 N(0, 1).  Loss and lse within 2e-6 of max|want|
+    smoothing, a row count that is no multiple of any tile, fp32 logits,
+    and the BERT-large MLM shape (6144 x 30592 bf16, no smoothing);
+    logits ~ 3 N(0, 1).  Loss and lse within 2e-6 of max|want|
     (fp32 sums of 50k exponentials in two orders); dlogits within 1 bf16
     ulp plus 1e-9 (bf16) or 1e-5 of max|want| (fp32).  Planted fault: the
     reference's last ragged vocab tile (past the last multiple of 2048)
@@ -833,7 +892,8 @@ def phase_xent(dev, rows: int = 16384, v: int = 50304):
     for r, vv, dt, sm in ((rows, v, torch.bfloat16, 0.0),
                           (rows, ragged, torch.bfloat16, 0.1),
                           (rows // 4 + 1, ragged, torch.bfloat16, 0.0),
-                          (rows, v, torch.float32, 0.1)):
+                          (rows, v, torch.float32, 0.1),
+                          (bert_rows, bert_v, torch.bfloat16, 0.0)):
         logits = (3 * torch.randn(r, vv, device=dev, generator=gen)).to(dt)
         labels = torch.randint(0, vv, (r,), device=dev, generator=gen)
         g = torch.rand(r, device=dev, generator=gen)
@@ -1004,10 +1064,12 @@ def phase_train(dev, params, b: int = 16, s: int = 1024, k: int = 10,
     peak = torch.cuda.max_memory_allocated()
     med = sorted(walls)[len(walls) // 2]
     layers = cfg.num_layers
-    per_step = {"layer_norm": 2 * layers + 1, "layer_norm_bwd": 2 * layers + 1,
-                "flash_attention_fwd": layers, "flash_attention_bwd": layers,
-                "softmax_xentropy_fwd": 1, "softmax_xentropy_bwd": 1,
-                "paged_fused_attention": 0}
+    per_step = {n: 0 for n in counted}
+    per_step.update({"layer_norm": 2 * layers + 1,
+                     "layer_norm_bwd": 2 * layers + 1,
+                     "flash_attention_fwd": layers,
+                     "flash_attention_bwd": layers,
+                     "softmax_xentropy_fwd": 1, "softmax_xentropy_bwd": 1})
     first, last = warm.per_step["loss"][0], windows[-1].metrics["loss"]
     emit({"phase": "train", "model": "GPT-2 small O2 (bf16 model, fp32 "
           "masters, dynamic loss scale), dropout 0.1, fused_adam(6e-4, "
@@ -1062,9 +1124,556 @@ def phase_train(dev, params, b: int = 16, s: int = 1024, k: int = 10,
     return counted, step, carry
 
 
-def phase_train_profile(step, carry):
-    """Where one O2 training step's time goes: wall time, device-busy
-    share and the kernels that take the most device time."""
+# -- phase 8: BERT kernels ----------------------------------------------------
+
+def _padding_mask(dev, gen, b: int, s: int, lo: int = 128):
+    """Seeded lengths in [lo, s] and the (B, 1, S) fp32 key bias BERT
+    builds from them: 0 for a token, -1e9 for padding."""
+    lengths = torch.randint(lo, s + 1, (b,), device=dev, generator=gen)
+    keep = torch.arange(s, device=dev)[None, :] < lengths[:, None]
+    return ((1.0 - keep.float()) * -1e9)[:, None, :], lengths
+
+
+def _dbias_ok(got, want, rtol: float, causal: bool) -> bool:
+    """dbias within rtol of max|want| and, with the causal mask, exactly 0
+    above the diagonal (the kernel zero-fills the tiles it skips)."""
+    if not _close(got, want, rtol):
+        return False
+    if causal:
+        sq, sk = got.shape[1:]
+        upper = torch.ones(sq, sk, dtype=torch.bool,
+                           device=got.device).triu(1)
+        return bool((got[:, upper] == 0).all())
+    return True
+
+
+def phase_flash_bias(dev, b: int = 12, h: int = 16, s: int = 512,
+                     d: int = 64):
+    """Flash attention with an additive bias, three cases, each against
+    the plain versions: (1) BERT-large's shape (B 12, H 16, S 512, bf16,
+    dropout 0.1, no causal mask) with the key-padding bias from seeded
+    lengths 128-512, passed as the (B, 1, S) mask expanded to (B, S, S)
+    (row stride 0); (2) causal fp32 at 300 x 450 with a full N(0, 1) bias
+    and ``bias_grad=True``, dbias held too; (3) bf16 with a full bf16
+    (B, Sq, Sk) bias.  Tolerances as :func:`phase_flash`; dbias within
+    1e-5 of max|want| and exactly 0 above a causal diagonal, written into
+    a block that held NaN just before.  Planted faults: the bias read at
+    batch bh % B instead of bh // H (the kernel given a per-batch*head
+    bias so permuted), dbias multiplied by the scale, and a causally
+    skipped dbias tile left unwritten (NaN, as the poisoned block has
+    it).  Case (1) is
+    timed beside SDPA with the float mask (no dropout)."""
+    gen = torch.Generator(device=dev).manual_seed(13)
+    bh = b * h
+    seed_int = 246813579
+    cases = {}
+
+    def qkv(bh_, sq, sk, dt):
+        q = (2 * torch.randn(bh_, sq, d, device=dev, generator=gen)).to(dt)
+        k = torch.randn(bh_, sk, d, device=dev, generator=gen).to(dt)
+        v = torch.randn(bh_, sk, d, device=dev, generator=gen).to(dt)
+        do = torch.randn(bh_, sq, d, device=dev, generator=gen).to(dt)
+        return q, k, v, do
+
+    # (1) BERT-large
+    dt, rate = torch.bfloat16, 0.1
+    q, k, v, do = qkv(bh, s, s, dt)
+    mask3, lengths = _padding_mask(dev, gen, b, s)
+    bias = mask3.expand(b, s, s)
+    args = (_pack_seed(seed_int, device=dev), d ** -0.5, False, rate, (h, h))
+    o, lse = flash_attention_fwd(q, k, v, *args, bias=bias)
+    o_ref, lse_ref = flash_attention_fwd_ref(q, k, v, *args, bias=bias)
+    grads = flash_attention_bwd(q, k, v, o, lse, do, *args, bias=bias)
+    want = flash_attention_bwd_ref(q, k, v, o, lse, do, *args, bias=bias)
+    torch.cuda.synchronize()
+    check(grads[3] is None and want[3] is None, "dbias without bias_grad")
+    rtol = 1e-4
+    err_o, err_lse = _err(o, o_ref), _err(lse, lse_ref)
+    errs_b = [_err(a, w) for a, w in zip(grads[:3], want[:3])]
+    name = f"BERT-large bf16 dropout={rate} padding bias"
+    check(_close(o, o_ref, rtol, ulps=2), f"flash bias fwd {name}: {err_o}")
+    check(_close(lse, lse_ref, 1e-5), f"flash bias lse {name}: {err_lse}")
+    for gname, a, w, e in zip(("dq", "dk", "dv"), grads, want, errs_b):
+        check(_close(a, w, rtol, ulps=2), f"flash bias {gname} {name}: {e}")
+    # planted fault: each batch*head reads the mask of batch bh % B
+    perm = mask3[torch.arange(bh, device=dev) % b].expand(bh, s, s)
+    bad_o, _ = flash_attention_fwd(q, k, v, *args, bias=perm)
+    bad_g = flash_attention_bwd(q, k, v, o, lse, do, *args, bias=perm)
+    torch.cuda.synchronize()
+    faults = {"bias_batch_bh_mod_B_fwd": _err(bad_o, o_ref),
+              "bias_batch_bh_mod_B_bwd": _err(bad_g[0], want[0])}
+    check(not _close(bad_o, o_ref, rtol, ulps=2),
+          f"flash bias {name}: the check misses the bias batch bh % B")
+    check(not all(_close(a, w, rtol, ulps=2)
+                  for a, w in zip(bad_g[:3], want[:3])),
+          f"flash bias {name}: the check misses the bias batch bh % B in "
+          f"the backward")
+    del bad_o, bad_g, perm
+    kern_f = timings(lambda: flash_attention_fwd(q, k, v, *args, bias=bias),
+                     iters=20)
+    plain_f = timings(lambda: flash_attention_fwd_ref(q, k, v, *args,
+                                                      bias=bias), iters=5)
+    kern_b = timings(lambda: flash_attention_bwd(q, k, v, o, lse, do, *args,
+                                                 bias=bias), iters=10)
+    plain_b = timings(lambda: flash_attention_bwd_ref(q, k, v, o, lse, do,
+                                                      *args, bias=bias),
+                      iters=3)
+    q4, k4, v4, do4 = (t.reshape(b, h, s, d) for t in (q, k, v, do))
+    sdpa_mask = mask3.to(dt)[:, None]  # (B, 1, 1, S)
+    lib_f = timings(lambda: F.scaled_dot_product_attention(
+        q4, k4, v4, attn_mask=sdpa_mask), iters=20)
+    qg, kg, vg = (t.detach().requires_grad_() for t in (q4, k4, v4))
+
+    def sdpa_fwd_bwd():
+        out = F.scaled_dot_product_attention(qg, kg, vg, attn_mask=sdpa_mask)
+        torch.autograd.grad(out, (qg, kg, vg), do4)
+
+    lib_fb = timings(sdpa_fwd_bwd, iters=10)
+    base = {"case": name, "B": b, "H": h, "S": s, "D": d, "dtype": _dt(dt),
+            "dropout": rate, "lengths": lengths.tolist(),
+            "planted_fault_errs": faults}
+    tol = f"{rtol} of max|want| + 2 bf16 ulps"
+    bound, by = _flash_bound(q, k, bias, backward=False, causal=False)
+    fwd = {**base, "max_abs_err": max(err_o, err_lse),
+           "errs_o_lse": [err_o, err_lse], "tol": tol,
+           **_merge(kern_f, plain_f, lib_f), "bound_ms": bound,
+           "bound_by": by, "library": "F.scaled_dot_product_attention with "
+           "the float key mask, no dropout"}
+    emit({"phase": "kernel", "kernel": "flash_attention_fwd_bias", **fwd})
+    bound, by = _flash_bound(q, k, bias, backward=True, causal=False)
+    bwd = {**base, "max_abs_err": max(errs_b), "errs_dq_dk_dv": errs_b,
+           "tol": tol, **_merge(kern_b, plain_b, lib_fb), "bound_ms": bound,
+           "bound_by": by, "library": "F.scaled_dot_product_attention with "
+           "the float key mask, forward + backward, no dropout"}
+    emit({"phase": "kernel", "kernel": "flash_attention_bwd_bias", **bwd})
+    # the bias_grad backward (the reference's two-pass path) at the same
+    # shape: dq, dk, dv and the per-batch*head dbias against the plain
+    # version, timed beside SDPA's forward + backward with the gradient
+    # of a bf16 (B, 1, S, S) mask
+    grads = flash_attention_bwd(q, k, v, o, lse, do, *args, bias=bias,
+                                bias_grad=True)
+    want = flash_attention_bwd_ref(q, k, v, o, lse, do, *args, bias=bias,
+                                   bias_grad=True)
+    torch.cuda.synchronize()
+    errs_g = [_err(a, w) for a, w in zip(grads, want)]
+    check(all(_close(a, w, rtol, ulps=2) for a, w in zip(grads[:3], want[:3]))
+          and _dbias_ok(grads[3], want[3], rtol, causal=False),
+          f"flash bias_grad {name}: {errs_g}")
+    del grads, want
+    kern_g = timings(lambda: flash_attention_bwd(q, k, v, o, lse, do, *args,
+                                                 bias=bias, bias_grad=True),
+                     iters=10)
+    plain_g = timings(lambda: flash_attention_bwd_ref(
+        q, k, v, o, lse, do, *args, bias=bias, bias_grad=True), iters=3)
+    mask_g = sdpa_mask.expand(b, 1, s, s).contiguous().requires_grad_()
+
+    def sdpa_fwd_bwd_mask():
+        out = F.scaled_dot_product_attention(qg, kg, vg, attn_mask=mask_g)
+        torch.autograd.grad(out, (qg, kg, vg, mask_g), do4)
+
+    lib_g = timings(sdpa_fwd_bwd_mask, iters=10)
+    gbound, gby = _flash_bound(q, k, bias, backward=True, causal=False,
+                               dbias=True)
+    bwd["bias_grad"] = {
+        "max_abs_err": max(errs_g), "errs_dq_dk_dv_dbias": errs_g,
+        "tol": tol + "; dbias " + f"{rtol} of max|want|",
+        **_merge(kern_g, plain_g, lib_g),
+        "bound_ms": gbound, "bound_by": gby,
+        "library": "F.scaled_dot_product_attention forward + backward with "
+                   "the gradient of a bf16 (B, 1, S, S) mask, no dropout"}
+    emit({"phase": "kernel", "kernel": "flash_attention_bwd_bias_grad",
+          **base, **bwd["bias_grad"]})
+    cases["bert"] = (fwd, bwd)
+    del q, k, v, do, o, lse, o_ref, lse_ref, qg, kg, vg, mask_g
+    torch.cuda.empty_cache()
+
+    # (2) causal fp32 300 x 450, bias_grad: dbias held
+    b2, sq, sk, dt = 2, 300, 450, torch.float32
+    q, k, v, do = qkv(b2 * h, sq, sk, dt)
+    bias = torch.randn(b2, sq, sk, device=dev, generator=gen)
+    args = (_pack_seed(seed_int, device=dev), d ** -0.5, True, rate, (h, h))
+    o, lse = flash_attention_fwd(q, k, v, *args, bias=bias)
+    o_ref, lse_ref = flash_attention_fwd_ref(q, k, v, *args, bias=bias)
+    # poison the block that dbias will take (the wrapper allocates it
+    # first, and the allocator hands back the block just freed): a tile
+    # the kernel leaves unwritten then reads NaN and fails the check
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    poison = torch.full((b2 * h, sq, sk), float("nan"), device=dev)
+    poison_ptr = poison.data_ptr()
+    del poison
+    grads = flash_attention_bwd(q, k, v, o, lse, do, *args, bias=bias,
+                                bias_grad=True)
+    check(dev.type != "cuda" or grads[3].data_ptr() == poison_ptr,
+          "flash dbias: the poisoned block was not handed to dbias, so an "
+          "unwritten tile would go unseen")
+    want = flash_attention_bwd_ref(q, k, v, o, lse, do, *args, bias=bias,
+                                   bias_grad=True)
+    # the autograd path: the head-summed dbias of flash_attention
+    bl = bias.detach().requires_grad_()
+    out = flash_attention(*(t.reshape(b2, h, -1, d) for t in (q, k, v)),
+                          bias=bl, causal=True, dropout_rate=rate,
+                          dropout_seed=seed_int, bias_grad=True)
+    (dbias_sum,) = torch.autograd.grad(out, (bl,), do.reshape(b2, h, sq, d))
+    want_sum = want[3].reshape(b2, h, sq, sk).sum(dim=1)
+    torch.cuda.synchronize()
+    name = f"B={b2} H={h} Sq={sq} Sk={sk} causal fp32 dropout={rate} " \
+        f"bias_grad"
+    errs = [_err(o, o_ref), _err(lse, lse_ref)] + [
+        _err(a, w) for a, w in zip(grads, want)] + [
+        _err(dbias_sum, want_sum)]
+    check(_close(o, o_ref, 1e-5) and _close(lse, lse_ref, 1e-5),
+          f"flash bias fwd {name}: {errs[:2]}")
+    check(all(_close(a, w, 1e-5) for a, w in zip(grads[:3], want[:3])),
+          f"flash bias bwd {name}: {errs[2:5]}")
+    check(_dbias_ok(grads[3], want[3], 1e-5, causal=True),
+          f"flash dbias {name}: {errs[5]}")
+    check(_close(dbias_sum, want_sum, 1e-5),
+          f"flash head-summed dbias {name}: {errs[6]}")
+    bad = grads[3] * args[1]
+    garbage = grads[3].clone()  # a skipped tile as the poisoned block had it
+    garbage[:, :64, 64:128] = float("nan")
+    upper = torch.ones(sq, sk, dtype=torch.bool, device=dev).triu(1)
+    faults = {"dbias_times_scale": _err(bad, want[3]),
+              "skipped_dbias_tile_unwritten_nonzero_above_diagonal":
+                  int((garbage[:, upper] != 0).sum())}
+    check(not _dbias_ok(bad, want[3], 1e-5, causal=True),
+          f"flash {name}: the check misses dbias multiplied by scale")
+    check(not _dbias_ok(garbage, want[3], 1e-5, causal=True),
+          f"flash {name}: the check misses an unwritten skipped dbias tile")
+    emit({"phase": "kernel_check", "kernel": "flash_attention_bias",
+          "case": name, "errs_o_lse_dq_dk_dv_dbias_dbiassum": errs,
+          "tol": "1e-5 of max|want|; dbias exactly 0 above the diagonal",
+          "dbias_block_poisoned_nan": True, "planted_fault_errs": faults})
+    cases["dbias"] = {"max_abs_err": max(errs), "planted_fault_errs": faults}
+    del q, k, v, do, o, lse, grads, want, bad, garbage, out, dbias_sum
+
+    # (3) bf16 with a full bf16 bias
+    b3, dt = 2, torch.bfloat16
+    q, k, v, do = qkv(b3 * h, s, s, dt)
+    bias = torch.randn(b3, s, s, device=dev, generator=gen).to(dt)
+    args = (_pack_seed(seed_int, device=dev), d ** -0.5, False, 0.0, (h, h))
+    o, lse = flash_attention_fwd(q, k, v, *args, bias=bias)
+    o_ref, lse_ref = flash_attention_fwd_ref(q, k, v, *args, bias=bias)
+    grads = flash_attention_bwd(q, k, v, o, lse, do, *args, bias=bias)
+    want = flash_attention_bwd_ref(q, k, v, o, lse, do, *args, bias=bias)
+    torch.cuda.synchronize()
+    name = f"B={b3} H={h} S={s} bf16 full bf16 bias"
+    errs = [_err(o, o_ref), _err(lse, lse_ref)] + [
+        _err(a, w) for a, w in zip(grads[:3], want[:3])]
+    check(_close(o, o_ref, 1e-4, ulps=2) and _close(lse, lse_ref, 1e-5),
+          f"flash bias fwd {name}: {errs[:2]}")
+    check(all(_close(a, w, 1e-4, ulps=2)
+              for a, w in zip(grads[:3], want[:3])),
+          f"flash bias bwd {name}: {errs[2:]}")
+    emit({"phase": "kernel_check", "kernel": "flash_attention_bias",
+          "case": name, "errs_o_lse_dq_dk_dv": errs,
+          "tol": "1e-4 of max|want| + 2 bf16 ulps"})
+    torch.cuda.empty_cache()
+    return cases
+
+
+def _lamb_leaves(dev, gen, shapes, g_dtype=torch.bfloat16):
+    """(g, p, m, v) per shape: g ~ 64 N(0, 1) in ``g_dtype`` (scaled grads),
+    p ~ N(0, 0.02), m ~ 1e-3 N(0, 1), v ~ 1e-6 |N(0, 1)|."""
+    out = []
+    for shape in shapes:
+        g = (64 * torch.randn(shape, device=dev, generator=gen)).to(g_dtype)
+        p_ = 0.02 * torch.randn(shape, device=dev, generator=gen)
+        m = 1e-3 * torch.randn(shape, device=dev, generator=gen)
+        v = 1e-6 * torch.randn(shape, device=dev, generator=gen).abs()
+        out.append((g, p_, m, v))
+    return out
+
+
+def _lamb_ok(got, want) -> bool:
+    """m and v within 1 fp32 ulp of the plain version (each is rounded
+    once per operation on both sides); the sums within 1e-5 relative
+    (fp32 sums of up to 31 M positive terms in two orders)."""
+    m, v, ps, us = got
+    wm, wv, wps, wus = want
+    ulp = lambda x: torch.finfo(torch.float32).eps * x.abs()  # noqa: E731
+    return bool(((m - wm).abs() <= ulp(wm)).all()
+                and ((v - wv).abs() <= ulp(wv)).all()
+                and abs(float(ps) - float(wps)) <= 1e-5 * abs(float(wps))
+                and abs(float(us) - float(wus)) <= 1e-5 * abs(float(wus)))
+
+
+def phase_lamb(dev, leaf_shapes=None):
+    """LAMB stage 1 against its plain version, with skip 0 and 1, on four
+    leaves (BERT-large's 30592 x 1024 word table, a 1024 x 4096 FFN
+    kernel, a 1024 bias, a ragged 1000-element leaf) with
+    bf16 grads; then one step's pass over every BERT-large leaf, timed.
+    Planted faults: the ragged tail (past the last multiple of 128, the
+    reference's row width) left out of the sums, and skip ignored."""
+    gen = torch.Generator(device=dev).manual_seed(14)
+    hp = dict(b1=0.9, b2=0.999, eps=1e-6, wd=0.01, adam_w=True)
+    shapes = ((30592, 1024), (1024, 4096), (1024,), (1000,))
+    cases = []
+    for (g, p_, m, v) in _lamb_leaves(dev, gen, shapes):
+        for skip in (0.0, 1.0):
+            scal = torch.tensor([2.0 ** -16 * 0.5, 1 - 0.9 ** 7,
+                                 1 - 0.999 ** 7, skip], device=dev)
+            got = lamb_stage1(g, p_, m.clone(), v.clone(), scal, **hp)
+            want = lamb_stage1_ref(g, p_, m.clone(), v.clone(), scal, **hp)
+            torch.cuda.synchronize()
+            errs = [_err(a, w) for a, w in zip(got, want)]
+            name = f"n={g.numel()} skip={int(skip)}"
+            check(_lamb_ok(got, want), f"lamb_stage1 {name}: {errs}")
+            if skip:
+                check(torch.equal(got[0], m) and torch.equal(got[1], v),
+                      f"lamb_stage1 {name}: skip changed m or v")
+            faults = {}
+            n = g.numel()
+            if n % 128:
+                cut = n - n % 128
+                flat = [t.reshape(-1)[:cut] for t in (g, p_, m, v)]
+                bad = lamb_stage1(flat[0], flat[1], flat[2].clone(),
+                                  flat[3].clone(), scal, **hp)
+                faults["ragged_tail_left_out"] = abs(float(bad[2])
+                                                     - float(want[2]))
+                check(not _lamb_ok((want[0], want[1], bad[2], bad[3]), want),
+                      f"lamb_stage1 {name}: the check misses the ragged "
+                      f"tail left out of the sums")
+            if skip:
+                noskip = scal.clone()
+                noskip[3] = 0.0
+                bad = lamb_stage1(g, p_, m.clone(), v.clone(), noskip, **hp)
+                faults["skip_ignored"] = _err(bad[0], want[0])
+                check(not _lamb_ok(bad, want),
+                      f"lamb_stage1 {name}: the check misses skip ignored")
+            case = {"case": name, "n": n, "g_dtype": "bfloat16",
+                    "skip": bool(skip), "errs_m_v_psq_usq": errs,
+                    "max_abs_err": max(errs[:2]),
+                    "tol": "m, v 1 fp32 ulp; sums 1e-5 relative",
+                    "planted_fault_errs": faults}
+            emit({"phase": "kernel_check", "kernel": "lamb_stage1", **case})
+            cases.append(case)
+    del g, p_, m, v
+    # one step's stage 1 over every leaf of BERT-large (one launch pair each)
+    if leaf_shapes is None:
+        with torch.device("meta"):
+            leaf_shapes = [t.shape for t in
+                           BertForMLM(BertConfig.large()).parameters()]
+    leaves = _lamb_leaves(dev, gen, leaf_shapes)
+    scal = torch.tensor([2.0 ** -16, 0.1, 0.001, 0.0], device=dev)
+
+    def step(fn):
+        return lambda: [fn(g, p_, m, v, scal, **hp) for g, p_, m, v in leaves]
+
+    kern = timings(step(lamb_stage1), iters=5, prof_iters=3)
+    plain = timings(step(lamb_stage1_ref), iters=2, prof_iters=1)
+    n = sum(g.numel() for g, *_ in leaves)
+    bound, by = _bound(22 * n, {FP32_FLOPS: 20 * n})
+    summary = {"case": f"one step, {len(leaves)} BERT-large leaves, bf16 g",
+               "leaves": len(leaves), "elements": n,
+               "max_abs_err": max(c["max_abs_err"] for c in cases),
+               "tol": cases[0]["tol"],
+               "planted_fault_errs": {k: v for c in cases
+                                      for k, v in c["planted_fault_errs"]
+                                      .items()},
+               **_merge(kern, plain, {}), "library_ms": None,
+               "library": "none: no single PyTorch call computes LAMB "
+                          "stage 1", "bound_ms": bound, "bound_by": by}
+    emit({"phase": "kernel", "kernel": "lamb_stage1", **summary})
+    del leaves
+    torch.cuda.empty_cache()
+    return summary
+
+
+# -- phase 9: BERT-large MLM --------------------------------------------------
+
+BERT_GRADS = ("encoder.layers.0.self_attn.in_proj_weight",
+              "encoder.layers.23.ffn_out.kernel", "mlm_bias",
+              "encoder.word_embeddings.weight")
+
+
+def _mlm_batch(dev, gen, b: int, s: int, vocab: int, lengths=None):
+    """Padded MLM data: token ids in [1000, vocab), lengths (seeded in
+    [128, s] unless given), labels on 15 % of the valid positions (their
+    inputs replaced by the [MASK] id 103), -100 elsewhere."""
+    if lengths is None:
+        lengths = torch.randint(128, s + 1, (b,), device=dev, generator=gen)
+    lengths = torch.as_tensor(lengths, device=dev)
+    ids = torch.randint(1000, vocab, (b, s), device=dev, generator=gen)
+    mask = (torch.arange(s, device=dev)[None, :] < lengths[:, None]).long()
+    picked = (torch.rand(b, s, device=dev, generator=gen) < 0.15) & (mask == 1)
+    labels = torch.where(picked, ids, -100)
+    ids = torch.where(picked, 103, ids)
+    return ids, labels, mask
+
+
+def phase_bert_parity(params, cfg=None, b: int = 2, s: int = 256,
+                      lengths=(200, 256), devices=("cuda", "cpu"),
+                      names=BERT_GRADS):
+    """BERT-large at fp32 (O0, TF32 off, no dropout) with a padding mask,
+    batch 2 x 256 with lengths 200 and 256: the MLM loss within 1e-4 and
+    four gradients within 1e-3 relative L2 error, card against the port
+    on the CPU, with the same weights and tokens."""
+    cfg = cfg or BertConfig.large(compute_dtype=torch.float32)
+    ids, labels, mask = _mlm_batch("cpu", torch.Generator().manual_seed(15),
+                                   b, s, cfg.vocab_size, lengths)
+    out = {}
+    for where in devices:
+        model = BertForMLM(cfg)
+        model.load_state_dict(params)
+        model.to(where)
+        _, loss = model(ids.to(where), labels.to(where),
+                        attention_mask=mask.to(where))
+        ps = dict(model.named_parameters())
+        gs = torch.autograd.grad(loss, [ps[n] for n in names])
+        out[where] = (float(loss.detach()), [g.cpu() for g in gs])
+        del model, ps, gs
+    a, c = devices
+    rel = {n: float((x - y).norm() / y.norm())
+           for n, x, y in zip(names, out[a][1], out[c][1])}
+    err = abs(out[a][0] - out[c][0])
+    emit({"phase": "bert_parity", "model": "BERT-large fp32 O0, padded",
+          "batch": [b, s], "lengths": list(lengths),
+          "loss_cuda": out[a][0], "loss_cpu": out[c][0],
+          "loss_abs_err": err, "grad_rel_l2": rel})
+    check(err <= 1e-4, f"bert parity: losses differ by {err}")
+    check(all(r <= 1e-3 for r in rel.values()),
+          f"bert parity: gradients differ {rel}")
+
+
+def _bert_setup(dev, params, b, s, cfg=None):
+    amp_ = amp.initialize("O2", keep_batchnorm_fp32=True)
+    cfg = cfg or BertConfig.large(compute_dtype=amp_.policy.compute_dtype)
+    model = BertForMLM(cfg)
+    model.load_state_dict(params)
+    model.to(dev)
+    opt = amp.AmpOptimizer(fused_lamb(1e-3, weight_decay=0.01), amp_)
+    masters = opt.attach(model)
+    state = opt.init(masters)
+    ids, labels, mask = _mlm_batch(dev, torch.Generator(device=dev)
+                                   .manual_seed(16), b, s, cfg.vocab_size)
+    gen = torch.Generator(device=dev).manual_seed(17)
+    names, ps = zip(*model.named_parameters())
+    plant = {"inf": False}
+
+    def step(carry, _batch):
+        masters, state = carry
+        _, loss = model(ids, labels, attention_mask=mask,
+                        deterministic=False, generator=gen)
+        grads = dict(zip(names, torch.autograd.grad(
+            amp_.scale_loss(loss, state.scaler[0]), ps)))
+        if plant["inf"]:
+            g = grads["mlm_ln.weight"].clone()
+            g[0] = float("inf")
+            grads["mlm_ln.weight"] = g
+        masters, state, stats = opt.step(grads, state, masters, model=model)
+        return (masters, state), {"loss": loss.detach(),
+                                  "loss_scale": stats.loss_scale,
+                                  "skipped": stats.found_inf.float()}
+
+    return cfg, step, (masters, state), plant, mask
+
+
+def phase_bert_train(dev, params, b: int = 12, s: int = 512, k: int = 6,
+                     timed: int = 3, cfg=None):
+    """O2 (bf16 model, fp32 masters, dynamic loss scale, keep_batchnorm_fp32)
+    BERT-large MLM with fused_lamb(1e-3, weight decay 0.01) at batch
+    12 x 512 (the JAX bench's BERT_BATCH, BERT_SEQ, BERT_SCAN = 12, 512, 6),
+    padded with seeded lengths 128-512, labels on 15 % of the valid
+    positions, dropout and attention dropout 0.1, FusedTrainDriver at
+    K = 6: one warm window, then ``timed`` windows, the first with the
+    launch counts set to 0 before it and read after it.  Then one step
+    with an inf planted in a gradient, which must be skipped with LAMB's
+    m, v and step unchanged."""
+    cfg, step, carry, plant, mask = _bert_setup(dev, params, b, s, cfg)
+    driver = FusedTrainDriver(step, steps_per_dispatch=k,
+                              metrics={"loss": "last", "loss_scale": "last",
+                                       "skipped": "sum"},
+                              per_step=("loss",))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    carry, res = driver.run_window(carry)
+    warm = read_metrics(res)
+    warm_s = time.perf_counter() - t0
+    walls, windows, counted = [], [], None
+    for i in range(timed):
+        torch.cuda.synchronize()
+        if i == 0:
+            reset_launch_counts()
+        t0 = time.perf_counter()
+        carry, res = driver.run_window(carry)
+        host = read_metrics(res)  # the window's one host read
+        walls.append(time.perf_counter() - t0)
+        windows.append(host)
+        if i == 0:
+            counted = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    med = sorted(walls)[len(walls) // 2]
+    layers = cfg.num_layers
+    n_leaves = sum(1 for _ in carry[0])
+    per_step = {n: 0 for n in counted}
+    per_step.update({"layer_norm": 2 * layers + 2,
+                     "layer_norm_bwd": 2 * layers + 2,
+                     "flash_attention_fwd": layers,
+                     "flash_attention_bwd": layers,
+                     "softmax_xentropy_fwd": 1, "softmax_xentropy_bwd": 1,
+                     "lamb_stage1": n_leaves})
+    valid = int(mask.sum())
+    first, last = warm.per_step["loss"][0], windows[-1].metrics["loss"]
+    losses = warm.per_step["loss"] + sum((w.per_step["loss"]
+                                          for w in windows), [])
+    emit({"phase": "bert_train", "model": "BERT-large MLM O2 (bf16 model, "
+          "fp32 masters, dynamic loss scale), dropout 0.1, "
+          "fused_lamb(1e-3, wd 0.01)", "batch": [b, s],
+          "valid_tokens_per_step": valid, "steps_per_window": k,
+          "warm_window_s": warm_s, "window_walls_s": walls,
+          "median_window_s": med, "sequences_per_s": b * k / med,
+          "valid_tokens_per_s": valid * k / med,
+          "loss_first_step": first, "loss_last_window": last,
+          "losses_per_step": losses,
+          "loss_scale": windows[-1].metrics["loss_scale"],
+          "skipped_steps": warm.metrics["skipped"]
+          + sum(w.metrics["skipped"] for w in windows),
+          "max_memory_allocated_bytes": peak,
+          "launches_one_window": counted,
+          "launches_per_step_expected": per_step})
+    check(all(math.isfinite(x) for x in losses), "bert: non-finite loss")
+    check(last < first, f"bert: loss did not fall ({first} -> {last})")
+    check(counted == {n: k * c for n, c in per_step.items()},
+          f"bert: launch counts {counted} != K x {per_step}")
+    masters, state = carry
+    before = {n: t.clone() for n, t in masters.items()}
+    m_before = {n: t.clone() for n, t in state.opt_state.m.items()}
+    v_before = {n: t.clone() for n, t in state.opt_state.v.items()}
+    step_before = int(state.opt_state.step)
+    scale_before = float(state.scaler[0].loss_scale)
+    plant["inf"] = True
+    carry, m = step(carry, None)
+    plant["inf"] = False
+    masters, state = carry
+    torch.cuda.synchronize()
+    same = (all(torch.equal(masters[n], before[n]) for n in before)
+            and all(torch.equal(state.opt_state.m[n], m_before[n])
+                    for n in m_before)
+            and all(torch.equal(state.opt_state.v[n], v_before[n])
+                    for n in v_before)
+            and int(state.opt_state.step) == step_before)
+    scaler = state.scaler[0]
+    emit({"phase": "bert_overflow", "skipped": bool(m["skipped"]),
+          "state_unchanged": same, "lamb_step": int(state.opt_state.step),
+          "scale_before": scale_before,
+          "scale_after": float(scaler.loss_scale),
+          "unskipped_after": int(scaler.unskipped),
+          "overflows": int(scaler.overflows)})
+    check(bool(m["skipped"]) and same, "bert: the overflow step was not "
+          "skipped cleanly")
+    check(float(scaler.loss_scale) == scale_before / 2
+          and int(scaler.unskipped) == 0,
+          "bert: the overflow did not halve the scale and reset unskipped")
+    del before, m_before, v_before
+    return counted, step, carry
+
+
+def phase_step_profile(step, carry, phase: str, what: str):
+    """Where one training step's time goes: wall time, device-busy share
+    and the kernels that take the most device time."""
     from torch.profiler import ProfilerActivity, profile
 
     carry, _ = step(carry, None)  # warm
@@ -1086,8 +1695,7 @@ def phase_train_profile(step, carry):
     rows = sorted(((k, ms, n) for k, (ms, n) in by_name.items()),
                   key=lambda r: -r[1])
     busy_ms = sum(r[1] for r in rows)
-    emit({"phase": "train_profile", "what": "one O2 step, GPT-2 small, "
-          "batch 16 x 1024, dropout 0.1",
+    emit({"phase": phase, "what": what,
           "wall_ms": wall_ms, "unprofiled_wall_ms": plain_wall_ms,
           "device_busy_ms": busy_ms if busy_ms > 0 else None,
           "device_busy_share": busy_ms / wall_ms if busy_ms > 0 else None,
@@ -1165,11 +1773,27 @@ def _run() -> int:
     xe_cases = phase_xent(dev)
     phase_train_parity(params)
     train_launches, step, carry = phase_train(dev, params)
-    phase_train_profile(step, carry)
+    phase_step_profile(step, carry, "train_profile", "one O2 step, GPT-2 "
+                       "small, batch 16 x 1024, dropout 0.1")
+    del step, carry, params
+    torch.cuda.empty_cache()
+
+    fb_cases = phase_flash_bias(dev)
+    lamb_case = phase_lamb(dev)
+    bert_params = init_bert_params(BertConfig.large(),
+                                   torch.Generator().manual_seed(20))
+    phase_bert_parity(bert_params)
+    bert_launches, step, carry = phase_bert_train(dev, bert_params)
+    phase_step_profile(step, carry, "bert_profile", "one O2 step, BERT-large "
+                       "MLM, batch 12 x 512 padded, dropout 0.1, fused_lamb")
+    del step, carry
 
     # the summary rows: the serving kernels at the engine's decode-step
-    # shape with the engine run's launches, the training kernels at the
-    # O2 training shapes with one training window's launches
+    # shape with the engine run's launches, the GPT training kernels at
+    # the O2 training shapes with one GPT training window's launches, the
+    # BERT kernels at BERT-large's shapes with one BERT window's launches
+    # (the flash wrappers count their launches with and without a bias
+    # alike: each window's count is of its own path)
     ln = next(c for c in ln_cases if c["rows"] == 8 and c["dtype"] == "float32")
     pa = next(c for c in pa_cases if c["case"] == "T=1 pool=bfloat16 "
               "masked=False")
@@ -1180,41 +1804,82 @@ def _run() -> int:
     xe_f, xe_b = next(c for c in xe_cases
                       if c[0]["case"] == "rows=16384 V=50304 bfloat16 "
                       "smoothing=0.0")
+    windows = {"serve": (launches, "ServeEngine run, GPT-2 small"),
+               "gpt": (train_launches, "one O2 training window, GPT-2 "
+                       "small"),
+               "bert": (bert_launches, "one O2 training window, BERT-large "
+                        "MLM")}
     rows = []
-    for name, src, tpu, c, count in (
-            ("layer_norm", "apex_tpu_torch/csrc/layer_norm.cu",
-             "apex_tpu/ops/layer_norm.py:133", ln, launches),
-            ("paged_fused_attention", "apex_tpu_torch/csrc/paged_attention.cu",
-             "apex_tpu/ops/attention.py:415", pa, launches),
-            ("layer_norm_bwd", "apex_tpu_torch/csrc/layer_norm.cu",
-             "apex_tpu/ops/layer_norm.py:169", lnb, train_launches),
-            ("flash_attention_fwd", "apex_tpu_torch/csrc/flash_attention.cu",
-             "apex_tpu/ops/attention.py:1027", fl_f, train_launches),
-            ("flash_attention_bwd", "apex_tpu_torch/csrc/flash_attention.cu",
-             "apex_tpu/ops/attention.py:868", fl_b, train_launches),
-            ("softmax_xentropy_fwd", "apex_tpu_torch/csrc/softmax_xentropy.cu",
-             "apex_tpu/ops/softmax_xentropy.py:79", xe_f, train_launches),
-            ("softmax_xentropy_bwd", "apex_tpu_torch/csrc/softmax_xentropy.cu",
-             "apex_tpu/ops/softmax_xentropy.py:139", xe_b, train_launches)):
+    for name, counter, src, tpu, c, window in (
+            ("layer_norm", "layer_norm", "apex_tpu_torch/csrc/layer_norm.cu",
+             "apex_tpu/ops/layer_norm.py:133", ln, "serve"),
+            ("paged_fused_attention", "paged_fused_attention",
+             "apex_tpu_torch/csrc/paged_attention.cu",
+             "apex_tpu/ops/attention.py:415", pa, "serve"),
+            ("layer_norm_bwd", "layer_norm_bwd",
+             "apex_tpu_torch/csrc/layer_norm.cu",
+             "apex_tpu/ops/layer_norm.py:169", lnb, "gpt"),
+            ("flash_attention_fwd", "flash_attention_fwd",
+             "apex_tpu_torch/csrc/flash_attention.cu",
+             "apex_tpu/ops/attention.py:1027", fl_f, "gpt"),
+            ("flash_attention_bwd", "flash_attention_bwd",
+             "apex_tpu_torch/csrc/flash_attention.cu",
+             "apex_tpu/ops/attention.py:868", fl_b, "gpt"),
+            ("softmax_xentropy_fwd", "softmax_xentropy_fwd",
+             "apex_tpu_torch/csrc/softmax_xentropy.cu",
+             "apex_tpu/ops/softmax_xentropy.py:79", xe_f, "gpt"),
+            ("softmax_xentropy_bwd", "softmax_xentropy_bwd",
+             "apex_tpu_torch/csrc/softmax_xentropy.cu",
+             "apex_tpu/ops/softmax_xentropy.py:139", xe_b, "gpt"),
+            ("flash_attention_fwd_bias", "flash_attention_fwd",
+             "apex_tpu_torch/csrc/flash_attention.cu",
+             "apex_tpu/ops/attention.py:638", fb_cases["bert"][0], "bert"),
+            ("flash_attention_bwd_bias", "flash_attention_bwd",
+             "apex_tpu_torch/csrc/flash_attention.cu",
+             "apex_tpu/ops/attention.py:859", fb_cases["bert"][1], "bert"),
+            ("lamb_stage1", "lamb_stage1", "apex_tpu_torch/csrc/fused_lamb.cu",
+             "apex_tpu/ops/fused_optim.py:50", lamb_case, "bert")):
+        counts, what = windows[window]
         rows.append({"name": name, "route": "cuda", "source": src,
-                     "replaces": tpu, "launches": count[name],
+                     "replaces": tpu, "launches": counts[counter],
+                     "launches_of": f"{counter}, {what}",
                      "max_abs_err": c["max_abs_err"], "tol": c["tol"],
                      "ms": c["ms"], "plain_ms": c["plain_ms"],
                      "bound_ms": c["bound_ms"], "bound_by": c["bound_by"],
                      "library_ms": c["library_ms"],
-                     "case": c.get("case") or f"rows={c['rows']} n={c['n']} "
-                     f"{c.get('dtype') or c['x_dtype']}/{c['w_dtype']}"})
-    # LayerNorm forward is on both paths: its row also carries the training
-    # shape's case (O2's bf16 affine) and one training window's launches
-    ln_train = next(c for c in ln_cases if c["rows"] == 16384
-                    and c["w_dtype"] == "bfloat16")
-    rows[0]["train_path"] = {
-        "launches": train_launches["layer_norm"],
-        "case": "rows=16384 n=768 float32/bfloat16",
-        **{k: ln_train[k] for k in ("max_abs_err", "tol", "ms", "plain_ms",
-                                    "bound_ms", "bound_by", "library_ms")}}
+                     "case": _case_name(c)})
+    by_name = {r["name"]: r for r in rows}
+
+    def other_path(name, counts, c):
+        return {"launches": counts[name], "case": _case_name(c),
+                **{k: c[k] for k in ("max_abs_err", "tol", "ms", "plain_ms",
+                                     "bound_ms", "bound_by", "library_ms")}}
+
+    # LayerNorm forward is on all three paths, its backward and the
+    # cross-entropy on both training paths: their rows also carry the
+    # other paths' cases at those paths' shapes, with their launches
+    by_name["layer_norm"]["train_path"] = other_path(
+        "layer_norm", train_launches,
+        next(c for c in ln_cases if c["rows"] == 16384
+             and c["w_dtype"] == "bfloat16"))
+    bert_cases = {
+        "layer_norm": next(c for c in ln_cases if c["n"] == 1024
+                           and c["w_dtype"] == "bfloat16"),
+        "layer_norm_bwd": next(c for c in lnb_cases if c["n"] == 1024
+                               and c["w_dtype"] == "bfloat16"),
+        "softmax_xentropy_fwd": xe_cases[-1][0],
+        "softmax_xentropy_bwd": xe_cases[-1][1]}
+    for name, c in bert_cases.items():
+        by_name[name]["bert_path"] = other_path(name, bert_launches, c)
+    # the bias backward also stands for the two-pass backward of
+    # bias_grad=True (its dbias checked in phase_flash_bias)
+    by_name["flash_attention_bwd_bias"]["also_replaces"] = [
+        "apex_tpu/ops/attention.py:850", "apex_tpu/ops/attention.py:893",
+        "apex_tpu/ops/attention.py:1045"]
+    by_name["flash_attention_bwd_bias"]["dbias_check"] = fb_cases["dbias"]
     check(all(r["launches"] > 0 for r in rows)
-          and rows[0]["train_path"]["launches"] > 0,
+          and all(r[p]["launches"] > 0 for r in rows
+                  for p in ("train_path", "bert_path") if p in r),
           f"a kernel never launched on its path: {rows}")
     print(smi, flush=True)
     emit({"kernels": rows})

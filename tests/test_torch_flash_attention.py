@@ -184,8 +184,6 @@ def test_cuda_path_raises_on_what_the_kernel_does_not_take(monkeypatch):
     monkeypatch.setattr(tattn, "use_kernel", lambda *t: True)
     q, k, v = (torch.zeros(1, 2, 128, 64) for _ in range(3))
     with pytest.raises(NotImplementedError):
-        tattn.flash_attention(q, k, v, bias=torch.zeros(1, 128, 128))
-    with pytest.raises(NotImplementedError):
         tattn.flash_attention(q, k, v, probs_bf16=True)
     with pytest.raises(NotImplementedError):
         tattn.flash_attention(q, k, v, dropout_heads=(4, 0))
