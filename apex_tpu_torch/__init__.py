@@ -8,10 +8,15 @@ is O2 training of the same LM: the training forward and loss, the
 ``amp`` policies, loss scaler and ``AmpOptimizer``, ``fused_adam`` and
 the K-step ``FusedTrainDriver``.  The third is BERT MLM pretraining
 under O2 with ``fused_lamb`` on padded batches: ``BertForMLM``, the
-contrib ``SelfMultiheadAttn`` and the LAMB stage-1 kernel.  Every kernel
-on those paths (LayerNorm forward and backward, paged attention, flash
-attention forward and backward with and without an additive bias and its
-gradient, fused cross-entropy forward and backward, LAMB stage 1) is
+contrib ``SelfMultiheadAttn`` and the LAMB stage-1 kernel.  The fourth
+is O2 training of ResNet-50 with ``fused_sgd`` (``ResNet``, ``Conv``,
+single-process ``SyncBatchNorm``), with the three conv+BN matmul kernels
+of ``ops.conv_bn`` as library entry points.  Every kernel on those paths
+(LayerNorm forward and backward, paged attention, flash attention
+forward and backward with and without an additive bias and its gradient,
+fused cross-entropy forward and backward, LAMB stage 1, the matmul with
+a BN-stats epilogue, the BN-prologue matmul and the dual matmul
+backward) is
 written by hand in CUDA C++ for sm_90a (``csrc/``, built with ``nvcc`` at
 first use into ``build/apex_tpu_torch/``).
 
@@ -19,18 +24,22 @@ Entry points run on the CUDA device unless the caller passes
 ``device="cpu"``, where every kernel wrapper runs its plain PyTorch
 version instead.  This package imports neither JAX nor ``apex_tpu``.
 """
-from apex_tpu_torch.amp import Dense  # noqa: F401
+from apex_tpu_torch.amp import Conv, Dense  # noqa: F401
 from apex_tpu_torch.models import (  # noqa: F401
     BertConfig,
     BertForMLM,
     GPTConfig,
     GPTLM,
     GPTLayer,
+    ResNet,
     init_bert_params,
     init_params,
+    init_resnet_params,
+    resnet50,
 )
 from apex_tpu_torch.normalization import FusedLayerNorm  # noqa: F401
 from apex_tpu_torch.ops import launch_counts, reset_launch_counts  # noqa: F401
+from apex_tpu_torch.parallel import SyncBatchNorm  # noqa: F401
 from apex_tpu_torch.serve import (  # noqa: F401
     GPTDecoder,
     PagePool,
@@ -46,13 +55,15 @@ from apex_tpu_torch.weights import (  # noqa: F401
     from_jax_bert_params,
     from_jax_opt_state,
     from_jax_params,
+    from_jax_resnet_params,
 )
 
-__version__ = "0.3.0"
+__version__ = "0.4.0"
 
 __all__ = [
     "BertConfig",
     "BertForMLM",
+    "Conv",
     "Dense",
     "FusedLayerNorm",
     "FusedTrainDriver",
@@ -63,16 +74,21 @@ __all__ = [
     "PagePool",
     "PagedKVCache",
     "Request",
+    "ResNet",
     "SamplingParams",
     "ServeEngine",
+    "SyncBatchNorm",
     "from_jax_bert_params",
     "from_jax_opt_state",
     "from_jax_params",
+    "from_jax_resnet_params",
     "init_bert_params",
     "init_paged_cache",
     "init_params",
+    "init_resnet_params",
     "launch_counts",
     "read_metrics",
     "reset_launch_counts",
+    "resnet50",
     "sample_tokens",
 ]

@@ -29,7 +29,7 @@ import torch
 from torch import nn
 
 from apex_tpu_torch import multi_tensor
-from apex_tpu_torch.amp.layers import Dense  # noqa: F401
+from apex_tpu_torch.amp.layers import Conv, Dense  # noqa: F401
 from apex_tpu_torch.amp.policy import (  # noqa: F401
     O0,
     O2,
@@ -46,7 +46,7 @@ from apex_tpu_torch.amp.scaler import (  # noqa: F401
 from apex_tpu_torch.optimizers._common import AmpFusedTransformation
 
 __all__ = [
-    "Amp", "AmpOptState", "AmpOptimizer", "Dense", "LossScaler",
+    "Amp", "AmpOptState", "AmpOptimizer", "Conv", "Dense", "LossScaler",
     "LossScalerState", "O0", "O2", "O3", "Policy", "StepStats",
     "apply_if_finite", "default_is_batchnorm", "initialize", "make_policy",
     "opt_levels",
@@ -176,8 +176,8 @@ class AmpOptimizer:
     def __init__(self, tx: AmpFusedTransformation, amp_: Amp):
         if not isinstance(tx, AmpFusedTransformation):
             raise TypeError("AmpOptimizer takes an AMP-fused transform "
-                            "(fused_adam or fused_lamb); the unfused path "
-                            "is not ported")
+                            "(fused_sgd, fused_adam or fused_lamb); the "
+                            "unfused path is not ported")
         self.tx = tx
         self.amp = amp_
 

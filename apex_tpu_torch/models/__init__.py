@@ -12,7 +12,17 @@ from apex_tpu_torch.models.gpt import (  # noqa: F401
     GPTLM,
     init_params,
 )
+from apex_tpu_torch.models.resnet import (  # noqa: F401
+    Bottleneck,
+    ResNet,
+    SpaceToDepthStem,
+    init_resnet_params,
+    resnet50,
+    resnet101,
+    resnet152,
+)
 
 __all__ = ["BertConfig", "BertEncoder", "BertForMLM", "BertLayer",
-           "GPTConfig", "GPTLayer", "GPTLM", "init_bert_params",
-           "init_params"]
+           "Bottleneck", "GPTConfig", "GPTLayer", "GPTLM", "ResNet",
+           "SpaceToDepthStem", "init_bert_params", "init_params",
+           "init_resnet_params", "resnet101", "resnet152", "resnet50"]

@@ -18,6 +18,11 @@ from apex_tpu_torch.ops.attention import (  # noqa: F401
     paged_fused_attention,
     quantize_kv,
 )
+from apex_tpu_torch.ops.conv_bn import (  # noqa: F401
+    bn_relu_matmul,
+    matmul_bwd_dual,
+    matmul_stats,
+)
 from apex_tpu_torch.ops.fused_optim import lamb_stage1  # noqa: F401
 from apex_tpu_torch.ops.layer_norm import (  # noqa: F401
     layer_norm,
@@ -41,6 +46,9 @@ KERNELS = {
     "softmax_xentropy_fwd": softmax_cross_entropy_fwd,
     "softmax_xentropy_bwd": softmax_cross_entropy_bwd,
     "lamb_stage1": lamb_stage1,
+    "matmul_stats": matmul_stats,
+    "bn_relu_matmul": bn_relu_matmul,
+    "matmul_bwd_dual": matmul_bwd_dual,
 }
 
 
@@ -57,6 +65,7 @@ def reset_launch_counts() -> None:
 __all__ = [
     "KERNELS",
     "attention_ref",
+    "bn_relu_matmul",
     "cached_attention",
     "flash_attention",
     "flash_attention_bwd",
@@ -66,6 +75,8 @@ __all__ = [
     "layer_norm",
     "layer_norm_bwd",
     "layer_norm_ref",
+    "matmul_bwd_dual",
+    "matmul_stats",
     "paged_cached_attention",
     "paged_fused_attention",
     "quantize_kv",

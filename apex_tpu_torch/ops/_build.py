@@ -30,8 +30,8 @@ __all__ = ["BUILD_DIR", "CSRC_DIR", "KERNEL_SOURCES", "NVCC_FLAGS",
 CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC_DIR.parent.parent / "build" / "apex_tpu_torch"
 KERNEL_SOURCES: Tuple[str, ...] = (
-    "flash_attention", "fused_lamb", "layer_norm", "paged_attention",
-    "softmax_xentropy")
+    "conv_bn", "flash_attention", "fused_lamb", "layer_norm",
+    "paged_attention", "softmax_xentropy")
 NVCC_FLAGS: Tuple[str, ...] = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

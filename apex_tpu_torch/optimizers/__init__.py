@@ -1,4 +1,4 @@
-"""Optimizers of the port: the AMP-fused Adam and LAMB."""
+"""Optimizers of the port: the AMP-fused Adam, LAMB and SGD."""
 from apex_tpu_torch.optimizers._common import AmpFusedTransformation  # noqa: F401
 from apex_tpu_torch.optimizers.fused_adam import FusedAdamState, fused_adam  # noqa: F401
 from apex_tpu_torch.optimizers.fused_lamb import (  # noqa: F401
@@ -6,6 +6,12 @@ from apex_tpu_torch.optimizers.fused_lamb import (  # noqa: F401
     FusedLAMBState,
     fused_lamb,
 )
+from apex_tpu_torch.optimizers.fused_sgd import (  # noqa: F401
+    FusedSGD,
+    FusedSGDState,
+    fused_sgd,
+)
 
 __all__ = ["AmpFusedTransformation", "FusedAdamState", "FusedLAMB",
-           "FusedLAMBState", "fused_adam", "fused_lamb"]
+           "FusedLAMBState", "FusedSGD", "FusedSGDState", "fused_adam",
+           "fused_lamb", "fused_sgd"]

@@ -4,27 +4,32 @@
 numpy arrays, or anything ``np.asarray`` takes) to a state dict of
 :class:`apex_tpu_torch.models.GPTLM`, and :func:`from_jax_bert_params` a
 ``BertForMLM`` tree to a state dict of
-:class:`apex_tpu_torch.models.BertForMLM`, so both packages compute with
-the same numbers.  Dense kernels and the attention projections keep
-their flax ``(in, out)`` layout, so no transpose happens on the way; a
-key the mapping does not know raises, so nothing is silently dropped.
-:func:`from_jax_opt_state` maps an ``AmpOptState`` over either tree
-(FusedAdam's or FusedLAMB's step, m and v, and each loss scaler's state)
-to the port's, so both packages can also continue training from the
-same optimizer state.
+:class:`apex_tpu_torch.models.BertForMLM`, and
+:func:`from_jax_resnet_params` a ``ResNet`` tree with its ``batch_stats``
+to a state dict of :class:`apex_tpu_torch.models.ResNet` and its batch
+statistics, so both packages compute with the same numbers.  Dense kernels and the attention projections keep
+their flax ``(in, out)`` layout and convolution kernels their HWIO one,
+so no transpose happens on the way; a key the mapping does not know
+raises, so nothing is silently dropped.  :func:`from_jax_opt_state` maps
+an ``AmpOptState`` over any of these trees (FusedAdam's or FusedLAMB's
+step, m and v, FusedSGD's step and momentum buffers, and each loss
+scaler's state) to the port's, so both packages can also continue
+training from the same optimizer state.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping
+from typing import Any, Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
 
 from apex_tpu_torch.amp import AmpOptState, LossScalerState
 from apex_tpu_torch.ops._common import resolve_device
-from apex_tpu_torch.optimizers import FusedAdamState, FusedLAMBState
+from apex_tpu_torch.optimizers import (FusedAdamState, FusedLAMBState,
+                                       FusedSGDState)
 
-__all__ = ["from_jax_bert_params", "from_jax_opt_state", "from_jax_params"]
+__all__ = ["from_jax_bert_params", "from_jax_opt_state", "from_jax_params",
+           "from_jax_resnet_params"]
 
 _DENSE = ("qkv", "proj", "ffn_in", "ffn_out")
 _MHA = ("in_proj_weight", "in_proj_bias", "q_weight", "k_weight",
@@ -134,18 +139,65 @@ def from_jax_bert_params(tree: Mapping[str, Any]
     return out
 
 
+_RESNET_LEAVES = {"conv": ("kernel",), "bn": ("scale", "bias")}
+_BLOCK = ("conv1", "bn1", "conv2", "bn2", "conv3", "bn3", "downsample_conv",
+          "downsample_bn")
+
+
+def _resnet_leaves(tree: Mapping[str, Any], leaves: Dict[str, Tuple],
+                   where: str = "") -> Dict[str, torch.Tensor]:
+    """Flatten a flax ResNet tree ('.'-joined names), checking every
+    module and leaf name against the model's; ``leaves`` maps a module
+    kind (conv, bn, fc) to the leaf names it may hold."""
+    out = {}
+    for name, sub in tree.items():
+        path = _join(where, name)
+        if not where and name.startswith("stage"):
+            if not isinstance(sub, Mapping):
+                raise ValueError(f"unmapped params {path}")
+            out.update(_resnet_leaves(sub, leaves, path))
+            continue
+        if where and name not in _BLOCK:
+            raise ValueError(f"{where}: unmapped params {[name]}")
+        if not where and name not in ("conv1", "bn1", "fc"):
+            raise ValueError(f"unmapped params {[name]}")
+        kind = "fc" if name == "fc" else (
+            "bn" if name.endswith("bn") or name.startswith("bn") else "conv")
+        allowed = leaves.get(kind, ())
+        _check_keys(sub, allowed, f"{path}: ")
+        out.update({_join(path, k): _t(v) for k, v in sub.items()})
+    return out
+
+
+def from_jax_resnet_params(params: Mapping[str, Any],
+                           batch_stats: Optional[Mapping[str, Any]] = None):
+    """flax ``ResNet`` ``params`` (and ``batch_stats``) -> the port's
+    ``ResNet`` state dict (fp32, CPU; HWIO kernels as they are) and, with
+    ``batch_stats``, the port's batch statistics, ``(state, stats)``.
+    Raises on a module or leaf name the model does not have."""
+    state = _resnet_leaves(params, {**_RESNET_LEAVES,
+                                    "fc": ("kernel", "bias")})
+    if batch_stats is None:
+        return state
+    stats = _resnet_leaves(batch_stats,
+                           {"bn": ("running_mean", "running_var")})
+    return state, stats
+
+
 def from_jax_opt_state(state: Any, device=None):
-    """JAX ``AmpOptState(FusedAdamState | FusedLAMBState (step, m, v),
-    scalers, stash=None)`` over a ``GPTLM`` or ``BertForMLM`` params tree
-    -> the port's :class:`apex_tpu_torch.amp.AmpOptState` on ``device``
-    (None: the CUDA device), m and v keyed like :func:`from_jax_params`
-    or :func:`from_jax_bert_params`."""
+    """JAX ``AmpOptState(FusedAdamState | FusedLAMBState (step, m, v) |
+    FusedSGDState (step, momentum_buf), scalers, stash=None)`` over a
+    ``GPTLM``, ``BertForMLM`` or ``ResNet`` params tree -> the port's
+    :class:`apex_tpu_torch.amp.AmpOptState` on ``device`` (None: the CUDA
+    device), the per-parameter tensors keyed like :func:`from_jax_params`,
+    :func:`from_jax_bert_params` or :func:`from_jax_resnet_params`."""
     dev = resolve_device(device)
     if state.stash is not None:
         raise ValueError("a stashed (accumulating) state is not ported")
     inner = state.opt_state
     kinds = {"FusedAdamState": FusedAdamState,
-             "FusedLAMBState": FusedLAMBState}
+             "FusedLAMBState": FusedLAMBState,
+             "FusedSGDState": FusedSGDState}
     kind = kinds.get(type(inner).__name__)
     if kind is None:
         raise ValueError(f"optimizer state {type(inner).__name__} is not "
@@ -155,13 +207,21 @@ def from_jax_opt_state(state: Any, device=None):
         return torch.tensor(np.asarray(x).item(), dtype=dtype, device=dev)
 
     def moments(tree):
-        mapping = from_jax_bert_params if "encoder" in tree \
-            else from_jax_params
+        if "encoder" in tree:
+            mapping = from_jax_bert_params
+        elif "fc" in tree:
+            mapping = from_jax_resnet_params
+        else:
+            mapping = from_jax_params
         return {k: v.to(dev) for k, v in mapping(tree).items()}
 
+    step = scalar(inner.step, torch.int32)
+    if kind is FusedSGDState:
+        opt_state = kind(step=step, momentum_buf=moments(inner.momentum_buf))
+    else:
+        opt_state = kind(step=step, m=moments(inner.m), v=moments(inner.v))
     return AmpOptState(
-        opt_state=kind(step=scalar(inner.step, torch.int32),
-                       m=moments(inner.m), v=moments(inner.v)),
+        opt_state=opt_state,
         scaler=tuple(LossScalerState(
             loss_scale=scalar(s.loss_scale, torch.float32),
             unskipped=scalar(s.unskipped, torch.int32),

@@ -1,0 +1,449 @@
+"""apex_tpu_torch's ResNet slice vs the JAX package, on the CPU.
+
+A narrow ResNet (``stage_sizes=(1, 1, 1, 1)``, width 8, 10 classes,
+64 x 64 images, batch 4: every block projects, stages 2-4 through a
+stride-2 3x3 on an even input; stage 4 runs at 2 x 2, so each of its
+BatchNorms normalises 16 values a channel — at 32 x 32 it would be 4, and
+fp32 rounding alone moves the two packages' gradients apart by 2e-4 of
+their largest magnitude there, against 4e-5 at 64 x 64) with the flax-initialised weights carried
+over by ``from_jax_resnet_params`` (BN scales and biases perturbed so a
+misplaced gradient shows), the same numpy-seeded images and labels, and
+the mean ``softmax_cross_entropy`` loss of ``bench.py``'s RN50 step.
+Tolerances:
+
+- O0 (fp32): train-mode and eval-mode logits within 1e-4 of the largest
+  logit, the updated batch statistics within 1e-5, the loss within rtol
+  1e-4, every gradient within 1e-4 of its tensor's largest magnitude;
+- O2 (bf16 convolutions, fp32 BN, fp32 head over bf16-rounded kernels):
+  logits within 5e-2 of the largest logit; every gradient within 2e-2
+  relative L2 error with eval-mode BatchNorm, and, with batch statistics
+  (where this small model's O2 gradient is mostly bf16 rounding, for both
+  packages), as close to the fp32 gradient as JAX's O2 one is (the
+  distances' ratio: median within [0.9, 1.1], each within [0.5, 1.6]);
+- three O2 ``AmpOptimizer(fused_sgd(0.1, momentum=0.9, weight_decay=1e-4))``
+  steps on the same scaled grads (JAX's), one with a planted inf that
+  both skip: the scaler state and the step count exactly equal, the
+  momentum buffers and masters untouched by the skip, each master's
+  movement within 1e-5 relative L2 error of JAX's;
+- ``Conv`` with flax ``"SAME"`` at stride 2 on an even input (pad (0, 1))
+  and explicit pads, and the space-to-depth stem on even and odd inputs,
+  within 1e-5; RN50's parameter count (25,557,032) on the meta device;
+- ``SyncBatchNorm`` alone against the JAX module (training and eval mode,
+  the fused residual + ReLU variant, ``fuse_relu``, bf16 input): outputs and gradients within
+  1e-5 of their largest magnitude (bf16: one bf16 ulp of it), the
+  running statistics within 1e-6.
+"""
+import flax.linen as fnn
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import apex_tpu.amp as jamp
+from apex_tpu.amp.layers import Conv as JaxConv
+from apex_tpu.models.resnet import ResNet as JaxResNet
+from apex_tpu.models.resnet import SpaceToDepthStem as JaxStem
+from apex_tpu.ops import softmax_cross_entropy as jax_xent
+from apex_tpu.optimizers import fused_sgd as jax_fused_sgd
+from apex_tpu_torch import amp
+from apex_tpu_torch.amp import Conv
+from apex_tpu_torch.models import ResNet, SpaceToDepthStem, resnet50
+from apex_tpu_torch.ops import softmax_cross_entropy
+from apex_tpu_torch.optimizers import fused_sgd
+from apex_tpu_torch.weights import from_jax_opt_state, from_jax_resnet_params
+
+B, HW, CLASSES = 4, 64, 10
+ARCH = dict(stage_sizes=(1, 1, 1, 1), width=8, num_classes=CLASSES)
+SGD = dict(momentum=0.9, weight_decay=1e-4)
+LR = 0.1
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _warm_torch_exp():
+    """With torch 2.13.0+cpu the first multi-threaded ``torch.exp`` of a
+    process has returned values 1.5e-4 off (relative); later calls are
+    exact to an ulp.  One throwaway call before the tests."""
+    torch.exp(torch.linspace(-8.0, 8.0, 1 << 16))
+
+
+def _perturb(tree, rng):
+    def go(t):
+        out = {}
+        for k, v in t.items():
+            if isinstance(v, dict):
+                out[k] = go(v)
+            elif k == "scale":
+                out[k] = (1.0 + 0.1 * rng.randn(*v.shape)).astype(np.float32)
+            elif k == "bias":
+                out[k] = (0.1 * rng.randn(*v.shape)).astype(np.float32)
+            else:
+                out[k] = np.asarray(v)
+        return out
+    return go(tree)
+
+
+@pytest.fixture(scope="module")
+def data():
+    rng = np.random.RandomState(0)
+    x = rng.randn(B, HW, HW, 3).astype(np.float32)
+    y = rng.randint(0, CLASSES, size=(B,))
+    variables = JaxResNet(**ARCH).init(jax.random.PRNGKey(0),
+                                       jnp.asarray(x[:1]))
+    params = _perturb(variables["params"], np.random.RandomState(1))
+    bstats = jax.tree_util.tree_map(np.asarray, variables["batch_stats"])
+    return x, y, params, bstats
+
+
+def _t(a):
+    return torch.from_numpy(np.array(a))
+
+
+def _rel_l2(got, want):
+    got = got.detach().float().numpy() if isinstance(got, torch.Tensor) \
+        else np.asarray(got, np.float32)
+    want = np.asarray(want, np.float32)
+    return np.linalg.norm(got - want) / np.linalg.norm(want)
+
+
+def _jax_loss_fn(x, y, bstats, compute_dtype, cast=None, train=True):
+    model = JaxResNet(**ARCH, compute_dtype=compute_dtype)
+
+    def loss(p):
+        p = cast(p) if cast is not None else p
+        out = model.apply({"params": p, "batch_stats": bstats},
+                          jnp.asarray(x), train=train,
+                          mutable=["batch_stats"] if train else False)
+        logits, upd = out if train else (out, {"batch_stats": bstats})
+        l = jnp.mean(jax_xent(logits, jnp.asarray(y)))
+        return l, (logits, upd["batch_stats"])
+    return loss
+
+
+def _model(params, bstats, compute_dtype):
+    m = ResNet(**ARCH, compute_dtype=compute_dtype)
+    state, stats = from_jax_resnet_params(params, bstats)
+    m.load_state_dict(state)
+    return m, stats
+
+
+def _loss(model, stats, x, y, train=True):
+    logits, new = model(_t(x), stats, train=train)
+    return softmax_cross_entropy(logits, _t(y)).mean(), logits, new
+
+
+def test_o0_logits_stats_loss_and_grads_match_jax(data):
+    x, y, params, bstats = data
+    (jl, (jlogits, jstats)), jg = jax.value_and_grad(
+        _jax_loss_fn(x, y, bstats, jnp.float32), has_aux=True)(params)
+    model, stats = _model(params, bstats, torch.float32)
+    loss, logits, new = _loss(model, stats, x, y)
+    assert logits.dtype == torch.float32 and logits.shape == (B, CLASSES)
+    top = np.abs(np.asarray(jlogits)).max()
+    np.testing.assert_allclose(logits.detach().numpy(), np.asarray(jlogits),
+                               rtol=0, atol=1e-4 * top)
+    _, want_stats = from_jax_resnet_params(params, jstats)
+    assert set(new) == set(want_stats) == set(stats)
+    for k, v in new.items():
+        w = want_stats[k].numpy()
+        assert np.abs(v.numpy() - w).max() <= 1e-5 * max(1.0, np.abs(w).max())
+    loss.backward()
+    np.testing.assert_allclose(float(loss.detach()), float(jl), rtol=1e-4)
+    want = from_jax_resnet_params(jax.tree_util.tree_map(np.asarray, jg))
+    names = set()
+    for name, p in model.named_parameters():
+        g, w = p.grad.numpy(), want[name].numpy()
+        assert np.abs(g - w).max() <= 1e-4 * np.abs(w).max(), name
+        names.add(name)
+    assert names == set(want)
+    # eval mode normalises with the running statistics
+    (_, (jev, _)) = _jax_loss_fn(x, y, jstats, jnp.float32, train=False)(
+        params)
+    with torch.no_grad():
+        _, ev, same = _loss(model, new, x, y, train=False)
+    assert same is new
+    top = np.abs(np.asarray(jev)).max()
+    np.testing.assert_allclose(ev.numpy(), np.asarray(jev), rtol=0,
+                               atol=1e-4 * top)
+
+
+def _jax_o2():
+    return jamp.AmpOptimizer(jax_fused_sgd(LR, **SGD), jamp.initialize("O2"))
+
+
+def _port_o2():
+    return amp.AmpOptimizer(fused_sgd(LR, **SGD), amp.initialize("O2"))
+
+
+def _o2_grads(params, stats_in, x, y, train):
+    model, stats = _model(params, stats_in, torch.bfloat16)
+    masters = _port_o2().attach(model)
+    assert all(m.dtype == torch.float32 for m in masters.values())
+    loss, logits, _ = _loss(model, stats, x, y, train=train)
+    assert logits.dtype == torch.float32
+    names, ps = zip(*model.named_parameters())
+    grads = torch.autograd.grad(loss, ps)
+    for g, p in zip(grads, ps):
+        assert g.dtype == p.dtype
+    return loss, logits, dict(zip(names, grads))
+
+
+def test_o2_logits_and_grads_match_jax(data):
+    """Train-mode O2 logits and loss within 5e-2; gradients within 2e-2
+    relative L2 with eval-mode BatchNorm (the two packages then agree to
+    1.2e-5).  With batch statistics this small model's O2 gradient is
+    itself mostly bf16 rounding (it sits 27-45 % from the fp32 one, for
+    JAX as for the port), and the two packages' fp32 sums of the batch
+    statistics in different orders flip enough bf16 roundings to move
+    their gradients 10-25 % apart: there each must stay as close to the
+    fp32 gradient as JAX's O2 one is, no nearer and no farther: the
+    median over parameters of the ratio of the two distances within
+    [0.9, 1.1] (measured 1.005) and each ratio within [0.5, 1.6]
+    (measured 0.77-1.36), so a port that skipped a bf16 rounding (ratio
+    near 0) fails as well as one that rounded more."""
+    x, y, params, bstats = data
+    jopt = _jax_o2()
+    (jl, (jlogits, jstats)), jg = jax.value_and_grad(_jax_loss_fn(
+        x, y, bstats, jnp.bfloat16, jopt.model_params), has_aux=True)(params)
+    want = from_jax_resnet_params(jax.tree_util.tree_map(np.asarray, jg))
+    _, jg32 = jax.value_and_grad(_jax_loss_fn(x, y, bstats, jnp.float32),
+                                 has_aux=True)(params)
+    want32 = from_jax_resnet_params(jax.tree_util.tree_map(np.asarray, jg32))
+    loss, logits, grads = _o2_grads(params, bstats, x, y, True)
+    top = np.abs(np.asarray(jlogits)).max()
+    np.testing.assert_allclose(logits.detach().numpy(), np.asarray(jlogits),
+                               rtol=0, atol=5e-2 * top)
+    assert abs(float(loss.detach()) - float(jl)) <= 5e-2
+    ratios = {name: _rel_l2(g, want32[name]) / _rel_l2(want[name],
+                                                        want32[name])
+              for name, g in grads.items()}
+    assert 0.9 <= np.median(list(ratios.values())) <= 1.1, ratios
+    assert 0.5 <= min(ratios.values()) and max(ratios.values()) <= 1.6, ratios
+    # eval mode, with the running statistics of one fp32 step
+    jstats = jax.tree_util.tree_map(np.asarray, _jax_loss_fn(
+        x, y, bstats, jnp.float32)(params)[1][1])
+    (jl, (jlogits, _)), jg = jax.value_and_grad(_jax_loss_fn(
+        x, y, jstats, jnp.bfloat16, jopt.model_params, train=False),
+        has_aux=True)(params)
+    want = from_jax_resnet_params(jax.tree_util.tree_map(np.asarray, jg))
+    loss, logits, grads = _o2_grads(params, jstats, x, y, False)
+    top = np.abs(np.asarray(jlogits)).max()
+    np.testing.assert_allclose(logits.detach().numpy(), np.asarray(jlogits),
+                               rtol=0, atol=5e-2 * top)
+    for name, g in grads.items():
+        assert _rel_l2(g, want[name]) <= 2e-2, (name, _rel_l2(g, want[name]))
+
+
+def test_o2_casts_the_parameters_jax_casts(data):
+    *_, params, bstats = data
+    jmp = _jax_o2().model_params(params)
+    flags = from_jax_resnet_params(jax.tree_util.tree_map(
+        lambda v: np.full(v.shape, float(v.dtype == jnp.bfloat16)), jmp))
+    want = {k for k, v in flags.items() if bool(v.all())}
+    model, _ = _model(params, bstats, torch.bfloat16)
+    _port_o2().attach(model)
+    got = {n for n, p in model.named_parameters() if p.dtype == torch.bfloat16}
+    assert got == want
+    assert {n for n in flags if n not in want} == {
+        n for n in flags if ".bn" in f".{n}" or "downsample_bn" in n}
+
+
+def _plant_jax(grads):
+    g = dict(grads)
+    g["bn1"] = dict(g["bn1"], scale=g["bn1"]["scale"].at[2].set(jnp.inf))
+    return g
+
+
+def test_three_o2_sgd_steps_match_jax_with_a_skipped_step(data):
+    x, y, params, bstats = data
+    jamp_ = jamp.initialize("O2")
+    jopt = jamp.AmpOptimizer(jax_fused_sgd(LR, **SGD), jamp_)
+    loss_fn = _jax_loss_fn(x, y, bstats, jnp.bfloat16, jopt.model_params)
+    jgrad = jax.grad(lambda mp, s: jamp_.scale_loss(loss_fn(mp)[0], s))
+    jstep = jax.jit(jopt.step)
+    masters_j, state_j = params, jopt.init(params)
+    # one warm step, so the state handed across has momentum buffers
+    masters_j, state_j, _ = jstep(jgrad(masters_j, state_j.scaler[0]),
+                                  state_j, masters_j)
+    opt = _port_o2()
+    start = from_jax_resnet_params(jax.tree_util.tree_map(np.asarray,
+                                                          masters_j))
+    model, _ = _model(jax.tree_util.tree_map(np.asarray, masters_j), bstats,
+                      torch.bfloat16)
+    masters = opt.attach(model)
+    assert all(torch.equal(masters[k], start[k]) for k in start)
+    state = from_jax_opt_state(state_j, device="cpu")
+    assert int(state.opt_state.step) == 1
+    for i in range(3):
+        g = jgrad(masters_j, state_j.scaler[0])
+        if i == 1:
+            g = _plant_jax(g)
+            before = {k: v.clone() for k, v in masters.items()}
+            buf_before = {k: v.clone()
+                          for k, v in state.opt_state.momentum_buf.items()}
+        g32 = from_jax_resnet_params(jax.tree_util.tree_map(np.asarray, g))
+        grads = {k: v.to(dict(model.named_parameters())[k].dtype)
+                 for k, v in g32.items()}
+        assert all(torch.equal(grads[k].float(), g32[k]) for k in g32)
+        masters_j, state_j, stats_j = jstep(g, state_j, masters_j)
+        masters, state, stats = opt.step(grads, state, masters, model=model)
+        assert bool(stats.found_inf) == bool(stats_j.found_inf) == (i == 1)
+        if i == 1:
+            assert all(torch.equal(masters[k], before[k]) for k in masters)
+            assert all(torch.equal(state.opt_state.momentum_buf[k],
+                                   buf_before[k]) for k in buf_before)
+        sj, st = state_j.scaler[0], state.scaler[0]
+        assert float(st.loss_scale) == float(sj.loss_scale)
+        assert int(st.unskipped) == int(sj.unskipped)
+        assert int(st.overflows) == int(sj.overflows)
+        assert int(state.opt_state.step) == int(state_j.opt_state.step)
+    assert float(state.scaler[0].loss_scale) == 2.0 ** 15
+    want = from_jax_resnet_params(jax.tree_util.tree_map(np.asarray,
+                                                         masters_j))
+    errs = {k: _rel_l2(v - start[k], want[k] - start[k])
+            for k, v in masters.items()}
+    params_now = dict(model.named_parameters())
+    for k, v in masters.items():
+        assert torch.equal(params_now[k], v.to(params_now[k].dtype))
+    assert max(errs.values()) <= 1e-5, errs
+
+
+@pytest.mark.parametrize("case", ["same_s2_even", "same_s2_odd",
+                                  "same_s1", "valid_s2", "explicit"])
+def test_conv_padding_matches_flax(case):
+    strides, padding, hw = {
+        "same_s2_even": ((2, 2), "SAME", 16),
+        "same_s2_odd": ((2, 2), "SAME", 15),
+        "same_s1": ((1, 1), "SAME", 16),
+        "valid_s2": ((2, 2), "VALID", 16),
+        "explicit": ((2, 1), [(0, 2), (1, 1)], 16)}[case]
+    rng = np.random.RandomState(3)
+    x = rng.randn(2, hw, hw, 5).astype(np.float32)
+    jconv = JaxConv(6, (3, 3), strides, padding=padding, use_bias=True)
+    jp = jconv.init(jax.random.PRNGKey(1), jnp.asarray(x))["params"]
+    jp = {"kernel": np.asarray(jp["kernel"]),
+          "bias": (0.1 * rng.randn(6)).astype(np.float32)}
+    want = np.asarray(jconv.apply({"params": jp}, jnp.asarray(x)))
+    conv = Conv(5, 6, (3, 3), strides, padding=padding)
+    conv.load_state_dict({k: _t(v) for k, v in jp.items()})
+    got = conv(_t(x)).detach().numpy()
+    assert got.shape == want.shape
+    np.testing.assert_allclose(got, want, rtol=0,
+                               atol=1e-5 * np.abs(want).max())
+
+
+@pytest.mark.parametrize("hw", [32, 33])
+def test_space_to_depth_stem_matches_jax(hw):
+    """Even inputs take the space-to-depth conv, odd ones the plain 7x7/2
+    fallback; both equal flax's."""
+    rng = np.random.RandomState(4)
+    x = rng.randn(2, hw, hw, 3).astype(np.float32)
+    jstem = JaxStem(8)
+    jp = jstem.init(jax.random.PRNGKey(2), jnp.asarray(x))["params"]
+    want = np.asarray(jstem.apply({"params": jp}, jnp.asarray(x)))
+    stem = SpaceToDepthStem(3, 8)
+    stem.load_state_dict({"kernel": _t(jp["kernel"])})
+    got = stem(_t(x)).detach().numpy()
+    assert got.shape == want.shape == (2, -(-hw // 2), -(-hw // 2), 8)
+    ref = fnn.Conv(8, (7, 7), (2, 2), padding=[(3, 3), (3, 3)],
+                   use_bias=False).apply({"params": jp}, jnp.asarray(x))
+    np.testing.assert_allclose(got, np.asarray(ref), rtol=0,
+                               atol=1e-5 * np.abs(want).max())
+    np.testing.assert_allclose(got, want, rtol=0,
+                               atol=1e-5 * np.abs(want).max())
+
+
+def test_rn50_parameter_count_and_names():
+    with torch.device("meta"):
+        model = resnet50()
+    assert sum(p.numel() for p in model.parameters()) == 25_557_032
+    stats = model.init_batch_stats("meta")
+    assert len(stats) == 2 * sum(1 for n, _ in model.named_parameters()
+                                 if n.endswith(".scale"))
+    assert "stage4_block3.bn3.running_var" in stats
+
+
+BN_CASES = {
+    "train": dict(),
+    "eval": dict(eval=True),
+    "residual": dict(residual=True),
+    "residual_eval": dict(residual=True, eval=True),
+    "fuse_relu": dict(kw=dict(fuse_relu=True)),
+    "fuse_relu_eval": dict(kw=dict(fuse_relu=True), eval=True),
+    "bf16": dict(bf16=True),
+    "bf16_residual": dict(bf16=True, residual=True),
+}
+
+
+@pytest.mark.parametrize("case", sorted(BN_CASES))
+def test_sync_batchnorm_matches_jax(case):
+    """Single-process ``SyncBatchNorm`` against the JAX module: output,
+    updated running statistics and the gradients of x, scale, bias and
+    the residual, fp32 within 1e-5 of the largest magnitude (bf16 within
+    1 bf16 ulp of it), statistics within 1e-6."""
+    from apex_tpu.parallel.sync_batchnorm import SyncBatchNorm as JaxBN
+    from apex_tpu_torch.parallel import SyncBatchNorm
+
+    c = BN_CASES[case]
+    kw, train = c.get("kw", {}), not c.get("eval", False)
+    rng = np.random.RandomState(5)
+    shape = (4, 5, 5, 8)
+    x = (2.0 + 1.5 * rng.randn(*shape)).astype(np.float32)
+    res = rng.randn(*shape).astype(np.float32) if c.get("residual") else None
+    cot = rng.randn(*shape).astype(np.float32)
+    jdt = jnp.bfloat16 if c.get("bf16") else jnp.float32
+    tdt = torch.bfloat16 if c.get("bf16") else torch.float32
+    jbn = JaxBN(axis_name=None, **kw)
+    init = jbn.init(jax.random.PRNGKey(0), jnp.asarray(x))
+    params = _perturb(init["params"], np.random.RandomState(6))
+    stats = {"running_mean": (0.3 * rng.randn(8)).astype(np.float32),
+             "running_var": (1.0 + rng.rand(8)).astype(np.float32)}
+    jx = jnp.asarray(x).astype(jdt)
+    jres = None if res is None else jnp.asarray(res).astype(jdt)
+
+    def jloss(p, xx, rr):
+        variables = {"batch_stats": stats, "params": p}
+        out, upd = jbn.apply(variables, xx, residual=rr,
+                             use_running_average=not train,
+                             mutable=["batch_stats"])
+        return jnp.sum(out.astype(jnp.float32) * cot), (out, upd)
+
+    (_, (jout, jupd)), jg = jax.value_and_grad(
+        jloss, argnums=(0, 1, 2), has_aux=True)(params, jx, jres)
+    bn = SyncBatchNorm(8, **kw)
+    bn.load_state_dict({k: _t(v) for k, v in params.items()})
+    tx = _t(x).to(tdt).requires_grad_()
+    tres = None if res is None else _t(res).to(tdt).requires_grad_()
+    out, new = bn(tx, (_t(stats["running_mean"]), _t(stats["running_var"])),
+                  residual=tres, use_running_average=not train)
+    assert out.dtype == tdt
+    (out.float() * _t(cot)).sum().backward()
+
+    def close(got, want):
+        g = got.detach().float().numpy()
+        w = np.asarray(jnp.asarray(want).astype(jnp.float32))
+        tol = (2.0 ** -7 if c.get("bf16") else 1e-5) * np.abs(w).max()
+        assert np.abs(g - w).max() <= tol
+
+    close(out, jout)
+    want_stats = jupd.get("batch_stats", stats) if train else stats
+    for i, k in enumerate(("running_mean", "running_var")):
+        np.testing.assert_allclose(new[i].numpy(), np.asarray(want_stats[k]),
+                                   rtol=0, atol=1e-6)
+    close(tx.grad, jg[1])
+    if tres is not None:
+        close(tres.grad, jg[2])
+    for name, p in bn.named_parameters():
+        close(p.grad, jg[0][name])
+
+
+def test_mapping_raises_on_unknown_keys(data):
+    *_, params, bstats = data
+    from_jax_resnet_params(params, bstats)
+    with pytest.raises(ValueError, match="head"):
+        from_jax_resnet_params(dict(params, head={"kernel": 0}))
+    blk = dict(params["stage1_block1"], conv4={"kernel": 0})
+    with pytest.raises(ValueError, match="conv4"):
+        from_jax_resnet_params(dict(params, stage1_block1=blk))
+    with pytest.raises(ValueError, match="mean"):
+        from_jax_resnet_params(params, dict(bstats, bn1={"mean": 0}))
