@@ -11,9 +11,16 @@ under O2 with ``fused_lamb`` on padded batches: ``BertForMLM``, the
 contrib ``SelfMultiheadAttn`` and the LAMB stage-1 kernel.  The fourth
 is O2 training of ResNet-50 with ``fused_sgd`` (``ResNet``, ``Conv``,
 single-process ``SyncBatchNorm``), with the three conv+BN matmul kernels
-of ``ops.conv_bn`` as library entry points.  Every kernel on those paths
+of ``ops.conv_bn`` as library entry points.  The fifth is O2 training
+of GPT-2 medium, larger than one microbatch on one card: gradient
+accumulation over microbatches (``train.accum``: ``amp_microbatch_step``,
+``MicrobatchedStep``, taken by ``FusedTrainDriver``), activation
+rematerialization per block (``remat``: ``none``, ``dots_saveable``,
+``full_block``), and the flash kernels' ``probs_bf16`` option and
+dq-accumulating backward (``dq_acc``).  Every kernel on those paths
 (LayerNorm forward and backward, paged attention, flash attention
 forward and backward with and without an additive bias and its gradient,
+with half-precision probabilities and with dq accumulated in place,
 fused cross-entropy forward and backward, LAMB stage 1, the matmul with
 a BN-stats epilogue, the BN-prologue matmul and the dual matmul
 backward) is
@@ -50,7 +57,12 @@ from apex_tpu_torch.serve import (  # noqa: F401
     init_paged_cache,
     sample_tokens,
 )
-from apex_tpu_torch.train import FusedTrainDriver, read_metrics  # noqa: F401
+from apex_tpu_torch.train import (  # noqa: F401
+    FusedTrainDriver,
+    MicrobatchedStep,
+    amp_microbatch_step,
+    read_metrics,
+)
 from apex_tpu_torch.weights import (  # noqa: F401
     from_jax_bert_params,
     from_jax_opt_state,
@@ -58,7 +70,7 @@ from apex_tpu_torch.weights import (  # noqa: F401
     from_jax_resnet_params,
 )
 
-__version__ = "0.4.0"
+__version__ = "0.5.0"
 
 __all__ = [
     "BertConfig",
@@ -71,6 +83,7 @@ __all__ = [
     "GPTDecoder",
     "GPTLM",
     "GPTLayer",
+    "MicrobatchedStep",
     "PagePool",
     "PagedKVCache",
     "Request",
@@ -78,6 +91,7 @@ __all__ = [
     "SamplingParams",
     "ServeEngine",
     "SyncBatchNorm",
+    "amp_microbatch_step",
     "from_jax_bert_params",
     "from_jax_opt_state",
     "from_jax_params",

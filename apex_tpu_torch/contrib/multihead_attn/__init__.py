@@ -84,9 +84,11 @@ def mask_softmax_dropout(scores: torch.Tensor,
 
 def _core_attention(q, k, v, bias, scale: float, dropout_rate: float,
                     is_training: bool, impl: str, probs_bf16: bool,
-                    generator: Optional[torch.Generator]) -> torch.Tensor:
+                    generator: Optional[torch.Generator],
+                    dq_acc: Optional[bool] = None) -> torch.Tensor:
     """(B, H, S, D) attention: ``fast`` through the flash kernels,
-    ``default`` plain fp32 (where ``probs_bf16`` does not apply)."""
+    ``default`` plain fp32 (where ``probs_bf16`` and ``dq_acc`` do not
+    apply)."""
     needs_dropout = dropout_rate > 0.0 and is_training
     if impl == "fast":
         seed = None
@@ -95,7 +97,7 @@ def _core_attention(q, k, v, bias, scale: float, dropout_rate: float,
         return flash_attention(
             q, k, v, bias=bias, scale=scale,
             dropout_rate=dropout_rate if needs_dropout else 0.0,
-            dropout_seed=seed, probs_bf16=probs_bf16)
+            dropout_seed=seed, probs_bf16=probs_bf16, dq_acc=dq_acc)
     s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * scale
     p = mask_softmax_dropout(
         s, bias=None if bias is None else bias[:, None],
@@ -120,8 +122,10 @@ class SelfMultiheadAttn(nn.Module):
     ``default`` (plain fp32), ``separate_qkv_params`` stores q/k/v
     weights as three parameters, ``mask_additive`` marks
     ``key_padding_mask`` as already additive.  ``dtype`` is the compute
-    dtype the projections run in.  Parameters are fp32 (until an AMP
-    cast), initialised as the reference does: the joint (h, 3h) weight
+    dtype the projections run in.  ``probs_bf16`` and ``dq_acc`` go to
+    :func:`~apex_tpu_torch.ops.attention.flash_attention` (``fast``).
+    Parameters are fp32 (until an AMP cast), initialised as the reference
+    does: the joint (h, 3h) weight
     like an h x h matrix (variance scaling 2, fan average, uniform), the
     others Xavier-uniform, biases zero.
     """
@@ -130,7 +134,8 @@ class SelfMultiheadAttn(nn.Module):
                  bias: bool = False, include_norm_add: bool = False,
                  impl: str = "fast", separate_qkv_params: bool = False,
                  mask_additive: bool = False, probs_bf16: bool = False,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32,
+                 dq_acc: Optional[bool] = None):
         super().__init__()
         if embed_dim % num_heads != 0:
             raise ValueError("embed_dim must be divisible by num_heads")
@@ -144,7 +149,7 @@ class SelfMultiheadAttn(nn.Module):
         self.include_norm_add, self.impl = include_norm_add, impl
         self.separate_qkv_params = separate_qkv_params
         self.mask_additive, self.probs_bf16 = mask_additive, probs_bf16
-        self.dtype = dtype
+        self.dtype, self.dq_acc = dtype, dq_acc
 
         def xavier(rows, cols):
             return nn.Parameter(nn.init.xavier_uniform_(torch.empty(rows,
@@ -202,7 +207,7 @@ class SelfMultiheadAttn(nn.Module):
                               self.mask_additive, b, s, s)
         attn = _core_attention(q, k, v, bias, d ** -0.5, self.dropout,
                                is_training, self.impl, self.probs_bf16,
-                               generator)
+                               generator, self.dq_acc)
         attn = attn.transpose(1, 2).reshape(b, s, h)
         out = _dense(attn, self.out_proj_weight.to(dt),
                      self.out_proj_bias.to(dt) if self.use_bias else None)

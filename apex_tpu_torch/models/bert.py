@@ -23,8 +23,9 @@ tied decoder and dtype discipline:
 
 Dropout draws from an explicit ``torch.Generator`` on the model's device;
 its bits cannot match flax's, except the attention-dropout mask, which is
-the JAX package's counter hash.  Not ported yet: ``token_type_ids``,
-remat policies other than ``"none"`` and an untied decoder.
+the JAX package's counter hash.  Each encoder block runs under the
+config's ``remat_policy`` (:mod:`apex_tpu_torch.remat`).  Not ported
+yet: ``token_type_ids`` and an untied decoder.
 """
 from __future__ import annotations
 
@@ -40,6 +41,7 @@ from apex_tpu_torch.amp.layers import Dense
 from apex_tpu_torch.contrib.multihead_attn import SelfMultiheadAttn
 from apex_tpu_torch.normalization import FusedLayerNorm
 from apex_tpu_torch.ops.softmax_xentropy import softmax_cross_entropy
+from apex_tpu_torch.remat import checkpoint_policy, remat_call
 
 __all__ = ["BertConfig", "BertEncoder", "BertForMLM", "BertLayer",
            "init_bert_params"]
@@ -56,14 +58,16 @@ class BertConfig:
     dropout_rate: float = 0.1
     attn_dropout_rate: float = 0.1
     probs_bf16: bool = False
+    # activation rematerialization per encoder block: none | dots_saveable
+    # | full_block (apex_tpu_torch.remat)
     remat_policy: str = "none"
     compute_dtype: torch.dtype = torch.bfloat16
+    # the flash backward: dq-accumulating (True), partials (False) or the
+    # module default (None)
+    dq_acc: Optional[bool] = None
 
     def __post_init__(self):
-        if self.remat_policy != "none":
-            raise NotImplementedError(
-                f"remat_policy {self.remat_policy!r} is not ported yet; "
-                "use 'none'")
+        checkpoint_policy(self.remat_policy)  # an unknown name raises
 
     @staticmethod
     def large(**kw) -> "BertConfig":
@@ -92,7 +96,7 @@ class BertLayer(nn.Module):
         self.self_attn = SelfMultiheadAttn(
             h, cfg.num_heads, dropout=cfg.attn_dropout_rate, bias=True,
             mask_additive=True, impl="fast", probs_bf16=cfg.probs_bf16,
-            dtype=dt)
+            dtype=dt, dq_acc=cfg.dq_acc)
         self.attn_ln = FusedLayerNorm(h)
         self.ffn_in = Dense(h, cfg.intermediate_size, dtype=dt)
         self.ffn_out = Dense(cfg.intermediate_size, h, dtype=dt)
@@ -156,7 +160,8 @@ class BertEncoder(nn.Module):
             mask_bias = (1.0 - attention_mask.float()) * -1e9
         x = x.to(cfg.compute_dtype)
         for layer in self.layers:
-            x = layer(x, mask_bias, deterministic, generator)
+            x = remat_call(layer, cfg.remat_policy, x, mask_bias,
+                           deterministic, generator, generator=generator)
         return x
 
     def attend(self, x: torch.Tensor) -> torch.Tensor:

@@ -11,9 +11,12 @@ tied head and dtype discipline:
 - training (``GPTLM.forward``): the embeddings are an fp32 lookup of the
   (possibly bf16) tables, summed and dropped out in fp32, then cast to
   the compute dtype; each block runs causal
-  :func:`~apex_tpu_torch.ops.attention.flash_attention` with its
-  attention-dropout seed drawn from the caller's generator, and residual
-  dropout after the projection and the MLP; the loss is
+  :func:`~apex_tpu_torch.ops.attention.flash_attention` (with the
+  config's ``probs_bf16`` and ``dq_acc``) with its attention-dropout seed
+  drawn from the caller's generator, and residual dropout after the
+  projection and the MLP; each block runs under the config's
+  ``remat_policy`` (:mod:`apex_tpu_torch.remat`), which leaves the
+  parameters as they are; the loss is
   :func:`~apex_tpu_torch.ops.softmax_xentropy.softmax_cross_entropy` on
   compute-dtype logits (a compute-dtype head product with fp32
   accumulation: the JAX package rounds its fp32 logits to that dtype
@@ -43,6 +46,7 @@ from apex_tpu_torch.amp.layers import Dense
 from apex_tpu_torch.normalization import FusedLayerNorm
 from apex_tpu_torch.ops import attention as _attn
 from apex_tpu_torch.ops.softmax_xentropy import softmax_cross_entropy
+from apex_tpu_torch.remat import checkpoint_policy, remat_call
 
 __all__ = ["GPTConfig", "GPTLayer", "GPTLM", "init_params"]
 
@@ -57,6 +61,18 @@ class GPTConfig:
     dropout_rate: float = 0.1
     attn_dropout_rate: float = 0.1
     compute_dtype: torch.dtype = torch.bfloat16
+    # half-precision probabilities in the flash kernels (flash_attention's
+    # probs_bf16)
+    probs_bf16: bool = False
+    # activation rematerialization per block: none | dots_saveable |
+    # full_block (apex_tpu_torch.remat)
+    remat_policy: str = "none"
+    # the flash backward: the dq-accumulating one (True), the partials one
+    # (False), or the module default (None: ops.attention.DQ_ACC_DEFAULT)
+    dq_acc: Optional[bool] = None
+
+    def __post_init__(self):
+        checkpoint_policy(self.remat_policy)  # an unknown name raises
 
     @property
     def intermediate_size(self) -> int:
@@ -114,7 +130,7 @@ class GPTLayer(nn.Module):
         attn = _attn.flash_attention(
             split(q), split(k), split(v), causal=True,
             dropout_rate=cfg.attn_dropout_rate if drop_attn else 0.0,
-            dropout_seed=seed)
+            dropout_seed=seed, probs_bf16=cfg.probs_bf16, dq_acc=cfg.dq_acc)
         attn = self.proj(attn.transpose(1, 2).reshape(b, s, h))
         if not deterministic:
             attn = dropout(attn, cfg.dropout_rate, generator)
@@ -216,7 +232,8 @@ class GPTLM(nn.Module):
         path's, so no fp32 copy of the largest activation is made) and
         the fp32 mean loss over labels >= 0, ignored labels replaced by 0
         before the fused cross-entropy.  ``deterministic=False`` applies
-        dropout from ``generator``."""
+        dropout from ``generator``.  Each block runs under
+        ``cfg.remat_policy``."""
         cfg = self.cfg
         b, s = input_ids.shape
         if s > cfg.max_position:
@@ -230,7 +247,8 @@ class GPTLM(nn.Module):
             x = dropout(x, cfg.dropout_rate, generator)
         x = x.to(cfg.compute_dtype)
         for layer in self.layers:
-            x = layer(x, deterministic, generator)
+            x = remat_call(layer, cfg.remat_policy, x, deterministic,
+                           generator, generator=generator)
         x = self.ln_f(x.float())
         if labels is None:
             return self._logits(x)

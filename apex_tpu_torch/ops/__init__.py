@@ -13,6 +13,7 @@ from apex_tpu_torch.ops.attention import (  # noqa: F401
     cached_attention,
     flash_attention,
     flash_attention_bwd,
+    flash_attention_bwd_acc,
     flash_attention_fwd,
     paged_cached_attention,
     paged_fused_attention,
@@ -43,6 +44,7 @@ KERNELS = {
     "paged_fused_attention": paged_fused_attention,
     "flash_attention_fwd": flash_attention_fwd,
     "flash_attention_bwd": flash_attention_bwd,
+    "flash_attention_bwd_acc": flash_attention_bwd_acc,
     "softmax_xentropy_fwd": softmax_cross_entropy_fwd,
     "softmax_xentropy_bwd": softmax_cross_entropy_bwd,
     "lamb_stage1": lamb_stage1,
@@ -69,6 +71,7 @@ __all__ = [
     "cached_attention",
     "flash_attention",
     "flash_attention_bwd",
+    "flash_attention_bwd_acc",
     "flash_attention_fwd",
     "lamb_stage1",
     "launch_counts",

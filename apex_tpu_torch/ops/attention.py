@@ -20,9 +20,11 @@ The training half:
   wrappers of ``csrc/flash_attention.cu`` (ports of the Pallas
   ``_fwd_kernel``/``_fwd_kernel_nobias`` and of the combined backward
   ``_bwd_fused_kernel``/``_bwd_fused_nobias``, which here also writes
-  the bias gradient of the two-pass ``_bwd_dq_kernel``).  On CPU tensors
-  they run their plain versions :func:`flash_attention_fwd_ref` and
-  :func:`flash_attention_bwd_ref`.
+  the bias gradient of the two-pass ``_bwd_dq_kernel``), and
+  :func:`flash_attention_bwd_acc`, the port of the dq-accumulating
+  ``_bwd_fused_acc_kernel``/``_bwd_fused_acc_nobias`` (``dq_acc``).  On
+  CPU tensors they run their plain versions
+  :func:`flash_attention_fwd_ref` and :func:`flash_attention_bwd_ref`.
 
 All softmax and accumulation math is fp32 whatever the input, cache or
 pool dtype; masked scores are the finite ``_NEG_INF`` (never ``-inf``),
@@ -45,6 +47,7 @@ __all__ = [
     "cached_attention",
     "flash_attention",
     "flash_attention_bwd",
+    "flash_attention_bwd_acc",
     "flash_attention_bwd_ref",
     "flash_attention_fwd",
     "flash_attention_fwd_ref",
@@ -309,6 +312,14 @@ paged_fused_attention.launches = 0
 
 _M32 = 0xFFFFFFFF
 _FLASH_D = 64
+_FLASH_TILE = 64  # the kernels' key tile: probs_bf16's forward rounds per tile
+
+#: Whether :func:`flash_attention` and :func:`flash_attention_bwd` take the
+#: dq-accumulating backward (:func:`flash_attention_bwd_acc`) when a call
+#: passes no ``dq_acc``.  Off, as the JAX package's ``_FUSED_DQ_ACC``: the
+#: two backwards give the same bits, and which is faster on the card is
+#: still to be measured.
+DQ_ACC_DEFAULT = False
 
 
 def _mul32(a: torch.Tensor, c: int) -> torch.Tensor:
@@ -428,33 +439,71 @@ def _bias_scores(s, bias):
 
 
 def flash_attention_fwd_ref(q3, k3, v3, seed_pack, scale: float,
-                            causal: bool, rate: float, h_map, bias=None):
+                            causal: bool, rate: float, h_map, bias=None,
+                            probs_bf16: bool = False):
     """Plain version of the forward kernel on (BH, S, D), with an optional
     additive (B, Sq, Sk) ``bias``: returns ``(o, lse)``, o in q's dtype
-    and the fp32 per-row logsumexp."""
+    and the fp32 per-row logsumexp.  With ``probs_bf16`` and bf16 inputs
+    it walks the kernel's 64-key tiles with the online softmax and rounds
+    each tile's ``exp(s - m_running)`` (after the dropout mask) to bf16
+    before p.V, as the kernel does; for fp32 inputs the rounding is the
+    identity."""
     sq, sk = q3.shape[1], k3.shape[1]
     s = _bias_scores(
         torch.einsum("bqd,bkd->bqk", q3.float(), k3.float()) * scale, bias)
     if causal:
         s = torch.where(_causal(sq, sk, q3.device), s, _NEG_INF)
-    lse = _logsumexp(s)
-    p = torch.exp(s - lse[..., None])
+    keep = None
     if rate > 0.0:
         keep = _drop_keep(seed_pack, q3.shape[0], h_map, sq, sk, rate)
+    if probs_bf16 and q3.dtype != torch.float32:
+        return _fwd_tiled_probs(s, keep, v3, rate, q3.dtype)
+    lse = _logsumexp(s)
+    p = torch.exp(s - lse[..., None])
+    if keep is not None:
         p = torch.where(keep, p / (1.0 - rate), 0.0)
     o = torch.einsum("bqk,bkd->bqd", p, v3.float()).to(q3.dtype)
     return o, lse
 
 
+def _fwd_tiled_probs(s, keep, v3, rate: float, dtype):
+    """The forward's online softmax over 64-key tiles with each tile's
+    probabilities rounded to ``dtype`` before p.V (``probs_bf16``):
+    ``(o, lse)`` from the fp32 scores ``s`` (BH, Sq, Sk)."""
+    bh, sq, sk = s.shape
+    m = torch.full((bh, sq), _NEG_INF, device=s.device)
+    lsum = torch.zeros(bh, sq, device=s.device)
+    acc = torch.zeros(bh, sq, v3.shape[2], device=s.device)
+    v32 = v3.float()
+    for k0 in range(0, sk, _FLASH_TILE):
+        st = s[:, :, k0:k0 + _FLASH_TILE]
+        m_new = torch.maximum(m, st.amax(dim=-1))
+        alpha = torch.exp(m - m_new)
+        p = torch.exp(st - m_new[..., None])
+        lsum = alpha * lsum + p.sum(dim=-1)
+        if keep is not None:
+            p = torch.where(keep[:, :, k0:k0 + _FLASH_TILE], p, 0.0)
+        p = p.to(dtype).float()
+        acc = acc * alpha[..., None] + torch.einsum(
+            "bqk,bkd->bqd", p, v32[:, k0:k0 + _FLASH_TILE])
+        m = m_new
+    l_safe = torch.where(lsum == 0.0, 1.0, lsum)
+    denom = l_safe * (1.0 - rate) if rate > 0.0 else l_safe
+    return (acc / denom[..., None]).to(dtype), m + torch.log(l_safe)
+
+
 def flash_attention_bwd_ref(q3, k3, v3, o, lse, do, seed_pack,
                             scale: float, causal: bool, rate: float, h_map,
-                            bias=None, bias_grad: bool = False):
-    """Plain version of the combined backward kernel on (BH, S, D):
-    recomputes p from lse, takes delta = rowsum(do * o), returns
-    ``(dq, dk, dv, dbias)`` with the grads in q's dtype and, with
-    ``bias_grad``, ``dbias = p * (dp - delta)`` (no ``scale`` factor)
-    per batch*head as fp32 (BH, Sq, Sk), else None; every product in
-    fp32."""
+                            bias=None, bias_grad: bool = False,
+                            probs_bf16: bool = False):
+    """Plain version of the backward kernels on (BH, S, D) (the partials
+    and the dq-accumulating one compute the same function): recomputes p
+    from lse, takes delta = rowsum(do * o), returns ``(dq, dk, dv,
+    dbias)`` with the grads in q's dtype and, with ``bias_grad``, ``dbias
+    = p * (dp - delta)`` (no ``scale`` factor) per batch*head as fp32
+    (BH, Sq, Sk), else None; every product accumulates in fp32.  With
+    ``probs_bf16`` pd and ds are rounded to q's dtype before their
+    products (dbias keeps the unrounded value)."""
     sq, sk = q3.shape[1], k3.shape[1]
     q32, k32, v32, do32 = q3.float(), k3.float(), v3.float(), do.float()
     delta = (do32 * o.float()).sum(dim=-1)
@@ -472,10 +521,12 @@ def flash_attention_bwd_ref(q3, k3, v3, o, lse, do, seed_pack,
         pd = p
     dsb = p * (dp - delta[..., None])
     ds = dsb * scale
+    dt = q3.dtype
+    if probs_bf16:
+        pd, ds = pd.to(dt).float(), ds.to(dt).float()
     dv = torch.einsum("bqk,bqd->bkd", pd, do32)
     dk = torch.einsum("bqk,bqd->bkd", ds, q32)
     dq = torch.einsum("bqk,bkd->bqd", ds, k32)
-    dt = q3.dtype
     return (dq.to(dt), dk.to(dt), dv.to(dt),
             dsb if bias is not None and bias_grad else None)
 
@@ -485,16 +536,24 @@ def _flash_lib():
     lib = _build.load("flash_attention")
     p, i, f, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, \
         ctypes.c_longlong
+    u = ctypes.c_uint
     bias = [p, i, i, ll, ll]  # pointer, dtype code, heads, batch/row strides
-    lib.apex_flash_fwd.argtypes = [p, p, p, p, p, p, *bias, i, i, i, i, i,
-                                   f, i, f, ctypes.c_uint, i, p]
+    # ..., bh, sq, sk, h_local, h_total, scale, causal, rate, thresh
+    shape = [i, i, i, i, i, f, i, f, u]
+    lib.apex_flash_fwd.argtypes = [p, p, p, p, p, p, *bias, *shape, i, i, p]
     lib.apex_flash_fwd.restype = i
     lib.apex_flash_bwd.argtypes = [p, p, p, p, p, p, p, *bias, p, p, p, p,
-                                   p, i, i, i, i, i, f, i, f, ctypes.c_uint,
-                                   i, p]
+                                   p, *shape, i, i, p]
     lib.apex_flash_bwd.restype = i
+    lib.apex_flash_bwd_acc.argtypes = [p, p, p, p, p, p, p, *bias, p, p, p,
+                                       p, p, *shape, i, i, i, p]
+    lib.apex_flash_bwd_acc.restype = i
     lib.apex_flash_dq_tiles.argtypes = [i, i, i]
-    lib.apex_flash_dq_tiles.restype = ctypes.c_longlong
+    lib.apex_flash_dq_tiles.restype = ll
+    lib.apex_flash_acc_floats.argtypes = [i, i]
+    lib.apex_flash_acc_floats.restype = ll
+    lib.apex_flash_acc_turns.argtypes = [i, i]
+    lib.apex_flash_acc_turns.restype = ll
     return lib
 
 
@@ -542,15 +601,23 @@ def _bias_args(bias, bh):
             bias.stride(0), bias.stride(1))
 
 
+def _shape_args(q3, k3, scale, causal, rate, h_map):
+    """(bh, sq, sk, h_local, h_total, scale, causal, rate, thresh) of the
+    kernels' arguments."""
+    return (q3.shape[0], q3.shape[1], k3.shape[1], h_map[0], h_map[1],
+            float(scale), int(causal), float(rate), _keep_thresh(rate))
+
+
 def flash_attention_fwd(q3, k3, v3, seed_pack, scale: float, causal: bool,
-                        rate: float, h_map, bias=None):
+                        rate: float, h_map, bias=None,
+                        probs_bf16: bool = False):
     """Forward on (BH, S, 64) with an optional (B, Sq, Sk) ``bias``
     (any batch and row strides, so a broadcast key-padding mask is read
     in place): ``(o, lse)``.  CUDA tensors run ``apex_flash_fwd``; CPU
     tensors :func:`flash_attention_fwd_ref`."""
     if not use_kernel(q3, k3, v3, seed_pack, bias):
         return flash_attention_fwd_ref(q3, k3, v3, seed_pack, scale, causal,
-                                       rate, h_map, bias)
+                                       rate, h_map, bias, probs_bf16)
     _flash_check(q3, k3, v3, seed_pack, bias)
     bh, sq, _ = q3.shape
     o = torch.empty_like(q3)
@@ -558,9 +625,9 @@ def flash_attention_fwd(q3, k3, v3, seed_pack, scale: float, causal: bool,
     with torch.cuda.device(q3.device):
         err = _flash_lib().apex_flash_fwd(
             q3.data_ptr(), k3.data_ptr(), v3.data_ptr(), o.data_ptr(),
-            lse.data_ptr(), seed_pack.data_ptr(), *_bias_args(bias, bh), bh,
-            sq, k3.shape[1], h_map[0], h_map[1], float(scale), int(causal),
-            float(rate), _keep_thresh(rate), _Q_CODE[q3.dtype],
+            lse.data_ptr(), seed_pack.data_ptr(), *_bias_args(bias, bh),
+            *_shape_args(q3, k3, scale, causal, rate, h_map),
+            int(probs_bf16), _Q_CODE[q3.dtype],
             torch.cuda.current_stream(q3.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"flash attention forward kernel launch failed: "
@@ -569,32 +636,48 @@ def flash_attention_fwd(q3, k3, v3, seed_pack, scale: float, causal: bool,
     return o, lse
 
 
-def flash_attention_bwd(q3, k3, v3, o, lse, do, seed_pack, scale: float,
-                        causal: bool, rate: float, h_map, bias=None,
-                        bias_grad: bool = False):
-    """Backward on (BH, S, 64): ``(dq, dk, dv, dbias)``, dbias as for
-    :func:`flash_attention_bwd_ref`.  CUDA tensors run ``apex_flash_bwd``
-    (the combined dk/dv/dq-partials kernel, writing dbias with
-    ``bias_grad``, then the fixed-order dq sum); CPU tensors
-    :func:`flash_attention_bwd_ref`."""
-    if not use_kernel(q3, k3, v3, o, lse, do, seed_pack, bias):
-        return flash_attention_bwd_ref(q3, k3, v3, o, lse, do, seed_pack,
-                                       scale, causal, rate, h_map, bias,
-                                       bias_grad)
+def _bwd_inputs(q3, k3, v3, o, lse, do, seed_pack, bias):
+    """Checks the backward's inputs; returns (do, delta, lse) as the
+    kernels take them."""
     _flash_check(q3, k3, v3, seed_pack, bias)
     if do.shape != q3.shape or do.dtype != q3.dtype or o.shape != q3.shape:
         raise ValueError("flash attention backward takes do and o like q")
+    do = do.contiguous()
+    delta = (do.float() * o.float()).sum(dim=-1)
+    return do, delta, lse.contiguous()
+
+
+def flash_attention_bwd(q3, k3, v3, o, lse, do, seed_pack, scale: float,
+                        causal: bool, rate: float, h_map, bias=None,
+                        bias_grad: bool = False, probs_bf16: bool = False,
+                        dq_acc: Optional[bool] = None):
+    """Backward on (BH, S, 64): ``(dq, dk, dv, dbias)``, dbias as for
+    :func:`flash_attention_bwd_ref`.  ``dq_acc`` (None:
+    :data:`DQ_ACC_DEFAULT`) hands the call to
+    :func:`flash_attention_bwd_acc`, as the JAX package's ``_FUSED_DQ_ACC``
+    does, except with a bias and ``bias_grad``, which that backward does
+    not take (JAX's fused backwards exclude it too).  Otherwise CUDA
+    tensors run ``apex_flash_bwd`` (the combined dk/dv/dq-partials kernel,
+    writing dbias with ``bias_grad``, then the fixed-order dq sum); CPU
+    tensors :func:`flash_attention_bwd_ref`."""
+    with_dbias = bias is not None and bias_grad
+    if (DQ_ACC_DEFAULT if dq_acc is None else dq_acc) and not with_dbias:
+        return flash_attention_bwd_acc(q3, k3, v3, o, lse, do, seed_pack,
+                                       scale, causal, rate, h_map, bias,
+                                       probs_bf16)
+    if not use_kernel(q3, k3, v3, o, lse, do, seed_pack, bias):
+        return flash_attention_bwd_ref(q3, k3, v3, o, lse, do, seed_pack,
+                                       scale, causal, rate, h_map, bias,
+                                       bias_grad, probs_bf16)
     bh, sq, d = q3.shape
     sk = k3.shape[1]
     # dbias is taken from the allocator first, so that a check can hand
     # the kernel a poisoned block (one it has just freed) and see every
     # tile written, causally skipped ones included
     dbias = None
-    if bias is not None and bias_grad:
+    if with_dbias:
         dbias = torch.empty(bh, sq, sk, dtype=torch.float32, device=q3.device)
-    do = do.contiguous()
-    delta = (do.float() * o.float()).sum(dim=-1)
-    lse = lse.contiguous()
+    do, delta, lse = _bwd_inputs(q3, k3, v3, o, lse, do, seed_pack, bias)
     lib = _flash_lib()
     tiles = lib.apex_flash_dq_tiles(sq, sk, int(causal))
     part = torch.empty(bh * tiles * 64 * d, dtype=torch.float32,
@@ -606,15 +689,64 @@ def flash_attention_bwd(q3, k3, v3, o, lse, do, seed_pack, scale: float,
             lse.data_ptr(), delta.data_ptr(), seed_pack.data_ptr(),
             *_bias_args(bias, bh), dq.data_ptr(), dk.data_ptr(),
             dv.data_ptr(), part.data_ptr(),
-            None if dbias is None else dbias.data_ptr(), bh, sq, sk,
-            h_map[0], h_map[1], float(scale), int(causal), float(rate),
-            _keep_thresh(rate), _Q_CODE[q3.dtype],
+            None if dbias is None else dbias.data_ptr(),
+            *_shape_args(q3, k3, scale, causal, rate, h_map),
+            int(probs_bf16), _Q_CODE[q3.dtype],
             torch.cuda.current_stream(q3.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"flash attention backward kernel launch failed: "
                            f"CUDA error {err}")
     flash_attention_bwd.launches += 1
     return dq, dk, dv, dbias
+
+
+def flash_attention_bwd_acc(q3, k3, v3, o, lse, do, seed_pack, scale: float,
+                            causal: bool, rate: float, h_map, bias=None,
+                            probs_bf16: bool = False, *, _fault: int = 0,
+                            _run: Optional[torch.Tensor] = None):
+    """Backward on (BH, S, 64) with dq accumulated in key order in one
+    running fp32 buffer of (BH, Sq, 64) instead of a partials buffer per
+    visited tile: ``(dq, dk, dv, None)``, bit for bit those of
+    :func:`flash_attention_bwd` (no ``bias_grad``).  CUDA tensors run
+    ``apex_flash_bwd_acc`` (one launch, no second pass); CPU tensors
+    :func:`flash_attention_bwd_ref`.  For the checks: ``_fault`` plants
+    an error in the kernel that they must reject (1: key tile 1's
+    contribution dropped; 2: the contributions added in reverse key
+    order), and ``_run`` hands the kernel its running buffer (fp32,
+    contiguous, of ``apex_flash_acc_floats`` elements), which may hold
+    anything: its first contributors write it without reading it."""
+    if not use_kernel(q3, k3, v3, o, lse, do, seed_pack, bias):
+        return flash_attention_bwd_ref(q3, k3, v3, o, lse, do, seed_pack,
+                                       scale, causal, rate, h_map, bias,
+                                       False, probs_bf16)
+    bh, sq, _ = q3.shape
+    lib = _flash_lib()
+    floats = lib.apex_flash_acc_floats(bh, sq)
+    run = _run
+    if run is None:
+        run = torch.empty(floats, dtype=torch.float32, device=q3.device)
+    elif (run.dtype != torch.float32 or run.numel() != floats
+          or not run.is_contiguous() or run.device != q3.device):
+        raise ValueError(f"the running dq buffer must be a contiguous fp32 "
+                         f"tensor of {floats} elements on {q3.device}")
+    turns = torch.empty(lib.apex_flash_acc_turns(bh, sq), dtype=torch.int32,
+                        device=q3.device)
+    do, delta, lse = _bwd_inputs(q3, k3, v3, o, lse, do, seed_pack, bias)
+    dq, dk, dv = (torch.empty_like(t) for t in (q3, k3, v3))
+    with torch.cuda.device(q3.device):
+        err = lib.apex_flash_bwd_acc(
+            q3.data_ptr(), k3.data_ptr(), v3.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), seed_pack.data_ptr(),
+            *_bias_args(bias, bh), dq.data_ptr(), dk.data_ptr(),
+            dv.data_ptr(), run.data_ptr(), turns.data_ptr(),
+            *_shape_args(q3, k3, scale, causal, rate, h_map),
+            int(probs_bf16), int(_fault), _Q_CODE[q3.dtype],
+            torch.cuda.current_stream(q3.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"flash attention dq-accumulating backward kernel "
+                           f"launch failed: CUDA error {err}")
+    flash_attention_bwd_acc.launches += 1
+    return dq, dk, dv, None
 
 
 class _Flash(torch.autograd.Function):
@@ -624,24 +756,24 @@ class _Flash(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q3, k3, v3, bias, seed_pack, scale, causal, rate, h_map,
-                bias_grad):
+                bias_grad, probs_bf16, dq_acc):
         o, lse = flash_attention_fwd(q3, k3, v3, seed_pack, scale, causal,
-                                     rate, h_map, bias)
+                                     rate, h_map, bias, probs_bf16)
         ctx.save_for_backward(q3, k3, v3, bias, o, lse, seed_pack)
         ctx.cfg = (scale, causal, rate, h_map)
-        ctx.bias_grad = bias_grad
+        ctx.opts = (bias_grad, probs_bf16, dq_acc)
         return o
 
     @staticmethod
     def backward(ctx, do):
         q3, k3, v3, bias, o, lse, seed_pack = ctx.saved_tensors
         dq, dk, dv, dbias3 = flash_attention_bwd(
-            q3, k3, v3, o, lse, do, seed_pack, *ctx.cfg, bias, ctx.bias_grad)
+            q3, k3, v3, o, lse, do, seed_pack, *ctx.cfg, bias, *ctx.opts)
         dbias = None
         if dbias3 is not None:
             b, sq, sk = bias.shape
             dbias = dbias3.reshape(b, -1, sq, sk).sum(dim=1).to(bias.dtype)
-        return dq, dk, dv, dbias, None, None, None, None, None, None
+        return (dq, dk, dv, dbias) + (None,) * 8
 
 
 def flash_attention(
@@ -657,6 +789,7 @@ def flash_attention(
     dropout_heads=None,
     bias_grad: bool = False,
     probs_bf16: bool = False,
+    dq_acc: Optional[bool] = None,
 ) -> torch.Tensor:
     """Differentiable flash attention.  q, k, v: (B, H, S, D); optional
     additive bias (B, Sq, Sk), fp32 or bf16, added to the scaled scores in
@@ -669,7 +802,8 @@ def flash_attention(
     0-d device tensor on the hot path so no host sync is needed); the
     forward and backward regenerate the same mask, and it is the JAX
     package's mask bit for bit.  ``dropout_heads=(h_total,
-    head_offset)`` keys it on global head indices.
+    head_offset)`` keys it on global head indices, so a call on a head
+    group draws the mask of those heads in the whole call.
 
     ``bias_grad=False`` keeps the bias a constant (a mask: no gradient
     flows to it).  With ``bias_grad=True`` the backward also writes each
@@ -677,12 +811,17 @@ def flash_attention(
     before the cast to the bias dtype, so a learned bias trains; that
     costs an fp32 (B*H, Sq, Sk) buffer per call.
 
+    ``probs_bf16`` rounds the probabilities (each 64-key tile's, in the
+    forward) and the backward's pd and ds to the input dtype before their
+    products, as the JAX kernels do; a no-op for fp32 inputs.
+    ``dq_acc`` (None: :data:`DQ_ACC_DEFAULT`) selects the dq-accumulating
+    backward, which gives the same bits as the partials one from a
+    (B*H, Sq, 64) fp32 buffer instead of one per visited tile; calls with
+    ``bias_grad`` keep the partials backward.
+
     CUDA tensors run ``csrc/flash_attention.cu``: fp32/bf16 q, k, v with
-    head_dim 64, with or without a bias and ``bias_grad``;
-    ``probs_bf16`` and ``dropout_heads`` raise ``NotImplementedError``
-    there for now.  CPU tensors run the kernels' plain versions
-    (``dropout_heads`` included); ``probs_bf16`` is a no-op on the CPU, as
-    on the JAX package's jnp path.
+    head_dim 64, any lengths.  CPU tensors run the kernels' plain
+    versions, the same functions.
     """
     b, h, sq, d = q.shape
     sk = k.shape[2]
@@ -693,12 +832,6 @@ def flash_attention(
         scale = d ** -0.5
     if dropout_rate > 0.0 and dropout_seed is None:
         raise ValueError("dropout_rate > 0 requires dropout_seed")
-    seed_t = dropout_seed if isinstance(dropout_seed, torch.Tensor) else None
-    if use_kernel(q, k, v, bias, seed_t) and (probs_bf16
-                                              or dropout_heads is not None):
-        raise NotImplementedError(
-            "flash attention on CUDA takes no probs_bf16 or dropout_heads "
-            "for now")
     if bias is not None and not bias_grad:
         bias = bias.detach()
     h_total, head0 = (h, 0) if dropout_heads is None else dropout_heads
@@ -708,9 +841,10 @@ def flash_attention(
         k.reshape(b * h, sk, d).contiguous(),
         v.reshape(b * h, sk, d).contiguous(),
         bias, seed_pack, float(scale), bool(causal), float(dropout_rate),
-        (h, int(h_total)), bool(bias_grad))
+        (h, int(h_total)), bool(bias_grad), bool(probs_bf16), dq_acc)
     return out.reshape(b, h, sq, d)
 
 
 flash_attention_fwd.launches = 0
 flash_attention_bwd.launches = 0
+flash_attention_bwd_acc.launches = 0

@@ -12,9 +12,12 @@ one host read.
 
 JAX compiles the window into one donated ``lax.scan`` dispatch; PyTorch
 runs eagerly, so here a window is a Python loop over the same step, the
-same function of the same state.  Not ported yet: save/restore, the
-``mesh``/``carry_spec`` SPMD modes, microbatched steps and CUDA graphs
-around the window.
+same function of the same state.  A
+:class:`~apex_tpu_torch.train.accum.MicrobatchedStep` in place of
+``step_fn`` makes each step consume M microbatches with the gradient
+accumulated on the device (:mod:`apex_tpu_torch.train.accum`).  Not
+ported yet: save/restore, the ``mesh``/``carry_spec`` SPMD modes and CUDA
+graphs around the window.
 """
 from __future__ import annotations
 
@@ -23,6 +26,8 @@ from typing import (Any, Callable, Dict, Iterable, Mapping, NamedTuple,
                     Optional, Sequence, Tuple)
 
 import torch
+
+from apex_tpu_torch.train.accum import MicrobatchedStep, _index, build_opt_step
 
 __all__ = ["DEFAULT_STEPS_PER_DISPATCH", "FusedTrainDriver", "WindowResult",
            "read_metrics"]
@@ -75,15 +80,6 @@ def _acc_update(acc: torch.Tensor, val: torch.Tensor,
     return torch.minimum(acc, v)
 
 
-def _index(batches: Any, i: int) -> Any:
-    """Step ``i`` of a window of batches (leading window axis)."""
-    if isinstance(batches, torch.Tensor):
-        return batches[i]
-    if isinstance(batches, Mapping):
-        return {k: _index(v, i) for k, v in batches.items()}
-    return type(batches)(_index(v, i) for v in batches)
-
-
 def _window_len(batches: Any) -> int:
     if isinstance(batches, torch.Tensor):
         return batches.shape[0]
@@ -103,13 +99,17 @@ class FusedTrainDriver:
     Args:
       step_fn: ``(carry, batch) -> (carry, metrics)``, ``metrics`` a flat
         dict of 0-d tensors; ``batch`` is None when the window runs on
-        closure-captured data.
+        closure-captured data.  Or a
+        :class:`~apex_tpu_torch.train.accum.MicrobatchedStep`: each step
+        then consumes M microbatches, and a batched window carries a
+        leading axis of K * M microbatches.
       steps_per_dispatch: K (None: :data:`DEFAULT_STEPS_PER_DISPATCH`).
       metrics: ``{name: reduction}``; undeclared names are ``mean``.
       per_step: names also returned as (K,) traces.
     """
 
-    step_fn: Callable[[Any, Any], Tuple[Any, Mapping[str, torch.Tensor]]]
+    # Callable[(carry, batch) -> (carry, metrics)] | MicrobatchedStep
+    step_fn: Any
     steps_per_dispatch: Optional[int] = None
     metrics: Optional[Mapping[str, str]] = None
     per_step: Sequence[str] = ()
@@ -124,24 +124,52 @@ class FusedTrainDriver:
             if red not in _REDUCTIONS:
                 raise ValueError(f"metric {name!r}: unknown reduction "
                                  f"{red!r} (expected one of {_REDUCTIONS})")
+        self._accum = isinstance(self.step_fn, MicrobatchedStep)
+        if self._accum:
+            self._microbatches = int(self.step_fn.microbatches)
+            self._step_fn = build_opt_step(self.step_fn)
+        else:
+            self._microbatches = 1
+            self._step_fn = self.step_fn
+
+    @property
+    def microbatches(self) -> int:
+        """Microbatches per optimizer step (1 unless ``step_fn`` is a
+        :class:`~apex_tpu_torch.train.accum.MicrobatchedStep`)."""
+        return self._microbatches
+
+    def _steps(self, batches: Any) -> int:
+        """Optimizer steps in a batched window: its leading axis over M,
+        which must divide it."""
+        n, m = _window_len(batches), self._microbatches
+        if n % m:
+            raise ValueError(f"batched window leading axis ({n} "
+                             f"microbatches) is not a multiple of "
+                             f"microbatches={m}")
+        return n // m
 
     def run_window(self, carry: Any, batches: Any = None
                    ) -> Tuple[Any, WindowResult]:
-        """One window: ``batches`` with a leading window axis of length K
-        (this window's step count), or None for ``steps_per_dispatch``
-        steps on closure-captured data."""
+        """One window: ``batches`` with a leading window axis of length
+        K * M (K this window's step count, M :attr:`microbatches`), or
+        None for ``steps_per_dispatch`` steps on closure-captured data."""
         if batches is None:
             return self._window(carry, self.steps_per_dispatch, None)
-        return self._window(carry, _window_len(batches), batches)
+        return self._window(carry, self._steps(batches), batches)
 
     def _window(self, carry, k: int, batches):
         declared = dict(self.metrics or {})
         acc: Dict[str, torch.Tensor] = {}
         reductions: Dict[str, str] = {}
         traces: Dict[str, list] = {n: [] for n in self.per_step}
+        mb = self._microbatches
         for i in range(k):
-            batch = None if batches is None else _index(batches, i)
-            carry, m = self.step_fn(carry, batch)
+            batch = None
+            if batches is not None:
+                # a MicrobatchedStep takes its M microbatches as one slice
+                batch = _index(batches, slice(i * mb, (i + 1) * mb)
+                               if self._accum else i)
+            carry, m = self._step_fn(carry, batch)
             if not isinstance(m, Mapping):
                 raise TypeError("step_fn must return (carry, metrics) with "
                                 "metrics a dict of 0-d tensors; got "
@@ -177,7 +205,7 @@ class FusedTrainDriver:
                 raise ValueError("pass either windows or steps, not both")
             for w in windows:
                 carry, res = self.run_window(carry, w)
-                done += _window_len(w)
+                done += self._steps(w)
                 if on_window is not None:
                     on_window(done, res)
             return carry, done

@@ -71,7 +71,30 @@ line) on any failed check:
     (``bench.py``'s RN50 configuration): images/s, losses, peak memory,
     one window's launches (K x cross-entropy 1 and 1), a planted
     overflow that must be skipped with the masters, momentum buffers and
-    step unchanged, and one step under ``torch.profiler``.
+    step unchanged, and one step under ``torch.profiler``;
+12. the dq-accumulating flash backward against the partials backward,
+    bit for bit on five runs of each case (GPT-2 small and medium causal,
+    BERT-large with its padding bias, fp32, a ragged Sq != Sk, the
+    nq = 1 and nk = 1 edges, causal with more keys than queries) and
+    against the plain version, with a NaN-poisoned running buffer and two
+    planted faults of the kernel (a key tile's contribution dropped, the
+    key order reversed), timed beside the partials kernel with the device
+    memory one backward takes under each; ``probs_bf16`` in the forward
+    and both backwards against their plain versions and against
+    ``probs_bf16=False`` within the JAX package's contract (the identity
+    at fp32), with the rounding left out as the planted fault;
+    ``dropout_heads``: a head group equal to the whole call's slice;
+13. GPT-2 medium: the LayerNorm and cross-entropy kernels at its shapes;
+    fp32 card vs CPU with M = 2 microbatches, ``full_block`` remat and
+    ``dq_acc``, and the three remat policies bit-equal on the card with
+    dropout; O2 training with ``amp_microbatch_step`` (4 microbatches of
+    8 x 1024 per step), ``full_block``, ``probs_bf16`` and ``dq_acc``,
+    ``fused_adam(3e-4, weight_decay=0.1)``, K = 2: tokens/s, losses, peak
+    memory, one window's launches (K x M x (LN 97, flash forward 48, the
+    acc backward 24, the partials backward 0, LN backward 49,
+    cross-entropy 1 and 1)), an inf in one microbatch that must skip the
+    whole accumulated update; the peak memory and wall of one microbatch
+    under each remat policy; and one step under ``torch.profiler``.
 
 Then the ``nvidia-smi`` line, the ``{"kernels": [...]}`` summary and, as
 the last line, ``{"ok": true, "device": {...}}``.  Without a CUDA
@@ -80,6 +103,7 @@ device it exits with status 1 and prints no result.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import math
 import os
@@ -97,8 +121,10 @@ from apex_tpu_torch import (
     GPTConfig,
     GPTDecoder,
     GPTLM,
+    MicrobatchedStep,
     ServeEngine,
     amp,
+    amp_microbatch_step,
     init_bert_params,
     init_params,
     init_resnet_params,
@@ -111,6 +137,7 @@ from apex_tpu_torch.ops.attention import (
     attention_ref,
     flash_attention,
     flash_attention_bwd,
+    flash_attention_bwd_acc,
     flash_attention_bwd_ref,
     flash_attention_fwd,
     flash_attention_fwd_ref,
@@ -141,6 +168,7 @@ from apex_tpu_torch.ops.softmax_xentropy import (
     softmax_cross_entropy_fwd_ref,
 )
 from apex_tpu_torch.optimizers import fused_adam, fused_lamb, fused_sgd
+from apex_tpu_torch.train import build_opt_step
 
 # published H100 SXM peaks (NVIDIA data sheet, dense, 700 W)
 HBM_BYTES_PER_S = 3.35e12  # device memory
@@ -730,12 +758,13 @@ def _stored_bytes(t) -> int:
 
 
 def _flash_bound(q, k, bias, backward: bool, causal: bool,
-                 dbias: bool = False):
+                 dbias: bool = False, probs_bf16: bool = False):
     """Visible query-key pairs; QK^T (and dO.V^T) at the rate of the
     inputs' type, the fp32 products (p.V; pd^T.dO, ds^T.Q, ds.K) at the
-    fp32 rate; q, k, v, o (+ do, dq, dk, dv), lse (+ delta), the bias's
-    stored elements, if any, (and the fp32 per-batch*head dbias) moved
-    once."""
+    fp32 rate, or with ``probs_bf16`` and bf16 inputs (all products then
+    of bf16 values) at the bf16 rate; q, k, v, o (+ do, dq, dk, dv), lse
+    (+ delta), the bias's stored elements, if any, (and the fp32
+    per-batch*head dbias) moved once."""
     bh, sq, d = q.shape
     sk = k.shape[1]
     rows = torch.arange(sq)[:, None]
@@ -752,7 +781,8 @@ def _flash_bound(q, k, bias, backward: bool, causal: bool,
         if dbias:
             nbytes += bh * sq * sk * 4
     fp32 = (3 if backward else 1) * 2 * pairs * d
-    ops[FP32_FLOPS] = ops.get(FP32_FLOPS, 0) + fp32
+    prob_rate = rate if probs_bf16 else FP32_FLOPS
+    ops[prob_rate] = ops.get(prob_rate, 0) + fp32
     return _bound(nbytes, ops)
 
 
@@ -2331,6 +2361,793 @@ def phase_resnet_train(dev, params, batch_stats, b: int = 128,
     return counted, step, carry
 
 
+# -- phase 12: the dq-accumulating flash backward ------------------------------
+
+def _bitwise(a, b) -> bool:
+    return a.shape == b.shape and a.dtype == b.dtype and torch.equal(
+        a.view(torch.int16 if a.element_size() == 2 else torch.int32),
+        b.view(torch.int16 if b.element_size() == 2 else torch.int32))
+
+
+def _differing(a, b) -> int:
+    """Elements whose bits differ."""
+    iv = torch.int16 if a.element_size() == 2 else torch.int32
+    return int((a.view(iv) != b.view(iv)).sum())
+
+
+def _peak_bytes(fn) -> int:
+    """Device memory that one ``fn()`` takes above what was allocated
+    before it, at its peak (its outputs and scratch)."""
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = fn()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    del out
+    return peak
+
+
+def _probs_close(got, want):
+    """The tolerance of a ``probs_bf16`` kernel against its plain version
+    (bf16): every element within 2 bf16 ulps of the larger magnitude plus
+    1e-3 of max|want|, and at most 2 % of the elements different at all.
+    The two sum in other orders, so now and then a probability rounds to
+    the neighbouring bf16 value; leaving the rounding out moves about a
+    third of the elements.  Returns (ok, max error, fraction differing)."""
+    g, w = got.float(), want.float()
+    big = torch.maximum(g.abs(), w.abs()).clamp_min(1e-30)
+    ulp = torch.exp2(torch.floor(torch.log2(big)) - 7)
+    tol = 2 * ulp + 1e-3 * w.abs().max()
+    frac = float((g != w).float().mean())
+    ok = bool(((g - w).abs() <= tol).all()) and frac <= 0.02
+    return ok, _err(got, want), frac
+
+
+PROBS_TOL = ("2 bf16 ulps + 1e-3 of max|want|, <= 2 % of the elements "
+             "different")
+
+
+def _qkv(dev, gen, bh, sq, sk, dt, q_scale=2.0, kv_scale=1.0, d=64):
+    q = (q_scale * torch.randn(bh, sq, d, device=dev, generator=gen)).to(dt)
+    k = (kv_scale * torch.randn(bh, sk, d, device=dev, generator=gen)).to(dt)
+    v = (kv_scale * torch.randn(bh, sk, d, device=dev, generator=gen)).to(dt)
+    do = (kv_scale * torch.randn(bh, sq, d, device=dev,
+                                 generator=gen)).to(dt)
+    return q, k, v, do
+
+
+# (name, B, H, Sq, Sk, causal, dtype, dropout, bias, probs_bf16, timed)
+ACC_CASES = (
+    ("GPT-2 medium", 8, 16, 1024, 1024, True, torch.bfloat16, 0.1, None,
+     True, True),
+    ("GPT-2 small", 16, 12, 1024, 1024, True, torch.bfloat16, 0.1, None,
+     False, True),
+    ("BERT-large padding bias", 12, 16, 512, 512, False, torch.bfloat16, 0.1,
+     "padding", False, True),
+    ("fp32 causal", 4, 12, 1024, 1024, True, torch.float32, 0.1, None, False,
+     False),
+    ("fp32 full bias", 2, 12, 384, 384, False, torch.float32, 0.0, "full",
+     False, False),
+    ("ragged Sq != Sk", 2, 12, 300, 450, False, torch.bfloat16, 0.1, None,
+     False, False),
+    ("nq = 1", 2, 12, 50, 300, False, torch.bfloat16, 0.1, None, False,
+     False),
+    ("nk = 1", 2, 12, 300, 40, False, torch.float32, 0.1, None, False,
+     False),
+    ("causal nk > nq", 2, 12, 100, 300, True, torch.bfloat16, 0.0, None,
+     False, False),
+    ("nq = nk = 1", 3, 4, 64, 64, True, torch.bfloat16, 0.1, None, False,
+     False),
+)
+
+
+def phase_flash_acc(dev, cases=ACC_CASES, repeats: int = 5):
+    """The dq-accumulating backward (``flash_attention_bwd_acc``) against
+    the partials backward (``flash_attention_bwd``): dq, dk and dv equal
+    bit for bit on each of ``repeats`` runs (a race in the turn protocol
+    would show as a run that differs), and both against the plain version
+    within row 7's tolerances (1e-5 of max|want| at fp32, 1e-4 + 2 bf16
+    ulps at bf16; with ``probs_bf16``, :data:`PROBS_TOL`).  The GPT-2
+    medium case hands the kernel a NaN-poisoned running buffer, and the
+    check must reject two planted faults of the kernel: key tile 1's
+    contribution dropped and the contributions added in reverse key
+    order.  The timed cases report device ms of both kernels, the plain
+    version and SDPA forward + backward (row 7's yardstick), row 7's
+    bound, and the device memory one backward takes under each."""
+    gen = torch.Generator(device=dev).manual_seed(40)
+    seed_int = 246813579
+    out = {}
+    for (name, b, h, sq, sk, causal, dt, rate, bias_kind, probs,
+         timed) in cases:
+        bh = b * h
+        q, k, v, do = _qkv(dev, gen, bh, sq, sk, dt)
+        bias = None
+        if bias_kind == "padding":
+            bias = _padding_mask(dev, gen, b, sk)[0].expand(b, sq, sk)
+        elif bias_kind == "full":
+            bias = torch.randn(b, sq, sk, device=dev, generator=gen)
+        args = (_pack_seed(seed_int, device=dev), 64 ** -0.5, causal, rate,
+                (h, h))
+        o, lse = flash_attention_fwd(q, k, v, *args, bias=bias,
+                                     probs_bf16=probs)
+        part = flash_attention_bwd(q, k, v, o, lse, do, *args, bias=bias,
+                                   probs_bf16=probs, dq_acc=False)[:3]
+        runs_equal = []
+        for _ in range(repeats):
+            acc = flash_attention_bwd_acc(q, k, v, o, lse, do, *args,
+                                          bias=bias, probs_bf16=probs)[:3]
+            torch.cuda.synchronize()
+            runs_equal.append(all(_bitwise(a, p) for a, p in zip(acc, part)))
+        want = flash_attention_bwd_ref(q, k, v, o, lse, do, *args, bias=bias,
+                                       probs_bf16=probs)[:3]
+        torch.cuda.synchronize()
+        label = (f"{name}: B={b} H={h} Sq={sq} Sk={sk} causal={causal} "
+                 f"{_dt(dt)} dropout={rate} bias={bias_kind} "
+                 f"probs_bf16={probs}")
+        errs = [_err(a, w) for a, w in zip(acc, want)]
+        check(all(runs_equal), f"flash acc {label}: not bit for bit the "
+              f"partials backward on every run {runs_equal}")
+        if probs and dt == torch.bfloat16:
+            tol = PROBS_TOL
+            ok = all(_probs_close(a, w)[0] for a, w in zip(acc, want))
+        else:
+            rtol = 1e-5 if dt == torch.float32 else 1e-4
+            tol = f"{rtol} of max|want|" + (
+                " + 2 bf16 ulps" if dt == torch.bfloat16 else "")
+            ok = all(_close(a, w, rtol, ulps=2) for a, w in zip(acc, want))
+        check(ok, f"flash acc {label} vs the plain version: {errs}")
+        rec = {"case": label, "repeats_bitwise_equal": runs_equal,
+               "max_abs_err": max(errs), "errs_dq_dk_dv": errs, "tol": tol}
+        if name == "GPT-2 medium":
+            # a NaN-poisoned running buffer: the first contributor of each
+            # query tile must write it, not read it
+            floats = (bh * ((sq + 63) // 64)) * 64 * 64
+            poison = torch.full((floats,), float("nan"), device=dev)
+            got = flash_attention_bwd_acc(q, k, v, o, lse, do, *args,
+                                          probs_bf16=probs, _run=poison)[:3]
+            torch.cuda.synchronize()
+            check(all(_bitwise(a, p) for a, p in zip(got, part)),
+                  f"flash acc {label}: a NaN-poisoned running buffer "
+                  f"changed the result")
+            rec["nan_poisoned_running_buffer_bitwise_equal"] = True
+            del poison, got
+            faults = {}
+            for fault, what in ((1, "key_tile_1_dropped"),
+                                (2, "reverse_key_order")):
+                bad = flash_attention_bwd_acc(q, k, v, o, lse, do, *args,
+                                              probs_bf16=probs,
+                                              _fault=fault)[:3]
+                torch.cuda.synchronize()
+                faults[what + "_dq_elements_differing"] = _differing(
+                    bad[0], part[0])
+                check(not all(_bitwise(a, p) for a, p in zip(bad, part)),
+                      f"flash acc {label}: the bitwise check misses the "
+                      f"planted fault {what}")
+                del bad
+            rec["planted_fault_errs"] = faults
+        if timed:
+            kern = timings(lambda: flash_attention_bwd_acc(
+                q, k, v, o, lse, do, *args, bias=bias, probs_bf16=probs),
+                iters=10)
+            kern_part = timings(lambda: flash_attention_bwd(
+                q, k, v, o, lse, do, *args, bias=bias, probs_bf16=probs,
+                dq_acc=False), iters=10)
+            plain = timings(lambda: flash_attention_bwd_ref(
+                q, k, v, o, lse, do, *args, bias=bias, probs_bf16=probs),
+                iters=3, prof_iters=3)
+            q4, k4, v4 = (t.reshape(b, h, -1, 64).detach().requires_grad_()
+                          for t in (q, k, v))
+            do4 = do.reshape(b, h, sq, 64)
+            mask4 = None if bias is None else bias[:, None].to(dt)
+
+            def sdpa_fwd_bwd():
+                res = F.scaled_dot_product_attention(
+                    q4, k4, v4, attn_mask=mask4, is_causal=causal)
+                torch.autograd.grad(res, (q4, k4, v4), do4)
+
+            lib = timings(sdpa_fwd_bwd, iters=10)
+            bound, by = _flash_bound(q, k, bias, backward=True,
+                                     causal=causal, probs_bf16=probs)
+            tiles = int(_flash_lib_tiles(sq, sk, causal))
+            rec.update({
+                **_merge(kern, plain, lib),
+                "partials_ms": kern_part["ms"],
+                "partials_events_ms": kern_part["events_ms"],
+                "acc_over_partials": kern["ms"] / kern_part["ms"],
+                "bound_ms": bound, "bound_by": by,
+                "bound_of": "row 7's: the products of bf16 values at the "
+                            "bf16 rate, the fp32 ones at the fp32 rate",
+                "library": "F.scaled_dot_product_attention forward + "
+                           "backward" + ("" if bias is None else
+                                         " with the bf16 mask")
+                           + ", no dropout",
+                "peak_bytes_acc": _peak_bytes(lambda: flash_attention_bwd_acc(
+                    q, k, v, o, lse, do, *args, bias=bias,
+                    probs_bf16=probs)),
+                "peak_bytes_partials": _peak_bytes(
+                    lambda: flash_attention_bwd(
+                        q, k, v, o, lse, do, *args, bias=bias,
+                        probs_bf16=probs, dq_acc=False)),
+                "scratch_bytes_acc": bh * ((sq + 63) // 64) * 64 * 64 * 4
+                + (bh * ((sq + 63) // 64) + 1) * 4,
+                "scratch_bytes_partials": bh * tiles * 64 * 64 * 4})
+            del q4, k4, v4, do4, mask4
+        emit({"phase": "flash_acc", **rec})
+        out[name] = rec
+        del q, k, v, do, o, lse, part, acc, want, bias
+        torch.cuda.empty_cache()
+    return out
+
+
+def _flash_lib_tiles(sq, sk, causal) -> int:
+    """Tiles of the partials buffer per batch*head (the kernel's own
+    count)."""
+    from apex_tpu_torch.ops.attention import _flash_lib
+
+    return _flash_lib().apex_flash_dq_tiles(sq, sk, int(causal))
+
+
+def phase_flash_probs_bf16(dev, medium=(8, 16, 1024), bert=(12, 16, 512)):
+    """``probs_bf16`` in the forward, the partials backward and the
+    dq-accumulating backward, against their plain versions
+    (:data:`PROBS_TOL`) and against ``probs_bf16=False`` within the JAX
+    package's contract (2e-2 forward, 5e-2 grads,
+    ``tests/test_attention_probs_bf16.py``), at GPT-2 medium's causal
+    shape and BERT-large's with its padding bias, bf16, dropout 0.1,
+    q, k, v, dO ~ 0.5 N(0, 1) as that test draws them.  The planted fault:
+    the kernels without the rounding against the plain versions with it
+    must be rejected.  At fp32 (GPT-2 medium's shape) the option must be
+    the identity: the three kernels' results equal those without it bit
+    for bit."""
+    gen = torch.Generator(device=dev).manual_seed(41)
+    seed_int = 97531
+    cases = {}
+    for name, (b, h, s), causal, bias_kind in (
+            ("GPT-2 medium", medium, True, None),
+            ("BERT-large padding bias", bert, False, "padding")):
+        bh = b * h
+        dt = torch.bfloat16
+        q, k, v, do = _qkv(dev, gen, bh, s, s, dt, 0.5, 0.5)
+        bias = None
+        if bias_kind:
+            bias = _padding_mask(dev, gen, b, s)[0].expand(b, s, s)
+        args = (_pack_seed(seed_int, device=dev), 64 ** -0.5, causal, 0.1,
+                (h, h))
+        kw = dict(bias=bias, probs_bf16=True)
+        o, lse = flash_attention_fwd(q, k, v, *args, **kw)
+        o_ref, lse_ref = flash_attention_fwd_ref(q, k, v, *args, **kw)
+        part = flash_attention_bwd(q, k, v, o, lse, do, *args, dq_acc=False,
+                                   **kw)[:3]
+        acc = flash_attention_bwd_acc(q, k, v, o, lse, do, *args, **kw)[:3]
+        want = flash_attention_bwd_ref(q, k, v, o, lse, do, *args, **kw)[:3]
+        # probs_bf16=False, the JAX contract's other side
+        o_off, lse_off = flash_attention_fwd(q, k, v, *args, bias=bias)
+        g_off = flash_attention_bwd(q, k, v, o_off, lse_off, do, *args,
+                                    bias=bias, dq_acc=False)[:3]
+        torch.cuda.synchronize()
+        label = f"{name}: B={b} H={h} S={s} causal={causal} bf16 dropout=0.1"
+        res_o = _probs_close(o, o_ref)
+        res_part = [_probs_close(a, w) for a, w in zip(part, want)]
+        res_acc = [_probs_close(a, w) for a, w in zip(acc, want)]
+        check(res_o[0] and _close(lse, lse_ref, 1e-5),
+              f"probs_bf16 fwd {label}: {res_o}")
+        check(all(r[0] for r in res_part), f"probs_bf16 partials bwd "
+              f"{label}: {res_part}")
+        check(all(r[0] for r in res_acc), f"probs_bf16 acc bwd {label}: "
+              f"{res_acc}")
+        check(all(_bitwise(a, p) for a, p in zip(acc, part)),
+              f"probs_bf16 {label}: acc and partials backwards differ")
+        vs_off = [_err(o, o_off)] + [_err(a, w) for a, w in zip(part, g_off)]
+        check(vs_off[0] <= 2e-2 and max(vs_off[1:]) <= 5e-2,
+              f"probs_bf16 {label}: beyond the JAX contract against "
+              f"probs_bf16=False: {vs_off}")
+        # planted fault: the rounding left out
+        faults = {"rounding_left_out_fwd_frac": _probs_close(o_off, o_ref)[2],
+                  "rounding_left_out_bwd_frac": min(
+                      _probs_close(a, w)[2] for a, w in zip(g_off, want))}
+        check(not _probs_close(o_off, o_ref)[0]
+              and not any(_probs_close(a, w)[0] for a, w in zip(g_off, want)),
+              f"probs_bf16 {label}: the check misses the rounding left out "
+              f"{faults}")
+        kern_f = timings(lambda: flash_attention_fwd(q, k, v, *args, **kw),
+                         iters=20)
+        plain_f = timings(lambda: flash_attention_fwd_ref(q, k, v, *args,
+                                                          **kw),
+                          iters=3, prof_iters=3)
+        kern_b = timings(lambda: flash_attention_bwd(
+            q, k, v, o, lse, do, *args, dq_acc=False, **kw), iters=10)
+        kern_acc = timings(lambda: flash_attention_bwd_acc(
+            q, k, v, o, lse, do, *args, **kw), iters=10)
+        plain_b = timings(lambda: flash_attention_bwd_ref(
+            q, k, v, o, lse, do, *args, **kw), iters=3, prof_iters=3)
+        # the same kernels without the option, timed in the same run
+        off_f = timings(lambda: flash_attention_fwd(q, k, v, *args,
+                                                    bias=bias), iters=20)
+        off_b = timings(lambda: flash_attention_bwd(
+            q, k, v, o_off, lse_off, do, *args, bias=bias, dq_acc=False),
+            iters=10)
+        off_acc = timings(lambda: flash_attention_bwd_acc(
+            q, k, v, o_off, lse_off, do, *args, bias=bias), iters=10)
+        q4, k4, v4 = (t.reshape(b, h, s, 64).detach().requires_grad_()
+                      for t in (q, k, v))
+        mask4 = None if bias is None else bias[:, None].to(dt)
+        lib_f = timings(lambda: F.scaled_dot_product_attention(
+            q4, k4, v4, attn_mask=mask4, is_causal=causal), iters=20)
+
+        def sdpa_fwd_bwd():
+            r = F.scaled_dot_product_attention(q4, k4, v4, attn_mask=mask4,
+                                               is_causal=causal)
+            torch.autograd.grad(r, (q4, k4, v4), do.reshape(b, h, s, 64))
+
+        lib_b = timings(sdpa_fwd_bwd, iters=10)
+        fb, fby = _flash_bound(q, k, bias, backward=False, causal=causal,
+                               probs_bf16=True)
+        bb, bby = _flash_bound(q, k, bias, backward=True, causal=causal,
+                               probs_bf16=True)
+        base = {"case": label + " probs_bf16", "tol": PROBS_TOL,
+                "bound_of": "all products of bf16 values at the bf16 rate",
+                "planted_fault_errs": faults,
+                "vs_probs_bf16_false_o_dq_dk_dv": vs_off,
+                "jax_contract": "2e-2 forward, 5e-2 grads"}
+        fwd = {**base, "max_abs_err": max(res_o[1], _err(lse, lse_ref)),
+               "frac_differing": res_o[2], **_merge(kern_f, plain_f, lib_f),
+               "ms_probs_bf16_false": off_f["ms"],
+               "bound_ms": fb, "bound_by": fby,
+               "library": "F.scaled_dot_product_attention, no dropout"}
+        bwd = {**base, "max_abs_err": max(r[1] for r in res_part),
+               "frac_differing_dq_dk_dv": [r[2] for r in res_part],
+               **_merge(kern_b, plain_b, lib_b),
+               "ms_probs_bf16_false": off_b["ms"], "bound_ms": bb,
+               "bound_by": bby,
+               "library": "F.scaled_dot_product_attention forward + "
+                          "backward, no dropout"}
+        acc_rec = {**bwd, "max_abs_err": max(r[1] for r in res_acc),
+                   "frac_differing_dq_dk_dv": [r[2] for r in res_acc],
+                   "ms": kern_acc["ms"], "events_ms": kern_acc["events_ms"],
+                   "ms_source": kern_acc["ms_source"],
+                   "ms_probs_bf16_false": off_acc["ms"],
+                   "bitwise_equal_to_partials": True}
+        for kernel, rec in (("flash_attention_fwd", fwd),
+                            ("flash_attention_bwd", bwd),
+                            ("flash_attention_bwd_acc", acc_rec)):
+            emit({"phase": "flash_probs_bf16", "kernel": kernel, **rec})
+        cases[name] = (fwd, bwd, acc_rec)
+        del q, k, v, do, o, lse, o_ref, lse_ref, part, acc, want, o_off
+        del g_off, q4, k4, v4, mask4
+        torch.cuda.empty_cache()
+    # fp32: the identity
+    b, h, s = medium
+    q, k, v, do = _qkv(dev, gen, b * h, s, s, torch.float32, 0.5, 0.5)
+    args = (_pack_seed(seed_int, device=dev), 64 ** -0.5, True, 0.1, (h, h))
+    same = []
+    for probs in (False, True):
+        o, lse = flash_attention_fwd(q, k, v, *args, probs_bf16=probs)
+        same.append((o, lse) + flash_attention_bwd(
+            q, k, v, o, lse, do, *args, probs_bf16=probs, dq_acc=False)[:3]
+            + flash_attention_bwd_acc(q, k, v, o, lse, do, *args,
+                                      probs_bf16=probs)[:3])
+    torch.cuda.synchronize()
+    eq = [_bitwise(a, b_) for a, b_ in zip(*same)]
+    emit({"phase": "flash_probs_bf16", "case": f"fp32 B={b} H={h} S={s} "
+          "causal dropout=0.1: probs_bf16 on == off",
+          "bitwise_equal_o_lse_part_dq_dk_dv_acc_dq_dk_dv": eq})
+    check(all(eq), f"probs_bf16 at fp32 is not the identity: {eq}")
+    del q, k, v, do, same
+    torch.cuda.empty_cache()
+    return cases
+
+
+def phase_dropout_heads(dev, b: int = 2, h: int = 16, s: int = 512,
+                        group=(4, 8)):
+    """``dropout_heads``: a call on the head group [4, 8) of 16 heads with
+    ``dropout_heads=(16, 4)`` equals the same head slice of the whole
+    call bit for bit, output and grads, through ``flash_attention`` with
+    each backward (causal, bf16, dropout 0.1).  Planted fault: the group
+    keyed on its local heads (no ``dropout_heads``) must differ."""
+    gen = torch.Generator(device=dev).manual_seed(42)
+    q, k, v, do = (t.reshape(b, h, s, 64) for t in _qkv(
+        dev, gen, b * h, s, s, torch.bfloat16))
+    lo, hi = group
+    seed = torch.tensor(13579, dtype=torch.int32, device=dev)
+    res = {}
+    for dq_acc in (False, True):
+        def run(qq, kk, vv, dd, heads):
+            qq, kk, vv = (t.detach().requires_grad_() for t in (qq, kk, vv))
+            o = flash_attention(qq, kk, vv, causal=True, dropout_rate=0.1,
+                                dropout_seed=seed, dropout_heads=heads,
+                                dq_acc=dq_acc)
+            return (o,) + torch.autograd.grad(o, (qq, kk, vv), dd)
+
+        whole = run(q, k, v, do, None)
+        sl = lambda t: t[:, lo:hi].contiguous()  # noqa: E731
+        part = run(sl(q), sl(k), sl(v), sl(do), (h, lo))
+        local = run(sl(q), sl(k), sl(v), sl(do), None)
+        torch.cuda.synchronize()
+        eq = [_bitwise(p, sl(w)) for p, w in zip(part, whole)]
+        fault = _differing(local[0], sl(whole[0]))
+        res[f"dq_acc={dq_acc}"] = {"bitwise_equal_o_dq_dk_dv": eq,
+                                   "local_heads_o_elements_differing": fault}
+        check(all(eq), f"dropout_heads dq_acc={dq_acc}: the head group "
+              f"differs from the whole call's slice {eq}")
+        check(fault > 0, "dropout_heads: the check misses the mask keyed on "
+              "local heads")
+    emit({"phase": "kernel_check", "kernel": "flash_attention dropout_heads",
+          "case": f"B={b} H={h} S={s} causal bf16 dropout=0.1, heads "
+          f"[{lo}, {hi}) of {h}", **res})
+
+
+# -- phase 13: GPT-2 medium, microbatched O2 training with remat ---------------
+
+def _grad_step(model, names_out, gen=None, deterministic=True):
+    """A ``MicrobatchedStep`` whose update returns the accumulated grads
+    of ``names_out`` (or of every parameter) as the carry: the loss meaned
+    over the microbatches and the grads summed, through
+    ``train.accum.build_opt_step``."""
+    ps = dict(model.named_parameters())
+    names = list(ps) if names_out is None else list(names_out)
+
+    def grad_fn(carry, mb):
+        _, loss = model(mb[0], mb[1], deterministic=deterministic,
+                        generator=gen)
+        grads = torch.autograd.grad(loss, [ps[n] for n in names])
+        return dict(zip(names, grads)), {"loss": loss.detach()}
+
+    return MicrobatchedStep(grad_fn, lambda carry, acc: (acc, {}), 2)
+
+
+def phase_medium_parity(params, dev, b: int = 2, s: int = 256):
+    """GPT-2 medium at fp32 (O0, TF32 off), batch 2 x 256 as M = 2
+    microbatches of 1 x 256 accumulated by ``train.accum``,
+    ``full_block`` remat, ``dq_acc`` on, no dropout: the microbatch-mean
+    loss within 1e-4 and four accumulated grads within 1e-3 relative L2,
+    card against the port on the CPU.  Then on the card with dropout 0.1:
+    the ``none``, ``dots_saveable`` and ``full_block`` policies give the
+    same loss and every grad bit for bit."""
+    cfg = GPTConfig.medium(compute_dtype=torch.float32,
+                           remat_policy="full_block", dq_acc=True)
+    names = ("wte.weight", "layers.0.qkv.kernel",
+             f"layers.{cfg.num_layers - 1}.ffn_out.kernel", "ln_f.weight")
+    rng = torch.Generator().manual_seed(31)
+    ids = torch.randint(0, min(50257, cfg.vocab_size), (b, s), generator=rng)
+    labels = torch.cat([ids[:, 1:], torch.full((b, 1), -100)], dim=1)
+    mbs = (ids.reshape(2, b // 2, s), labels.reshape(2, b // 2, s))
+    res = {}
+    for where in ("card", "cpu"):
+        model = GPTLM(cfg)
+        model.load_state_dict(params)
+        model.to(dev if where == "card" else "cpu")
+        step = build_opt_step(_grad_step(model, names))
+        acc, m = step(None, tuple(t.to(model.wte.weight.device)
+                                  for t in mbs))
+        res[where] = (float(m["loss"]), {n: g.cpu() for n, g in acc.items()})
+        del model, step, acc
+    rel = {n: float((res["card"][1][n] - res["cpu"][1][n]).norm()
+                    / res["cpu"][1][n].norm()) for n in names}
+    err = abs(res["card"][0] - res["cpu"][0])
+    # the policies on the card, with dropout: bit for bit
+    same, losses = {}, {}
+    ref = None
+    for policy in ("none", "dots_saveable", "full_block"):
+        model = GPTLM(dataclasses.replace(cfg, remat_policy=policy))
+        model.load_state_dict(params)
+        model.to(dev)
+        gen = torch.Generator(device=dev).manual_seed(32)
+        step = build_opt_step(_grad_step(model, None, gen,
+                                         deterministic=False))
+        acc, m = step(None, tuple(t.to(dev) for t in mbs))
+        torch.cuda.synchronize()
+        got = (m["loss"], acc, gen.get_state())
+        losses[policy] = float(m["loss"])
+        if ref is None:
+            ref = got
+        else:
+            same[policy] = (torch.equal(got[0], ref[0])
+                            and all(torch.equal(got[1][n], ref[1][n])
+                                    for n in ref[1])
+                            and torch.equal(got[2], ref[2]))
+        del model, step, acc, got
+    del ref
+    torch.cuda.empty_cache()
+    emit({"phase": "medium_parity", "model": "GPT-2 medium fp32 O0, "
+          "full_block, dq_acc, M = 2", "batch": [b, s],
+          "loss_cuda": res["card"][0], "loss_cpu": res["cpu"][0],
+          "loss_abs_err": err, "grad_rel_l2": rel,
+          "policies_bitwise_equal_to_none_with_dropout": same,
+          "policy_losses_with_dropout": losses})
+    check(err <= 1e-4, f"medium parity: losses differ by {err}")
+    check(all(r <= 1e-3 for r in rel.values()),
+          f"medium parity: gradients differ {rel}")
+    check(all(same.values()), f"medium: remat policies differ with dropout "
+          f"{same}")
+
+
+def _medium_setup(dev, params, b, s, m, k, policy="full_block"):
+    amp_ = amp.initialize("O2")
+    cfg = GPTConfig.medium(compute_dtype=amp_.policy.compute_dtype,
+                           remat_policy=policy, probs_bf16=True, dq_acc=True)
+    model = GPTLM(cfg)
+    model.load_state_dict(params)
+    model.to(dev)
+    opt = amp.AmpOptimizer(fused_adam(3e-4, weight_decay=0.1), amp_)
+    masters = opt.attach(model)
+    state = opt.init(masters)
+    data = torch.Generator(device=dev).manual_seed(33)
+    ids = torch.randint(0, cfg.vocab_size, (k * m, b, s), device=dev,
+                        generator=data)
+    labels = torch.cat([ids[..., 1:],
+                        torch.full((k * m, b, 1), -100, device=dev)], dim=-1)
+    gen = torch.Generator(device=dev).manual_seed(34)
+    names, ps = zip(*model.named_parameters())
+    plant = {"at": None, "calls": 0}
+
+    def grad_fn(carry, mb):
+        _, state = carry
+        _, loss = model(mb[0], mb[1], deterministic=False, generator=gen)
+        grads = dict(zip(names, torch.autograd.grad(
+            amp_.scale_loss(loss, state.scaler[0]), ps)))
+        plant["calls"] += 1
+        if plant["calls"] == plant["at"]:
+            g = grads["ln_f.weight"].clone()
+            g[0] = float("inf")
+            grads["ln_f.weight"] = g
+        return grads, {"loss": loss.detach()}
+
+    mstep = amp_microbatch_step(grad_fn, opt, microbatches=m, model=model)
+    return cfg, model, mstep, (masters, state), (ids, labels), plant
+
+
+def phase_medium_train(dev, params, b: int = 8, s: int = 1024, m: int = 4,
+                       k: int = 2, timed: int = 3):
+    """O2 training of GPT-2 medium (seeded random weights) with
+    ``fused_adam(3e-4, weight_decay=0.1)``: each optimizer step
+    accumulates M = 4 microbatches of 8 x 1024 (``amp_microbatch_step``),
+    dropout 0.1, ``full_block`` remat, ``probs_bf16`` and ``dq_acc``, run
+    by ``FusedTrainDriver`` at K = 2 steps per window over one fixed window
+    of K x M seeded microbatches: one warm window, then ``timed`` windows,
+    the first with the launch counts set to 0 before it and read after it
+    (exactly K x M x the per-microbatch counts: LayerNorm 4L + 1 and flash
+    forward 2L with the recompute, the dq-accumulating backward L, the
+    partials backward 0, LayerNorm backward 2L + 1, cross-entropy 1 + 1).
+    Then an inf planted in the second microbatch of a step: the whole
+    accumulated update is skipped (masters, Adam moments and step
+    unchanged) and the scale halves."""
+    cfg, model, mstep, carry, (ids, labels), plant = _medium_setup(
+        dev, params, b, s, m, k)
+    driver = FusedTrainDriver(mstep, steps_per_dispatch=k,
+                              metrics={"loss": "mean", "scale": "last",
+                                       "skipped": "sum"},
+                              per_step=("loss",))
+    check(driver.microbatches == m, "medium: driver microbatches")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    carry, res = driver.run_window(carry, (ids, labels))
+    warm = read_metrics(res)
+    warm_s = time.perf_counter() - t0
+    walls, windows, counted = [], [], None
+    for i in range(timed):
+        torch.cuda.synchronize()
+        if i == 0:
+            reset_launch_counts()
+        t0 = time.perf_counter()
+        carry, res = driver.run_window(carry, (ids, labels))
+        host = read_metrics(res)  # the window's one host read
+        walls.append(time.perf_counter() - t0)
+        windows.append(host)
+        if i == 0:
+            counted = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    med = sorted(walls)[len(walls) // 2]
+    layers = cfg.num_layers
+    per_mb = {n: 0 for n in counted}
+    per_mb.update({"layer_norm": 4 * layers + 1,
+                   "flash_attention_fwd": 2 * layers,
+                   "flash_attention_bwd_acc": layers,
+                   "layer_norm_bwd": 2 * layers + 1,
+                   "softmax_xentropy_fwd": 1, "softmax_xentropy_bwd": 1})
+    losses = warm.per_step["loss"] + sum((w.per_step["loss"]
+                                          for w in windows), [])
+    first, last = losses[0], windows[-1].metrics["loss"]
+    tokens = k * m * b * s
+    emit({"phase": "medium_train", "model": "GPT-2 medium O2 (bf16 model, "
+          "fp32 masters, dynamic loss scale), dropout 0.1, fused_adam(3e-4, "
+          "wd 0.1), full_block remat, probs_bf16, dq_acc",
+          "microbatch": [b, s], "microbatches": m, "steps_per_window": k,
+          "warm_window_s": warm_s, "window_walls_s": walls,
+          "median_window_s": med, "tokens_per_s": tokens / med,
+          "loss_first_step": first, "loss_last_window": last,
+          "losses_per_step": losses,
+          "loss_scale": windows[-1].metrics["scale"],
+          "skipped_steps": warm.metrics["skipped"]
+          + sum(w.metrics["skipped"] for w in windows),
+          "max_memory_allocated_bytes": peak,
+          "launches_one_window": counted,
+          "launches_per_microbatch_expected": per_mb})
+    check(all(math.isfinite(x) for x in losses), "medium: non-finite loss")
+    check(last < first, f"medium: loss did not fall ({first} -> {last})")
+    check(counted == {n: k * m * c for n, c in per_mb.items()},
+          f"medium: launch counts {counted} != K x M x {per_mb}")
+    # the planted overflow in the second microbatch of one step
+    masters, state = carry
+    before = {n: t.clone() for n, t in masters.items()}
+    m_before = {n: t.clone() for n, t in state.opt_state.m.items()}
+    v_before = {n: t.clone() for n, t in state.opt_state.v.items()}
+    step_before = int(state.opt_state.step)
+    scale_before = float(state.scaler[0].loss_scale)
+    one = FusedTrainDriver(mstep, steps_per_dispatch=1,
+                           metrics={"skipped": "sum"})
+    plant["calls"], plant["at"] = 0, 2
+    carry, res = one.run_window(carry, (ids[:m], labels[:m]))
+    plant["at"] = None
+    skipped = read_metrics(res.metrics)["skipped"]
+    masters, state = carry
+    same = (all(torch.equal(masters[n], before[n]) for n in before)
+            and all(torch.equal(state.opt_state.m[n], m_before[n])
+                    for n in m_before)
+            and all(torch.equal(state.opt_state.v[n], v_before[n])
+                    for n in v_before)
+            and int(state.opt_state.step) == step_before)
+    scaler = state.scaler[0]
+    emit({"phase": "medium_overflow", "planted_in_microbatch": 2,
+          "skipped": skipped, "state_unchanged": same,
+          "scale_before": scale_before,
+          "scale_after": float(scaler.loss_scale),
+          "unskipped_after": int(scaler.unskipped),
+          "overflows": int(scaler.overflows)})
+    check(skipped == 1.0 and same, "medium: the overflow step was not "
+          "skipped cleanly")
+    check(float(scaler.loss_scale) == scale_before / 2
+          and int(scaler.unskipped) == 0,
+          "medium: the overflow did not halve the scale and reset unskipped")
+    opt_step = build_opt_step(mstep)
+
+    def step(c, _batch):
+        return opt_step(c, (ids[:m], labels[:m]))
+
+    del before, m_before, v_before
+    return counted, step, carry, model
+
+
+def phase_remat_memory(dev, model, b: int = 8, s: int = 1024):
+    """Peak device memory and wall of one O2 microbatch (forward and
+    backward of GPT-2 medium at 8 x 1024, dropout on) under each remat
+    policy, with the model of :func:`phase_medium_train` (its bf16
+    weights): the memory above what was allocated before it, and the wall
+    of the second of two runs."""
+    data = torch.Generator(device=dev).manual_seed(35)
+    ids = torch.randint(0, model.cfg.vocab_size, (b, s), device=dev,
+                        generator=data)
+    labels = torch.cat([ids[:, 1:], torch.full((b, 1), -100, device=dev)],
+                       dim=1)
+    gen = torch.Generator(device=dev).manual_seed(36)
+    ps = [p for p in model.parameters()]
+    cfg0 = model.cfg
+    rows = {}
+    for policy in ("none", "dots_saveable", "full_block"):
+        model.cfg = dataclasses.replace(cfg0, remat_policy=policy)
+        for _ in range(2):
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            _, loss = model(ids, labels, deterministic=False, generator=gen)
+            grads = torch.autograd.grad(loss, ps)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            peak = torch.cuda.max_memory_allocated() - base
+            del loss, grads
+        rows[policy] = {"peak_bytes_above_weights": peak, "wall_s": wall}
+    model.cfg = cfg0
+    emit({"phase": "remat_memory", "what": "one O2 microbatch of GPT-2 "
+          "medium, 8 x 1024, forward + backward, dropout 0.1, probs_bf16, "
+          "dq_acc", "policies": rows,
+          "full_block_vs_none_wall": rows["full_block"]["wall_s"]
+          / rows["none"]["wall_s"],
+          "none_minus_full_block_bytes":
+              rows["none"]["peak_bytes_above_weights"]
+              - rows["full_block"]["peak_bytes_above_weights"]})
+    check(rows["full_block"]["peak_bytes_above_weights"]
+          < rows["none"]["peak_bytes_above_weights"],
+          f"remat: full_block saved no memory {rows}")
+    return rows
+
+
+def phase_medium_kernels(dev, rows: int = 8192, n: int = 1024,
+                         v: int = 50304):
+    """The LayerNorm and cross-entropy kernels at the shapes GPT-2
+    medium's microbatch gives them (8 x 1024 tokens): LayerNorm forward and
+    backward at (8192, 1024) fp32 x with bf16 (O2) affine, the
+    cross-entropy forward and backward at (8192, 50304) bf16 logits, each
+    against its plain version with the tolerances of their own phases,
+    timed beside the bound and the library call."""
+    gen = torch.Generator(device=dev).manual_seed(43)
+    x = (2 * torch.randn(rows, n, device=dev, generator=gen) + 0.5)
+    dy = torch.randn(rows, n, device=dev, generator=gen)
+    w = (1 + 0.1 * torch.randn(n, device=dev, generator=gen)).to(
+        torch.bfloat16)
+    b = (0.1 * torch.randn(n, device=dev, generator=gen)).to(torch.bfloat16)
+    out = {}
+    got, want = layer_norm(x, w, b), layer_norm_ref(x, w, b)
+    gb, wb = layer_norm_bwd(x, w, dy), layer_norm_bwd_ref(x, w, dy)
+    torch.cuda.synchronize()
+    errs_b = [_err(a, c) for a, c in zip(gb, wb)]
+    check(_err(got, want) <= 1e-5, f"medium layer_norm: {_err(got, want)}")
+    check(_close(gb[0], wb[0], 1e-5, ulps=1)
+          and all(_close(a, c, 1e-5, ulps=1) for a, c in zip(gb[1:], wb[1:])),
+          f"medium layer_norm_bwd: {errs_b}")
+    wf, bf = w.float(), b.float()
+    bound, by = _bound(2 * x.numel() * 4 + 2 * n * 2,
+                       {FP32_FLOPS: 8 * x.numel()})
+    out["layer_norm"] = {
+        "case": f"rows={rows} n={n} float32/bfloat16",
+        "max_abs_err": _err(got, want), "tol": "1e-5",
+        **_merge(timings(lambda: layer_norm(x, w, b)),
+                 timings(lambda: layer_norm_ref(x, w, b)),
+                 timings(lambda: F.layer_norm(x, (n,), wf, bf))),
+        "bound_ms": bound, "bound_by": by}
+    _, mean, rstd = torch.native_layer_norm(x, [n], wf, bf, 1e-5)
+    bound, by = _bound(3 * x.numel() * 4 + 3 * n * 2,
+                       {FP32_FLOPS: 12 * x.numel()})
+    out["layer_norm_bwd"] = {
+        "case": f"rows={rows} n={n} float32/bfloat16",
+        "max_abs_err": max(errs_b),
+        "tol": "1e-5 of max|want| (+1 bf16 ulp for bf16)",
+        **_merge(timings(lambda: layer_norm_bwd(x, w, dy)),
+                 timings(lambda: layer_norm_bwd_ref(x, w, dy), iters=20),
+                 timings(lambda: torch.ops.aten.native_layer_norm_backward(
+                     dy, x, [n], mean, rstd, wf, bf, [True, True, True]))),
+        "bound_ms": bound, "bound_by": by}
+    del x, dy, got, want, gb, wb, mean, rstd
+    logits = (3 * torch.randn(rows, v, device=dev, generator=gen)).to(
+        torch.bfloat16)
+    labels = torch.randint(0, v, (rows,), device=dev, generator=gen)
+    g = torch.rand(rows, device=dev, generator=gen)
+    loss, lse = softmax_cross_entropy_fwd(logits, labels, 0.0)
+    want_l, want_lse = softmax_cross_entropy_fwd_ref(logits, labels, 0.0)
+    d = softmax_cross_entropy_bwd(logits, labels, lse, g, 0.0)
+    want_d = softmax_cross_entropy_bwd_ref(logits, labels, lse, g, 0.0)
+    torch.cuda.synchronize()
+    errs = [_err(loss, want_l), _err(lse, want_lse), _err(d, want_d)]
+    check(_close(loss, want_l, 2e-6) and _close(lse, want_lse, 2e-6)
+          and bf16_ulp_ok(d, want_d, ulps=1, floor=1e-9),
+          f"medium xent: {errs}")
+    lg = logits.detach().requires_grad_()
+
+    def ce_fwd_bwd():
+        r = F.cross_entropy(lg, labels, reduction="none")
+        torch.autograd.grad(r, lg, g)
+
+    case = f"rows={rows} V={v} bfloat16 smoothing=0.0"
+    bound, by = _bound(rows * v * 2 + rows * 16, {FP32_FLOPS: 4 * rows * v})
+    out["softmax_xentropy_fwd"] = {
+        "case": case, "max_abs_err": max(errs[:2]),
+        "tol": "2e-6 of max|want|",
+        **_merge(timings(lambda: softmax_cross_entropy_fwd(logits, labels,
+                                                           0.0), iters=20),
+                 timings(lambda: softmax_cross_entropy_fwd_ref(
+                     logits, labels, 0.0), iters=5),
+                 timings(lambda: F.cross_entropy(logits, labels,
+                                                 reduction="none"),
+                         iters=20)),
+        "bound_ms": bound, "bound_by": by}
+    bound, by = _bound(2 * rows * v * 2 + rows * 16,
+                       {FP32_FLOPS: 4 * rows * v})
+    out["softmax_xentropy_bwd"] = {
+        "case": case, "max_abs_err": errs[2], "tol": "1 bf16 ulp + 1e-9",
+        **_merge(timings(lambda: softmax_cross_entropy_bwd(
+                     logits, labels, lse, g, 0.0), iters=20),
+                 timings(lambda: softmax_cross_entropy_bwd_ref(
+                     logits, labels, lse, g, 0.0), iters=3),
+                 timings(ce_fwd_bwd, iters=10)),
+        "bound_ms": bound, "bound_by": by}
+    for name, c in out.items():
+        emit({"phase": "kernel", "kernel": name, "path": "GPT-2 medium", **c})
+    del logits, labels, g, loss, lse, d, want_l, want_lse, want_d, lg
+    torch.cuda.empty_cache()
+    return out
+
+
 class _Tee:
     """stdout that also writes to a log file."""
 
@@ -2424,7 +3241,23 @@ def _run() -> int:
     rn_launches, step, carry = phase_resnet_train(dev, rn_params, rn_stats)
     phase_step_profile(step, carry, "rn50_profile", "one O2 step, ResNet-50, "
                        "batch 128 x 224^2, fused_sgd")
-    del step, carry
+    del step, carry, rn_params, rn_stats
+    torch.cuda.empty_cache()
+
+    acc_cases = phase_flash_acc(dev)
+    pb_cases = phase_flash_probs_bf16(dev)
+    phase_dropout_heads(dev)
+    md_cases = phase_medium_kernels(dev)
+    md_params = init_params(GPTConfig.medium(),
+                            torch.Generator().manual_seed(30))
+    phase_medium_parity(md_params, dev)
+    md_launches, step, carry, md_model = phase_medium_train(dev, md_params)
+    phase_remat_memory(dev, md_model)
+    phase_step_profile(step, carry, "medium_profile", "one O2 step of GPT-2 "
+                       "medium, 4 microbatches of 8 x 1024, full_block, "
+                       "probs_bf16, dq_acc, fused_adam")
+    del step, carry, md_model, md_params
+    torch.cuda.empty_cache()
 
     # the summary rows: the serving kernels at the engine's decode-step
     # shape with the engine run's launches, the GPT training kernels at
@@ -2448,7 +3281,9 @@ def _run() -> int:
                "bert": (bert_launches, "one O2 training window, BERT-large "
                         "MLM"),
                "conv_bn": (conv_path, "the conv_bn entry points once at each "
-                           "of RN50's eight 1x1 shapes, batch 128")}
+                           "of RN50's eight 1x1 shapes, batch 128"),
+               "medium": (md_launches, "one O2 training window of GPT-2 "
+                          "medium, K = 2 steps of 4 microbatches")}
     rows = []
     for name, counter, src, tpu, c, window in (
             ("layer_norm", "layer_norm", "apex_tpu_torch/csrc/layer_norm.cu",
@@ -2487,7 +3322,11 @@ def _run() -> int:
              cb_cases[0]["bn_relu_matmul"], "conv_bn"),
             ("matmul_bwd_dual", "matmul_bwd_dual",
              "apex_tpu_torch/csrc/conv_bn.cu", "apex_tpu/ops/conv_bn.py:402",
-             cb_cases[0]["matmul_bwd_dual"], "conv_bn")):
+             cb_cases[0]["matmul_bwd_dual"], "conv_bn"),
+            ("flash_attention_bwd_acc", "flash_attention_bwd_acc",
+             "apex_tpu_torch/csrc/flash_attention.cu",
+             "apex_tpu/ops/attention.py:885", acc_cases["GPT-2 medium"],
+             "medium")):
         counts, what = windows[window]
         rows.append({"name": name, "route": "cuda", "source": src,
                      "replaces": tpu, "launches": counts[counter],
@@ -2536,9 +3375,36 @@ def _run() -> int:
         "apex_tpu/ops/attention.py:850", "apex_tpu/ops/attention.py:893",
         "apex_tpu/ops/attention.py:1045"]
     by_name["flash_attention_bwd_bias"]["dbias_check"] = fb_cases["dbias"]
+    # GPT-2 medium: the forward with probs_bf16 and the LayerNorm and
+    # cross-entropy kernels at its shapes, with its window's launches; the
+    # acc backward's other cases and its probs_bf16 record; the partials
+    # backward with probs_bf16 (on no path: the medium path takes the acc
+    # backward)
+    by_name["flash_attention_fwd"]["medium_path"] = other_path(
+        "flash_attention_fwd", md_launches, pb_cases["GPT-2 medium"][0])
+    for name, c in md_cases.items():
+        by_name[name]["medium_path"] = other_path(name, md_launches, c)
+    by_name["flash_attention_bwd"]["probs_bf16_case"] = {
+        "launches": 0, "case": pb_cases["GPT-2 medium"][1]["case"],
+        **{k: pb_cases["GPT-2 medium"][1][k]
+           for k in ("max_abs_err", "tol", "ms", "plain_ms", "bound_ms",
+                     "bound_by", "library_ms")}}
+    acc_row = by_name["flash_attention_bwd_acc"]
+    acc_row["also_replaces"] = ["apex_tpu/ops/attention.py:876"]
+    acc_row["other_cases"] = [
+        {k: c[k] for k in ("case", "max_abs_err", "ms", "plain_ms",
+                           "library_ms", "bound_ms", "bound_by",
+                           "partials_ms", "peak_bytes_acc",
+                           "peak_bytes_partials") if k in c}
+        for n, c in acc_cases.items() if n != "GPT-2 medium"]
+    acc_row["partials_ms"] = acc_cases["GPT-2 medium"]["partials_ms"]
+    acc_row["peak_bytes_acc_partials"] = [
+        acc_cases["GPT-2 medium"]["peak_bytes_acc"],
+        acc_cases["GPT-2 medium"]["peak_bytes_partials"]]
     check(all(r["launches"] > 0 for r in rows)
           and all(r[p]["launches"] > 0 for r in rows
-                  for p in ("train_path", "bert_path", "rn50_path")
+                  for p in ("train_path", "bert_path", "rn50_path",
+                            "medium_path")
                   if p in r),
           f"a kernel never launched on its path: {rows}")
     print(smi, flush=True)

@@ -391,8 +391,8 @@ def test_mapping_raises_on_unknown_keys(data):
 
 
 def test_what_is_not_ported_raises(data):
-    with pytest.raises(NotImplementedError, match="remat"):
-        BertConfig.tiny(remat_policy="full_block")
+    with pytest.raises(ValueError, match="remat_policy"):
+        BertConfig.tiny(remat_policy="everything")
     model = _model(data[3], torch.float32)
     ids = torch.zeros(1, 8, dtype=torch.long)
     with pytest.raises(NotImplementedError, match="token_type_ids"):

@@ -183,10 +183,8 @@ def test_cuda_path_raises_on_what_the_kernel_does_not_take(monkeypatch):
     raise before any launch (there is no fallback to the plain path)."""
     monkeypatch.setattr(tattn, "use_kernel", lambda *t: True)
     q, k, v = (torch.zeros(1, 2, 128, 64) for _ in range(3))
-    with pytest.raises(NotImplementedError):
-        tattn.flash_attention(q, k, v, probs_bf16=True)
-    with pytest.raises(NotImplementedError):
-        tattn.flash_attention(q, k, v, dropout_heads=(4, 0))
+    with pytest.raises(ValueError, match="bias shape"):
+        tattn.flash_attention(q, k, v, bias=torch.zeros(1, 128, 64))
     small = torch.zeros(1, 2, 128, 32)
     with pytest.raises(ValueError, match="head_dim"):
         tattn.flash_attention(small, small, small)
