@@ -65,6 +65,8 @@
 
 #include <type_traits>
 
+#include "mma_sync.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
@@ -240,27 +242,6 @@ struct Stage<CT, T, RC, BN, true> {
   }
 };
 
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         const uint32_t (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// Four 8x8 b16 matrices from shared memory: lane l gives the address of
-// row l % 8 of matrix l / 8; register q of every lane then holds row
-// lane / 4, columns 2 * (lane % 4) and + 1, of matrix q — the layout of
-// the mma.sync fragments.
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const bf16* p) {
-  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(a));
-}
-
 // acc[mi][ni][j] of warp (wm, wn) is the output element at row
 // wm*64 + mi*16 + g + 8*(j >= 2), column wn*32 + ni*8 + 2*t + (j & 1),
 // with g = lane / 4, t = lane % 4 (the mma.sync C fragment).
@@ -293,7 +274,8 @@ __device__ __forceinline__ void compute_step(float (&acc)[4][4][4],
 #pragma unroll
     for (int mi = 0; mi < 4; ++mi) {
 #pragma unroll
-      for (int ni = 0; ni < 4; ++ni) mma_bf16(acc[mi][ni], af[mi], bfr[ni]);
+      for (int ni = 0; ni < 4; ++ni)
+        mma_bf16(acc[mi][ni], af[mi], bfr[ni][0], bfr[ni][1]);
     }
   }
 }

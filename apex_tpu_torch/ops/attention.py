@@ -22,7 +22,9 @@ The training half:
   ``_bwd_fused_kernel``/``_bwd_fused_nobias``, which here also writes
   the bias gradient of the two-pass ``_bwd_dq_kernel``), and
   :func:`flash_attention_bwd_acc`, the port of the dq-accumulating
-  ``_bwd_fused_acc_kernel``/``_bwd_fused_acc_nobias`` (``dq_acc``).  On
+  ``_bwd_fused_acc_kernel``/``_bwd_fused_acc_nobias`` (``dq_acc``).
+  bf16 q, k, v at head_dim 64 or 128 run the tensor-core kernels, fp32
+  ones at head_dim 64 the fp32 FMA kernels (:data:`_FLASH_DIMS`).  On
   CPU tensors they run their plain versions
   :func:`flash_attention_fwd_ref` and :func:`flash_attention_bwd_ref`.
 
@@ -311,7 +313,9 @@ paged_fused_attention.launches = 0
 # ---------------------------------------------------------------------------
 
 _M32 = 0xFFFFFFFF
-_FLASH_D = 64
+#: head_dims the flash kernels take, by input dtype: bf16 runs the
+#: tensor-core kernels, fp32 the fp32 FMA kernels
+_FLASH_DIMS = {torch.bfloat16: (64, 128), torch.float32: (64,)}
 _FLASH_TILE = 64  # the kernels' key tile: probs_bf16's forward rounds per tile
 
 #: Whether :func:`flash_attention` and :func:`flash_attention_bwd` take the
@@ -540,34 +544,42 @@ def _flash_lib():
     bias = [p, i, i, ll, ll]  # pointer, dtype code, heads, batch/row strides
     # ..., bh, sq, sk, h_local, h_total, scale, causal, rate, thresh
     shape = [i, i, i, i, i, f, i, f, u]
-    lib.apex_flash_fwd.argtypes = [p, p, p, p, p, p, *bias, *shape, i, i, p]
+    # ..., probs_bf16, fault, head_dim, dtype code, stream
+    tail = [i, i, i, i, p]
+    lib.apex_flash_fwd.argtypes = [p, p, p, p, p, p, *bias, *shape, *tail]
     lib.apex_flash_fwd.restype = i
     lib.apex_flash_bwd.argtypes = [p, p, p, p, p, p, p, *bias, p, p, p, p,
-                                   p, *shape, i, i, p]
+                                   p, *shape, *tail]
     lib.apex_flash_bwd.restype = i
     lib.apex_flash_bwd_acc.argtypes = [p, p, p, p, p, p, p, *bias, p, p, p,
-                                       p, p, *shape, i, i, i, p]
+                                       p, p, *shape, *tail]
     lib.apex_flash_bwd_acc.restype = i
     lib.apex_flash_dq_tiles.argtypes = [i, i, i]
     lib.apex_flash_dq_tiles.restype = ll
-    lib.apex_flash_acc_floats.argtypes = [i, i]
+    lib.apex_flash_acc_floats.argtypes = [i, i, i]
     lib.apex_flash_acc_floats.restype = ll
     lib.apex_flash_acc_turns.argtypes = [i, i]
     lib.apex_flash_acc_turns.restype = ll
+    lib.apex_flash_tc_info.argtypes = [i, i, i, p]
+    lib.apex_flash_tc_info.restype = i
     return lib
 
 
 def _flash_check(q3, k3, v3, seed_pack, bias) -> None:
-    """What the flash kernels take; raises on anything else."""
+    """What the flash kernels take; raises on anything else: bf16 q, k,
+    v at head_dim 64 or 128 (the tensor-core kernels), fp32 at 64 (the
+    FMA kernels)."""
     bh, sq, d = q3.shape
-    if q3.dtype not in _Q_CODE or k3.dtype != q3.dtype \
+    if q3.dtype not in _FLASH_DIMS or k3.dtype != q3.dtype \
             or v3.dtype != q3.dtype:
         raise ValueError(f"flash attention kernel takes fp32/bf16 q, k, v of "
                          f"one dtype, got {q3.dtype}/{k3.dtype}/{v3.dtype}")
-    if d != _FLASH_D or k3.shape[2] != d or v3.shape != k3.shape \
+    dims = _FLASH_DIMS[q3.dtype]
+    if d not in dims or k3.shape[2] != d or v3.shape != k3.shape \
             or k3.shape[0] != bh:
-        raise ValueError(f"flash attention kernel takes head_dim {_FLASH_D} "
-                         f"and matching k/v, got q {tuple(q3.shape)}, k "
+        raise ValueError(f"flash attention kernel takes head_dim "
+                         f"{' or '.join(map(str, dims))} at {q3.dtype} and "
+                         f"matching k/v, got q {tuple(q3.shape)}, k "
                          f"{tuple(k3.shape)}, v {tuple(v3.shape)}")
     if not 1 <= bh <= 65535 or sq < 1 or k3.shape[1] < 1:
         raise ValueError(f"flash attention kernel takes 1..65535 "
@@ -576,6 +588,7 @@ def _flash_check(q3, k3, v3, seed_pack, bias) -> None:
     if not (q3.is_contiguous() and k3.is_contiguous()
             and v3.is_contiguous()):
         raise ValueError("flash attention kernel takes contiguous q, k, v")
+    _check_aligned(q3, k3, v3)
     if seed_pack.dtype != torch.int32 or seed_pack.shape != (4,):
         raise ValueError("flash attention kernel takes an int32[4] seed pack")
     if bias is not None:
@@ -590,6 +603,18 @@ def _flash_check(q3, k3, v3, seed_pack, bias) -> None:
             raise ValueError(f"flash attention kernel takes an fp32/bf16 "
                              f"bias with a unit last stride, got "
                              f"{bias.dtype} strides {bias.stride()}")
+
+
+def _check_aligned(*tensors) -> None:
+    """The tensor-core kernels stage bf16 tiles with 16-byte ``cp.async``:
+    raises unless each bf16 tensor starts on a 16-byte boundary (a
+    contiguous view at an odd offset into its storage may not)."""
+    for t in tensors:
+        if t.dtype == torch.bfloat16 and t.data_ptr() % 16:
+            raise ValueError(f"flash attention kernel takes bf16 q, k, v "
+                             f"and do starting on a 16-byte boundary, got "
+                             f"an address {t.data_ptr() % 16} bytes past "
+                             f"one")
 
 
 def _bias_args(bias, bh):
@@ -610,16 +635,18 @@ def _shape_args(q3, k3, scale, causal, rate, h_map):
 
 def flash_attention_fwd(q3, k3, v3, seed_pack, scale: float, causal: bool,
                         rate: float, h_map, bias=None,
-                        probs_bf16: bool = False):
-    """Forward on (BH, S, 64) with an optional (B, Sq, Sk) ``bias``
+                        probs_bf16: bool = False, *, _fault: int = 0):
+    """Forward on (BH, S, D) with an optional (B, Sq, Sk) ``bias``
     (any batch and row strides, so a broadcast key-padding mask is read
     in place): ``(o, lse)``.  CUDA tensors run ``apex_flash_fwd``; CPU
-    tensors :func:`flash_attention_fwd_ref`."""
+    tensors :func:`flash_attention_fwd_ref`.  For the checks, ``_fault``
+    3 plants an error in the bf16 kernel that they must reject: the rows
+    past the end of a ragged tile staged as NaN instead of zeros."""
     if not use_kernel(q3, k3, v3, seed_pack, bias):
         return flash_attention_fwd_ref(q3, k3, v3, seed_pack, scale, causal,
                                        rate, h_map, bias, probs_bf16)
     _flash_check(q3, k3, v3, seed_pack, bias)
-    bh, sq, _ = q3.shape
+    bh, sq, d = q3.shape
     o = torch.empty_like(q3)
     lse = torch.empty(bh, sq, dtype=torch.float32, device=q3.device)
     with torch.cuda.device(q3.device):
@@ -627,7 +654,7 @@ def flash_attention_fwd(q3, k3, v3, seed_pack, scale: float, causal: bool,
             q3.data_ptr(), k3.data_ptr(), v3.data_ptr(), o.data_ptr(),
             lse.data_ptr(), seed_pack.data_ptr(), *_bias_args(bias, bh),
             *_shape_args(q3, k3, scale, causal, rate, h_map),
-            int(probs_bf16), _Q_CODE[q3.dtype],
+            int(probs_bf16), int(_fault), d, _Q_CODE[q3.dtype],
             torch.cuda.current_stream(q3.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"flash attention forward kernel launch failed: "
@@ -643,6 +670,7 @@ def _bwd_inputs(q3, k3, v3, o, lse, do, seed_pack, bias):
     if do.shape != q3.shape or do.dtype != q3.dtype or o.shape != q3.shape:
         raise ValueError("flash attention backward takes do and o like q")
     do = do.contiguous()
+    _check_aligned(do)
     delta = (do.float() * o.float()).sum(dim=-1)
     return do, delta, lse.contiguous()
 
@@ -650,8 +678,8 @@ def _bwd_inputs(q3, k3, v3, o, lse, do, seed_pack, bias):
 def flash_attention_bwd(q3, k3, v3, o, lse, do, seed_pack, scale: float,
                         causal: bool, rate: float, h_map, bias=None,
                         bias_grad: bool = False, probs_bf16: bool = False,
-                        dq_acc: Optional[bool] = None):
-    """Backward on (BH, S, 64): ``(dq, dk, dv, dbias)``, dbias as for
+                        dq_acc: Optional[bool] = None, *, _fault: int = 0):
+    """Backward on (BH, S, D): ``(dq, dk, dv, dbias)``, dbias as for
     :func:`flash_attention_bwd_ref`.  ``dq_acc`` (None:
     :data:`DQ_ACC_DEFAULT`) hands the call to
     :func:`flash_attention_bwd_acc`, as the JAX package's ``_FUSED_DQ_ACC``
@@ -659,12 +687,13 @@ def flash_attention_bwd(q3, k3, v3, o, lse, do, seed_pack, scale: float,
     not take (JAX's fused backwards exclude it too).  Otherwise CUDA
     tensors run ``apex_flash_bwd`` (the combined dk/dv/dq-partials kernel,
     writing dbias with ``bias_grad``, then the fixed-order dq sum); CPU
-    tensors :func:`flash_attention_bwd_ref`."""
+    tensors :func:`flash_attention_bwd_ref`.  ``_fault`` as for
+    :func:`flash_attention_fwd`."""
     with_dbias = bias is not None and bias_grad
     if (DQ_ACC_DEFAULT if dq_acc is None else dq_acc) and not with_dbias:
         return flash_attention_bwd_acc(q3, k3, v3, o, lse, do, seed_pack,
                                        scale, causal, rate, h_map, bias,
-                                       probs_bf16)
+                                       probs_bf16, _fault=_fault)
     if not use_kernel(q3, k3, v3, o, lse, do, seed_pack, bias):
         return flash_attention_bwd_ref(q3, k3, v3, o, lse, do, seed_pack,
                                        scale, causal, rate, h_map, bias,
@@ -691,7 +720,7 @@ def flash_attention_bwd(q3, k3, v3, o, lse, do, seed_pack, scale: float,
             dv.data_ptr(), part.data_ptr(),
             None if dbias is None else dbias.data_ptr(),
             *_shape_args(q3, k3, scale, causal, rate, h_map),
-            int(probs_bf16), _Q_CODE[q3.dtype],
+            int(probs_bf16), int(_fault), d, _Q_CODE[q3.dtype],
             torch.cuda.current_stream(q3.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"flash attention backward kernel launch failed: "
@@ -704,24 +733,25 @@ def flash_attention_bwd_acc(q3, k3, v3, o, lse, do, seed_pack, scale: float,
                             causal: bool, rate: float, h_map, bias=None,
                             probs_bf16: bool = False, *, _fault: int = 0,
                             _run: Optional[torch.Tensor] = None):
-    """Backward on (BH, S, 64) with dq accumulated in key order in one
-    running fp32 buffer of (BH, Sq, 64) instead of a partials buffer per
-    visited tile: ``(dq, dk, dv, None)``, bit for bit those of
-    :func:`flash_attention_bwd` (no ``bias_grad``).  CUDA tensors run
-    ``apex_flash_bwd_acc`` (one launch, no second pass); CPU tensors
-    :func:`flash_attention_bwd_ref`.  For the checks: ``_fault`` plants
-    an error in the kernel that they must reject (1: key tile 1's
-    contribution dropped; 2: the contributions added in reverse key
-    order), and ``_run`` hands the kernel its running buffer (fp32,
-    contiguous, of ``apex_flash_acc_floats`` elements), which may hold
+    """Backward on (BH, S, D) with dq accumulated in key order in one
+    running fp32 buffer of (BH, Sq, D) (Sq rounded up to the 64-row tile)
+    instead of a partials buffer per visited tile: ``(dq, dk, dv,
+    None)``, bit for bit those of :func:`flash_attention_bwd` (no
+    ``bias_grad``).  CUDA tensors run ``apex_flash_bwd_acc`` (one launch,
+    no second pass); CPU tensors :func:`flash_attention_bwd_ref`.  For the
+    checks: ``_fault`` plants an error in the kernel that they must
+    reject (1: key tile 1's contribution dropped; 2: the contributions
+    added in reverse key order; 3: as for :func:`flash_attention_fwd`),
+    and ``_run`` hands the kernel its running buffer (fp32, contiguous,
+    of ``apex_flash_acc_floats(BH, Sq, D)`` elements), which may hold
     anything: its first contributors write it without reading it."""
     if not use_kernel(q3, k3, v3, o, lse, do, seed_pack, bias):
         return flash_attention_bwd_ref(q3, k3, v3, o, lse, do, seed_pack,
                                        scale, causal, rate, h_map, bias,
                                        False, probs_bf16)
-    bh, sq, _ = q3.shape
+    bh, sq, d = q3.shape
     lib = _flash_lib()
-    floats = lib.apex_flash_acc_floats(bh, sq)
+    floats = lib.apex_flash_acc_floats(bh, sq, d)
     run = _run
     if run is None:
         run = torch.empty(floats, dtype=torch.float32, device=q3.device)
@@ -740,7 +770,7 @@ def flash_attention_bwd_acc(q3, k3, v3, o, lse, do, seed_pack, scale: float,
             *_bias_args(bias, bh), dq.data_ptr(), dk.data_ptr(),
             dv.data_ptr(), run.data_ptr(), turns.data_ptr(),
             *_shape_args(q3, k3, scale, causal, rate, h_map),
-            int(probs_bf16), int(_fault), _Q_CODE[q3.dtype],
+            int(probs_bf16), int(_fault), d, _Q_CODE[q3.dtype],
             torch.cuda.current_stream(q3.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"flash attention dq-accumulating backward kernel "
@@ -816,12 +846,13 @@ def flash_attention(
     products, as the JAX kernels do; a no-op for fp32 inputs.
     ``dq_acc`` (None: :data:`DQ_ACC_DEFAULT`) selects the dq-accumulating
     backward, which gives the same bits as the partials one from a
-    (B*H, Sq, 64) fp32 buffer instead of one per visited tile; calls with
+    (B*H, Sq, D) fp32 buffer instead of one per visited tile; calls with
     ``bias_grad`` keep the partials backward.
 
-    CUDA tensors run ``csrc/flash_attention.cu``: fp32/bf16 q, k, v with
-    head_dim 64, any lengths.  CPU tensors run the kernels' plain
-    versions, the same functions.
+    CUDA tensors run ``csrc/flash_attention.cu``, any lengths: bf16 q, k,
+    v at head_dim 64 or 128 on the tensor cores, fp32 at head_dim 64 as
+    fp32 FMAs; any other head_dim raises.  CPU tensors run the kernels'
+    plain versions, the same functions.
     """
     b, h, sq, d = q.shape
     sk = k.shape[2]

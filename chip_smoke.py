@@ -28,7 +28,13 @@ line) on any failed check:
    BERT-large's 12 x 512, hidden 1024, vocabulary 30592) and, for flash
    attention, at a few other shapes, each with planted faults the check
    must reject, and the library yardsticks (``F.layer_norm``'s backward,
-   ``F.scaled_dot_product_attention``, ``F.cross_entropy``);
+   ``F.scaled_dot_product_attention``, ``F.cross_entropy``).  bf16 flash
+   attention runs on the tensor cores (``mma.sync``, fp32 p split into
+   bf16 hi + lo) and is held to :data:`SPLIT_TOL`: 2 bf16 ulps plus 1e-4
+   of max|want|, with at most 2 % of the elements different, a gate that
+   the planted fault "the split's low half dropped" must fail; its
+   ragged cases also plant the rows past a tile's end staged as NaN;
+   fp32 flash attention runs the fp32 FMA kernels, within 1e-5;
 6. train parity: GPT-2 small at fp32 (O0, TF32 off, no dropout), batch
    2 x 256, loss and gradients on the card against the port on the CPU;
 7. train: O2 training of GPT-2 small at batch 16 x 1024 with dropout,
@@ -84,6 +90,13 @@ line) on any failed check:
     ``probs_bf16=False`` within the JAX package's contract (the identity
     at fp32), with the rounding left out as the planted fault;
     ``dropout_heads``: a head group equal to the whole call's slice;
+    head_dim 128 (bf16): the flash kernels' shared memory, blocks per SM,
+    registers and spills at head_dim 64 and 128, then the forward and
+    both backwards against their plain versions causal with dropout,
+    with a key-padding bias, with ``probs_bf16``, ragged both ways, with
+    ``bias_grad`` and at nq = nk = 1, the acc backward bit for bit the
+    partials one, with the split and staging faults; three cases timed
+    beside SDPA and the bound;
 13. GPT-2 medium: the LayerNorm and cross-entropy kernels at its shapes;
     fp32 card vs CPU with M = 2 microbatches, ``full_block`` remat and
     ``dq_acc``, and the three remat policies bit-equal on the card with
@@ -248,6 +261,25 @@ def device_ms(fn, iters: int = 20) -> float:
         torch.cuda.synchronize()
     total_us = sum(e.time_range.elapsed_us() for e in _kernel_events(prof))
     return total_us / iters / 1e3 if total_us > 0 else None
+
+
+def device_ms_by_kernel(fn, iters: int = 10) -> dict:
+    """Device time of one ``fn()`` by kernel (the first 60 characters of
+    its name), from a ``torch.profiler`` trace of ``iters`` calls."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in _kernel_events(prof):
+        out[e.name[:60]] = (out.get(e.name[:60], 0.0)
+                            + e.time_range.elapsed_us() / iters / 1e3)
+    return out
 
 
 def timings(fn, iters: int = 50, prof_iters: int = 20) -> dict:
@@ -760,11 +792,13 @@ def _stored_bytes(t) -> int:
 def _flash_bound(q, k, bias, backward: bool, causal: bool,
                  dbias: bool = False, probs_bf16: bool = False):
     """Visible query-key pairs; QK^T (and dO.V^T) at the rate of the
-    inputs' type, the fp32 products (p.V; pd^T.dO, ds^T.Q, ds.K) at the
-    fp32 rate, or with ``probs_bf16`` and bf16 inputs (all products then
-    of bf16 values) at the bf16 rate; q, k, v, o (+ do, dq, dk, dv), lse
-    (+ delta), the bias's stored elements, if any, (and the fp32
-    per-batch*head dbias) moved once."""
+    inputs' type; the products with p, pd or ds (p.V; pd^T.dO, ds^T.Q,
+    ds.K): fp32 inputs at the fp32 rate, bf16 inputs at the bf16 rate,
+    counted twice without ``probs_bf16`` (fp32 p on the tensor cores is
+    two bf16 products, its hi and lo parts: ``csrc/flash_attention.cu``)
+    and once with it (p, pd and ds are then bf16 values); q, k, v, o (+
+    do, dq, dk, dv), lse (+ delta), the bias's stored elements, if any,
+    (and the fp32 per-batch*head dbias) moved once."""
     bh, sq, d = q.shape
     sk = k.shape[1]
     rows = torch.arange(sq)[:, None]
@@ -774,29 +808,105 @@ def _flash_bound(q, k, bias, backward: bool, causal: bool,
     rate = BF16_FLOPS if q.dtype == torch.bfloat16 else FP32_FLOPS
     nbytes = (0 if bias is None else _stored_bytes(bias)) \
         + (2 * bh * sq + 2 * bh * sk) * d * el + bh * sq * 4
-    ops = {rate: 2 * pairs * d}
+    products = 1
     if backward:
         nbytes += (2 * bh * sq + 2 * bh * sk) * d * el + bh * sq * 4
-        ops[rate] += 2 * pairs * d
+        products = 2
         if dbias:
             nbytes += bh * sq * sk * 4
-    fp32 = (3 if backward else 1) * 2 * pairs * d
-    prob_rate = rate if probs_bf16 else FP32_FLOPS
-    ops[prob_rate] = ops.get(prob_rate, 0) + fp32
-    return _bound(nbytes, ops)
+    split = 1 if probs_bf16 or q.dtype == torch.float32 else 2
+    products += (3 if backward else 1) * split
+    return _bound(nbytes, {rate: products * 2 * pairs * d})
+
+
+#: The default path's gate (fp32 p) for a bf16 tensor-core kernel against
+#: its plain version, beside :func:`_close`'s bound: at most this share of
+#: the elements differ at all.  The kernel's only departures are the
+#: summation order and the split's dropped residual (2^-16 of p at most),
+#: which moved 0.06-0.42 % of the bf16 outputs by an ulp on the H100;
+#: dropping the split's low half (p, pd and ds rounded to bf16, about
+#: 2^-9 of each term) moved 24-41 % of them and can stay within the
+#: 2-ulp bound.
+SPLIT_FRAC = 0.02
+SPLIT_TOL = ("1e-4 of max|want| + 2 bf16 ulps, <= 2 % of the elements "
+             "different")
+#: What each design runs, for the summary rows.
+FLASH_DESIGN = {torch.bfloat16: "mma.sync bf16 (tensor cores, fp32 p split "
+                                "hi + lo; probs_bf16: one bf16 product)",
+                torch.float32: "fp32 FMA (CUDA cores)"}
+
+
+def _frac_differing(got, want) -> float:
+    return float((got.float() != want.float()).float().mean())
+
+
+def _split_close(got, want, rtol: float = 1e-4) -> bool:
+    """A bf16 kernel's default-path result against its plain version:
+    :func:`_close` with 2 bf16 ulps and at most :data:`SPLIT_FRAC` of the
+    elements different."""
+    return _close(got, want, rtol, ulps=2) \
+        and _frac_differing(got, want) <= SPLIT_FRAC
+
+
+def _low_half_dropped(fwd, bwd, o_ref, want, rtol: float = 1e-4) -> dict:
+    """The planted fault of the split: the kernels with p, pd and ds
+    rounded to bf16 (their ``probs_bf16`` path: the hi part alone) against
+    the default path's plain results; the split gate must reject the
+    output and every grad.  ``fwd``/``bwd`` run the kernels with
+    ``probs_bf16=True``.  Returns the fractions of elements that differ
+    (o, dq, dk, dv)."""
+    bad_o = fwd()
+    bad_g = bwd()
+    torch.cuda.synchronize()
+    fracs = [_frac_differing(bad_o, o_ref)] + [
+        _frac_differing(a, w) for a, w in zip(bad_g[:3], want[:3])]
+    check(not _split_close(bad_o, o_ref, rtol)
+          and not any(_split_close(a, w, rtol)
+                      for a, w in zip(bad_g[:3], want[:3])),
+          f"flash: the split gate misses the split's low half dropped "
+          f"{fracs}")
+    return {"split_low_half_dropped_frac_o_dq_dk_dv": fracs}
+
+
+def _nan_staging(fwd, bwd, o_ref, want, causal: bool,
+                 rtol: float = 1e-4) -> dict:
+    """The planted fault of the staging path: the tensor-core kernels with
+    the rows past a ragged tile's end staged as NaN instead of zeros
+    (``_fault=3``: what an unfilled stage can hold) must fail the check:
+    the backward always (it multiplies every staged row, if by a zero
+    probability), the forward where some query visits the ragged last key
+    tile (its q rows past Sq feed no output, and a causal mask can hide
+    the key tile)."""
+    bad_o = fwd()
+    bad_g = bwd()
+    torch.cuda.synchronize()
+    nans = [int(bad_o.isnan().sum())] + [int(a.isnan().sum())
+                                         for a in bad_g[:3]]
+    sq, sk = o_ref.shape[1], want[1].shape[1]
+    fwd_reads = sk % 64 != 0 and (not causal or (sk - 1) // 64 * 64 < sq)
+    check(not bad_o.is_cuda  # the plain versions on the CPU take no fault
+          or ((not fwd_reads or not _split_close(bad_o, o_ref, rtol))
+              and not all(_split_close(a, w, rtol)
+                          for a, w in zip(bad_g[:3], want[:3]))),
+          f"flash: the check misses the ragged tile's rows staged as NaN "
+          f"{nans}")
+    return {"ragged_rows_staged_nan_count_o_dq_dk_dv": nans}
 
 
 def phase_flash(dev, b: int = 16, h: int = 12, s: int = 1024,
                 d: int = 64):
     """Flash attention at the training shape (B 16, H 12, S 1024, D 64,
-    causal), bf16 and fp32, dropout 0 and 0.1; q ~ 2 N(0, 1), k, v, dO
-    ~ N(0, 1), a peaked softmax with outputs of order 1.  Forward O and
-    backward dQ/dK/dV within 1e-5 (fp32) of max|want| or 2 bf16 ulps
-    plus 1e-4 of it (bf16: one rounding on each side, fp32 sums of up to
-    1024 terms in two orders); lse within 1e-5 of max|lse|.  Planted
-    faults: the causal mask one key short (the plain version with that
-    mask) and the dropout mask shifted by one column (the kernel with
-    the seed's column offset 1)."""
+    causal), bf16 (the tensor-core kernels) and fp32 (the FMA kernels),
+    dropout 0 and 0.1; q ~ 2 N(0, 1), k, v, dO ~ N(0, 1), a peaked
+    softmax with outputs of order 1.  Forward O and backward dQ/dK/dV
+    within 1e-5 (fp32) of max|want|, or at bf16 :data:`SPLIT_TOL`: 2 bf16
+    ulps plus 1e-4 of max|want| (one rounding on each side, fp32 sums of
+    up to 1024 terms in two orders) with at most 2 % of the elements
+    different; lse within 1e-5 of max|lse|.  Planted faults: the causal
+    mask one key short (the plain version with that mask), the dropout
+    mask shifted by one column (the kernel with the seed's column offset
+    1) and, at bf16, the split's low half dropped
+    (:func:`_low_half_dropped`)."""
     gen = torch.Generator(device=dev).manual_seed(7)
     bh = b * h
     cases = []
@@ -817,11 +927,15 @@ def phase_flash(dev, b: int = 16, h: int = 12, s: int = 1024,
         torch.cuda.synchronize()
         err_o, err_lse = _err(o, o_ref), _err(lse, lse_ref)
         errs_b = [_err(a, w) for a, w in zip(grads, want)]
+        fracs = [_frac_differing(a, w)
+                 for a, w in zip((o, *grads), (o_ref, *want))]
         name = f"{_dt(dt)} dropout={rate}"
-        check(_close(o, o_ref, rtol_f, ulps=2), f"flash fwd {name}: {err_o}")
+        ok = _split_close if dt == torch.bfloat16 else \
+            (lambda a, w, r: _close(a, w, r, ulps=2))
+        check(ok(o, o_ref, rtol_f), f"flash fwd {name}: {err_o} {fracs}")
         check(_close(lse, lse_ref, 1e-5), f"flash lse {name}: {err_lse}")
         for gname, a, w, e in zip(("dq", "dk", "dv"), grads, want, errs_b):
-            check(_close(a, w, rtol_b, ulps=2), f"flash {gname} {name}: {e}")
+            check(ok(a, w, rtol_b), f"flash {gname} {name}: {e} {fracs}")
         # planted faults
         q4, k4, v4 = (t.reshape(b, h, s, d) for t in (q, k, v))
         bias = _strict_causal_bias(s, dev).expand(b, s, s)
@@ -855,6 +969,13 @@ def phase_flash(dev, b: int = 16, h: int = 12, s: int = 1024,
                   f"flash {name}: the check misses the shifted dropout mask "
                   f"in the backward")
             del bad_o, bad_g
+        if dt == torch.bfloat16:
+            faults.update(_low_half_dropped(
+                lambda: flash_attention_fwd(q, k, v, *args,
+                                            probs_bf16=True)[0],
+                lambda: flash_attention_bwd(q, k, v, o, lse, do, *args,
+                                            probs_bf16=True),
+                o_ref, want))
         kern_f = timings(lambda: flash_attention_fwd(q, k, v, *args), iters=20)
         plain_f = timings(lambda: flash_attention_fwd_ref(q, k, v, *args),
                           iters=5)
@@ -873,14 +994,14 @@ def phase_flash(dev, b: int = 16, h: int = 12, s: int = 1024,
 
         lib_fb = timings(sdpa_fwd_bwd, iters=10)
         base = {"case": name, "B": b, "H": h, "S": s, "D": d,
-                "dtype": _dt(dt), "dropout": rate,
+                "dtype": _dt(dt), "dropout": rate, "design": FLASH_DESIGN[dt],
+                "frac_differing_o_dq_dk_dv": fracs,
                 "planted_fault_errs": faults}
         bound, by = _flash_bound(q, k, None, backward=False, causal=True)
         fwd = {**base, "max_abs_err": max(err_o, err_lse),
                "errs_o_lse": [err_o, err_lse],
-               "tol": f"{rtol_f} of max|want|" + (" + 2 bf16 ulps"
-                                                  if dt == torch.bfloat16
-                                                  else ""),
+               "tol": SPLIT_TOL if dt == torch.bfloat16
+               else f"{rtol_f} of max|want|",
                **_merge(kern_f, plain_f, lib_f), "bound_ms": bound,
                "bound_by": by,
                "library": "F.scaled_dot_product_attention(is_causal=True), "
@@ -889,6 +1010,8 @@ def phase_flash(dev, b: int = 16, h: int = 12, s: int = 1024,
         bound, by = _flash_bound(q, k, None, backward=True, causal=True)
         bwd = {**base, "max_abs_err": max(errs_b), "errs_dq_dk_dv": errs_b,
                "tol": fwd["tol"], **_merge(kern_b, plain_b, lib_fb),
+               "ms_by_kernel": device_ms_by_kernel(
+                   lambda: flash_attention_bwd(q, k, v, o, lse, do, *args)),
                "bound_ms": bound, "bound_by": by,
                "library": "F.scaled_dot_product_attention forward + "
                           "backward, no dropout"}
@@ -906,7 +1029,8 @@ def phase_flash_shapes(dev, h: int = 12, d: int = 64):
     causal mask (300 x 450, fp32, dropout 0.1), and more queries than
     keys with it (450 x 300, bf16).  Tolerances as in
     :func:`phase_flash`; with dropout, the mask shifted by one column
-    must be rejected."""
+    must be rejected, and at bf16 the ragged tile's rows staged as NaN
+    (:func:`_nan_staging`)."""
     gen = torch.Generator(device=dev).manual_seed(12)
     for b, sq, sk, causal, dt, rate in (
             (2, 1000, 1000, True, torch.bfloat16, 0.1),
@@ -929,9 +1053,11 @@ def phase_flash_shapes(dev, h: int = 12, d: int = 64):
                 f"dropout={rate}")
         errs = [_err(o, o_ref), _err(lse, lse_ref)] + [
             _err(a, w) for a, w in zip(grads, want)]
-        check(_close(o, o_ref, rtol, ulps=2) and _close(lse, lse_ref, 1e-5),
+        ok = _split_close if dt == torch.bfloat16 else \
+            (lambda a, w, r: _close(a, w, r, ulps=2))
+        check(ok(o, o_ref, rtol) and _close(lse, lse_ref, 1e-5),
               f"flash fwd {name}: {errs[:2]}")
-        check(all(_close(a, w, rtol, ulps=2) for a, w in zip(grads, want)),
+        check(all(ok(a, w, rtol) for a, w in zip(grads, want)),
               f"flash bwd {name}: {errs[2:]}")
         faults = {}
         if rate > 0:
@@ -941,11 +1067,20 @@ def phase_flash_shapes(dev, h: int = 12, d: int = 64):
             faults["dropout_shifted_one_col_fwd"] = _err(bad_o, o_ref)
             check(not _close(bad_o, o_ref, rtol, ulps=2),
                   f"flash {name}: the check misses the shifted dropout mask")
+        if dt == torch.bfloat16:
+            faults.update(_nan_staging(
+                lambda: flash_attention_fwd(q, k, v, *args, _fault=3)[0],
+                lambda: flash_attention_bwd(q, k, v, o, lse, do, *args,
+                                            _fault=3),
+                o_ref, want, causal))
         emit({"phase": "kernel_check", "kernel": "flash_attention",
-              "case": name, "errs_o_lse_dq_dk_dv": errs,
-              "tol": f"{rtol} of max|want|" + (" + 2 bf16 ulps"
-                                               if dt == torch.bfloat16
-                                               else ""),
+              "case": name, "design": FLASH_DESIGN[dt],
+              "errs_o_lse_dq_dk_dv": errs,
+              "frac_differing_o_dq_dk_dv": [
+                  _frac_differing(a, w)
+                  for a, w in zip((o, *grads), (o_ref, *want))],
+              "tol": SPLIT_TOL if dt == torch.bfloat16
+              else f"{rtol} of max|want|",
               "planted_fault_errs": faults})
 
 
@@ -1233,9 +1368,9 @@ def phase_flash_bias(dev, b: int = 12, h: int = 16, s: int = 512,
     1e-5 of max|want| and exactly 0 above a causal diagonal, written into
     a block that held NaN just before.  Planted faults: the bias read at
     batch bh % B instead of bh // H (the kernel given a per-batch*head
-    bias so permuted), dbias multiplied by the scale, and a causally
-    skipped dbias tile left unwritten (NaN, as the poisoned block has
-    it).  Case (1) is
+    bias so permuted), the split's low half dropped (case 1), dbias
+    multiplied by the scale, and a causally skipped dbias tile left
+    unwritten (NaN, as the poisoned block has it).  Case (1) is
     timed beside SDPA with the float mask (no dropout)."""
     gen = torch.Generator(device=dev).manual_seed(13)
     bh = b * h
@@ -1265,10 +1400,14 @@ def phase_flash_bias(dev, b: int = 12, h: int = 16, s: int = 512,
     err_o, err_lse = _err(o, o_ref), _err(lse, lse_ref)
     errs_b = [_err(a, w) for a, w in zip(grads[:3], want[:3])]
     name = f"BERT-large bf16 dropout={rate} padding bias"
-    check(_close(o, o_ref, rtol, ulps=2), f"flash bias fwd {name}: {err_o}")
+    fracs = [_frac_differing(a, w)
+             for a, w in zip((o, *grads[:3]), (o_ref, *want[:3]))]
+    check(_split_close(o, o_ref, rtol),
+          f"flash bias fwd {name}: {err_o} {fracs}")
     check(_close(lse, lse_ref, 1e-5), f"flash bias lse {name}: {err_lse}")
     for gname, a, w, e in zip(("dq", "dk", "dv"), grads, want, errs_b):
-        check(_close(a, w, rtol, ulps=2), f"flash bias {gname} {name}: {e}")
+        check(_split_close(a, w, rtol),
+              f"flash bias {gname} {name}: {e} {fracs}")
     # planted fault: each batch*head reads the mask of batch bh % B
     perm = mask3[torch.arange(bh, device=dev) % b].expand(bh, s, s)
     bad_o, _ = flash_attention_fwd(q, k, v, *args, bias=perm)
@@ -1283,6 +1422,12 @@ def phase_flash_bias(dev, b: int = 12, h: int = 16, s: int = 512,
           f"flash bias {name}: the check misses the bias batch bh % B in "
           f"the backward")
     del bad_o, bad_g, perm
+    faults.update(_low_half_dropped(
+        lambda: flash_attention_fwd(q, k, v, *args, bias=bias,
+                                    probs_bf16=True)[0],
+        lambda: flash_attention_bwd(q, k, v, o, lse, do, *args, bias=bias,
+                                    probs_bf16=True),
+        o_ref, want, rtol))
     kern_f = timings(lambda: flash_attention_fwd(q, k, v, *args, bias=bias),
                      iters=20)
     plain_f = timings(lambda: flash_attention_fwd_ref(q, k, v, *args,
@@ -1305,8 +1450,9 @@ def phase_flash_bias(dev, b: int = 12, h: int = 16, s: int = 512,
     lib_fb = timings(sdpa_fwd_bwd, iters=10)
     base = {"case": name, "B": b, "H": h, "S": s, "D": d, "dtype": _dt(dt),
             "dropout": rate, "lengths": lengths.tolist(),
+            "design": FLASH_DESIGN[dt], "frac_differing_o_dq_dk_dv": fracs,
             "planted_fault_errs": faults}
-    tol = f"{rtol} of max|want| + 2 bf16 ulps"
+    tol = SPLIT_TOL
     bound, by = _flash_bound(q, k, bias, backward=False, causal=False)
     fwd = {**base, "max_abs_err": max(err_o, err_lse),
            "errs_o_lse": [err_o, err_lse], "tol": tol,
@@ -1330,7 +1476,7 @@ def phase_flash_bias(dev, b: int = 12, h: int = 16, s: int = 512,
                                    bias_grad=True)
     torch.cuda.synchronize()
     errs_g = [_err(a, w) for a, w in zip(grads, want)]
-    check(all(_close(a, w, rtol, ulps=2) for a, w in zip(grads[:3], want[:3]))
+    check(all(_split_close(a, w, rtol) for a, w in zip(grads[:3], want[:3]))
           and _dbias_ok(grads[3], want[3], rtol, causal=False),
           f"flash bias_grad {name}: {errs_g}")
     del grads, want
@@ -1435,14 +1581,17 @@ def phase_flash_bias(dev, b: int = 12, h: int = 16, s: int = 512,
     name = f"B={b3} H={h} S={s} bf16 full bf16 bias"
     errs = [_err(o, o_ref), _err(lse, lse_ref)] + [
         _err(a, w) for a, w in zip(grads[:3], want[:3])]
-    check(_close(o, o_ref, 1e-4, ulps=2) and _close(lse, lse_ref, 1e-5),
+    check(_split_close(o, o_ref) and _close(lse, lse_ref, 1e-5),
           f"flash bias fwd {name}: {errs[:2]}")
-    check(all(_close(a, w, 1e-4, ulps=2)
-              for a, w in zip(grads[:3], want[:3])),
+    check(all(_split_close(a, w) for a, w in zip(grads[:3], want[:3])),
           f"flash bias bwd {name}: {errs[2:]}")
     emit({"phase": "kernel_check", "kernel": "flash_attention_bias",
-          "case": name, "errs_o_lse_dq_dk_dv": errs,
-          "tol": "1e-4 of max|want| + 2 bf16 ulps"})
+          "case": name, "design": FLASH_DESIGN[dt],
+          "errs_o_lse_dq_dk_dv": errs,
+          "frac_differing_o_dq_dk_dv": [
+              _frac_differing(a, w)
+              for a, w in zip((o, *grads[:3]), (o_ref, *want[:3]))],
+          "tol": SPLIT_TOL})
     torch.cuda.empty_cache()
     return cases
 
@@ -2447,8 +2596,8 @@ def phase_flash_acc(dev, cases=ACC_CASES, repeats: int = 5):
     the partials backward (``flash_attention_bwd``): dq, dk and dv equal
     bit for bit on each of ``repeats`` runs (a race in the turn protocol
     would show as a run that differs), and both against the plain version
-    within row 7's tolerances (1e-5 of max|want| at fp32, 1e-4 + 2 bf16
-    ulps at bf16; with ``probs_bf16``, :data:`PROBS_TOL`).  The GPT-2
+    within row 7's tolerances (1e-5 of max|want| at fp32,
+    :data:`SPLIT_TOL` at bf16; with ``probs_bf16``, :data:`PROBS_TOL`).  The GPT-2
     medium case hands the kernel a NaN-poisoned running buffer, and the
     check must reject two planted faults of the kernel: key tile 1's
     contribution dropped and the contributions added in reverse key
@@ -2491,18 +2640,22 @@ def phase_flash_acc(dev, cases=ACC_CASES, repeats: int = 5):
         if probs and dt == torch.bfloat16:
             tol = PROBS_TOL
             ok = all(_probs_close(a, w)[0] for a, w in zip(acc, want))
+        elif dt == torch.bfloat16:
+            tol = SPLIT_TOL
+            ok = all(_split_close(a, w) for a, w in zip(acc, want))
         else:
-            rtol = 1e-5 if dt == torch.float32 else 1e-4
-            tol = f"{rtol} of max|want|" + (
-                " + 2 bf16 ulps" if dt == torch.bfloat16 else "")
-            ok = all(_close(a, w, rtol, ulps=2) for a, w in zip(acc, want))
+            tol = "1e-5 of max|want|"
+            ok = all(_close(a, w, 1e-5) for a, w in zip(acc, want))
         check(ok, f"flash acc {label} vs the plain version: {errs}")
-        rec = {"case": label, "repeats_bitwise_equal": runs_equal,
-               "max_abs_err": max(errs), "errs_dq_dk_dv": errs, "tol": tol}
+        rec = {"case": label, "design": FLASH_DESIGN[dt],
+               "repeats_bitwise_equal": runs_equal,
+               "max_abs_err": max(errs), "errs_dq_dk_dv": errs, "tol": tol,
+               "frac_differing_dq_dk_dv": [_frac_differing(a, w)
+                                           for a, w in zip(acc, want)]}
         if name == "GPT-2 medium":
             # a NaN-poisoned running buffer: the first contributor of each
             # query tile must write it, not read it
-            floats = (bh * ((sq + 63) // 64)) * 64 * 64
+            floats = (bh * ((sq + 63) // 64)) * 64 * q.shape[2]
             poison = torch.full((floats,), float("nan"), device=dev)
             got = flash_attention_bwd_acc(q, k, v, o, lse, do, *args,
                                           probs_bf16=probs, _run=poison)[:3]
@@ -2554,6 +2707,10 @@ def phase_flash_acc(dev, cases=ACC_CASES, repeats: int = 5):
                 **_merge(kern, plain, lib),
                 "partials_ms": kern_part["ms"],
                 "partials_events_ms": kern_part["events_ms"],
+                "ms_by_kernel": device_ms_by_kernel(
+                    lambda: flash_attention_bwd_acc(
+                        q, k, v, o, lse, do, *args, bias=bias,
+                        probs_bf16=probs)),
                 "acc_over_partials": kern["ms"] / kern_part["ms"],
                 "bound_ms": bound, "bound_by": by,
                 "bound_of": "row 7's: the products of bf16 values at the "
@@ -2571,13 +2728,37 @@ def phase_flash_acc(dev, cases=ACC_CASES, repeats: int = 5):
                         probs_bf16=probs, dq_acc=False)),
                 "scratch_bytes_acc": bh * ((sq + 63) // 64) * 64 * 64 * 4
                 + (bh * ((sq + 63) // 64) + 1) * 4,
-                "scratch_bytes_partials": bh * tiles * 64 * 64 * 4})
+                "scratch_bytes_partials": bh * tiles * 64 * 64 * 4,
+                "blocks_per_sm_acc_partials": [
+                    _flash_tc_info(2, 64, probs)["blocks_per_sm"],
+                    _flash_tc_info(1, 64, probs)["blocks_per_sm"]]
+                if dt == torch.bfloat16 else None})
             del q4, k4, v4, do4, mask4
         emit({"phase": "flash_acc", **rec})
         out[name] = rec
         del q, k, v, do, o, lse, part, acc, want, bias
         torch.cuda.empty_cache()
     return out
+
+
+def _flash_tc_info(kernel: int, d: int, probs: bool = False) -> dict:
+    """A tensor-core flash kernel's resources (0: forward, 1: partials
+    backward, 2: acc backward; the instantiation with ``probs_bf16`` when
+    ``probs``) at head_dim d, as the CUDA runtime reports them for the
+    built kernel: shared memory a block (static plus the dynamic size
+    allowed), resident blocks per SM, registers and spilled bytes a
+    thread."""
+    import ctypes
+
+    from apex_tpu_torch.ops.attention import _flash_lib
+
+    out = (ctypes.c_int * 4)()
+    err = _flash_lib().apex_flash_tc_info(kernel, d, int(probs),
+                                          ctypes.addressof(out))
+    check(err == 0, f"apex_flash_tc_info({kernel}, {d}, {probs}): CUDA "
+          f"error {err}")
+    return {"smem_bytes": out[0], "blocks_per_sm": out[1],
+            "registers": out[2], "spill_bytes": out[3]}
 
 
 def _flash_lib_tiles(sq, sk, causal) -> int:
@@ -2775,6 +2956,174 @@ def phase_dropout_heads(dev, b: int = 2, h: int = 16, s: int = 512,
     emit({"phase": "kernel_check", "kernel": "flash_attention dropout_heads",
           "case": f"B={b} H={h} S={s} causal bf16 dropout=0.1, heads "
           f"[{lo}, {hi}) of {h}", **res})
+
+
+# (name, B, H, Sq, Sk, causal, dropout, bias, probs_bf16, timed)
+D128_CASES = (
+    ("causal", 16, 8, 1024, 1024, True, 0.1, None, False, True),
+    ("padding bias", 12, 8, 512, 512, False, 0.1, "padding", False, True),
+    ("probs_bf16", 8, 8, 1024, 1024, True, 0.1, None, True, True),
+    ("ragged Sq != Sk", 2, 8, 300, 450, False, 0.1, None, False, False),
+    ("ragged causal Sq > Sk", 2, 8, 450, 300, True, 0.0, None, False, False),
+    ("bias_grad", 2, 8, 300, 450, True, 0.1, "full", False, False),
+    ("nq = nk = 1", 3, 4, 64, 64, True, 0.1, None, False, False),
+)
+
+
+def phase_flash_d128(dev, cases=D128_CASES, d: int = 128):
+    """head_dim 128, bf16 (the tensor-core kernels' other instantiation;
+    fp32 at 128 raises): the forward, the partials backward and the
+    dq-accumulating backward against their plain versions, causal with
+    dropout 0.1 (16 x 8 x 1024, GPT-2 medium's width in 8 heads), with
+    BERT-large's key-padding bias (12 x 8 x 512), with ``probs_bf16``
+    (:data:`PROBS_TOL`), ragged Sq != Sk both ways, ``bias_grad`` (dbias
+    as in :func:`phase_flash_bias`) and the nq = nk = 1 edge; the rest
+    within :data:`SPLIT_TOL`, lse within 1e-5 of max|lse|, and the acc
+    backward bit for bit the partials one.  Planted faults: the split's
+    low half dropped (causal case) and the ragged tiles' rows staged as
+    NaN (ragged cases).  The first three cases are timed beside SDPA and
+    the bound.  First the kernels' shared memory, resident blocks per SM,
+    registers and spills at head_dim 64 and 128, and a check that an fp32
+    call at head_dim 128 and a bf16 one at 96 raise before any launch."""
+    info = {f"d{dd}": {kind + ("_probs_bf16" if probs else ""):
+                       _flash_tc_info(i, dd, probs)
+                       for i, kind in enumerate(("fwd", "bwd_partials",
+                                                 "bwd_acc"))
+                       for probs in (False, True)}
+            for dd in (64, d)}
+    emit({"phase": "flash_tc_info", **info})
+    # what no kernel takes raises before any launch: no fallback
+    refused = {}
+    for dt, dd in ((torch.float32, d), (torch.bfloat16, 96)):
+        x = torch.zeros(4, 64, dd, dtype=dt, device=dev)
+        try:
+            flash_attention_fwd(x, x, x, _pack_seed(0, device=dev),
+                                dd ** -0.5, True, 0.0, (2, 2))
+            refused[f"{_dt(dt)} head_dim {dd}"] = False
+        except ValueError:
+            refused[f"{_dt(dt)} head_dim {dd}"] = True
+    check(dev.type != "cuda" or all(refused.values()),
+          f"flash: a call no kernel takes did not raise {refused}")
+    gen = torch.Generator(device=dev).manual_seed(43)
+    seed_int = 135792468
+    out = {"tc_info": info}
+    emit({"phase": "kernel_check", "kernel": "flash_attention",
+          "case": "calls no kernel takes raise ValueError", **refused})
+    for (name, b, h, sq, sk, causal, rate, bias_kind, probs,
+         timed) in cases:
+        bh = b * h
+        q, k, v, do = _qkv(dev, gen, bh, sq, sk, torch.bfloat16, d=d)
+        bias = None
+        if bias_kind == "padding":
+            bias = _padding_mask(dev, gen, b, sk)[0].expand(b, sq, sk)
+        elif bias_kind == "full":
+            bias = torch.randn(b, sq, sk, device=dev, generator=gen)
+        bias_grad = bias_kind == "full"
+        args = (_pack_seed(seed_int, device=dev), d ** -0.5, causal, rate,
+                (h, h))
+        kw = dict(bias=bias, probs_bf16=probs)
+        o, lse = flash_attention_fwd(q, k, v, *args, **kw)
+        o_ref, lse_ref = flash_attention_fwd_ref(q, k, v, *args, **kw)
+        part = flash_attention_bwd(q, k, v, o, lse, do, *args,
+                                   bias_grad=bias_grad, dq_acc=False, **kw)
+        want = flash_attention_bwd_ref(q, k, v, o, lse, do, *args,
+                                       bias_grad=bias_grad, **kw)
+        acc = flash_attention_bwd_acc(q, k, v, o, lse, do, *args, **kw)[:3]
+        torch.cuda.synchronize()
+        label = (f"head_dim 128 {name}: B={b} H={h} Sq={sq} Sk={sk} "
+                 f"causal={causal} bf16 dropout={rate} bias={bias_kind} "
+                 f"probs_bf16={probs}")
+        if probs:
+            tol = PROBS_TOL
+            close = lambda a, w: _probs_close(a, w)[0]  # noqa: E731
+        else:
+            tol = SPLIT_TOL
+            close = _split_close
+        errs = [_err(o, o_ref), _err(lse, lse_ref)] + [
+            _err(a, w) for a, w in zip(part[:3], want[:3])]
+        fracs = [_frac_differing(a, w)
+                 for a, w in zip((o, *part[:3]), (o_ref, *want[:3]))]
+        check(close(o, o_ref) and _close(lse, lse_ref, 1e-5),
+              f"flash d128 fwd {label}: {errs[:2]} {fracs}")
+        check(all(close(a, w) for a, w in zip(part[:3], want[:3])),
+              f"flash d128 bwd {label}: {errs[2:]} {fracs}")
+        eq = [_bitwise(a, p) for a, p in zip(acc, part[:3])]
+        check(all(eq), f"flash d128 {label}: the acc backward is not bit "
+              f"for bit the partials one {eq}")
+        rec = {"case": label, "D": d, "probs_bf16": probs,
+               "design": FLASH_DESIGN[torch.bfloat16],
+               "errs_o_lse_dq_dk_dv": errs, "frac_differing_o_dq_dk_dv": fracs,
+               "tol": tol, "acc_bitwise_equal_dq_dk_dv": eq}
+        if bias_grad:
+            rec["err_dbias"] = _err(part[3], want[3])
+            check(_dbias_ok(part[3], want[3], 1e-4, causal=causal),
+                  f"flash d128 dbias {label}: {rec['err_dbias']}")
+        faults = {}
+        if name == "causal":
+            faults.update(_low_half_dropped(
+                lambda: flash_attention_fwd(q, k, v, *args, bias=bias,
+                                            probs_bf16=True)[0],
+                lambda: flash_attention_bwd(q, k, v, o, lse, do, *args,
+                                            bias=bias, probs_bf16=True),
+                o_ref, want))
+        if sq % 64 or sk % 64:
+            faults.update(_nan_staging(
+                lambda: flash_attention_fwd(q, k, v, *args, _fault=3,
+                                            **kw)[0],
+                lambda: flash_attention_bwd(q, k, v, o, lse, do, *args,
+                                            _fault=3, **kw),
+                o_ref, want, causal))
+        rec["planted_fault_errs"] = faults
+        if timed:
+            kern_f = timings(lambda: flash_attention_fwd(q, k, v, *args,
+                                                         **kw), iters=20)
+            plain_f = timings(lambda: flash_attention_fwd_ref(
+                q, k, v, *args, **kw), iters=3, prof_iters=3)
+            kern_b = timings(lambda: flash_attention_bwd(
+                q, k, v, o, lse, do, *args, dq_acc=False, **kw), iters=10)
+            kern_acc = timings(lambda: flash_attention_bwd_acc(
+                q, k, v, o, lse, do, *args, **kw), iters=10)
+            plain_b = timings(lambda: flash_attention_bwd_ref(
+                q, k, v, o, lse, do, *args, **kw), iters=3, prof_iters=3)
+            q4, k4, v4 = (t.reshape(b, h, -1, d).detach().requires_grad_()
+                          for t in (q, k, v))
+            do4 = do.reshape(b, h, sq, d)
+            mask4 = None if bias is None else bias[:, None].to(q.dtype)
+            lib_f = timings(lambda: F.scaled_dot_product_attention(
+                q4, k4, v4, attn_mask=mask4, is_causal=causal), iters=20)
+
+            def sdpa_fwd_bwd():
+                res = F.scaled_dot_product_attention(
+                    q4, k4, v4, attn_mask=mask4, is_causal=causal)
+                torch.autograd.grad(res, (q4, k4, v4), do4)
+
+            lib_b = timings(sdpa_fwd_bwd, iters=10)
+            fb, fby = _flash_bound(q, k, bias, backward=False, causal=causal,
+                                   probs_bf16=probs)
+            bb, bby = _flash_bound(q, k, bias, backward=True, causal=causal,
+                                   probs_bf16=probs)
+            lib = ("F.scaled_dot_product_attention" + (
+                "" if bias is None else " with the bf16 mask")
+                + ", no dropout")
+            rec["fwd"] = {**_merge(kern_f, plain_f, lib_f),
+                          "max_abs_err": max(errs[:2]), "bound_ms": fb,
+                          "bound_by": fby, "library": lib}
+            rec["bwd"] = {**_merge(kern_b, plain_b, lib_b),
+                          "max_abs_err": max(errs[2:]), "bound_ms": bb,
+                          "bound_by": bby,
+                          "library": lib.replace(",", " forward + backward,",
+                                                 1)}
+            rec["bwd_acc"] = {**rec["bwd"], "ms": kern_acc["ms"],
+                              "events_ms": kern_acc["events_ms"],
+                              "ms_source": kern_acc["ms_source"],
+                              "acc_over_partials":
+                                  kern_acc["ms"] / kern_b["ms"]}
+            del q4, k4, v4, do4, mask4
+        emit({"phase": "flash_d128", **rec})
+        out[name] = rec
+        del q, k, v, do, o, lse, o_ref, lse_ref, part, want, acc, bias
+        torch.cuda.empty_cache()
+    return out
 
 
 # -- phase 13: GPT-2 medium, microbatched O2 training with remat ---------------
@@ -3247,6 +3596,7 @@ def _run() -> int:
     acc_cases = phase_flash_acc(dev)
     pb_cases = phase_flash_probs_bf16(dev)
     phase_dropout_heads(dev)
+    d128_cases = phase_flash_d128(dev)
     md_cases = phase_medium_kernels(dev)
     md_params = init_params(GPTConfig.medium(),
                             torch.Generator().manual_seed(30))
@@ -3401,6 +3751,35 @@ def _run() -> int:
     acc_row["peak_bytes_acc_partials"] = [
         acc_cases["GPT-2 medium"]["peak_bytes_acc"],
         acc_cases["GPT-2 medium"]["peak_bytes_partials"]]
+    # the flash rows: which design ran (their cases are bf16: the tensor
+    # cores), the shared memory and blocks per SM of the instantiation
+    # each row's case launched (GPT-2 medium's takes probs_bf16), and the
+    # head_dim-128 instantiation's timed cases, each with its own
+    # instantiation's records (on no ported model's path: no configuration
+    # has head_dim 128, so no main-path window counts their launches)
+    tc_info = d128_cases["tc_info"]
+    pb = "_probs_bf16"
+    for name, kind, rec_key, probs in (
+            ("flash_attention_fwd", "fwd", "fwd", False),
+            ("flash_attention_fwd_bias", "fwd", "fwd", False),
+            ("flash_attention_bwd", "bwd_partials", "bwd", False),
+            ("flash_attention_bwd_bias", "bwd_partials", "bwd", False),
+            ("flash_attention_bwd_acc", "bwd_acc", "bwd_acc", True)):
+        row = by_name[name]
+        row["design"] = FLASH_DESIGN[torch.bfloat16]
+        row["tc_info_d64"] = tc_info["d64"][kind + (pb if probs else "")]
+        row["head_dim_128"] = {
+            "on_main_path": False,
+            "cases": [{"case": c["case"],
+                       "tc_info": tc_info["d128"][
+                           kind + (pb if c["probs_bf16"] else "")],
+                       **{k: c[rec_key][k]
+                          for k in ("max_abs_err", "ms", "plain_ms",
+                                    "library_ms", "bound_ms", "bound_by")}}
+                      for n, c in d128_cases.items()
+                      if n != "tc_info" and rec_key in c]}
+    by_name["flash_attention_fwd"]["medium_path"]["tc_info_d64"] = \
+        tc_info["d64"]["fwd" + pb]
     check(all(r["launches"] > 0 for r in rows)
           and all(r[p]["launches"] > 0 for r in rows
                   for p in ("train_path", "bert_path", "rn50_path",

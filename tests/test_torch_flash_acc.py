@@ -6,7 +6,7 @@ these tests hold the plain versions (what ``chip_smoke.py`` holds the
 CUDA kernels to on the card) against JAX's Pallas kernels in interpret
 mode, on the same numpy-seeded inputs:
 
-- ``probs_bf16`` at bf16: the forward (``_fwd_kernel``, which rounds each
+- ``probs_bf16`` at bf16, at head_dim 64 and 128: the forward (``_fwd_kernel``, which rounds each
   key block's ``exp(s - m_running)``, so both sides use 64-key tiles:
   ``block_q = block_k = 64``) and the grads of the combined backward
   (``_bwd_fused_kernel``/``_bwd_fused_nobias``, nk = 4), causal and not,
@@ -20,7 +20,7 @@ mode, on the same numpy-seeded inputs:
 - at fp32 ``probs_bf16`` is the identity: the port's results with and
   without it are equal bit for bit;
 - ``dq_acc=True`` on CPU tensors runs the plain version (the same bits as
-  ``dq_acc=False``) and launches no kernel;
+  ``dq_acc=False``) and launches no kernel, at head_dim 64 and 128;
 - dq with several key tiles (nk = 2 and 4): the port's ``dq_acc`` path
   against JAX's combined backward that writes per-key-tile dq partials
   and sums them (``_bwd_fused_nobias``/``_bwd_fused_kernel``), fp32,
@@ -44,6 +44,7 @@ from apex_tpu_torch.ops import attention as tattn
 from apex_tpu_torch.ops import launch_counts, reset_launch_counts
 
 SEED = 7
+D128_SEED = 11
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -54,15 +55,16 @@ def _warm_torch_exp():
     torch.exp(torch.linspace(-8.0, 8.0, 1 << 16))
 
 
-def _inputs(seed, b, h, sq, sk, with_bias):
-    """q, k, v, a cotangent (bf16-exact fp32 numpy) and an N(0, 1) bias
+def _inputs(seed, b, h, sq, sk, with_bias, d=64, q_scale=1.0):
+    """q ~ ``q_scale`` N(0, 1), k, v and a cotangent ~ N(0, 1), all
+    bf16-exact fp32 numpy, at head_dim ``d``, and an N(0, 1) bias
     (B, Sq, Sk) or None."""
     rng = np.random.RandomState(seed)
     bf = lambda a: np.array(  # noqa: E731
         jnp.asarray(a).astype(jnp.bfloat16).astype(jnp.float32))
-    q = bf(rng.randn(b, h, sq, 64))
-    k, v = (bf(rng.randn(b, h, sk, 64)) for _ in range(2))
-    cot = bf(rng.randn(b, h, sq, 64))
+    q = bf(q_scale * rng.randn(b, h, sq, d))
+    k, v = (bf(rng.randn(b, h, sk, d)) for _ in range(2))
+    cot = bf(rng.randn(b, h, sq, d))
     bias = rng.randn(b, sq, sk).astype(np.float32) if with_bias else None
     return q, k, v, cot, bias
 
@@ -114,16 +116,15 @@ def _bf16_close(got, want, ulps=2, floor_rel=1e-3, max_frac=0.02):
     return bool(np.all(np.abs(g - w) <= tol)) and frac <= max_frac, err, frac
 
 
-@pytest.mark.parametrize("with_bias", [False, True])
-@pytest.mark.parametrize("causal", [False, True])
-@pytest.mark.parametrize("rate", [0.0, 0.1])
-def test_probs_bf16_matches_jax_kernels(with_bias, causal, rate):
-    q, k, v, cot, bias = _inputs(1, 1, 2, 256, 256, with_bias)
-    kw = dict(causal=causal, dropout_rate=rate, probs_bf16=True)
+def _probs_bf16_matches_jax(inputs, seed, **kw):
+    """The port's ``probs_bf16`` output and grads within
+    :func:`_bf16_close` of JAX's interpret-mode kernels."""
+    q, k, v, cot, bias = inputs
+    kw.update(probs_bf16=True)
     out, grads = _port(q, k, v, cot, bias, torch.bfloat16,
-                       dropout_seed=SEED, **kw)
+                       dropout_seed=seed, **kw)
     want_out, want = _jax(q, k, v, cot, bias, jnp.bfloat16,
-                          dropout_seed=jnp.int32(SEED), use_pallas=True,
+                          dropout_seed=jnp.int32(seed), use_pallas=True,
                           **kw)
     assert out.dtype == torch.bfloat16
     for name, g, w in zip(("o", "dq", "dk", "dv"), (out, *grads),
@@ -132,17 +133,45 @@ def test_probs_bf16_matches_jax_kernels(with_bias, causal, rate):
         assert ok, (name, err, frac)
 
 
-def test_probs_bf16_check_rejects_the_rounding_left_out():
+@pytest.mark.parametrize("with_bias", [False, True])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_probs_bf16_matches_jax_kernels(with_bias, causal, rate):
+    _probs_bf16_matches_jax(_inputs(1, 1, 2, 256, 256, with_bias), SEED,
+                            causal=causal, dropout_rate=rate)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_d128_probs_bf16_matches_jax_kernels(causal):
+    _probs_bf16_matches_jax(
+        _inputs(2, 1, 2, 192, 192, not causal, d=128, q_scale=2.0),
+        D128_SEED, causal=causal, dropout_rate=0.1)
+
+
+def _rounding_left_out_fails(inputs):
     """The planted fault: the port without ``probs_bf16`` against JAX
-    with it fails the tolerance above (a third of the elements move)."""
-    q, k, v, cot, bias = _inputs(2, 1, 2, 256, 256, False)
+    with it fails the tolerance above in every output (a third of the
+    elements move)."""
+    q, k, v, cot, bias = inputs
     out, grads = _port(q, k, v, cot, bias, torch.bfloat16, causal=True)
     want_out, want = _jax(q, k, v, cot, bias, jnp.bfloat16, causal=True,
                           probs_bf16=True, use_pallas=True)
-    fracs = [_bf16_close(g, w)[2] for g, w in zip((out, *grads),
-                                                  (want_out, *want))]
-    assert not _bf16_close(out, want_out)[0]
-    assert min(fracs) > 0.1, fracs
+    res = [_bf16_close(g, w) for g, w in zip((out, *grads),
+                                             (want_out, *want))]
+    assert not any(r[0] for r in res)
+    assert min(r[2] for r in res) > 0.1, res
+
+
+def test_probs_bf16_check_rejects_the_rounding_left_out():
+    _rounding_left_out_fails(_inputs(2, 1, 2, 256, 256, False))
+
+
+def test_d128_check_rejects_the_rounding_left_out():
+    """As above at head_dim 128 (the tensor-core kernels' split of fp32 p
+    into bf16 hi and lo parts is held on the card to a gate that the same
+    rounding must fail, ``chip_smoke.py``)."""
+    _rounding_left_out_fails(
+        _inputs(4, 1, 2, 192, 192, False, d=128, q_scale=2.0))
 
 
 @pytest.mark.parametrize("causal", [False, True])
@@ -163,22 +192,33 @@ def test_probs_bf16_is_the_identity_at_fp32(causal):
         np.testing.assert_allclose(_f32(g), _f32(w), rtol=0, atol=1e-4)
 
 
+def _acc_is_the_partials_backward(inputs, dtype, **kw):
+    """``dq_acc=True`` and ``dq_acc=False`` on CPU tensors: the same
+    bits, and no kernel launched; returns the partials (out, grads)."""
+    q, k, v, cot, bias = inputs
+    reset_launch_counts()
+    base_out, base = _port(q, k, v, cot, bias, dtype, dq_acc=False, **kw)
+    acc_out, acc = _port(q, k, v, cot, bias, dtype, dq_acc=True, **kw)
+    assert all(n == 0 for n in launch_counts().values()), launch_counts()
+    assert torch.equal(acc_out, base_out)
+    assert all(torch.equal(a, b) for a, b in zip(acc, base))
+    return base_out, base
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_dq_acc_on_cpu_runs_the_plain_version_and_launches_nothing(
         dtype, monkeypatch):
     q, k, v, cot, bias = _inputs(4, 2, 2, 130, 130, True)
     kw = dict(causal=True, dropout_rate=0.1, dropout_seed=SEED,
               probs_bf16=True)
-    reset_launch_counts()
-    base_out, base = _port(q, k, v, cot, bias, dtype, dq_acc=False, **kw)
-    acc_out, acc = _port(q, k, v, cot, bias, dtype, dq_acc=True, **kw)
+    base_out, base = _acc_is_the_partials_backward((q, k, v, cot, bias),
+                                                   dtype, **kw)
     # the module default decides when a call passes no dq_acc
     monkeypatch.setattr(tattn, "DQ_ACC_DEFAULT", True)
     dflt_out, dflt = _port(q, k, v, cot, bias, dtype, **kw)
     assert all(n == 0 for n in launch_counts().values()), launch_counts()
-    for g in (acc, dflt):
-        assert all(torch.equal(a, b) for a, b in zip(g, base))
-    assert torch.equal(acc_out, base_out) and torch.equal(dflt_out, base_out)
+    assert all(torch.equal(a, b) for a, b in zip(dflt, base))
+    assert torch.equal(dflt_out, base_out)
     # the backward wrappers themselves: the acc one returns no dbias
     q3, k3, v3 = (torch.from_numpy(a).reshape(4, -1, 64).to(dtype)
                   for a in (q, k, v))
@@ -192,6 +232,13 @@ def test_dq_acc_on_cpu_runs_the_plain_version_and_launches_nothing(
     assert got[3] is None
     assert all(torch.equal(a, b) for a, b in zip(got[:3], want[:3]))
     assert all(n == 0 for n in launch_counts().values())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_d128_dq_acc_on_cpu_is_the_partials_backward(dtype):
+    _acc_is_the_partials_backward(
+        _inputs(3, 1, 2, 130, 190, True, d=128, q_scale=2.0), dtype,
+        causal=False, dropout_rate=0.1, dropout_seed=D128_SEED)
 
 
 @pytest.mark.parametrize("causal,sq,sk,with_bias", [
