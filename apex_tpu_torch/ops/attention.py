@@ -196,9 +196,82 @@ def _kernel_fn():
     return fn
 
 
-def _check(cond: bool, msg: str) -> None:
+#: the largest T the split-K decode kernel takes (csrc kDecodeMaxT); it
+#: runs every T up to this for fp32 q or fp32 pools, and up to
+#: :data:`PAGED_TC_MIN_T` - 1 where the tensor-core kernel can take over
+PAGED_DECODE_MAX_T = 16
+#: the smallest T the tensor-core kernel takes (bf16 q, bf16 or int8
+#: pools): on an H100 the decode kernel's time grows with T and the
+#: tensor-core kernel's hardly does, and they cross between T = 4 and 8
+#: (measured with ``tools/paged_ab.py``; PERF.md §6)
+PAGED_TC_MIN_T = 8
+_FMA, _DECODE, _TENSOR_CORES = 0, 1, 2  # csrc's design codes
+_SPLIT_KEYS = 64      # keys a decode split covers at least (one chunk)
+_PREFILL_TILES = 8    # 64-key tiles a prefill split covers at least
+_MAX_SPLITS = 64      # splits a row has at most, in either kernel
+_PAGE_WIN = 1024      # page entries a prefill split holds (csrc kPageWin)
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def _paged_design(t: int, q_dtype: torch.dtype,
+                  pool_dtype: torch.dtype) -> int:
+    """Which kernel of ``csrc/paged_attention.cu`` a call runs: the
+    tensor-core prefill kernel for bf16 q with bf16 or int8 pools from
+    :data:`PAGED_TC_MIN_T` on, else the decode kernel up to
+    :data:`PAGED_DECODE_MAX_T`, else the fp32 FMA kernel."""
+    if (q_dtype == torch.bfloat16 and pool_dtype != torch.float32
+            and t >= PAGED_TC_MIN_T):
+        return _TENSOR_CORES
+    return _DECODE if t <= PAGED_DECODE_MAX_T else _FMA
+
+
+def _paged_split(page_len: int, n_pages: int) -> Tuple[int, int]:
+    """``(split_pages, n_splits)`` of the decode kernel: each split is a
+    run of whole pages, at least 64 keys and at most 64 splits a row (so
+    GPT-2 small's 64 pages of 16 give 16 splits of 4 pages)."""
+    split_pages = max(_cdiv(_SPLIT_KEYS, page_len),
+                      _cdiv(n_pages, _MAX_SPLITS))
+    return split_pages, _cdiv(n_pages, split_pages)
+
+
+def _prefill_split(page_len: int, n_pages: int) -> Tuple[int, int]:
+    """``(split_tiles, n_splits)`` of the tensor-core prefill kernel: each
+    split is a run of 64-key tiles, at least eight and at most 64 splits
+    a query tile, and no more keys than the kernel's page window holds
+    (so GPT-2 small's 1024 keys give 2 splits of 512).  Eight tiles a
+    split were faster on an H100 than four or two (PERF.md §6)."""
+    keys = n_pages * page_len
+    tiles = min(max(_PREFILL_TILES, _cdiv(_cdiv(keys, 64), _MAX_SPLITS)),
+                (_PAGE_WIN - 2) * page_len // 64)
+    return tiles, _cdiv(keys, tiles * 64)
+
+
+_tickets_by_stream: dict = {}
+
+
+def _tickets(device: torch.device, stream: int, n: int) -> torch.Tensor:
+    """The split kernels' n ticket counters for this device and stream:
+    zeros made once, which the kernel's merging blocks set back to 0, so
+    a call needs no clearing pass.  One buffer per stream: calls on one
+    stream run in order and never share a counter in flight."""
+    key = (device.index, stream)
+    buf = _tickets_by_stream.get(key)
+    if buf is None or buf.numel() < n:
+        buf = torch.zeros(n, dtype=torch.int32, device=device)
+        _tickets_by_stream[key] = buf
+    return buf
+
+
+def _check(cond: bool, msg) -> None:
+    """Raise unless ``cond``; ``msg`` is the message or a function that
+    makes it (an f-string costs host time on every call, and the wrapper
+    runs 12 times a decode step)."""
     if not cond:
-        raise ValueError(f"paged_fused_attention kernel: {msg}")
+        raise ValueError("paged_fused_attention kernel: "
+                         f"{msg() if callable(msg) else msg}")
 
 
 def paged_fused_attention(
@@ -218,17 +291,28 @@ def paged_fused_attention(
     block_mask: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """The serving read: page gather, int8 dequant and attention in one
-    CUDA kernel (``csrc/paged_attention.cu``).
+    CUDA kernel launch (``csrc/paged_attention.cu``).
 
     Same arguments and result as :func:`paged_cached_attention`.  The
     full 5-D pool is passed with ``layer``, so no per-layer slice copy
     is made, and the gathered view never exists in device memory.  On
     CUDA tensors it takes: ``q`` fp32/bf16 and ``k_new``/``v_new``
     fp32/bf16, each (B, H, T, D) with a unit last stride and ``D`` a
-    multiple of 32 up to 128; contiguous pools fp32/bf16/int8 (int8 with
-    contiguous fp32 scales, others without); int32 ``page_table``,
-    ``cache_lengths`` and ``positions``; ``block_mask`` (T, T) bool.
-    Anything else raises.  CPU tensors run :func:`paged_cached_attention`.
+    multiple of 32 up to 128; contiguous pools fp32/bf16/int8 starting
+    on 16 bytes (int8 with contiguous fp32 scales, others without);
+    int32 ``page_table``, ``cache_lengths`` and ``positions``;
+    ``block_mask`` (T, T) bool.  Anything else raises.  CPU tensors run
+    :func:`paged_cached_attention`.
+
+    The kernel (:func:`_paged_design`): bf16 q with bf16 or int8 pools
+    run the split-K decode kernel (:func:`_paged_split`) below T =
+    :data:`PAGED_TC_MIN_T` (8: decode steps and short speculative verify
+    blocks) and the split-K tensor-core kernel (:func:`_prefill_split`)
+    from there on; fp32 q or fp32 pools run the decode kernel up to T =
+    :data:`PAGED_DECODE_MAX_T` (16) and the fp32 FMA kernel above.  The
+    split kernels write fp32 partials to a workspace that the last split
+    of each row (or query tile) merges in split order, in the same
+    launch.
     """
     if not use_kernel(q, k_new, v_new, positions, pool_k, pool_v, page_table,
                       cache_lengths, pool_k_scale, pool_v_scale, block_mask):
@@ -243,27 +327,30 @@ def paged_fused_attention(
         scale = q.shape[-1] ** -0.5
     b, h, t, d = q.shape
     num_pages, n_layers, hp, page_len, dp = pool_k.shape
-    _check(q.dtype in _Q_CODE, f"q dtype {q.dtype}")
+    _check(q.dtype in _Q_CODE, lambda: f"q dtype {q.dtype}")
     _check(k_new.dtype in _Q_CODE and v_new.dtype == k_new.dtype,
-           f"k_new/v_new dtypes {k_new.dtype}/{v_new.dtype}")
+           lambda: f"k_new/v_new dtypes {k_new.dtype}/{v_new.dtype}")
     _check(k_new.shape == q.shape and v_new.shape == q.shape,
-           f"k_new/v_new shapes {tuple(k_new.shape)}/{tuple(v_new.shape)} "
-           f"vs q {tuple(q.shape)}")
+           lambda: f"k_new/v_new shapes {tuple(k_new.shape)}/"
+           f"{tuple(v_new.shape)} vs q {tuple(q.shape)}")
     _check(all(x.stride(-1) == 1 for x in (q, k_new, v_new)),
            "q/k_new/v_new need a unit last stride")
-    _check(d % 32 == 0 and d <= _MAX_D, f"head dim {d}")
-    _check((hp, dp) == (h, d), f"pool heads/dim {(hp, dp)} vs q {(h, d)}")
+    _check(d % 32 == 0 and d <= _MAX_D, lambda: f"head dim {d}")
+    _check((hp, dp) == (h, d),
+           lambda: f"pool heads/dim {(hp, dp)} vs q {(h, d)}")
     _check(pool_v.shape == pool_k.shape and pool_v.dtype == pool_k.dtype
            and pool_k.dtype in _POOL_CODE, "pool_k/pool_v shapes or dtypes")
     _check(pool_k.is_contiguous() and pool_v.is_contiguous(),
            "pools must be contiguous")
-    _check(0 <= layer < n_layers, f"layer {layer} of {n_layers}")
+    _check(pool_k.data_ptr() % 16 == 0 and pool_v.data_ptr() % 16 == 0,
+           "pools must start on 16 bytes")
+    _check(0 <= layer < n_layers, lambda: f"layer {layer} of {n_layers}")
     quantized = pool_k.dtype == torch.int8
     if quantized:
         for s in (pool_k_scale, pool_v_scale):
             _check(s is not None and s.dtype == torch.float32
                    and s.shape == pool_k.shape[:4] and s.is_contiguous(),
-                   "int8 pools need contiguous fp32 scales "
+                   lambda: "int8 pools need contiguous fp32 scales "
                    f"of shape {tuple(pool_k.shape[:4])}")
     else:
         _check(pool_k_scale is None and pool_v_scale is None,
@@ -274,29 +361,47 @@ def paged_fused_attention(
                            ("positions", positions, (b, t))):
         _check(x.dtype == torch.int32 and tuple(x.shape) == shape
                and x.is_contiguous(),
-               f"{name} must be contiguous int32 of shape {shape}")
+               lambda: f"{name} must be contiguous int32 of shape {shape}")
     if block_mask is not None:
         _check(block_mask.dtype == torch.bool
                and tuple(block_mask.shape) == (t, t)
                and block_mask.is_contiguous(),
-               f"block_mask must be contiguous bool ({t}, {t})")
+               lambda: f"block_mask must be contiguous bool ({t}, {t})")
 
     out = torch.empty((b, h, t, d), dtype=q.dtype, device=q.device)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    design = _paged_design(t, q.dtype, pool_k.dtype)
+    ws = tickets = None
+    split = n_splits = 0
+    if design == _DECODE:
+        split, n_splits = _paged_split(page_len, n_pages)
+        rows = b * h  # (b, h) rows of T queries, T rows a partial
+        part_rows, n_parts = t, n_splits + 1  # + the new keys' split
+    elif design == _TENSOR_CORES:
+        split, n_splits = _prefill_split(page_len, n_pages)
+        rows = b * h * _cdiv(t, 64)  # 64-query tiles, 64 rows a partial
+        part_rows, n_parts = 64, n_splits + _cdiv(t, 64)  # + new-key tiles
+    if n_splits:
+        ws = torch.empty(rows * n_parts * part_rows * (d + 2),
+                         dtype=torch.float32, device=q.device)
+        tickets = _tickets(q.device, stream, rows)
     ptr = lambda x: None if x is None else x.data_ptr()  # noqa: E731
-    ptrs = (ctypes.c_void_p * 12)(
+    ptrs = (ctypes.c_void_p * 14)(
         ptr(q), ptr(k_new), ptr(v_new), ptr(pool_k), ptr(pool_v),
         ptr(pool_k_scale), ptr(pool_v_scale), ptr(page_table),
-        ptr(cache_lengths), ptr(positions), ptr(block_mask), ptr(out))
-    dims = (ctypes.c_longlong * 17)(
+        ptr(cache_lengths), ptr(positions), ptr(block_mask), ptr(out),
+        ptr(ws), ptr(tickets))
+    dims = (ctypes.c_longlong * 20)(
         b, h, t, d, n_layers, layer, page_len, n_pages,
         q.stride(0), q.stride(1), q.stride(2),
         k_new.stride(0), k_new.stride(1), k_new.stride(2),
-        v_new.stride(0), v_new.stride(1), v_new.stride(2))
+        v_new.stride(0), v_new.stride(1), v_new.stride(2),
+        split, n_splits, design)
     with torch.cuda.device(q.device):
         err = _kernel_fn()(
             ctypes.addressof(ptrs), ctypes.addressof(dims), float(scale),
             _Q_CODE[q.dtype], _Q_CODE[k_new.dtype], _POOL_CODE[pool_k.dtype],
-            torch.cuda.current_stream(q.device).cuda_stream,
+            stream,
         )
     if err != 0:
         raise RuntimeError(

@@ -55,8 +55,14 @@ class SamplingParams:
 
     @staticmethod
     def make(b: int, temperature=0.0, top_k=0, top_p=1.0, min_p=0.0,
-             device: Union[str, torch.device] = "cpu") -> "SamplingParams":
-        """Broadcast scalars or per-slot sequences to (b,) tensors."""
+             device: Optional[Union[str, torch.device]] = None
+             ) -> "SamplingParams":
+        """Broadcast scalars or per-slot sequences to (b,) tensors on
+        ``device``: the CUDA device when None (raising without one, as
+        every entry point of the port does); pass ``device="cpu"`` for
+        CPU tensors."""
+        device = resolve_device(device)
+
         def full(x, dt):
             return torch.tensor(np.broadcast_to(np.asarray(x, dt), (b,)).copy(),
                                 device=device)

@@ -14,13 +14,19 @@ line) on any failed check:
    the GPT-2 and BERT-large training shapes, with O2's bf16 affine), with
    its time, the plain version's time, one PyTorch library call's time
    as a yardstick and the least time the card could take (``bound_ms``);
+   paged attention at every case of :func:`paged_problems` (decode,
+   speculative-verify and prefill sizes, each pool dtype, with and
+   without the mask, and rows on and next to the kernels' split
+   boundaries), each with two planted faults and the same bits on a
+   second call;
 3. parity: GPT-2 small at fp32 on the card against the same port on the
    CPU with the same seeded weights (one 64-token prefill chunk, one
    K=8 decode window, one more decode step);
 4. engine: ``ServeEngine`` serving GPT-2 small (bf16 compute, bf16 page
    pool) through 16 seeded requests, with every kernel's launch count
    read from that run alone; profile: one decode window under
-   ``torch.profiler``;
+   ``torch.profiler``, with the paged-attention kernels' device time and
+   calls (12 a step);
 5. training kernels: the LayerNorm backward, flash attention forward and
    backward and the fused cross-entropy forward and backward against
    their plain versions at the training shapes (GPT-2 small, batch
@@ -395,14 +401,14 @@ def phase_layer_norm(dev):
     return cases
 
 
-def _paged_problem(dev, gen, t, pool_dtype, masked):
+def _paged_problem(dev, gen, t, pool_dtype, masked, lengths=None):
     """GPT-2-small paged read: B=8, H=12, D=64, page_len 16, 64 pages per
-    slot, lengths across partial pages, the full 12-layer pool read at
-    layer 5.  bf16/int8 pools go with bf16 q (int8 with fp32
-    dequantized new keys, as the model passes them); fp32 with fp32.
-    q ~ 2·N(0, 1) and k, v ~ N(0, 1) make scores of std 2: a peaked
-    softmax whose outputs are of order 1, so that one key more or less
-    moves them by far more than the check's tolerance."""
+    slot, lengths across partial pages (or the given ``lengths``), the
+    full 12-layer pool read at layer 5.  bf16/int8 pools go with bf16 q
+    (int8 with fp32 dequantized new keys, as the model passes them);
+    fp32 with fp32.  q ~ 2·N(0, 1) and k, v ~ N(0, 1) make scores of std
+    2: a peaked softmax whose outputs are of order 1, so that one key
+    more or less moves them by far more than the check's tolerance."""
     b, h, d, page_len, pps, layers = 8, 12, 64, 16, 64, 12
     num_pages = 1 + b * pps
     shape = (num_pages, layers, h, page_len, d)
@@ -417,8 +423,11 @@ def _paged_problem(dev, gen, t, pool_dtype, masked):
     qdt = torch.float32 if pool_dtype == torch.float32 else torch.bfloat16
     perm = torch.randperm(num_pages - 1, device=dev, generator=gen) + 1
     table = perm.reshape(b, pps).to(torch.int32)
-    lengths = torch.randint(1, pps * page_len - t + 1, (b,), device=dev,
-                            generator=gen, dtype=torch.int32)
+    rand_lengths = torch.randint(1, pps * page_len - t + 1, (b,),
+                                 device=dev, generator=gen,
+                                 dtype=torch.int32)
+    lengths = (rand_lengths if lengths is None else
+               torch.tensor(lengths, device=dev, dtype=torch.int32))
     positions = (lengths[:, None]
                  + torch.arange(t, device=dev, dtype=torch.int32))
     q = (2 * torch.randn(b, h, t, d, device=dev, generator=gen)).to(qdt)
@@ -517,26 +526,70 @@ _FAULTS = {
 }
 
 
-def phase_paged_attention(dev):
+#: the edge problem's rows: an empty history, histories ending on the
+#: first two split boundaries of the decode kernel (64 keys a split at
+#: page_len 16) and on the first of the tensor-core kernel (512 keys),
+#: and one key past each (both checked in phase_paged_attention), and one
+#: filling all 64 pages
+EDGE_SPLIT_KEYS = (64, 512)
+EDGE_LENGTHS = (0, 64, 65, 128, 129, 1024, 512, 513)
+
+
+def paged_problems(dev):
+    """The cases of :func:`phase_paged_attention`, in order, from one
+    seeded generator: ``(name, problem)``.  T = 1 (decode) and 128 (a
+    prefill chunk) with bf16 and int8 pools, with and without the mask,
+    fp32 at T = 1 and 128; T = 8 masked bf16 (a speculative verify
+    block: the tensor-core kernel) and T = 4 (the decode kernel's rows
+    past the first); then :data:`EDGE_LENGTHS` at T = 1 bf16 and fp32,
+    T = 8 int8 masked and T = 128 bf16 masked."""
     gen = torch.Generator(device=dev).manual_seed(2)
-    cases = []
-    grid = [(t, pd, m) for t in (1, 128)
+    grid = [(t, pd, m, None) for t in (1, 128)
             for pd in (torch.bfloat16, torch.int8) for m in (False, True)]
-    grid += [(1, torch.float32, False), (128, torch.float32, True)]
-    for t, pool_dtype, masked in grid:
-        p = _paged_problem(dev, gen, t, pool_dtype, masked)
+    grid += [(1, torch.float32, False, None), (128, torch.float32, True, None),
+             (8, torch.bfloat16, True, None), (4, torch.bfloat16, True, None)]
+    grid += [(1, torch.bfloat16, False, EDGE_LENGTHS),
+             (1, torch.float32, False, EDGE_LENGTHS),
+             (8, torch.int8, True, EDGE_LENGTHS),
+             (128, torch.bfloat16, True, EDGE_LENGTHS)]
+    for t, pool_dtype, masked, lengths in grid:
+        name = f"T={t} pool={_dt(pool_dtype)} masked={masked}"
+        if lengths is not None:
+            name += " edge_lengths"
+        yield name, _paged_problem(dev, gen, t, pool_dtype, masked, lengths)
+
+
+def phase_paged_attention(dev):
+    """Each case of :func:`paged_problems` against the plain version,
+    with both planted faults, the same bits on a second call, and times
+    beside the plain version, the SDPA yardstick and the bound."""
+    from apex_tpu_torch.ops.attention import (_paged_design, _paged_split,
+                                              _prefill_split)
+
+    designs = {0: "fp32 FMA", 1: "split-K decode",
+               2: "split-K tensor cores (mma.sync bf16)"}
+
+    splits = (_paged_split(page_len=16, n_pages=64)[0] * 16,
+              _prefill_split(page_len=16, n_pages=64)[0] * 64)
+    check(splits == EDGE_SPLIT_KEYS,
+          f"the kernels' splits are {splits} keys, not the "
+          f"{EDGE_SPLIT_KEYS} the edge problem's lengths are set at")
+    cases = []
+    for name, p in paged_problems(dev):
         q, kn, vn = p["q"], p["k_new"], p["v_new"]
+        t = q.shape[2]
         kw = {k: v for k, v in p.items() if k not in ("q", "k_new", "v_new")}
         got = paged_fused_attention(q, kn, vn, **kw)
+        again = paged_fused_attention(q, kn, vn, **kw)
         want = paged_cached_attention(q, kn, vn, **kw)
         torch.cuda.synchronize()
         err = (got.float() - want.float()).abs().max().item()
         tol = ("2e-5" if q.dtype == torch.float32
                else "2 bf16 ulps + 1e-5, and 2e-2")
-        name = (f"T={t} pool={str(pool_dtype).replace('torch.', '')} "
-                f"masked={masked}")
         check(_paged_close(got, want),
               f"paged attention {name}: max abs err {err}")
+        check(torch.equal(got, again),
+              f"paged attention {name}: two calls differ")
         faults = {}
         for fault, lens_of in _FAULTS.items():
             bad = paged_fused_attention(
@@ -553,7 +606,9 @@ def phase_paged_attention(dev):
         case = {"case": name, "B": q.shape[0], "H": q.shape[1], "T": t,
                 "D": q.shape[3], "mean_len": float(p["cache_lengths"]
                                                    .float().mean()),
-                "max_abs_err": err, "tol": tol,
+                "design": designs[_paged_design(t, q.dtype,
+                                                p["pool_k"].dtype)],
+                "max_abs_err": err, "tol": tol, "same_bits_twice": True,
                 "planted_fault_errs": faults, **_merge(kern, plain, lib),
                 "bound_ms": bound, "bound_by": by}
         emit({"phase": "kernel", "kernel": "paged_fused_attention", **case})
@@ -676,12 +731,16 @@ def phase_profile(dec):
     eng.step()  # one window without the profiler's own host cost
     torch.cuda.synchronize()
     plain_wall_ms = (time.perf_counter() - t0) * 1e3
+    calls0 = paged_fused_attention.launches
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         eng.step()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
+    paged_calls = paged_fused_attention.launches - calls0
+    check(paged_calls == 12 * 8, f"{paged_calls} paged-attention calls in "
+          "one K=8 window of GPT-2 small, not 12 a step")
     by_name = {}
     for e in _kernel_events(prof):
         ms, n = by_name.get(e.name, (0.0, 0))
@@ -689,11 +748,18 @@ def phase_profile(dec):
     rows = sorted(((k, ms, n) for k, (ms, n) in by_name.items()),
                   key=lambda r: -r[1])
     busy_ms = sum(r[1] for r in rows)
+    # the paged-attention kernels' device time and launches in the window
+    # (every kernel of csrc/paged_attention.cu has "paged" in its name)
+    paged = [(ms, n) for k, ms, n in rows if "paged" in k]
     emit({"phase": "profile", "what": "one K=8 decode window, 8 slots, "
           "512-token histories, GPT-2 small bf16",
           "wall_ms": wall_ms, "unprofiled_wall_ms": plain_wall_ms,
           "device_busy_ms": busy_ms if busy_ms > 0 else None,
           "device_busy_share": busy_ms / wall_ms if busy_ms > 0 else None,
+          "paged_attention_calls": paged_calls,
+          "paged_attention_kernel_launches": sum(n for _, n in paged),
+          "paged_attention_device_ms": (sum(ms for ms, _ in paged)
+                                        if paged else None),
           "top_kernels": [{"name": k[:90], "device_ms": ms, "calls": n}
                           for k, ms, n in rows[:8]]})
 
@@ -3713,6 +3779,11 @@ def _run() -> int:
     for name, c in zip(("softmax_xentropy_fwd", "softmax_xentropy_bwd"),
                        xe_rn):
         by_name[name]["rn50_path"] = other_path(name, rn_launches, c)
+    # the paged row holds the decode step's case; every case beside it
+    by_name["paged_fused_attention"]["cases"] = [
+        {k: c[k] for k in ("case", "design", "max_abs_err", "ms", "plain_ms",
+                           "library_ms", "bound_ms", "bound_by")}
+        for c in pa_cases]
     # the conv_bn rows hold their first RN50 shape; every case beside it
     for name in CONV_BN_KERNELS:
         by_name[name]["shapes"] = [
