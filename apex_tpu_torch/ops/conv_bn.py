@@ -26,6 +26,15 @@ sizes; here a CUDA tensor always runs ``csrc/conv_bn.cu`` (any M, K, N;
 fp32 or bf16, anything else raises) and a CPU tensor the plain version.
 The JAX package does not wire these kernels into its ResNet, and neither
 does the port: they are library entry points.
+
+Which kernel of ``csrc/conv_bn.cu`` a call runs is a fixed rule,
+:func:`_conv_bn_design`: bf16 ``matmul_stats`` and ``matmul_bwd_dual``
+whose matrices TMA can read (16-byte aligned bases, rows a whole number
+of 16 bytes) run the Hopper kernels (``wgmma`` fed by a TMA/mbarrier
+ring, persistent blocks; ``csrc/hopper_gemm.cuh``); fp32 or mixed
+operands, ``bn_relu_matmul`` and rows TMA cannot describe run the
+``mma.sync``/FMA kernels.  A call the rule sends to a kernel launches it
+or raises.
 """
 from __future__ import annotations
 
@@ -44,6 +53,101 @@ __all__ = ["bn_relu_matmul", "bn_relu_matmul_ref", "matmul_bwd_dual",
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 # dw row chunks of the dual backward: about two blocks per SM of an H100
 _DW_BLOCKS = 264
+
+# The designs of csrc/conv_bn.cu (the codes its C entries take; the rule
+# that picks them is here alone, the library runs what a code names)
+PRESENT = 0                       # mma.sync (bf16) / FMA (fp32) kernels
+# wgmma stats, w in the ring / kept; 128-wide column tiles, or 64 (N64)
+STATS_STREAMED, STATS_RESIDENT = 1, 2
+STATS_STREAMED_N64, STATS_RESIDENT_N64 = 3, 4
+DUAL_TILES, DUAL_FUSED = 1, 2     # wgmma dx and dw tiles / one pass
+STATS_DESIGNS = {PRESENT: "mma_sync", STATS_STREAMED: "wgmma_w_streamed",
+                 STATS_RESIDENT: "wgmma_w_resident",
+                 STATS_STREAMED_N64: "wgmma_n64_w_streamed",
+                 STATS_RESIDENT_N64: "wgmma_n64_w_resident"}
+DUAL_DESIGNS = {PRESENT: "mma_sync", DUAL_TILES: "wgmma_tiles",
+                DUAL_FUSED: "wgmma_one_pass"}
+# bytes of w a stats block keeps in shared memory (its (K, column tile)
+# panel, K rounded up to 64)
+_RESIDENT_W = 128 * 1024
+# N -> the slice of K the one-pass dual is built for at that N: a block's
+# slice of w and of the fp32 dw fit on chip (slice * N <= 16384), the
+# three (slice, N) of RN50's stage-1 and stage-2 shapes
+_FUSED_SLICE = {64: 256, 128: 128, 256: 64}
+# slices of K a one-pass call may take (each reads dy again from the L2)
+_FUSED_MAX_SLICES = 4
+
+
+def _fused_slice(k: int, n: int) -> int:
+    """The one-pass dual's slice of K at (K, N): the slice built for N
+    where it divides K into at most :data:`_FUSED_MAX_SLICES` slices; 0
+    where there is none."""
+    ks = _FUSED_SLICE.get(n, 0)
+    return ks if ks and k % ks == 0 and k // ks <= _FUSED_MAX_SLICES else 0
+
+
+# the Hopper kernels' names, in apex_conv_bn_tc_info's order
+TC_KERNELS = ("stats_tc<64, w resident>", "stats_tc<64, w streamed>",
+              "dual_tc", "dual_fused<256, 64>", "dual_fused<64, 256>",
+              "dual_fused<128, 128>", "stats_tc<128, w resident>",
+              "stats_tc<128, w streamed>")
+
+
+def tc_kernel(kind: str, design: int, n: int) -> Union[str, None]:
+    """The entry of :data:`TC_KERNELS` that a call of ``kind`` ("stats"
+    or "dual") with design code ``design`` and N = ``n`` launches; None
+    for :data:`PRESENT`."""
+    if design == PRESENT:
+        return None
+    if kind == "stats":
+        tile = 64 if design in (STATS_STREAMED_N64, STATS_RESIDENT_N64) else 128
+        kept = design in (STATS_RESIDENT, STATS_RESIDENT_N64)
+        return f"stats_tc<{tile}, w {'resident' if kept else 'streamed'}>"
+    if design == DUAL_TILES:
+        return "dual_tc"
+    return f"dual_fused<{_FUSED_SLICE[n]}, {n}>"
+
+
+def _tma_ok(t: torch.Tensor) -> bool:
+    """A contiguous 2-D matrix that a TMA map can describe: a 16-byte
+    aligned base and rows a whole number of 16 bytes apart (and fewer than
+    2^31 rows, the kernels' int row index)."""
+    return (t.data_ptr() % 16 == 0 and t.shape[0] < 2 ** 31
+            and (t.shape[1] * t.element_size()) % 16 == 0)
+
+
+def _conv_bn_design(kind: str, x: torch.Tensor, w: torch.Tensor,
+                    dy: torch.Tensor = None, bn: bool = False) -> int:
+    """The kernel a call runs (``kind`` "stats" for the forward, "dual"
+    for the backward; ``bn`` for ``bn_relu_matmul``).
+
+    - forward: bf16 x and w, no BN prologue, both TMA-readable -> the
+      wgmma kernel with column tiles 64 wide for N <= 64 (no masked
+      columns; the ``_N64`` codes), else 128; w resident when its (K,
+      column tile) panel fits in :data:`_RESIDENT_W`, else streamed;
+    - dual: bf16 x, dy and w, all TMA-readable -> :data:`DUAL_FUSED`
+      where K cuts into slices of the one built for N
+      (:func:`_fused_slice`), else :data:`DUAL_TILES`;
+    - else :data:`PRESENT` (fp32 has no exact wgmma; mixed dtypes, the BN
+      prologue and rows TMA cannot describe stay on the mma.sync/FMA
+      kernels)."""
+    bf = torch.bfloat16
+    if kind == "stats":
+        if bn or x.dtype != bf or w.dtype != bf or not (_tma_ok(x)
+                                                        and _tma_ok(w)):
+            return PRESENT
+        k, n = w.shape
+        tile = 64 if n <= 64 else 128
+        resident = -(-k // 64) * 64 * tile * 2 <= _RESIDENT_W
+        if tile == 64:
+            return STATS_RESIDENT_N64 if resident else STATS_STREAMED_N64
+        return STATS_RESIDENT if resident else STATS_STREAMED
+    if kind != "dual":
+        raise ValueError(f"conv_bn design: unknown kind {kind!r}")
+    if not (x.dtype == dy.dtype == w.dtype == bf
+            and _tma_ok(x) and _tma_ok(dy) and _tma_ok(w)):
+        return PRESENT
+    return DUAL_FUSED if _fused_slice(*w.shape) else DUAL_TILES
 
 
 def _stats(y: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -90,13 +194,22 @@ def _lib():
     lib = _build.load("conv_bn")
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.apex_conv_bn_fwd.argtypes = [p, p, p, p, p, p, i, p, p, p, p, ll, i,
-                                     i, i, i, p]
+                                     i, i, i, i, i, p]
     lib.apex_conv_bn_fwd.restype = i
-    lib.apex_matmul_bwd_dual.argtypes = [p, p, p, p, p, p, ll, i, i, ll, i, p]
+    lib.apex_matmul_bwd_dual.argtypes = [p, p, p, p, p, p, ll, i, i, ll, i,
+                                         i, p, i, p]
     lib.apex_matmul_bwd_dual.restype = i
     for name in ("apex_conv_bn_rows_per_block", "apex_conv_bn_step"):
         getattr(lib, name).argtypes = []
         getattr(lib, name).restype = i
+    lib.apex_conv_bn_stats_parts.argtypes = [ll, i, i, i]
+    lib.apex_conv_bn_stats_parts.restype = ll
+    lib.apex_conv_bn_dual_parts.argtypes = [ll, i, i, ll, i]
+    lib.apex_conv_bn_dual_parts.restype = ll
+    lib.apex_conv_bn_tc_info.argtypes = [i, i, p]
+    lib.apex_conv_bn_tc_info.restype = i
+    lib.apex_conv_bn_tile_check.argtypes = [p, p, p, i, i, p]
+    lib.apex_conv_bn_tile_check.restype = i
     return lib
 
 
@@ -120,9 +233,10 @@ def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-def _launch_fwd(x, w, bn, relu: bool, with_stats: bool):
+def _launch_fwd(x, w, bn, relu: bool, with_stats: bool, fault: int = 0):
     """The forward kernel: ``(y, sum, sqsum)`` (stats None without
-    ``with_stats``).  ``bn`` is (mean, rstd, gamma, beta) or None."""
+    ``with_stats``).  ``bn`` is (mean, rstd, gamma, beta) or None;
+    ``fault`` plants an error in the wgmma kernel for the checks."""
     if x.dim() != 2 or w.dim() != 2:
         raise ValueError(f"conv_bn kernel takes 2-D x and w, got "
                          f"{tuple(x.shape)} and {tuple(w.shape)}")
@@ -149,18 +263,20 @@ def _launch_fwd(x, w, bn, relu: bool, with_stats: bool):
         return y, s, ss
     if k == 0:
         return y.zero_(), s, ss
+    design = _conv_bn_design("stats", x, w, bn=bn is not None)
+    lib = _lib()
     part = None
     if with_stats:
-        rows = _lib().apex_conv_bn_rows_per_block()
-        part = torch.empty((-(-m // rows), 2, n), dtype=torch.float32,
-                           device=dev)
+        parts = lib.apex_conv_bn_stats_parts(m, k, n, design)
+        part = torch.empty((parts, 2, n), dtype=torch.float32, device=dev)
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     mean, rstd, gamma, beta = params or (None,) * 4
     with torch.cuda.device(dev):
-        err = _lib().apex_conv_bn_fwd(
+        err = lib.apex_conv_bn_fwd(
             x.data_ptr(), w.data_ptr(), ptr(mean), ptr(rstd), ptr(gamma),
             ptr(beta), int(relu), y.data_ptr(), ptr(part), ptr(s), ptr(ss),
-            m, k, n, _DTYPE_CODE[x.dtype], _DTYPE_CODE[w.dtype], _stream(x))
+            m, k, n, _DTYPE_CODE[x.dtype], _DTYPE_CODE[w.dtype], design,
+            int(fault), _stream(x))
     if err != 0:
         raise RuntimeError(f"conv_bn forward kernel launch failed: CUDA "
                            f"error {err}")
@@ -181,9 +297,9 @@ class _MatmulStats(torch.autograd.Function):
     """The custom VJP; residuals are (x, w, y)."""
 
     @staticmethod
-    def forward(ctx, x, w, with_stats):
+    def forward(ctx, x, w, with_stats, fault):
         if use_kernel(x, w):
-            y, s, ss = _launch_fwd(x, w, None, False, with_stats)
+            y, s, ss = _launch_fwd(x, w, None, False, with_stats, fault)
         else:
             y, s, ss = matmul_stats_ref(x, w)
         ctx.save_for_backward(x, w, y)
@@ -199,7 +315,7 @@ class _MatmulStats(torch.autograd.Function):
             dy32 = dy.float()
         dx = (dy32 @ w.float().T).to(x.dtype)
         dw = (x.float().T @ dy32).to(w.dtype)
-        return dx, dw, None
+        return dx, dw, None, None
 
 
 class _BnReluMatmul(torch.autograd.Function):
@@ -238,7 +354,8 @@ class _BnReluMatmul(torch.autograd.Function):
                 dsum.to(beta.dtype), dw, None, None)
 
 
-def matmul_stats(x: torch.Tensor, w: torch.Tensor, *, with_stats: bool = True
+def matmul_stats(x: torch.Tensor, w: torch.Tensor, *, with_stats: bool = True,
+                 _fault: int = 0
                  ) -> Union[torch.Tensor, Tuple[torch.Tensor, torch.Tensor,
                                                 torch.Tensor]]:
     """``y = x @ w`` plus the per-column (sum, sqsum) of the stored y.
@@ -246,8 +363,11 @@ def matmul_stats(x: torch.Tensor, w: torch.Tensor, *, with_stats: bool = True
     x: (M, K), w: (K, N), contiguous fp32 or bf16 on CUDA.  Returns (y in
     x's dtype, sum (N,) fp32, sqsum (N,) fp32), or just y with
     ``with_stats=False`` (the kernel then skips its stats epilogue).
-    Differentiable in x and w, the stats included."""
-    return _MatmulStats.apply(x, w, bool(with_stats))
+    Differentiable in x and w, the stats included.  For the checks,
+    ``_fault`` plants an error in the wgmma kernel (1: each tile's last
+    ring stage left out of its products; 2: each block's last row tile
+    skipped); the other designs refuse it."""
+    return _MatmulStats.apply(x, w, bool(with_stats), int(_fault))
 
 
 def bn_relu_matmul(x, mean, rstd, gamma, beta, w, *, relu: bool = True,
@@ -270,13 +390,30 @@ def _dual_chunk_rows(m: int, k: int, n: int, step: int, tile: int) -> int:
     return -(-rows // step) * step
 
 
-def matmul_bwd_dual(x: torch.Tensor, dy: torch.Tensor, w: torch.Tensor
-                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+_sched_by_stream: dict = {}
+
+
+def _sched(device: torch.device, stream: int) -> torch.Tensor:
+    """The tiled dual's two tile-ticket counters for this device and
+    stream: zeros made once, which the kernel's last block sets back to
+    0, so a call needs no clearing pass.  One pair per stream: calls on
+    one stream run in order and never share a counter in flight."""
+    key = (device.index, stream)
+    buf = _sched_by_stream.get(key)
+    if buf is None:
+        buf = torch.zeros(2, dtype=torch.int32, device=device)
+        _sched_by_stream[key] = buf
+    return buf
+
+
+def matmul_bwd_dual(x: torch.Tensor, dy: torch.Tensor, w: torch.Tensor, *,
+                    _fault: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
     """Both cotangents of ``y = x @ w``: ``(dx, dw)`` with dx = dy @ w^T in
     x's dtype and dw = x^T @ dy always fp32 (cast it to w's dtype where a
     cotangent contract needs that).  x: (M, K), dy: (M, N), w: (K, N), one
     dtype (fp32 or bf16), contiguous, any M, K, N on CUDA; the plain
-    version on the CPU."""
+    version on the CPU.  ``_fault`` as for :func:`matmul_stats` (1: the
+    one-pass design leaves its first stage out instead)."""
     if not use_kernel(x, dy, w):
         return matmul_bwd_dual_ref(x, dy, w)
     if x.dim() != 2 or dy.dim() != 2 or w.dim() != 2:
@@ -296,14 +433,19 @@ def matmul_bwd_dual(x: torch.Tensor, dy: torch.Tensor, w: torch.Tensor
     if m == 0 or k == 0 or n == 0:
         return dx.zero_(), dw
     lib = _lib()
+    design = _conv_bn_design("dual", x, w, dy)
     rows = _dual_chunk_rows(m, k, n, lib.apex_conv_bn_step(),
                             lib.apex_conv_bn_rows_per_block())
-    part = torch.empty((-(-m // rows), k, n), dtype=torch.float32, device=dev)
+    parts = lib.apex_conv_bn_dual_parts(m, k, n, rows, design)
+    part = torch.empty((parts, k, n), dtype=torch.float32, device=dev)
+    stream = _stream(x)
+    sched = _sched(dev, stream) if design == DUAL_TILES else None
     with torch.cuda.device(dev):
         err = lib.apex_matmul_bwd_dual(
             x.data_ptr(), dy.data_ptr(), w.data_ptr(), dx.data_ptr(),
             part.data_ptr(), dw.data_ptr(), m, k, n, rows,
-            _DTYPE_CODE[x.dtype], _stream(x))
+            _DTYPE_CODE[x.dtype], design,
+            None if sched is None else sched.data_ptr(), int(_fault), stream)
     if err != 0:
         raise RuntimeError(f"matmul_bwd_dual kernel launch failed: CUDA "
                            f"error {err}")

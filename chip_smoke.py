@@ -65,13 +65,21 @@ line) on any failed check:
    backward 24, cross-entropy 1 and 1, LAMB 297)), a planted overflow
    that must be skipped with LAMB's m, v and step unchanged, and one
    step under ``torch.profiler``;
-10. conv+BN kernels: ``matmul_stats``, ``bn_relu_matmul`` and
+10. conv+BN kernels: the wgmma operand descriptors (one tile product
+    in each operand-major combination against ``torch.matmul``), the
+    wgmma kernels' shared memory, registers, spills and blocks per SM;
+    ``matmul_stats``, ``bn_relu_matmul`` and
     ``matmul_bwd_dual`` driven once each at RN50's eight 1x1 shapes
     (batch 128; the launch counts of that run alone), then held against
-    their plain versions there, at two ragged shapes and at an fp32
-    shape, with planted faults (stats of the unrounded products, the
-    last row block out of the stats and of dw, the ReLU dropped, a BN
-    bias off at one channel), timed
+    their plain versions there, at three ragged shapes and at an fp32
+    shape (every wgmma kernel launched by some case), each line naming
+    the design that ran (bf16 ``matmul_stats``
+    and dual on the wgmma kernels where TMA can read the matrices, the
+    rest on the mma.sync/FMA ones), with planted faults (stats of the
+    unrounded products, the last row block out of the stats and of dw,
+    the ReLU dropped, a BN bias off at one channel; in the wgmma
+    kernels a ring stage's products dropped and a block's last row tile
+    skipped), two calls bit for bit equal, timed
     beside their bounds and the library chains; the cross-entropy at
     RN50's (128, 1000) fp32 logits;
 11. ResNet-50: fp32 (O0) logits, loss and the updated running
@@ -126,6 +134,8 @@ import dataclasses
 import json
 import math
 import os
+import re
+import shutil
 import subprocess
 import sys
 import time
@@ -165,12 +175,19 @@ from apex_tpu_torch.ops.attention import (
     quantize_kv,
 )
 from apex_tpu_torch.ops.conv_bn import (
+    DUAL_DESIGNS,
+    PRESENT,
+    STATS_DESIGNS,
+    TC_KERNELS,
+    _RESIDENT_W,
+    _conv_bn_design,
     bn_relu_matmul,
     bn_relu_matmul_ref,
     matmul_bwd_dual,
     matmul_bwd_dual_ref,
     matmul_stats,
     matmul_stats_ref,
+    tc_kernel,
 )
 from apex_tpu_torch.ops.fused_optim import lamb_stage1, lamb_stage1_ref
 from apex_tpu_torch.ops.layer_norm import (
@@ -216,6 +233,28 @@ def fp32_precision(tf32: bool = False) -> None:
                     getattr(torch.backends.cudnn, "conv", None)):
         if backend is not None and hasattr(backend, "fp32_precision"):
             backend.fp32_precision = "tf32" if tf32 else "ieee"
+
+
+def ptxas_by_function(log: str) -> list:
+    """``nvcc -Xptxas -v``'s register and spill lines grouped under the
+    entry function each belongs to (demangled where ``c++filt`` is
+    installed)."""
+    out, cur = [], None
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", ln)
+        if m:
+            cur = {"function": m.group(1), "report": []}
+            out.append(cur)
+        elif cur is not None and ("registers" in ln or "spill" in ln):
+            cur["report"].append(ln.strip())
+    if out and shutil.which("c++filt"):
+        names = subprocess.run(["c++filt"], input="\n".join(
+            r["function"] for r in out), capture_output=True, text=True,
+            timeout=60).stdout.splitlines()
+        if len(names) == len(out):
+            for r, name in zip(out, names):
+                r["function"] = name
+    return out
 
 
 def nvidia_smi_line() -> str:
@@ -2009,6 +2048,10 @@ CONV_BN_TOL = ("1e-5 of the |x|.|w| term sums + 1 bf16 ulp (bf16 out); "
                "without); stats 2e-6 of sum|y|, sum y^2 + the outputs' "
                "differences")
 CONV_BN_KERNELS = ("matmul_stats", "bn_relu_matmul", "matmul_bwd_dual")
+# the wgmma kernels' planted faults: (_fault code, key, what it does)
+KERNEL_FAULTS = ((1, "stage_dropped", "a ring stage's products dropped"),
+                 (2, "last_tile_skipped", "each block's last row tile "
+                  "skipped"))
 CONV_BN_LIBRARY = {
     "matmul_stats": "torch.matmul + fp32 column sums",
     "bn_relu_matmul": "unfused BN + ReLU + cast, torch.matmul, column sums",
@@ -2113,14 +2156,88 @@ def _conv_bn_path(dev, shapes):
     return counts
 
 
+def _conv_bn_lib():
+    from apex_tpu_torch.ops.conv_bn import _lib
+
+    return _lib()
+
+
+def phase_conv_bn_tile_check(dev):
+    """The wgmma operand descriptors: one 128 x 64 x 64 tile product
+    through TMA and ``wgmma`` in each of the four operand-major
+    combinations (A K-major with B MN-major: the stats kernel; both
+    K-major: dx; both MN-major: dw; A MN-major with B K-major), against
+    ``torch.matmul`` in fp32 on the same bf16 values, within 1e-5 of the
+    |A|.|B| sums (exact products, fp32 sums in another order).  Planted
+    fault: B taken with the other major-ness (its transpose) must fail."""
+    gen = torch.Generator(device=dev).manual_seed(23)
+    lib = _conv_bn_lib()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    used = {(0, 1): "stats", (0, 0): "dx", (1, 1): "dw", (1, 0): "none"}
+    out = []
+    for a_mn in (0, 1):
+        for b_mn in (0, 1):
+            a = torch.randn((64, 128) if a_mn else (128, 64), device=dev,
+                            generator=gen).to(torch.bfloat16)
+            b = torch.randn(64, 64, device=dev,
+                            generator=gen).to(torch.bfloat16)
+            d = torch.full((128, 64), float("nan"), device=dev)
+            err = lib.apex_conv_bn_tile_check(a.data_ptr(), b.data_ptr(),
+                                              d.data_ptr(), a_mn, b_mn,
+                                              stream)
+            check(err == 0, f"conv_bn tile check: CUDA error {err}")
+            torch.cuda.synchronize()
+            aa = (a.T if a_mn else a).float()
+            bb = (b if b_mn else b.T).float()
+            want = aa @ bb
+            tol = 1e-5 * (aa.abs() @ bb.abs())
+            ok = bool(((d - want).abs() <= tol).all())
+            bad = aa @ bb.T
+            fault_ok = bool(((bad - want).abs() <= tol).all())
+            rec = {"A": "MN-major" if a_mn else "K-major",
+                   "B": "MN-major" if b_mn else "K-major",
+                   "used_by": used[(a_mn, b_mn)], "max_abs_err": _err(d, want),
+                   "planted_fault_errs": {"B_other_major": _err(bad, want)}}
+            out.append(rec)
+            emit({"phase": "kernel_check", "kernel": "conv_bn_tile_check",
+                  "tol": "1e-5 of |A|.|B|", **rec})
+            check(ok, f"conv_bn tile check {rec}: wrong product")
+            check(not fault_ok, f"conv_bn tile check {rec}: the check misses "
+                  f"B read with the other major-ness")
+    return out
+
+
+def phase_conv_bn_tc_info():
+    """Each wgmma conv_bn kernel's shared memory a block (a resident-w
+    kernel's at the largest w the design rule keeps), resident blocks per
+    SM, registers and spilled bytes a thread, as ``cudaFuncGetAttributes``
+    and the occupancy query report them."""
+    import ctypes
+
+    lib = _conv_bn_lib()
+    info = {}
+    for i, name in enumerate(TC_KERNELS):
+        out = (ctypes.c_int * 4)()
+        err = lib.apex_conv_bn_tc_info(i, _RESIDENT_W,
+                                       ctypes.addressof(out))
+        check(err == 0, f"apex_conv_bn_tc_info({i}): CUDA error {err}")
+        info[name] = {"smem_bytes": out[0], "blocks_per_sm": out[1],
+                      "registers": out[2], "spill_bytes": out[3]}
+    emit({"phase": "conv_bn_tc_info", "kernels": info})
+    return info
+
+
 def phase_conv_bn(dev, shapes=RN50_1X1,
-                  ragged=((1000, 72, 200), (999, 70, 197)),
+                  ragged=((1000, 72, 200), (999, 70, 197),
+                          (1000, 1088, 64)),
                   fp32=(6272, 512, 512)):
     """The three conv+BN kernels against their plain versions: at RN50's
     eight 1x1 shapes in bf16 (``bn_relu_matmul`` with ReLU, and without
-    at the first), at two ragged bf16 shapes (K and N whole 16-byte
-    vectors, and not: the kernels' element-by-element loads) and at one
-    fp32 shape (each with ReLU on and off).  Tolerances: outputs within 1e-5 of the
+    at the first), at three ragged bf16 shapes (K and N whole 16-byte
+    vectors, and not: the kernels' element-by-element loads; and N = 64
+    with a w too large to keep in shared memory) and at one fp32 shape
+    (each with ReLU on and off).  Every wgmma kernel of
+    ``TC_KERNELS`` must be launched by some case.  Tolerances: outputs within 1e-5 of the
     |x|.|w| term sums plus 1 bf16 ulp for a bf16 output (and, for the BN
     kernel in bf16, 2^-8 of the |a|.|w| sums: it rounds the normalised
     operand to bf16, the plain version does not; against an inline
@@ -2129,7 +2246,12 @@ def phase_conv_bn(dev, shapes=RN50_1X1,
     per ``_stats_ok``.  Planted faults the check must reject: stats of the
     unrounded products (bf16 cases), the last row block (128 rows) left
     out of the stats and out of dw, the ReLU dropped, and beta off by 0.1
-    at the last k (against the rounded-operand reference).  Each case timed beside its bound with the plain version and
+    at the last k (against the rounded-operand reference); in the cases
+    the wgmma kernels take, their planted faults (``_fault`` 1: a ring
+    stage's products dropped, 2: each block's last row tile skipped)
+    must fail the same checks.  bf16 cases: two calls give the same bits
+    (y, sum, sqsum, dx, dw).  Each line names the design that ran
+    (``_conv_bn_design``) and the wgmma kernel it launched.  Each case timed beside its bound with the plain version and
     the library chain (``torch.matmul`` + column sums; the unfused BN,
     ReLU, cast, matmul and sums, as ``tools/bench_conv_bn.py``'s XLA arm;
     two ``torch.matmul`` s for the dual backward)."""
@@ -2140,12 +2262,22 @@ def phase_conv_bn(dev, shapes=RN50_1X1,
     cases += [(r, torch.bfloat16, (True, False)) for r in ragged]
     cases += [(fp32, torch.float32, (True, False))]
     out = []
+    launched = set()
     for (m, k, n), dt, relus in cases:
         x, w, bn, dy = _conv_bn_inputs(dev, gen, m, k, n, dt)
         name = f"M={m} K={k} N={n} {_dt(dt)}"
         bf16 = dt == torch.bfloat16
         absw = x.float().abs() @ w.float().abs()
         faults, errs = {}, {}
+        sd = _conv_bn_design("stats", x, w)
+        dd = _conv_bn_design("dual", x, w, dy)
+        design = {"matmul_stats": STATS_DESIGNS[sd],
+                  "bn_relu_matmul": STATS_DESIGNS[PRESENT],
+                  "matmul_bwd_dual": DUAL_DESIGNS[dd]}
+        tc = {"matmul_stats": tc_kernel("stats", sd, n),
+              "bn_relu_matmul": None,
+              "matmul_bwd_dual": tc_kernel("dual", dd, n)}
+        launched.update(v for v in tc.values() if v is not None)
         # matmul_stats
         y, s, ss = matmul_stats(x, w)
         yp, sp, ssp = matmul_stats_ref(x, w)
@@ -2162,6 +2294,21 @@ def phase_conv_bn(dev, shapes=RN50_1X1,
                   f"matmul_stats {name}: the check misses stats of the "
                   f"unrounded values")
             del acc
+        if bf16:
+            y2, s2, ss2 = matmul_stats(x, w)
+            check(torch.equal(y, y2) and torch.equal(s, s2)
+                  and torch.equal(ss, ss2),
+                  f"matmul_stats {name}: two calls differ")
+            del y2, s2, ss2
+        if sd != PRESENT:
+            for f, key, what in KERNEL_FAULTS:
+                yf, sf, ssf = matmul_stats(x, w, _fault=f)
+                torch.cuda.synchronize()
+                faults[f"stats_kernel_{key}"] = _err(sf, sp)
+                check(not (_out_ok(yf, yp, absw)
+                           and _stats_ok(sf, ssf, yf, yp, sp, ssp)),
+                      f"matmul_stats {name}: the check misses {what}")
+                del yf, sf, ssf
         cut = m - 128
         _, bad_s, bad_ss = matmul_stats(x[:cut], w)
         faults["last_row_block_out_of_stats"] = _err(bad_s, sp)
@@ -2217,6 +2364,21 @@ def phase_conv_bn(dev, shapes=RN50_1X1,
         check(not _out_ok(bad_dw, dwp, dw_absw),
               f"matmul_bwd_dual {name}: the check misses the last row block "
               f"left out of dw")
+        if bf16:
+            dx2, dw2 = matmul_bwd_dual(x, dy, w)
+            check(torch.equal(dx, dx2) and torch.equal(dw, dw2),
+                  f"matmul_bwd_dual {name}: two calls differ")
+            del dx2, dw2
+        if dd != PRESENT:
+            for f, key, what in KERNEL_FAULTS:
+                dxf, dwf = matmul_bwd_dual(x, dy, w, _fault=f)
+                torch.cuda.synchronize()
+                faults[f"dual_kernel_{key}"] = max(_err(dxf, dxp),
+                                                   _err(dwf, dwp))
+                check(not (_out_ok(dxf, dxp, dx_absw)
+                           and _out_ok(dwf, dwp, dw_absw)),
+                      f"matmul_bwd_dual {name}: the check misses {what}")
+                del dxf, dwf
         del dx_absw, dw_absw, bad_dw, absw
         torch.cuda.synchronize()
         # times: kernel, plain version, library chain
@@ -2260,7 +2422,8 @@ def phase_conv_bn(dev, shapes=RN50_1X1,
             # the outputs' error (y, or dx and dw); the stats' in errs
             mine = {key: e for key, e in errs.items()
                     if key.split()[0] == kern}
-            row = {"case": name, "max_abs_err": max(
+            row = {"case": name, "design": design[kern],
+                   "tc_kernel": tc[kern], "max_abs_err": max(
                        e[0] if kern != "matmul_bwd_dual" else max(e)
                        for e in mine.values()), "errs": mine,
                    "tol": CONV_BN_TOL, **t[kern],
@@ -2272,6 +2435,8 @@ def phase_conv_bn(dev, shapes=RN50_1X1,
         out.append(case)
         del x, w, bn, dy, y, s, ss, yp, sp, ssp, dx, dw, dxp, dwp
         torch.cuda.empty_cache()
+    missed = sorted(set(TC_KERNELS) - launched)
+    check(not missed, f"conv_bn: no case launched the wgmma kernels {missed}")
     return path, out
 
 
@@ -3605,8 +3770,7 @@ def _run() -> int:
     smi = nvidia_smi_line()
     t0 = time.perf_counter()
     built = _build.build()
-    ptxas = {name: [ln.strip() for ln in _build.build_log(name).splitlines()
-                    if "registers" in ln or "spill" in ln]
+    ptxas = {name: ptxas_by_function(_build.build_log(name))
              for name in _build.KERNEL_SOURCES}
     emit({"phase": "card", "nvidia_smi": smi,
           "name": torch.cuda.get_device_name(0),
@@ -3646,6 +3810,8 @@ def _run() -> int:
     del step, carry, bert_params
     torch.cuda.empty_cache()
 
+    phase_conv_bn_tile_check(dev)
+    cb_tc_info = phase_conv_bn_tc_info()
     conv_path, cb_cases = phase_conv_bn(dev)
     xe_rn = phase_xent_rn50(dev)
     with torch.device("meta"):
@@ -3786,10 +3952,16 @@ def _run() -> int:
         for c in pa_cases]
     # the conv_bn rows hold their first RN50 shape; every case beside it
     for name in CONV_BN_KERNELS:
+        by_name[name]["design"] = cb_cases[0][name]["design"]
         by_name[name]["shapes"] = [
-            {k: c[name][k] for k in ("case", "max_abs_err", "ms", "plain_ms",
+            {k: c[name][k] for k in ("case", "design", "tc_kernel",
+                                     "max_abs_err", "ms", "plain_ms",
                                      "library_ms", "bound_ms", "bound_by")}
             for c in cb_cases]
+        if name != "bn_relu_matmul":
+            by_name[name]["tc_info"] = {
+                k: v for k, v in cb_tc_info.items()
+                if k.startswith("stats" if name == "matmul_stats" else "dual")}
     # the bias backward also stands for the two-pass backward of
     # bias_grad=True (its dbias checked in phase_flash_bias)
     by_name["flash_attention_bwd_bias"]["also_replaces"] = [
