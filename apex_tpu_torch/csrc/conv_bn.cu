@@ -22,13 +22,15 @@
 // Two designs, picked by the wrapper (ops/conv_bn.py::_conv_bn_design)
 // and passed in as a design code:
 // - the Hopper kernels (second half of this file, hopper_gemm.cuh) for
-//   bf16 matmul_stats and the bf16 dual backward whose matrices TMA can
-//   read (16-byte aligned bases, rows a whole number of 16 bytes): wgmma
-//   fed by a TMA/mbarrier ring, persistent blocks;
+//   bf16 matmul_stats, bf16 bn_relu_matmul (the same kernel with the BN
+//   prologue applied in shared memory between the TMA load and the
+//   wgmma) and the bf16 dual backward, whose matrices TMA can read
+//   (16-byte aligned bases, rows a whole number of 16 bytes): wgmma fed
+//   by a TMA/mbarrier ring, persistent blocks;
 // - the mma.sync / FMA kernels (first half) for everything else: fp32
 //   (wgmma has no exact fp32; the reference's fp32 dot is exact fp32),
-//   mixed dtypes, the BN prologue of bn_relu_matmul, and rows TMA cannot
-//   describe.
+//   mixed dtypes, and rows TMA cannot describe (with the BN prologue in
+//   their operand loads for bn_relu_matmul).
 //
 // Products: bf16 operands go to the tensor cores (wgmma or mma.sync)
 // with fp32 accumulation (what the MXU does with
@@ -75,6 +77,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <initializer_list>
 #include <type_traits>
 
 #include "hopper_gemm.cuh"
@@ -614,7 +617,7 @@ void launch_fwd_bn(const void* x, const void* w, const BnParams& bn, void* y,
 }
 
 
-// ---- the Hopper designs of the bf16 matmul_stats and dual backward -----
+// ---- the Hopper designs of the bf16 forwards and dual backward ---------
 //
 // Each block is a producer warpgroup (one thread issues every TMA load of
 // a ring of shared-memory stages) and two consumer warpgroups that run
@@ -651,9 +654,32 @@ __device__ __forceinline__ __nv_bfloat162 round2(float a, float b) {
 // reduce-scatter butterfly (fixed order), so a lane carries the running
 // sums of only BN / 32 columns from tile to tile: a thread's own running
 // sums of its BN / 4 columns, with the 128-wide tile's 64 accumulators,
-// spilled.  Planted faults for the
-// checks: 1 skips the products of each tile's last ring stage, 2 the
-// block's last row tile.
+// spilled.
+//
+// kBn: bn_relu_matmul on the same mainloop.  Once a stage's x tile has
+// landed, each consumer warpgroup rewrites its own 64 x 64 box of it in
+// place, a 16-byte chunk (8 consecutive k) at a time: each element
+// becomes (x - mean) * scale + beta with scale = rstd * gamma, each
+// operation rounded once (the mma.sync kernel's arithmetic, so the
+// operand's bf16 bits are the same), max(., 0) under relu, rounded to
+// bf16.  A thread keeps one chunk column (8 k) of the box, so it forms
+// its 8 scales once a stage, from parameters it loaded a stage earlier
+// (global loads that the L1 or L2 serves, issued after the previous
+// stage's fence; nothing is added to shared memory, which the resident w
+// panel fills).  Rows at or past m and k at or past K are set to 0:
+// TMA's zero padding would otherwise become beta - mean * scale and put
+// rows that do not exist into the stats (w's rows past K are TMA's zeros
+// too, so the k mask only keeps the parameter reads in bounds).  Then fence.proxy.async, so that the
+// generic stores are visible to wgmma's async proxy, and the
+// warpgroup's barrier; the previous stage's products are still in
+// flight meanwhile.  The pass costs most where matmul_stats is fastest
+// for each byte (stages 3-4): it adds a read and a write of the tile to
+// the shared-memory traffic that the wgmma reads already nearly fill,
+// and its arithmetic runs on the warps whose accumulators the tensor
+// cores are writing (PERF.md, PR 9: the variants timed).  Planted faults
+// for the checks: 1 skips the products of each tile's last ring stage, 2
+// the block's last row tile, 3 (kBn) leaves the padded rows and k
+// unmasked (the parameters of k past K read at K - 8..K - 1).
 
 // One step of the stats reduce-scatter: of the 2H values a lane holds, it
 // keeps the half named by its lane bit O and adds its partner's copy of
@@ -688,13 +714,99 @@ struct StatsTc {
   }
 };
 
-template <int BN, bool kRes>
+// The BN parameters of 8 consecutive k from kc (a multiple of 8, so
+// 32-byte aligned in the wrapper's 16-byte aligned fp32 vectors), as
+// loaded (a stage ahead of their use), and as the prologue takes them:
+// scale = rstd * gamma formed once for each k.
+struct BnRaw {
+  float4 mu[2], rs[2], ga[2], be[2];
+};
+struct BnChunk {
+  float mu[8], sc[8], be[8];
+};
+
+__device__ __forceinline__ void load_bn_raw(const BnParams& bn, int kc,
+                                            BnRaw& r) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    r.mu[h] = __ldg(reinterpret_cast<const float4*>(bn.mean + kc) + h);
+    r.rs[h] = __ldg(reinterpret_cast<const float4*>(bn.rstd + kc) + h);
+    r.ga[h] = __ldg(reinterpret_cast<const float4*>(bn.gamma + kc) + h);
+    r.be[h] = __ldg(reinterpret_cast<const float4*>(bn.beta + kc) + h);
+  }
+}
+
+__device__ __forceinline__ void scale_bn(const BnRaw& r, BnChunk& p) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const float m4[4] = {r.mu[h].x, r.mu[h].y, r.mu[h].z, r.mu[h].w};
+    const float r4[4] = {r.rs[h].x, r.rs[h].y, r.rs[h].z, r.rs[h].w};
+    const float g4[4] = {r.ga[h].x, r.ga[h].y, r.ga[h].z, r.ga[h].w};
+    const float b4[4] = {r.be[h].x, r.be[h].y, r.be[h].z, r.be[h].w};
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      p.mu[4 * h + e] = m4[e];
+      p.sc[4 * h + e] = __fmul_rn(r4[e], g4[e]);
+      p.be[4 * h + e] = b4[e];
+    }
+  }
+}
+
+// Two neighbouring bf16 operands (k = 2 e and 2 e + 1 of the chunk, the
+// low half first) through the prologue, each operation rounded once.
+__device__ __forceinline__ uint32_t bn_pair(uint32_t v, const BnChunk& p,
+                                            int e, int relu) {
+  float a = __uint_as_float(v << 16);
+  float b = __uint_as_float(v & 0xffff0000u);
+  a = __fadd_rn(__fmul_rn(__fsub_rn(a, p.mu[e]), p.sc[e]), p.be[e]);
+  b = __fadd_rn(__fmul_rn(__fsub_rn(b, p.mu[e + 1]), p.sc[e + 1]),
+                p.be[e + 1]);
+  if (relu) {
+    a = fmaxf(a, 0.f);
+    b = fmaxf(b, 0.f);
+  }
+  const __nv_bfloat162 o = __floats2bfloat162_rn(a, b);
+  return *reinterpret_cast<const uint32_t*>(&o);
+}
+
+// 16 bytes of shared memory at a shared-window address.  Through a
+// generic pointer (the ring's address is rounded as an integer) the
+// compiler emits generic LD/ST, which cost the BN prologue a good part
+// of its time.  Volatile, so that neither moves across the barrier waits
+// around them (nor across each other: a caller issues its loads first).
+__device__ __forceinline__ uint4 lds128(uint32_t a) {
+  uint4 v;
+  asm volatile("ld.shared.v4.u32 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+               : "r"(a));
+  return v;
+}
+__device__ __forceinline__ void sts128(uint32_t a, const uint4& v) {
+  asm volatile("st.shared.v4.u32 [%0], {%1, %2, %3, %4};\n" ::"r"(a),
+               "r"(v.x), "r"(v.y), "r"(v.z), "r"(v.w)
+               : "memory");
+}
+
+// A 16-byte chunk (8 consecutive k) of the x operand through the
+// prologue; 0 where !keep (computed either way and then selected: a
+// branch per chunk keeps the compiler from overlapping the chunks).
+__device__ __forceinline__ uint4 bn_chunk(const uint4& v, const BnChunk& bp,
+                                          int relu, bool keep) {
+  const uint4 o = make_uint4(bn_pair(v.x, bp, 0, relu),
+                             bn_pair(v.y, bp, 2, relu),
+                             bn_pair(v.z, bp, 4, relu),
+                             bn_pair(v.w, bp, 6, relu));
+  return make_uint4(keep ? o.x : 0u, keep ? o.y : 0u, keep ? o.z : 0u,
+                    keep ? o.w : 0u);
+}
+
+template <int BN, bool kRes, bool kBn>
 __global__ void __launch_bounds__(kTcThreads, 1)
 stats_tc_kernel(const __grid_constant__ CUtensorMap tx,
                 const __grid_constant__ CUtensorMap tw,
                 const __grid_constant__ CUtensorMap ty,
                 float* __restrict__ part, int m, int k, int n, int groups,
-                int fault) {
+                BnParams bn, int fault) {
   using C = StatsTc<BN, kRes>;
   constexpr int S = C::kStages;
   constexpr int NC = BN / 4;   // columns of a thread in a tile
@@ -772,6 +884,10 @@ stats_tc_kernel(const __grid_constant__ CUtensorMap tx,
   for (int r = 0; r < NR; ++r) cs[r] = css[r] = 0.f;
   const bool issuer = tid % 128 == 0;
   uint8_t* const mine = out + c * (C::kOut / 2);  // this warpgroup's rows
+  // kBn: the parameters of this thread's chunk column, a stage ahead
+  BnRaw nraw;
+  if constexpr (kBn) load_bn_raw(bn, 8 * (tid % 8) < k ? 8 * (tid % 8) : k - 8,
+                                 nraw);
   if (kRes) hopper::mbar_wait(wbar, 0);
   int s = 0;
   uint32_t ph = 0;
@@ -782,7 +898,38 @@ stats_tc_kernel(const __grid_constant__ CUtensorMap tx,
     // a stage goes back to the producer once its products retire
     int prev = 0;
     for (int kb = 0; kb < kt; ++kb) {
-      hopper::mbar_wait(&full[s], ph);
+      if constexpr (kBn) {
+        // the prologue, in place, on this warpgroup's box: chunk column
+        // pj of rows pr + 16 i, its parameters loaded before the wait;
+        // then every thread's stores before any of the products
+        const int pj = tid % 8, pr = (tid % 128) / 8;
+        const int kc = 64 * kb + 8 * pj;
+        BnChunk bp;
+        scale_bn(nraw, bp);
+        hopper::mbar_wait(&full[s], ph);
+        const uint32_t box = hopper::smem_u32(ring + s * C::kStage + c * kBox);
+        const int rows_here = m - m0 - 64 * c;
+        uint4 v[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          v[i] = lds128(box + hopper::swz(pr + 16 * i, 8 * pj));
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int r = pr + 16 * i;
+          sts128(box + hopper::swz(r, 8 * pj),
+                 bn_chunk(v[i], bp, bn.relu,
+                          fault == 3 || (kc < k && r < rows_here)));
+        }
+        hopper::fence_proxy_async();
+        hopper::warpgroup_sync(c);
+        // the next stage's parameters, in flight over this stage's
+        // products (issued after the fence, which waits for the
+        // thread's outstanding memory operations)
+        const int kn = 64 * (kb + 1 < kt ? kb + 1 : 0) + 8 * pj;
+        load_bn_raw(bn, kn < k ? kn : k - 8, nraw);
+      } else {
+        hopper::mbar_wait(&full[s], ph);
+      }
       hopper::wgmma_fence();
       hopper::fence_acc(acc);
       if (!(fault == 1 && kb == kt - 1)) {
@@ -813,7 +960,7 @@ stats_tc_kernel(const __grid_constant__ CUtensorMap tx,
     if (lane == 0) hopper::mbar_arrive(&empty[prev]);
     // the rounded tile into the out boxes (once the last tile's store
     // has read them), then one TMA store a box; sum what was stored
-    // (rows past m hold TMA's zeros and add nothing)
+    // (rows past m hold TMA's zeros, or the prologue's, and add nothing)
     if (issuer) hopper::tma_store_wait<true>();
     hopper::warpgroup_sync(c);
     const int r0 = 16 * q + gq;
@@ -1483,9 +1630,10 @@ cudaError_t allow_smem(Kern kern, size_t bytes) {
                               static_cast<int>(bytes));
 }
 
-template <int BN, bool kRes>
-int launch_stats_tc(const void* x, const void* w, void* y, float* part,
-                    long long m, int k, int n, int fault, cudaStream_t st) {
+template <int BN, bool kRes, bool kBn>
+int launch_stats_tc(const void* x, const void* w, const BnParams& bn,
+                    void* y, float* part, long long m, int k, int n,
+                    int fault, cudaStream_t st) {
   CUtensorMap tx, tw, ty;
   if (!hopper::make_tmap(&tx, x, m, k, k, 64, 128) ||
       !hopper::make_tmap(&tw, w, k, n, n, 64, 64) ||
@@ -1493,31 +1641,50 @@ int launch_stats_tc(const void* x, const void* w, void* y, float* part,
     return static_cast<int>(cudaErrorInvalidValue);
   const int kt = static_cast<int>(cdiv(k, 64));
   const size_t smem = StatsTc<BN, kRes>::smem(kt);
-  cudaError_t e = allow_smem(stats_tc_kernel<BN, kRes>, smem);
+  cudaError_t e = allow_smem(stats_tc_kernel<BN, kRes, kBn>, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
   const int groups = stats_groups(m, n, BN);
   const int nt = static_cast<int>(cdiv(n, BN));
-  stats_tc_kernel<BN, kRes><<<groups * nt, kTcThreads, smem, st>>>(
-      tx, tw, ty, part, static_cast<int>(m), k, n, groups, fault);
+  stats_tc_kernel<BN, kRes, kBn><<<groups * nt, kTcThreads, smem, st>>>(
+      tx, tw, ty, part, static_cast<int>(m), k, n, groups, bn, fault);
   return static_cast<int>(cudaGetLastError());
 }
 
-// (A resident w too large for shared memory is refused by allow_smem.)
-int launch_stats_design(int design, const void* x, const void* w, void* y,
-                        float* part, long long m, int k, int n, int fault,
-                        cudaStream_t st) {
+template <bool kBn>
+int launch_stats_variant(int design, const void* x, const void* w,
+                         const BnParams& bn, void* y, float* part,
+                         long long m, int k, int n, int fault,
+                         cudaStream_t st) {
   switch (design) {
     case kStatsStreamed:
-      return launch_stats_tc<128, false>(x, w, y, part, m, k, n, fault, st);
+      return launch_stats_tc<128, false, kBn>(x, w, bn, y, part, m, k, n,
+                                              fault, st);
     case kStatsResident:
-      return launch_stats_tc<128, true>(x, w, y, part, m, k, n, fault, st);
+      return launch_stats_tc<128, true, kBn>(x, w, bn, y, part, m, k, n,
+                                             fault, st);
     case kStatsStreamed64:
-      return launch_stats_tc<64, false>(x, w, y, part, m, k, n, fault, st);
+      return launch_stats_tc<64, false, kBn>(x, w, bn, y, part, m, k, n,
+                                             fault, st);
     case kStatsResident64:
-      return launch_stats_tc<64, true>(x, w, y, part, m, k, n, fault, st);
+      return launch_stats_tc<64, true, kBn>(x, w, bn, y, part, m, k, n,
+                                            fault, st);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+// The wgmma stats kernel a code names, with the BN prologue where bn has
+// parameters.  (A resident w too large for shared memory is refused by
+// allow_smem.)
+int launch_stats_design(int design, const void* x, const void* w,
+                        const BnParams& bn, void* y, float* part,
+                        long long m, int k, int n, int fault,
+                        cudaStream_t st) {
+  if (bn.mean != nullptr)
+    return launch_stats_variant<true>(design, x, w, bn, y, part, m, k, n,
+                                      fault, st);
+  return launch_stats_variant<false>(design, x, w, bn, y, part, m, k, n,
+                                     fault, st);
 }
 
 // The one-pass dual over slices of KS columns of K.
@@ -1644,14 +1811,16 @@ extern "C" long long apex_conv_bn_dual_parts(long long m, int k, int n,
 
 // Forward.  x: (m, k) of x_dtype, w: (k, n) of w_dtype, y: (m, n) of
 // x_dtype, all contiguous; dtype 0 = float32, 1 = bfloat16.  mean, rstd,
-// gamma, beta: (k,) fp32, or all null for the plain matmul_stats.
-// part: fp32 scratch of apex_conv_bn_stats_parts(...) * 2 * n, s and ss:
-// (n,) fp32; all three null for no stats.  design: 0 the mma.sync / FMA
-// kernel (any input); 1 or 2 the wgmma kernel with 128-wide column tiles
-// and w streamed or kept in shared memory, 3 or 4 the same with 64-wide
-// tiles (bf16 x and w, no BN, rows whole 16-byte multiples, 16-byte
-// aligned bases).  fault: a planted error of the wgmma kernel for
-// the checks (0: none).  m, k, n >= 1.  Returns a CUDA error code.
+// gamma, beta: (k,) fp32 (16-byte aligned for the wgmma designs), or all
+// null for the plain matmul_stats.  part: fp32 scratch of
+// apex_conv_bn_stats_parts(...) * 2 * n, s and ss: (n,) fp32; all three
+// null for no stats.  design: 0 the mma.sync / FMA kernel (any input); 1
+// or 2 the wgmma kernel with 128-wide column tiles and w streamed or kept
+// in shared memory, 3 or 4 the same with 64-wide tiles (bf16 x and w,
+// rows whole 16-byte multiples, 16-byte aligned bases; with the BN
+// prologue where mean is given).  fault: a planted error of the wgmma
+// kernel for the checks (0: none; 3 only with the prologue).  m, k, n >=
+// 1.  Returns a CUDA error code.
 extern "C" int apex_conv_bn_fwd(const void* x, const void* w,
                                 const float* mean, const float* rstd,
                                 const float* gamma, const float* beta,
@@ -1664,10 +1833,18 @@ extern "C" int apex_conv_bn_fwd(const void* x, const void* w,
   const BnParams bn{mean, rstd, gamma, beta, relu};
   long long blocks = cdiv(m, kTile);
   if (design != kPresent) {
-    if (mean != nullptr || x_dtype != 1 || w_dtype != 1 ||
-        m > 0x7fffffffLL || fault < 0 || fault > 2)
+    const bool with_bn = mean != nullptr;
+    if (x_dtype != 1 || w_dtype != 1 || m > 0x7fffffffLL || fault < 0 ||
+        fault > (with_bn ? 3 : 2))
       return static_cast<int>(cudaErrorInvalidValue);
-    const int err = launch_stats_design(design, x, w, y, part, m, k, n,
+    // the prologue reads the parameters as 16-byte vectors
+    if (with_bn) {
+      for (const float* p : {mean, rstd, gamma, beta}) {
+        if (p == nullptr || reinterpret_cast<uintptr_t>(p) % 16 != 0)
+          return static_cast<int>(cudaErrorInvalidValue);
+      }
+    }
+    const int err = launch_stats_design(design, x, w, bn, y, part, m, k, n,
                                         fault, st);
     if (err != 0) return err;
     blocks = stats_groups(m, n, stats_tile(design));
@@ -1757,23 +1934,28 @@ extern "C" int apex_matmul_bwd_dual(const void* x, const void* dy,
   return static_cast<int>(cudaGetLastError());
 }
 
+// The resources of a wgmma stats kernel (the BN variant where kBn),
+// its shared memory sized for w_bytes of w where it keeps w.
+template <int BN, bool kRes, bool kBn>
+int stats_info(int w_bytes, int* out) {
+  using C = StatsTc<BN, kRes>;
+  return kernel_info(stats_tc_kernel<BN, kRes, kBn>, kTcThreads,
+                     C::smem(kRes ? w_bytes / C::kW : 0), out);
+}
+
 // The wgmma kernels' resources: kernel 0 and 1 matmul_stats with 64-wide
 // tiles, w resident (shared memory sized for w_bytes of w) or streamed;
 // 2 the tiled dual; 3-5 the one-pass dual at (slice, n) = (256, 64),
 // (64, 256), (128, 128); 6 and 7 matmul_stats with 128-wide tiles, w
-// resident or streamed.  out = [shared memory bytes a block, resident
-// blocks per SM, registers a thread, local (spilled) bytes a thread].
-// Returns a CUDA error code.
+// resident or streamed; 8-11 bn_relu_matmul's, as 0, 1, 6 and 7.  out =
+// [shared memory bytes a block, resident blocks per SM, registers a
+// thread, local (spilled) bytes a thread].  Returns a CUDA error code.
 extern "C" int apex_conv_bn_tc_info(int kernel, int w_bytes, int* out) {
   switch (kernel) {
     case 0:
-      return kernel_info(stats_tc_kernel<64, true>, kTcThreads,
-                         StatsTc<64, true>::smem(w_bytes /
-                                                 StatsTc<64, true>::kW),
-                         out);
+      return stats_info<64, true, false>(w_bytes, out);
     case 1:
-      return kernel_info(stats_tc_kernel<64, false>, kTcThreads,
-                         StatsTc<64, false>::smem(0), out);
+      return stats_info<64, false, false>(w_bytes, out);
     case 2:
       return kernel_info(dual_tc_kernel, kTcThreads, DualTc::smem(), out);
     case 3:
@@ -1786,13 +1968,17 @@ extern "C" int apex_conv_bn_tc_info(int kernel, int w_bytes, int* out) {
       return kernel_info(dual_fused_kernel<128, 128>, kTcThreads,
                          Fused<128, 128>::smem(), out);
     case 6:
-      return kernel_info(stats_tc_kernel<128, true>, kTcThreads,
-                         StatsTc<128, true>::smem(w_bytes /
-                                                  StatsTc<128, true>::kW),
-                         out);
+      return stats_info<128, true, false>(w_bytes, out);
     case 7:
-      return kernel_info(stats_tc_kernel<128, false>, kTcThreads,
-                         StatsTc<128, false>::smem(0), out);
+      return stats_info<128, false, false>(w_bytes, out);
+    case 8:
+      return stats_info<64, true, true>(w_bytes, out);
+    case 9:
+      return stats_info<64, false, true>(w_bytes, out);
+    case 10:
+      return stats_info<128, true, true>(w_bytes, out);
+    case 11:
+      return stats_info<128, false, true>(w_bytes, out);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

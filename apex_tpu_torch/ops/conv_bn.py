@@ -28,13 +28,14 @@ The JAX package does not wire these kernels into its ResNet, and neither
 does the port: they are library entry points.
 
 Which kernel of ``csrc/conv_bn.cu`` a call runs is a fixed rule,
-:func:`_conv_bn_design`: bf16 ``matmul_stats`` and ``matmul_bwd_dual``
-whose matrices TMA can read (16-byte aligned bases, rows a whole number
-of 16 bytes) run the Hopper kernels (``wgmma`` fed by a TMA/mbarrier
-ring, persistent blocks; ``csrc/hopper_gemm.cuh``); fp32 or mixed
-operands, ``bn_relu_matmul`` and rows TMA cannot describe run the
-``mma.sync``/FMA kernels.  A call the rule sends to a kernel launches it
-or raises.
+:func:`_conv_bn_design`: bf16 ``matmul_stats``, ``bn_relu_matmul`` and
+``matmul_bwd_dual`` whose matrices TMA can read (16-byte aligned bases,
+rows a whole number of 16 bytes) run the Hopper kernels (``wgmma`` fed
+by a TMA/mbarrier ring, persistent blocks; ``csrc/hopper_gemm.cuh``;
+``bn_relu_matmul`` on the stats kernel with its BN prologue applied to
+each x tile in shared memory); fp32 or mixed operands and rows TMA
+cannot describe run the ``mma.sync``/FMA kernels.  A call the rule
+sends to a kernel launches it or raises.
 """
 from __future__ import annotations
 
@@ -86,23 +87,28 @@ def _fused_slice(k: int, n: int) -> int:
     return ks if ks and k % ks == 0 and k // ks <= _FUSED_MAX_SLICES else 0
 
 
-# the Hopper kernels' names, in apex_conv_bn_tc_info's order
+# the Hopper kernels' names, in apex_conv_bn_tc_info's order (", bn":
+# the stats kernel with bn_relu_matmul's prologue)
 TC_KERNELS = ("stats_tc<64, w resident>", "stats_tc<64, w streamed>",
               "dual_tc", "dual_fused<256, 64>", "dual_fused<64, 256>",
               "dual_fused<128, 128>", "stats_tc<128, w resident>",
-              "stats_tc<128, w streamed>")
+              "stats_tc<128, w streamed>", "stats_tc<64, w resident, bn>",
+              "stats_tc<64, w streamed, bn>", "stats_tc<128, w resident, bn>",
+              "stats_tc<128, w streamed, bn>")
 
 
 def tc_kernel(kind: str, design: int, n: int) -> Union[str, None]:
     """The entry of :data:`TC_KERNELS` that a call of ``kind`` ("stats"
-    or "dual") with design code ``design`` and N = ``n`` launches; None
-    for :data:`PRESENT`."""
+    for ``matmul_stats``, "bn" for ``bn_relu_matmul``, "dual") with
+    design code ``design`` and N = ``n`` launches; None for
+    :data:`PRESENT`."""
     if design == PRESENT:
         return None
-    if kind == "stats":
+    if kind in ("stats", "bn"):
         tile = 64 if design in (STATS_STREAMED_N64, STATS_RESIDENT_N64) else 128
         kept = design in (STATS_RESIDENT, STATS_RESIDENT_N64)
-        return f"stats_tc<{tile}, w {'resident' if kept else 'streamed'}>"
+        bn = ", bn" if kind == "bn" else ""
+        return f"stats_tc<{tile}, w {'resident' if kept else 'streamed'}{bn}>"
     if design == DUAL_TILES:
         return "dual_tc"
     return f"dual_fused<{_FUSED_SLICE[n]}, {n}>"
@@ -117,24 +123,25 @@ def _tma_ok(t: torch.Tensor) -> bool:
 
 
 def _conv_bn_design(kind: str, x: torch.Tensor, w: torch.Tensor,
-                    dy: torch.Tensor = None, bn: bool = False) -> int:
-    """The kernel a call runs (``kind`` "stats" for the forward, "dual"
-    for the backward; ``bn`` for ``bn_relu_matmul``).
+                    dy: torch.Tensor = None) -> int:
+    """The kernel a call runs (``kind`` "stats" for the forwards,
+    ``matmul_stats`` and ``bn_relu_matmul``; "dual" for the backward).
 
-    - forward: bf16 x and w, no BN prologue, both TMA-readable -> the
-      wgmma kernel with column tiles 64 wide for N <= 64 (no masked
-      columns; the ``_N64`` codes), else 128; w resident when its (K,
-      column tile) panel fits in :data:`_RESIDENT_W`, else streamed;
+    - forward: bf16 x and w, both TMA-readable -> the wgmma kernel with
+      column tiles 64 wide for N <= 64 (no masked columns; the ``_N64``
+      codes), else 128; w resident when its (K, column tile) panel fits
+      in :data:`_RESIDENT_W`, else streamed.  ``bn_relu_matmul`` takes
+      the same code (its prologue needs no shared memory of its own) and
+      the C entry adds the prologue because it is given the parameters;
     - dual: bf16 x, dy and w, all TMA-readable -> :data:`DUAL_FUSED`
       where K cuts into slices of the one built for N
       (:func:`_fused_slice`), else :data:`DUAL_TILES`;
-    - else :data:`PRESENT` (fp32 has no exact wgmma; mixed dtypes, the BN
-      prologue and rows TMA cannot describe stay on the mma.sync/FMA
-      kernels)."""
+    - else :data:`PRESENT` (fp32 has no exact wgmma; mixed dtypes and
+      rows TMA cannot describe stay on the mma.sync/FMA kernels, with the
+      BN prologue in their operand loads)."""
     bf = torch.bfloat16
     if kind == "stats":
-        if bn or x.dtype != bf or w.dtype != bf or not (_tma_ok(x)
-                                                        and _tma_ok(w)):
+        if x.dtype != bf or w.dtype != bf or not (_tma_ok(x) and _tma_ok(w)):
             return PRESENT
         k, n = w.shape
         tile = 64 if n <= 64 else 128
@@ -252,7 +259,10 @@ def _launch_fwd(x, w, bn, relu: bool, with_stats: bool, fault: int = 0):
                 raise ValueError(f"bn_relu_matmul kernel takes a float {name} "
                                  f"of shape ({k},), got {t.dtype} "
                                  f"{tuple(t.shape)}")
+        # fp32, contiguous and 16-byte aligned (the wgmma prologue reads
+        # them as vectors): a copy only where a view starts off alignment
         params = [t.float().contiguous() for t in bn]
+        params = [t if t.data_ptr() % 16 == 0 else t.clone() for t in params]
     dev = x.device
     y = torch.empty((m, n), dtype=x.dtype, device=dev)
     s = ss = None
@@ -263,7 +273,7 @@ def _launch_fwd(x, w, bn, relu: bool, with_stats: bool, fault: int = 0):
         return y, s, ss
     if k == 0:
         return y.zero_(), s, ss
-    design = _conv_bn_design("stats", x, w, bn=bn is not None)
+    design = _conv_bn_design("stats", x, w)
     lib = _lib()
     part = None
     if with_stats:
@@ -323,10 +333,11 @@ class _BnReluMatmul(torch.autograd.Function):
     operand is recomputed, never kept)."""
 
     @staticmethod
-    def forward(ctx, x, mean, rstd, gamma, beta, w, relu, with_stats):
+    def forward(ctx, x, mean, rstd, gamma, beta, w, relu, with_stats,
+                fault):
         if use_kernel(x, mean, rstd, gamma, beta, w):
             y, s, ss = _launch_fwd(x, w, (mean, rstd, gamma, beta), relu,
-                                   with_stats)
+                                   with_stats, fault)
         else:
             y, s, ss = bn_relu_matmul_ref(x, mean, rstd, gamma, beta, w, relu)
         ctx.save_for_backward(x, mean, rstd, gamma, beta, w, y)
@@ -351,7 +362,7 @@ class _BnReluMatmul(torch.autograd.Function):
         # each cotangent in its primal's dtype (bf16 BN params get bf16)
         return ((da * g32).to(x.dtype), (-dsum * g32).to(mean.dtype),
                 (dax * gamma32).to(rstd.dtype), (dax * rstd32).to(gamma.dtype),
-                dsum.to(beta.dtype), dw, None, None)
+                dsum.to(beta.dtype), dw, None, None, None)
 
 
 def matmul_stats(x: torch.Tensor, w: torch.Tensor, *, with_stats: bool = True,
@@ -371,14 +382,17 @@ def matmul_stats(x: torch.Tensor, w: torch.Tensor, *, with_stats: bool = True,
 
 
 def bn_relu_matmul(x, mean, rstd, gamma, beta, w, *, relu: bool = True,
-                   with_stats: bool = True):
+                   with_stats: bool = True, _fault: int = 0):
     """``z = relu((x - mean) * (rstd * gamma) + beta) @ w`` with the
-    normalisation in the kernel's operand load (the normalised tensor
-    never reaches device memory), plus the stats of the stored z like
-    :func:`matmul_stats`.  x: (M, K); mean, rstd, gamma, beta: (K,) of any
-    float dtype (read as fp32); w: (K, N).  Differentiable in all six."""
+    normalisation applied to the kernel's operand between its load and
+    the product (the normalised tensor never reaches device memory), plus
+    the stats of the stored z like :func:`matmul_stats`.  x: (M, K);
+    mean, rstd, gamma, beta: (K,) of any float dtype (read as fp32); w:
+    (K, N).  Differentiable in all six.  ``_fault`` as for
+    :func:`matmul_stats`, and 3: the padded rows and k of the wgmma
+    kernel's tiles left unmasked after the prologue."""
     return _BnReluMatmul.apply(x, mean, rstd, gamma, beta, w, bool(relu),
-                               bool(with_stats))
+                               bool(with_stats), int(_fault))
 
 
 def _dual_chunk_rows(m: int, k: int, n: int, step: int, tile: int) -> int:

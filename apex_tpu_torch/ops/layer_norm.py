@@ -11,6 +11,12 @@ cast to the weight's dtype).  :func:`layer_norm` is a
 ``apex_ln_fwd`` and its backward ``apex_ln_bwd`` of ``csrc/layer_norm.cu``
 (the dx kernel plus the deterministic dgamma/dbeta reduction; with no
 weight, the dx-only variant); on CPU tensors both run the plain versions.
+
+The backward has two designs, picked by :func:`_ln_bwd_design`: rows of
+at most :data:`WARP_MAX_N` that are a whole number of 16-byte vectors,
+on 16-byte aligned bases (every ported model), run the warp design (a
+warp a row, persistent blocks, 16-byte vector loads); every other row
+the block design (a block of 256 threads a row, 16 rows a block).
 """
 from __future__ import annotations
 
@@ -23,13 +29,37 @@ import torch
 from apex_tpu_torch.ops import _build
 from apex_tpu_torch.ops._common import use_kernel
 
-__all__ = ["MAX_N", "layer_norm", "layer_norm_bwd", "layer_norm_bwd_ref",
-           "layer_norm_ref"]
+__all__ = ["LN_BWD_WARP_KERNELS", "MAX_N", "WARP_MAX_N", "layer_norm",
+           "layer_norm_bwd", "layer_norm_bwd_ref", "layer_norm_ref",
+           "ln_bwd_blocks", "ln_bwd_kernel"]
 
-# widest row the kernels take (the backward keeps ceil(n / 256) <= 32
-# columns per thread in registers)
+# widest row the kernels take (the backward's block design keeps
+# ceil(n / 256) <= 32 columns per thread in registers)
 MAX_N = 8192
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+# the backward's designs (the codes apex_ln_bwd takes; the rule that picks
+# them is here alone): a block of 256 threads for 16 rows, any n up to
+# MAX_N; a warp a row with 16-byte vector loads, n up to WARP_MAX_N
+LN_BWD_BLOCK, LN_BWD_WARP = 0, 1
+LN_BWD_DESIGNS = {LN_BWD_BLOCK: "block_per_16_rows",
+                  LN_BWD_WARP: "warp_per_row_vec16"}
+WARP_MAX_N = 1024
+# the warp design's instantiations in csrc/layer_norm.cu: for each x and
+# weight dtype, the vectors a lane holds at n = 768 (taken by every n up
+# to 768) and at n = 1024
+_WARP_WIDTHS = (768, WARP_MAX_N)
+_DT_NAME = {torch.float32: "fp32", torch.bfloat16: "bf16"}
+
+
+def _warp_name(x_dt: torch.dtype, w_dt: torch.dtype, width: int) -> str:
+    vw = 16 // torch.tensor([], dtype=x_dt).element_size()
+    return (f"ln_bwd_warp<{_DT_NAME[x_dt]}, {_DT_NAME[w_dt]}, "
+            f"{width // (32 * vw)} x {vw}>")
+
+
+LN_BWD_WARP_KERNELS = tuple(
+    _warp_name(x_dt, w_dt, width) for x_dt in _DT_NAME for w_dt in _DT_NAME
+    for width in _WARP_WIDTHS)
 
 
 def layer_norm_ref(
@@ -88,11 +118,54 @@ def _lib():
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_longlong, ctypes.c_int, ctypes.c_float, ctypes.c_int,
-        ctypes.c_int, ctypes.c_void_p]
+        ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     lib.apex_ln_bwd.restype = ctypes.c_int
-    lib.apex_ln_bwd_rows_per_block.argtypes = []
-    lib.apex_ln_bwd_rows_per_block.restype = ctypes.c_int
+    lib.apex_ln_bwd_geometry.argtypes = [
+        ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.POINTER(ctypes.c_longlong)]
+    lib.apex_ln_bwd_geometry.restype = ctypes.c_int
     return lib
+
+
+def _ln_bwd_design(x2: torch.Tensor, dy2: torch.Tensor) -> int:
+    """The backward kernel a call runs: the warp design for rows of n <=
+    :data:`WARP_MAX_N` that are a whole number of 16-byte vectors, with
+    x's and dy's bases 16-byte aligned (dx is allocated aligned); every
+    other row the block design."""
+    n = x2.shape[-1]
+    if (n <= WARP_MAX_N and n * x2.element_size() % 16 == 0
+            and x2.data_ptr() % 16 == 0 and dy2.data_ptr() % 16 == 0):
+        return LN_BWD_WARP
+    return LN_BWD_BLOCK
+
+
+def ln_bwd_kernel(x_dtype: torch.dtype, w_dtype: Optional[torch.dtype],
+                  n: int, design: int) -> Optional[str]:
+    """The entry of :data:`LN_BWD_WARP_KERNELS` that a backward call with
+    design code ``design`` launches (without a weight, the fp32-weight
+    one); None for :data:`LN_BWD_BLOCK`."""
+    if design == LN_BWD_BLOCK:
+        return None
+    width = next(wd for wd in _WARP_WIDTHS if n <= wd)
+    return _warp_name(x_dtype, w_dtype or torch.float32, width)
+
+
+def ln_bwd_blocks(x2: torch.Tensor, weight: Optional[torch.Tensor],
+                  dy2: torch.Tensor) -> Tuple[int, int, int]:
+    """``(design, blocks, rows_per_block)`` of the backward kernel on
+    (rows, n) ``x2``, as the library reports them: block b owns rows
+    [b R, b R + R), the last block the rest, and writes dgamma/dbeta
+    partial b."""
+    rows, n = x2.shape
+    design = _ln_bwd_design(x2, dy2)
+    out = (ctypes.c_longlong * 2)()
+    if _lib().apex_ln_bwd_geometry(
+            rows, n, _DTYPE_CODE[x2.dtype],
+            _DTYPE_CODE[weight.dtype] if weight is not None else -1, design,
+            out) != 0:
+        raise ValueError(f"layer_norm backward: design {design} cannot run "
+                         f"rows={rows} n={n}")
+    return design, out[0], out[1]
 
 
 def _check(x: torch.Tensor, weight: Optional[torch.Tensor],
@@ -154,22 +227,23 @@ def layer_norm_bwd(x2: torch.Tensor, weight: Optional[torch.Tensor],
     if weight is not None:
         dw = torch.empty_like(weight)
         db = torch.empty_like(weight)
-        rpb = _lib().apex_ln_bwd_rows_per_block()
-        part = torch.empty(-(-rows // rpb), 2, n, device=x2.device,
-                           dtype=torch.float32)
     if rows == 0:
         if dw is not None:
             dw.zero_()
             db.zero_()
         return dx, dw, db
-    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     with torch.cuda.device(x2.device):
+        design, parts, _ = ln_bwd_blocks(x2, weight, dy2)
+        if weight is not None:
+            part = torch.empty(parts, 2, n, device=x2.device,
+                               dtype=torch.float32)
+        ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
         err = _lib().apex_ln_bwd(
             x2.data_ptr(), ptr(weight), dy2.data_ptr(), dx.data_ptr(),
             ptr(part), ptr(dw), ptr(db), rows, n, eps,
             _DTYPE_CODE[x2.dtype],
-            _DTYPE_CODE[weight.dtype] if weight is not None else 0,
-            torch.cuda.current_stream(x2.device).cuda_stream,
+            _DTYPE_CODE[weight.dtype] if weight is not None else -1,
+            design, torch.cuda.current_stream(x2.device).cuda_stream,
         )
     if err != 0:
         raise RuntimeError(f"layer_norm backward kernel launch failed: CUDA "

@@ -9,15 +9,16 @@ with a kernel phase cut out or a constant moved) is timed in its own
 process, with its own ``apex_tpu_torch`` and its own kernel build, in the
 order given, so ``parent . . parent`` compares two commits on one card.
 Each tree prints one JSON line: for every case, the device ms of one call
-of ``matmul_stats``, ``matmul_bwd_dual`` and (a control: no design of it
-changed) ``bn_relu_matmul``, summed over the call's kernels from a
-``torch.profiler`` trace of 10 back-to-back calls after a warm-up (as
-``chip_smoke.py``'s ``ms``), and, where the tree has a design rule, the
-design each entry point took.  Beside them, timed the same way in the
-same process, the PyTorch yardsticks of the two redesigned entry points
-(``library``: ``torch.matmul`` plus the fp32 column sums and sums of
-squares for ``matmul_stats``, two ``torch.matmul`` s for the dual, as
-``chip_smoke.py``'s ``library_ms``); the port never calls them.  The cases are RN50's eight batch-128 1x1
+of ``matmul_stats``, ``matmul_bwd_dual`` and ``bn_relu_matmul`` (with
+ReLU), summed over the call's kernels from a ``torch.profiler`` trace of
+10 back-to-back calls after a warm-up (as ``chip_smoke.py``'s ``ms``),
+and, where the tree has a design rule, the design each entry point took.
+Beside them, timed the same way in the same process, the PyTorch
+yardsticks of the three entry points (``library``: ``torch.matmul`` plus
+the fp32 column sums and sums of squares for ``matmul_stats``; the
+unfused BN, ReLU and cast, then the same, for ``bn_relu_matmul``; two
+``torch.matmul`` s for the dual, as ``chip_smoke.py``'s
+``library_ms``); the port never calls them.  The cases are RN50's eight batch-128 1x1
 convolutions in bf16 (``chip_smoke.py``'s ``RN50_1X1``) and the ragged
 (1000, 72, 200), with ``chip_smoke.py``'s input scales (x ~ 0.5 N(0, 1),
 w ~ 0.05 N(0, 1), dy ~ 0.1 N(0, 1), the BN parameters) from seed 22.  A
@@ -79,6 +80,12 @@ def _lib_stats(x, w):
     return y, y32.sum(0), (y32 * y32).sum(0)
 
 
+def _lib_bn(x, bn, w):
+    mean, rstd, gamma, beta = bn
+    a = ((x.float() - mean) * (rstd * gamma) + beta).clamp_min(0.0)
+    return _lib_stats(a.to(w.dtype), w)
+
+
 def time_tree() -> dict:
     """The timings of the ``apex_tpu_torch`` in the working directory."""
     sys.path.insert(0, os.getcwd())
@@ -104,12 +111,18 @@ def time_tree() -> dict:
                 rec[name] = f"not taken: {e}"
         rec["library"] = {
             "matmul_stats": _device_ms(lambda: _lib_stats(x, w)),
+            "bn_relu_matmul": _device_ms(lambda: _lib_bn(x, bn, w)),
             "matmul_bwd_dual": _device_ms(
                 lambda: (torch.matmul(dy, w.T), torch.matmul(x.T, dy)))}
         rule = getattr(cb, "_conv_bn_design", None)
         if rule is not None:
+            try:  # an older rule takes ``bn`` (and keeps it on mma.sync)
+                bn_code = rule("stats", x, w, bn=True)
+            except TypeError:
+                bn_code = rule("stats", x, w)
             rec["design"] = {
                 "matmul_stats": cb.STATS_DESIGNS[rule("stats", x, w)],
+                "bn_relu_matmul": cb.STATS_DESIGNS[bn_code],
                 "matmul_bwd_dual": cb.DUAL_DESIGNS[rule("dual", x, w, dy)]}
         out["cases"][f"M={m} K={k} N={n}"] = rec
         del x, w, bn, dy

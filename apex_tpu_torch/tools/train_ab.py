@@ -1,6 +1,6 @@
 """End-to-end training throughput of two checkouts on one card, in turns.
 
-    python3 apex_tpu_torch/tools/train_ab.py TREE [TREE ...]
+    python3 apex_tpu_torch/tools/train_ab.py [--only RUN[,RUN]] TREE [TREE ...]
 
 Run from the root of a checkout on a machine with a CUDA device: each
 TREE (a directory holding a checkout, such as the parent commit unpacked
@@ -14,7 +14,8 @@ script's own sizes, seeds and checks.  Trees run in the order given, so
 ``parent . . parent`` compares two commits on one card.  Each tree prints
 one JSON line: tokens/s (sequences/s and valid tokens/s for BERT), peak
 memory, and each profiled step's wall, device-busy time and share.  The
-first line is the card's name and power limit.
+first line is the card's name and power limit.  ``--only`` keeps the
+named runs (``gpt2_small``, ``bert_large``, ``gpt2_medium``).
 """
 from __future__ import annotations
 
@@ -28,8 +29,9 @@ _KEYS = ("tokens_per_s", "sequences_per_s", "valid_tokens_per_s",
          "device_busy_ms", "device_busy_share_unprofiled")
 
 
-def time_tree() -> dict:
-    """The training phases of the checkout in the working directory."""
+def time_tree(only=None) -> dict:
+    """The training phases of the checkout in the working directory (those
+    named in ``only``, or all)."""
     sys.path.insert(0, os.getcwd())
     import torch
 
@@ -48,6 +50,8 @@ def time_tree() -> dict:
         ("gpt2_medium", C.GPTConfig.medium, C.init_params, 30,
          C.phase_medium_train, "medium_profile"))
     for name, cfg, init, seed, phase, profile in runs:
+        if only and name not in only:
+            continue
         params = init(cfg(), torch.Generator().manual_seed(seed))
         _, step, carry = phase(dev, params)[:3]
         C.phase_step_profile(step, carry, profile, name)
@@ -63,8 +67,12 @@ def time_tree() -> dict:
 
 def main(argv=None) -> int:
     trees = sys.argv[1:] if argv is None else argv
+    only = []
+    if trees[:1] == ["--only"] and len(trees) > 1:
+        only, trees = ["--only", trees[1]], trees[2:]
     if trees == ["--here"]:
-        print(json.dumps(time_tree()), flush=True)
+        print(json.dumps(time_tree(only[1].split(",") if only else None)),
+              flush=True)
         return 0
     if not trees:
         print(__doc__, file=sys.stderr)
@@ -77,7 +85,7 @@ def main(argv=None) -> int:
     print(smi.stdout.strip(), flush=True)
     script = os.path.abspath(__file__)
     for tree in trees:
-        subprocess.run([sys.executable, script, "--here"],
+        subprocess.run([sys.executable, script, *only, "--here"],
                        cwd=os.path.abspath(tree), check=True, timeout=1200)
     return 0
 

@@ -67,19 +67,20 @@ line) on any failed check:
    step under ``torch.profiler``;
 10. conv+BN kernels: the wgmma operand descriptors (one tile product
     in each operand-major combination against ``torch.matmul``), the
-    wgmma kernels' shared memory, registers, spills and blocks per SM;
-    ``matmul_stats``, ``bn_relu_matmul`` and
+    wgmma kernels' shared memory, registers, spills (none allowed) and
+    blocks per SM; ``matmul_stats``, ``bn_relu_matmul`` and
     ``matmul_bwd_dual`` driven once each at RN50's eight 1x1 shapes
     (batch 128; the launch counts of that run alone), then held against
     their plain versions there, at three ragged shapes and at an fp32
     shape (every wgmma kernel launched by some case), each line naming
-    the design that ran (bf16 ``matmul_stats``
-    and dual on the wgmma kernels where TMA can read the matrices, the
-    rest on the mma.sync/FMA ones), with planted faults (stats of the
-    unrounded products, the last row block out of the stats and of dw,
-    the ReLU dropped, a BN bias off at one channel; in the wgmma
-    kernels a ring stage's products dropped and a block's last row tile
-    skipped), two calls bit for bit equal, timed
+    the design that ran (the three bf16 entry points on the wgmma
+    kernels where TMA can read the matrices, ``bn_relu_matmul`` with its
+    BN prologue in shared memory; the rest on the mma.sync/FMA ones),
+    with planted faults (stats of the unrounded products, the last row
+    block out of the stats and of dw, the ReLU dropped, a BN bias off at
+    one channel; in the wgmma kernels a ring stage's products dropped, a
+    block's last row tile skipped and, after the BN prologue, the padded
+    rows left unmasked), two calls bit for bit equal, timed
     beside their bounds and the library chains; the cross-entropy at
     RN50's (128, 1000) fp32 logits;
 11. ResNet-50: fp32 (O0) logits, loss and the updated running
@@ -191,10 +192,14 @@ from apex_tpu_torch.ops.conv_bn import (
 )
 from apex_tpu_torch.ops.fused_optim import lamb_stage1, lamb_stage1_ref
 from apex_tpu_torch.ops.layer_norm import (
+    LN_BWD_DESIGNS,
+    LN_BWD_WARP_KERNELS,
     layer_norm,
     layer_norm_bwd,
     layer_norm_bwd_ref,
     layer_norm_ref,
+    ln_bwd_blocks,
+    ln_bwd_kernel,
 )
 from apex_tpu_torch.ops.softmax_xentropy import (
     softmax_cross_entropy,
@@ -805,35 +810,47 @@ def phase_profile(dec):
 
 # -- phase 5: training kernels ------------------------------------------------
 
-def phase_layer_norm_bwd(dev, rows: int = 16384, n: int = 768,
-                         bert_rows: int = 6144, bert_n: int = 1024):
-    """LayerNorm backward at the GPT training shape: (16384, 768) fp32 x
-    and dy with bf16 (O2) and fp32 affine, a row count that is no multiple
-    of the kernel's 16-row block, bf16 x, and no affine (the port of
-    ``_ln_bwd_dx_kernel``: the same kernel without a weight); and at the
-    BERT-large training shape, (6144, 1024) fp32 x and dy with bf16 and
-    fp32 affine (the kernel's 4-column instantiation; 768 takes 3).  dx
-    within 1e-5 of max|dx| (fp32) or 1 bf16 ulp; dgamma/dbeta within 1e-5
-    of their largest magnitude (fp32 sums over the rows in two orders),
-    plus 1 bf16 ulp for bf16 weights.  Planted fault: the last row block
-    dropped from dgamma."""
+def ln_bwd_cases(rows: int = 16384, n: int = 768, bert_rows: int = 6144,
+                 bert_n: int = 1024):
+    """The LayerNorm backward's cases: (rows, n, x dtype, weight dtype or
+    None).  GPT-2 small's training shape with bf16 (O2) and fp32 affine,
+    a row count that is no multiple of anything, bf16 x, and no affine;
+    BERT-large's with bf16 and fp32 affine; then two rows that the block
+    design takes (a ragged n, and one wider than the warp design takes);
+    then the warp instantiations no model shape reaches (bf16 x with an
+    fp32 weight, and bf16 at n = 1024), two of them at an n short of
+    the instantiation's width (its last vectors masked)."""
+    f32, bf = torch.float32, torch.bfloat16
+    return ((rows, n, f32, bf), (rows, n, f32, f32), (rows - 3, n, f32, bf),
+            (rows, n, bf, bf), (rows, n, f32, None),
+            (bert_rows, bert_n, f32, bf), (bert_rows, bert_n, f32, f32),
+            (4099, 1021, f32, bf), (2050, 2304, bf, f32),
+            (4097, 520, bf, f32), (4097, 1000, bf, f32), (3000, 1024, bf, bf))
+
+
+def phase_layer_norm_bwd(dev, cases=None):
+    """LayerNorm backward at each of :func:`ln_bwd_cases` (the port of
+    ``_ln_bwd_dx_dwdb_kernel``; without a weight, of ``_ln_bwd_dx_kernel``:
+    the same kernel), each line naming the design the wrapper picked
+    (``_ln_bwd_design``: a warp a row with 16-byte vectors at every
+    model shape) and its warp kernel; with the default cases, every entry
+    of ``LN_BWD_WARP_KERNELS`` must be launched by some case.  dx within
+    1e-5 of max|dx| (fp32) or 1 bf16 ulp; dgamma/dbeta within 1e-5 of
+    their largest magnitude (fp32 sums over the rows in two orders), plus
+    1 bf16 ulp for bf16 weights.  Planted fault: the last block's rows
+    (the geometry the library reports) dropped from dgamma."""
     gen = torch.Generator(device=dev).manual_seed(6)
-    rpb = 16  # rows of one backward block (apex_ln_bwd_rows_per_block)
-    cases = []
-    for r, n, x_dt, w_dt in ((rows, n, torch.float32, torch.bfloat16),
-                             (rows, n, torch.float32, torch.float32),
-                             (rows - 3, n, torch.float32, torch.bfloat16),
-                             (rows, n, torch.bfloat16, torch.bfloat16),
-                             (rows, n, torch.float32, None),
-                             (bert_rows, bert_n, torch.float32,
-                              torch.bfloat16),
-                             (bert_rows, bert_n, torch.float32,
-                              torch.float32)):
+    cases_out = []
+    launched = set()
+    for r, n, x_dt, w_dt in (cases or ln_bwd_cases()):
         x = (2 * torch.randn(r, n, device=dev, generator=gen)
              + 0.5).to(x_dt)
         dy = torch.randn(r, n, device=dev, generator=gen).to(x_dt)
         w = None if w_dt is None else (
             1 + 0.1 * torch.randn(n, device=dev, generator=gen)).to(w_dt)
+        design, parts, rpb = ln_bwd_blocks(x, w, dy)
+        kname = ln_bwd_kernel(x_dt, w_dt, n, design)
+        launched.add(kname)
         got = layer_norm_bwd(x, w, dy)
         want = layer_norm_bwd_ref(x, w, dy)
         torch.cuda.synchronize()
@@ -848,12 +865,12 @@ def phase_layer_norm_bwd(dev, rows: int = 16384, n: int = 768,
                 check(_close(a, b, 1e-5, ulps=1),
                       f"layer_norm_bwd {name} rows={r} n={n} {w_dt}: "
                       f"{_err(a, b)}")
-            last = r % rpb or rpb
+            last = r - (parts - 1) * rpb
             bad = layer_norm_bwd(x[:r - last], w, dy[:r - last])[1]
-            faults["last_row_block_dropped"] = _err(bad, want[1])
+            faults["last_block_rows_dropped"] = _err(bad, want[1])
             check(not _close(bad, want[1], 1e-5, ulps=1),
                   f"layer_norm_bwd rows={r} n={n}: the check misses the last "
-                  f"row block dropped from dgamma ({faults})")
+                  f"block's {last} rows dropped from dgamma ({faults})")
         kern = timings(lambda: layer_norm_bwd(x, w, dy))
         plain = timings(lambda: layer_norm_bwd_ref(x, w, dy), iters=20)
         wl = torch.ones(n, device=dev, dtype=x_dt) if w is None \
@@ -868,14 +885,19 @@ def phase_layer_norm_bwd(dev, rows: int = 16384, n: int = 768,
                            {FP32_FLOPS: 12 * x.numel()})
         case = {"rows": r, "n": n, "x_dtype": _dt(x_dt),
                 "w_dtype": _dt(w_dt) if w is not None else "none",
+                "design": LN_BWD_DESIGNS[design], "warp_kernel": kname,
+                "blocks": parts, "rows_per_block": rpb,
                 "max_abs_err": max(errs), "errs_dx_dgamma_dbeta": errs,
                 "tol": "1e-5 of max|want| (+1 bf16 ulp for bf16)",
                 "planted_fault_errs": faults,
                 **_merge(kern, plain, lib), "bound_ms": bound,
                 "bound_by": by}
         emit({"phase": "kernel", "kernel": "layer_norm_bwd", **case})
-        cases.append(case)
-    return cases
+        cases_out.append(case)
+    missed = sorted(set(LN_BWD_WARP_KERNELS) - launched)
+    check(cases is not None or not missed,
+          f"layer_norm_bwd: no case launched the warp kernels {missed}")
+    return cases_out
 
 
 def _strict_causal_bias(s: int, dev):
@@ -2052,6 +2074,11 @@ CONV_BN_KERNELS = ("matmul_stats", "bn_relu_matmul", "matmul_bwd_dual")
 KERNEL_FAULTS = ((1, "stage_dropped", "a ring stage's products dropped"),
                  (2, "last_tile_skipped", "each block's last row tile "
                   "skipped"))
+# bn_relu_matmul's wgmma kernel adds one: rows past M (and k past K) of
+# its tiles not zeroed after the prologue (checked where M leaves padded
+# rows: padded k meet w's zero rows and change nothing)
+BN_FAULT = (3, "padding_unmasked", "the padded rows and k left unmasked "
+            "after the prologue")
 CONV_BN_LIBRARY = {
     "matmul_stats": "torch.matmul + fp32 column sums",
     "bn_relu_matmul": "unfused BN + ReLU + cast, torch.matmul, column sums",
@@ -2211,7 +2238,7 @@ def phase_conv_bn_tc_info():
     """Each wgmma conv_bn kernel's shared memory a block (a resident-w
     kernel's at the largest w the design rule keeps), resident blocks per
     SM, registers and spilled bytes a thread, as ``cudaFuncGetAttributes``
-    and the occupancy query report them."""
+    and the occupancy query report them; every one must spill nothing."""
     import ctypes
 
     lib = _conv_bn_lib()
@@ -2224,6 +2251,9 @@ def phase_conv_bn_tc_info():
         info[name] = {"smem_bytes": out[0], "blocks_per_sm": out[1],
                       "registers": out[2], "spill_bytes": out[3]}
     emit({"phase": "conv_bn_tc_info", "kernels": info})
+    spilled = {k: v["spill_bytes"] for k, v in info.items()
+               if v["spill_bytes"]}
+    check(not spilled, f"conv_bn wgmma kernels spill: {spilled}")
     return info
 
 
@@ -2248,10 +2278,12 @@ def phase_conv_bn(dev, shapes=RN50_1X1,
     out of the stats and out of dw, the ReLU dropped, and beta off by 0.1
     at the last k (against the rounded-operand reference); in the cases
     the wgmma kernels take, their planted faults (``_fault`` 1: a ring
-    stage's products dropped, 2: each block's last row tile skipped)
-    must fail the same checks.  bf16 cases: two calls give the same bits
-    (y, sum, sqsum, dx, dw).  Each line names the design that ran
-    (``_conv_bn_design``) and the wgmma kernel it launched.  Each case timed beside its bound with the plain version and
+    stage's products dropped, 2: each block's last row tile skipped; for
+    ``bn_relu_matmul`` also 3: the padded rows and k left unmasked after
+    its prologue, wherever M leaves padded rows) must fail the same
+    checks.  bf16 cases: two calls give the same bits (y, z, sum, sqsum,
+    dx, dw).  Each line names the design that ran (``_conv_bn_design``)
+    and the wgmma kernel it launched.  Each case timed beside its bound with the plain version and
     the library chain (``torch.matmul`` + column sums; the unfused BN,
     ReLU, cast, matmul and sums, as ``tools/bench_conv_bn.py``'s XLA arm;
     two ``torch.matmul`` s for the dual backward)."""
@@ -2272,10 +2304,10 @@ def phase_conv_bn(dev, shapes=RN50_1X1,
         sd = _conv_bn_design("stats", x, w)
         dd = _conv_bn_design("dual", x, w, dy)
         design = {"matmul_stats": STATS_DESIGNS[sd],
-                  "bn_relu_matmul": STATS_DESIGNS[PRESENT],
+                  "bn_relu_matmul": STATS_DESIGNS[sd],
                   "matmul_bwd_dual": DUAL_DESIGNS[dd]}
         tc = {"matmul_stats": tc_kernel("stats", sd, n),
-              "bn_relu_matmul": None,
+              "bn_relu_matmul": tc_kernel("bn", sd, n),
               "matmul_bwd_dual": tc_kernel("dual", dd, n)}
         launched.update(v for v in tc.values() if v is not None)
         # matmul_stats
@@ -2349,6 +2381,28 @@ def phase_conv_bn(dev, shapes=RN50_1X1,
                       f"{key} {name}: the check misses beta off by 0.1 at "
                       f"the last k")
                 del bad, beta_off
+            if bf16:
+                z2, s22, ss22 = bn_relu_matmul(x, *bn, w, relu=relu)
+                check(torch.equal(z, z2) and torch.equal(s2, s22)
+                      and torch.equal(ss2, ss22),
+                      f"{key} {name}: two calls differ")
+                del z2, s22, ss22
+            if sd != PRESENT and relu:
+                for f, fkey, what in KERNEL_FAULTS + (BN_FAULT,):
+                    zf, sf, ssf = bn_relu_matmul(x, *bn, w, relu=relu,
+                                                 _fault=f)
+                    torch.cuda.synchronize()
+                    faults[f"bn_kernel_{fkey}"] = max(_err(zf, zr),
+                                                      _err(sf, s2p))
+                    caught = not (_out_ok(zf, zr, a_absw)
+                                  and _stats_ok(sf, ssf, zf, zp, s2p, ss2p))
+                    if f == BN_FAULT[0] and m % 128 == 0:
+                        # no padded rows: the fault changes nothing here
+                        faults[f"bn_kernel_{fkey}"] = "no padded rows"
+                    else:
+                        check(caught, f"{key} {name}: the check misses "
+                              f"{what}")
+                    del zf, sf, ssf
             del z, zp, zr, a_absw, extra
         # matmul_bwd_dual
         dx, dw = matmul_bwd_dual(x, dy, w)
@@ -3950,6 +4004,7 @@ def _run() -> int:
         {k: c[k] for k in ("case", "design", "max_abs_err", "ms", "plain_ms",
                            "library_ms", "bound_ms", "bound_by")}
         for c in pa_cases]
+    by_name["layer_norm_bwd"]["design"] = lnb["design"]
     # the conv_bn rows hold their first RN50 shape; every case beside it
     for name in CONV_BN_KERNELS:
         by_name[name]["design"] = cb_cases[0][name]["design"]
@@ -3958,10 +4013,10 @@ def _run() -> int:
                                      "max_abs_err", "ms", "plain_ms",
                                      "library_ms", "bound_ms", "bound_by")}
             for c in cb_cases]
-        if name != "bn_relu_matmul":
-            by_name[name]["tc_info"] = {
-                k: v for k, v in cb_tc_info.items()
-                if k.startswith("stats" if name == "matmul_stats" else "dual")}
+        by_name[name]["tc_info"] = {
+            k: v for k, v in cb_tc_info.items()
+            if k.startswith("dual") == (name == "matmul_bwd_dual")
+            and k.endswith(", bn>") == (name == "bn_relu_matmul")}
     # the bias backward also stands for the two-pass backward of
     # bias_grad=True (its dbias checked in phase_flash_bias)
     by_name["flash_attention_bwd_bias"]["also_replaces"] = [
