@@ -155,7 +155,8 @@ class ResNet(nn.Module):
 
     def init_batch_stats(self, device=None) -> BatchStats:
         """Zero running means and unit running variances, flax's names
-        joined by '.' (``stage1_block1.bn1.running_mean``, ...)."""
+        joined by '.' (``stage1_block1.bn1.running_mean``, ...), on
+        ``device``: the card unless the caller names another."""
         out = {}
         for name, mod in self.named_modules():
             if isinstance(mod, SyncBatchNorm):

@@ -12,11 +12,16 @@ cast to the weight's dtype).  :func:`layer_norm` is a
 (the dx kernel plus the deterministic dgamma/dbeta reduction; with no
 weight, the dx-only variant); on CPU tensors both run the plain versions.
 
-The backward has two designs, picked by :func:`_ln_bwd_design`: rows of
-at most :data:`WARP_MAX_N` that are a whole number of 16-byte vectors,
-on 16-byte aligned bases (every ported model), run the warp design (a
-warp a row, persistent blocks, 16-byte vector loads); every other row
-the block design (a block of 256 threads a row, 16 rows a block).
+Each direction has three designs, picked here alone
+(:func:`_ln_fwd_design`, :func:`_ln_bwd_design`) and passed to the
+library by code: rows of at most :data:`WARP_MAX_N` that are a whole
+number of 16-byte vectors, on 16-byte aligned bases (every ported
+model), run the warp design (a warp a row, persistent blocks, 16-byte
+vector loads and stores, the row read once); other rows of at most
+:data:`BLOCK_MAX_N` the block design (a block of 256 threads a row, the
+row held in registers; the backward's blocks own 16 rows); wider rows,
+of any n, the wide design (the block design with the row read again
+from memory for each pass instead of held).
 """
 from __future__ import annotations
 
@@ -29,37 +34,47 @@ import torch
 from apex_tpu_torch.ops import _build
 from apex_tpu_torch.ops._common import use_kernel
 
-__all__ = ["LN_BWD_WARP_KERNELS", "MAX_N", "WARP_MAX_N", "layer_norm",
-           "layer_norm_bwd", "layer_norm_bwd_ref", "layer_norm_ref",
-           "ln_bwd_blocks", "ln_bwd_kernel"]
+__all__ = ["BLOCK_MAX_N", "LN_BWD_DESIGNS", "LN_BWD_WARP_KERNELS",
+           "LN_FWD_DESIGNS", "LN_FWD_WARP_KERNELS", "WARP_MAX_N",
+           "layer_norm", "layer_norm_bwd", "layer_norm_bwd_ref",
+           "layer_norm_ref", "ln_bwd_blocks", "ln_bwd_kernel",
+           "ln_fwd_kernel"]
 
-# widest row the kernels take (the backward's block design keeps
-# ceil(n / 256) <= 32 columns per thread in registers)
-MAX_N = 8192
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-# the backward's designs (the codes apex_ln_bwd takes; the rule that picks
-# them is here alone): a block of 256 threads for 16 rows, any n up to
-# MAX_N; a warp a row with 16-byte vector loads, n up to WARP_MAX_N
-LN_BWD_BLOCK, LN_BWD_WARP = 0, 1
+# the designs of each direction (the codes apex_ln_fwd and apex_ln_bwd
+# take; the rules that pick them are here alone): a warp a row with
+# 16-byte vectors, n up to WARP_MAX_N; a block of 256 threads a row with
+# the row in registers (ceil(n / 256) <= 32 columns a thread), n up to
+# BLOCK_MAX_N; the same block reading the row again for each pass, any n
+LN_FWD_BLOCK = LN_BWD_BLOCK = 0
+LN_FWD_WARP = LN_BWD_WARP = 1
+LN_FWD_WIDE = LN_BWD_WIDE = 2
+LN_FWD_DESIGNS = {LN_FWD_BLOCK: "block_per_row_registers",
+                  LN_FWD_WARP: "warp_per_row_vec16",
+                  LN_FWD_WIDE: "block_per_row_two_pass"}
 LN_BWD_DESIGNS = {LN_BWD_BLOCK: "block_per_16_rows",
-                  LN_BWD_WARP: "warp_per_row_vec16"}
+                  LN_BWD_WARP: "warp_per_row_vec16",
+                  LN_BWD_WIDE: "wide_persistent_three_pass"}
 WARP_MAX_N = 1024
-# the warp design's instantiations in csrc/layer_norm.cu: for each x and
+BLOCK_MAX_N = 8192
+# the warp designs' instantiations in csrc/layer_norm.cu: for each x and
 # weight dtype, the vectors a lane holds at n = 768 (taken by every n up
 # to 768) and at n = 1024
 _WARP_WIDTHS = (768, WARP_MAX_N)
 _DT_NAME = {torch.float32: "fp32", torch.bfloat16: "bf16"}
 
 
-def _warp_name(x_dt: torch.dtype, w_dt: torch.dtype, width: int) -> str:
+def _warp_name(kernel: str, x_dt: torch.dtype, w_dt: torch.dtype,
+               width: int) -> str:
     vw = 16 // torch.tensor([], dtype=x_dt).element_size()
-    return (f"ln_bwd_warp<{_DT_NAME[x_dt]}, {_DT_NAME[w_dt]}, "
+    return (f"{kernel}<{_DT_NAME[x_dt]}, {_DT_NAME[w_dt]}, "
             f"{width // (32 * vw)} x {vw}>")
 
 
-LN_BWD_WARP_KERNELS = tuple(
-    _warp_name(x_dt, w_dt, width) for x_dt in _DT_NAME for w_dt in _DT_NAME
-    for width in _WARP_WIDTHS)
+LN_FWD_WARP_KERNELS, LN_BWD_WARP_KERNELS = (tuple(
+    _warp_name(kernel, x_dt, w_dt, width) for x_dt in _DT_NAME
+    for w_dt in _DT_NAME for width in _WARP_WIDTHS)
+    for kernel in ("ln_fwd_warp", "ln_bwd_warp"))
 
 
 def layer_norm_ref(
@@ -112,7 +127,7 @@ def _lib():
     lib.apex_ln_fwd.argtypes = [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_longlong, ctypes.c_int, ctypes.c_float, ctypes.c_int,
-        ctypes.c_int, ctypes.c_void_p]
+        ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     lib.apex_ln_fwd.restype = ctypes.c_int
     lib.apex_ln_bwd.argtypes = [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
@@ -127,27 +142,64 @@ def _lib():
     return lib
 
 
+def _design(*tensors: torch.Tensor) -> int:
+    """The design code for rows of ``tensors`` (x and dy; the outputs are
+    allocated aligned): warp for rows of n <= :data:`WARP_MAX_N` that are
+    a whole number of 16-byte vectors, every base 16-byte aligned; block
+    for other rows up to :data:`BLOCK_MAX_N`; wide past it."""
+    n = tensors[0].shape[-1]
+    if (n <= WARP_MAX_N and n * tensors[0].element_size() % 16 == 0
+            and all(t.data_ptr() % 16 == 0 for t in tensors)):
+        return LN_FWD_WARP
+    return LN_FWD_BLOCK if n <= BLOCK_MAX_N else LN_FWD_WIDE
+
+
+def _ln_fwd_design(x2: torch.Tensor) -> int:
+    """The forward kernel a call on (rows, n) ``x2`` runs (code of
+    :data:`LN_FWD_DESIGNS`)."""
+    return _design(x2)
+
+
 def _ln_bwd_design(x2: torch.Tensor, dy2: torch.Tensor) -> int:
-    """The backward kernel a call runs: the warp design for rows of n <=
-    :data:`WARP_MAX_N` that are a whole number of 16-byte vectors, with
-    x's and dy's bases 16-byte aligned (dx is allocated aligned); every
-    other row the block design."""
-    n = x2.shape[-1]
-    if (n <= WARP_MAX_N and n * x2.element_size() % 16 == 0
-            and x2.data_ptr() % 16 == 0 and dy2.data_ptr() % 16 == 0):
-        return LN_BWD_WARP
-    return LN_BWD_BLOCK
+    """The backward kernel a call on (rows, n) ``x2`` and ``dy2`` runs
+    (code of :data:`LN_BWD_DESIGNS`)."""
+    return _design(x2, dy2)
+
+
+def _block_columns(n: int) -> int:
+    """Columns a thread holds in the block designs: ceil(n / 256) rounded
+    up to a power of two."""
+    c = 1
+    while 256 * c < n:
+        c *= 2
+    return c
+
+
+def ln_fwd_kernel(x_dtype: torch.dtype, w_dtype: Optional[torch.dtype],
+                  n: int, design: int) -> str:
+    """The instantiation that a forward call with design code ``design``
+    launches (without a weight, the fp32-weight one): an entry of
+    :data:`LN_FWD_WARP_KERNELS` for the warp design."""
+    w_dtype = w_dtype or torch.float32
+    if design == LN_FWD_WARP:
+        width = next(wd for wd in _WARP_WIDTHS if n <= wd)
+        return _warp_name("ln_fwd_warp", x_dtype, w_dtype, width)
+    x, w = _DT_NAME[x_dtype], _DT_NAME[w_dtype]
+    if design == LN_FWD_BLOCK:
+        return f"ln_fwd_block<{x}, {w}, {_block_columns(n)}>"
+    return f"ln_fwd_wide<{x}, {w}>"
 
 
 def ln_bwd_kernel(x_dtype: torch.dtype, w_dtype: Optional[torch.dtype],
                   n: int, design: int) -> Optional[str]:
     """The entry of :data:`LN_BWD_WARP_KERNELS` that a backward call with
     design code ``design`` launches (without a weight, the fp32-weight
-    one); None for :data:`LN_BWD_BLOCK`."""
-    if design == LN_BWD_BLOCK:
+    one); None for the block and wide designs."""
+    if design != LN_BWD_WARP:
         return None
     width = next(wd for wd in _WARP_WIDTHS if n <= wd)
-    return _warp_name(x_dtype, w_dtype or torch.float32, width)
+    return _warp_name("ln_bwd_warp", x_dtype, w_dtype or torch.float32,
+                      width)
 
 
 def ln_bwd_blocks(x2: torch.Tensor, weight: Optional[torch.Tensor],
@@ -174,8 +226,8 @@ def _check(x: torch.Tensor, weight: Optional[torch.Tensor],
     n = x.shape[-1]
     if x.dtype not in _DTYPE_CODE:
         raise ValueError(f"layer_norm kernel takes fp32/bf16 x, got {x.dtype}")
-    if not 1 <= n <= MAX_N:
-        raise ValueError(f"layer_norm kernel takes 1 <= n <= {MAX_N}, got {n}")
+    if n < 1:
+        raise ValueError(f"layer_norm kernel takes n >= 1, got {n}")
     if not x.is_contiguous():
         raise ValueError("layer_norm kernel takes a contiguous x")
     for name, t in (("weight", weight), ("bias", bias)):
@@ -189,18 +241,23 @@ def _check(x: torch.Tensor, weight: Optional[torch.Tensor],
                          f"dtype, got {weight.dtype} and {bias.dtype}")
 
 
-def _launch_fwd(x2, weight, bias, eps) -> torch.Tensor:
-    y = torch.empty_like(x2)
+def _launch_fwd(x2, weight, bias, eps,
+                out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The forward kernel on (rows, n) ``x2``, into a new tensor or into
+    ``out`` (like ``x2``, 16-byte aligned; the card's checks hand in one
+    filled with NaN, to see every row written)."""
+    y = torch.empty_like(x2) if out is None else out
     rows, n = x2.shape
     if rows == 0:
         return y
-    w_code = _DTYPE_CODE[weight.dtype] if weight is not None else 0
+    w_code = _DTYPE_CODE[weight.dtype] if weight is not None else -1
     with torch.cuda.device(x2.device):
         err = _lib().apex_ln_fwd(
             x2.data_ptr(),
             None if weight is None else weight.data_ptr(),
             None if bias is None else bias.data_ptr(),
             y.data_ptr(), rows, n, eps, _DTYPE_CODE[x2.dtype], w_code,
+            _ln_fwd_design(x2),
             torch.cuda.current_stream(x2.device).cuda_stream,
         )
     if err != 0:
@@ -281,7 +338,7 @@ def layer_norm(
     shape).
 
     CUDA tensors run ``csrc/layer_norm.cu``: ``x`` contiguous fp32 or bf16
-    with a last axis of at most :data:`MAX_N`, ``weight``/``bias`` fp32 or
+    with a last axis of any length, ``weight``/``bias`` fp32 or
     bf16 (one dtype) of that length, or both None.  Under O2 the affine
     parameters are bf16 while x is fp32; they are upcast in the kernel and
     their gradients come back in their own dtype.  A one-sided affine is

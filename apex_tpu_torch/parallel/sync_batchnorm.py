@@ -29,6 +29,8 @@ from typing import Optional, Tuple
 import torch
 from torch import nn
 
+from apex_tpu_torch.ops._common import resolve_device
+
 __all__ = ["SyncBatchNorm"]
 
 RunningStats = Tuple[torch.Tensor, torch.Tensor]
@@ -98,8 +100,10 @@ class SyncBatchNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(num_features))
 
     def init_stats(self, device=None) -> RunningStats:
-        """Zero running mean, unit running var (flax's initialisers)."""
+        """Zero running mean, unit running var (flax's initialisers), on
+        ``device``: the card unless the caller names another."""
         c = self.num_features
+        device = resolve_device(device)
         return (torch.zeros(c, device=device), torch.ones(c, device=device))
 
     def forward(self, x: torch.Tensor, stats: Optional[RunningStats] = None,

@@ -1,4 +1,5 @@
-"""Device time of the LayerNorm backward of two checkouts, in turns.
+"""Device time of the LayerNorm forward and backward of two checkouts, in
+turns.
 
     python3 apex_tpu_torch/tools/ln_ab.py TREE [TREE ...]
 
@@ -8,19 +9,32 @@ with ``git archive`` into a git-ignored directory, or a timing-only copy
 with a constant moved) is timed in its own process, with its own
 ``apex_tpu_torch`` and its own kernel build, in the order given, so
 ``parent . . parent`` compares two commits on one card.  Each tree
-prints one JSON line: for every case, the device ms of one call of
-``layer_norm_bwd`` (the kernel and the dgamma/dbeta reduction), summed
-over the call's kernels from a ``torch.profiler`` trace of 20
-back-to-back calls after a warm-up (as ``chip_smoke.py``'s ``ms``), and,
-beside it, timed the same way in the same process, PyTorch's
-``aten::native_layer_norm_backward`` on the same inputs (the port never
-calls it), the bound (x and dy read once, dx written once, w read and
-dgamma/dbeta written once, at 3.35 TB/s), and where the tree has a
-design rule, the design the call took.  The cases are
-``chip_smoke.py``'s ``phase_layer_norm_bwd`` cases and GPT-2 medium's
-(8192, 1024) fp32 x with bf16 w, the inputs made as there (x ~ 2 N(0,
-1) + 0.5, dy ~ N(0, 1), w ~ 1 + 0.1 N(0, 1)) from seed 6.  A case a tree refuses reads as the error it raised.  The
-first line is the card's name and power limit.
+prints one JSON line with the device ms of one call, summed over the
+call's kernels from a ``torch.profiler`` trace of 20 back-to-back calls
+after a warm-up (as ``chip_smoke.py``'s ``ms``), at every case, and,
+beside it, timed the same way in the same process, PyTorch's own call
+on the same inputs (the port never calls it), the bound at 3.35 TB/s,
+and where the tree has a design rule, the design the call took; where
+that is the block design (rows of n <= 8192 off the warp design),
+``wide_ms`` is the same call forced through the wide design (the rule
+patched for that call alone), the measurement that keeps both designs:
+
+- ``fwd_cases``: ``layer_norm`` beside ``F.layer_norm`` (weight and bias
+  cast to x's dtype), the bound x read and y written once, w and b read
+  once; the cases of ``chip_smoke.py``'s ``phase_layer_norm`` (GPT-2
+  medium's (8192, 1024) among them), the inputs made as there (x ~ 2 N(0,
+  1) + 0.5, w ~ 1 + 0.1 N(0, 1), b ~ 0.1 N(0, 1)) from seed 1, and
+  (2050, 2304) bf16 x with fp32 affine, the backward's second block-design
+  case;
+- ``cases``: ``layer_norm_bwd`` (the kernel and the dgamma/dbeta
+  reduction) beside ``aten::native_layer_norm_backward``, the bound x
+  and dy read once, dx written once, w read and dgamma/dbeta written
+  once; ``chip_smoke.py``'s ``phase_layer_norm_bwd`` cases and GPT-2
+  medium's (8192, 1024) fp32 x with bf16 w, the inputs made as there
+  (x as above, dy ~ N(0, 1), w as above) from seed 6.
+
+A case a tree refuses reads as the error it raised.  The first line is
+the card's name and power limit.
 """
 from __future__ import annotations
 
@@ -29,6 +43,25 @@ import os
 import subprocess
 import sys
 
+# (rows, n, x dtype, w dtype, bytes x's base lies past a 16-byte
+# boundary): chip_smoke.ln_fwd_cases, and the backward's (2050, 2304)
+FWD_CASES = (
+    (8, 768, "float32", "float32", 0), (8, 768, "bfloat16", "float32", 0),
+    (128, 768, "float32", "float32", 0), (128, 768, "bfloat16", "float32", 0),
+    (512, 768, "float32", "float32", 0),
+    (16384, 768, "float32", "bfloat16", 0),
+    (16384, 768, "float32", "float32", 0),
+    (6144, 1024, "float32", "bfloat16", 0),
+    (6144, 1024, "float32", "float32", 0),
+    (8192, 1024, "float32", "bfloat16", 0),
+    (4097, 520, "bfloat16", "bfloat16", 0),
+    (3000, 1024, "bfloat16", "bfloat16", 0),
+    (4097, 1024, "bfloat16", "float32", 0),
+    (4099, 1021, "float32", "bfloat16", 0),
+    (4096, 768, "float32", "bfloat16", 4),
+    (2050, 2304, "bfloat16", "float32", 0),
+    (1024, 12288, "float32", "bfloat16", 0),
+    (1024, 16384, "bfloat16", "float32", 0))
 # (rows, n, x dtype, w dtype or None): chip_smoke.ln_bwd_cases, with
 # GPT-2 medium's shape after BERT-large's
 CASES = (
@@ -38,7 +71,8 @@ CASES = (
     (6144, 1024, "float32", "float32"), (8192, 1024, "float32", "bfloat16"),
     (4099, 1021, "float32", "bfloat16"), (2050, 2304, "bfloat16", "float32"),
     (4097, 520, "bfloat16", "float32"), (4097, 1000, "bfloat16", "float32"),
-    (3000, 1024, "bfloat16", "bfloat16"))
+    (3000, 1024, "bfloat16", "bfloat16"), (1024, 12288, "float32", "bfloat16"),
+    (1024, 16384, "bfloat16", "float32"))
 
 
 def _device_ms(fn, iters: int = 20) -> float:
@@ -62,6 +96,17 @@ def _device_ms(fn, iters: int = 20) -> float:
     return us / iters / 1e3 if us > 0 else None
 
 
+def _wide_ms(ln, rule: str, code: int, fn):
+    """Device ms of ``fn()`` with the tree's design rule ``rule`` patched
+    to return ``code`` (the wrapper looks the rule up at each call)."""
+    keep = getattr(ln, rule)
+    setattr(ln, rule, lambda *t: code)
+    try:
+        return _device_ms(fn)
+    finally:
+        setattr(ln, rule, keep)
+
+
 def time_tree() -> dict:
     """The timings of the ``apex_tpu_torch`` in the working directory."""
     sys.path.insert(0, os.getcwd())
@@ -71,11 +116,47 @@ def time_tree() -> dict:
 
     from apex_tpu_torch.ops import _build
 
+    import torch.nn.functional as F
+
     ln = importlib.import_module("apex_tpu_torch.ops.layer_norm")
     _build.build(["layer_norm"])
     dev = torch.device("cuda")
+    out = {"tree": os.getcwd(), "fwd_cases": {}, "cases": {}}
+    gen = torch.Generator(device=dev).manual_seed(1)
+    for rows, n, x_name, w_name, misalign in FWD_CASES:
+        x_dt, w_dt = getattr(torch, x_name), getattr(torch, w_name)
+        w = (1 + 0.1 * torch.randn(n, device=dev, generator=gen)).to(w_dt)
+        b = (0.1 * torch.randn(n, device=dev, generator=gen)).to(w_dt)
+        x = (2 * torch.randn(rows, n, device=dev, generator=gen)
+             + 0.5).to(x_dt)
+        if misalign:  # a copy whose base lies misalign bytes off 16
+            es = x.element_size()
+            buf = torch.empty(x.numel() + 16 // es, dtype=x_dt, device=dev)
+            off = next(i for i in range(16 // es)
+                       if (buf.data_ptr() + i * es) % 16 == misalign)
+            x = buf[off:off + x.numel()].view(rows, n).copy_(x)
+        rec = {}
+        try:
+            rec["ms"] = _device_ms(lambda: ln.layer_norm(x, w, b))
+        except (ValueError, RuntimeError) as e:
+            rec["ms"] = f"not taken: {e}"
+        wd, bd = w.to(x_dt), b.to(x_dt)
+        rec["library_ms"] = _device_ms(lambda: F.layer_norm(x, (n,), wd, bd))
+        rec["bound_ms"] = (2 * x.numel() * x.element_size()
+                           + 2 * n * w.element_size()) / 3.35e12 * 1e3
+        rule = getattr(ln, "_ln_fwd_design", None)
+        if rule is not None:
+            rec["design"] = ln.LN_FWD_DESIGNS[rule(x)]
+            if rule(x) == ln.LN_FWD_BLOCK:
+                rec["wide_ms"] = _wide_ms(
+                    ln, "_ln_fwd_design", ln.LN_FWD_WIDE,
+                    lambda: ln.layer_norm(x, w, b))
+        key = f"rows={rows} n={n} {x_name}/{w_name}"
+        out["fwd_cases"][key + (f" misalign={misalign}" if misalign
+                                else "")] = rec
+        del x, w, b, wd, bd
+        torch.cuda.empty_cache()
     gen = torch.Generator(device=dev).manual_seed(6)
-    out = {"tree": os.getcwd(), "cases": {}}
     for rows, n, x_name, w_name in CASES:
         x_dt = getattr(torch, x_name)
         x = (2 * torch.randn(rows, n, device=dev, generator=gen)
@@ -103,6 +184,10 @@ def time_tree() -> dict:
         rule = getattr(ln, "_ln_bwd_design", None)
         if rule is not None:
             rec["design"] = ln.LN_BWD_DESIGNS[rule(x, dy)]
+            if rule(x, dy) == ln.LN_BWD_BLOCK:
+                rec["wide_ms"] = _wide_ms(
+                    ln, "_ln_bwd_design", ln.LN_BWD_WIDE,
+                    lambda: ln.layer_norm_bwd(x, w, dy))
         out["cases"][f"rows={rows} n={n} {x_name}/{w_name}"] = rec
         del x, dy, w, wl, bl, mean, rstd
         torch.cuda.empty_cache()

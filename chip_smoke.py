@@ -11,7 +11,9 @@ line) on any failed check:
 1. card: name and power limit (``nvidia-smi``), kernel build time;
 2. kernels: each hand-written kernel against its plain PyTorch version
    on the card at the serving path's shapes (LayerNorm forward also at
-   the GPT-2 and BERT-large training shapes, with O2's bf16 affine), with
+   the GPT-2 small, BERT-large and GPT-2 medium training shapes, with
+   O2's bf16 affine, which must take its warp design, and at rows that
+   take its block and wide designs, with planted faults), with
    its time, the plain version's time, one PyTorch library call's time
    as a yardstick and the least time the card could take (``bound_ms``);
    paged attention at every case of :func:`paged_problems` (decode,
@@ -194,12 +196,18 @@ from apex_tpu_torch.ops.fused_optim import lamb_stage1, lamb_stage1_ref
 from apex_tpu_torch.ops.layer_norm import (
     LN_BWD_DESIGNS,
     LN_BWD_WARP_KERNELS,
+    LN_FWD_DESIGNS,
+    LN_FWD_WARP,
+    LN_FWD_WARP_KERNELS,
+    _launch_fwd,
+    _ln_fwd_design,
     layer_norm,
     layer_norm_bwd,
     layer_norm_bwd_ref,
     layer_norm_ref,
     ln_bwd_blocks,
     ln_bwd_kernel,
+    ln_fwd_kernel,
 )
 from apex_tpu_torch.ops.softmax_xentropy import (
     softmax_cross_entropy,
@@ -343,9 +351,10 @@ def timings(fn, iters: int = 50, prof_iters: int = 20) -> dict:
             "ms_source": "events" if dev is None else "profiler"}
 
 
-def bf16_ulp_ok(got, want, ulps: int = 1, floor: float = 0.0) -> bool:
+def bf16_ulp_ok(got, want, ulps: int = 1, floor=0.0) -> bool:
     """Every element within ``ulps`` bf16 ulps of the larger magnitude,
-    plus an absolute ``floor``."""
+    plus an absolute ``floor`` (a number, or a tensor of one an
+    element)."""
     g, w = got.float(), want.float()
     big = torch.maximum(g.abs(), w.abs()).clamp_min(1e-30)
     ulp = torch.exp2(torch.floor(torch.log2(big)) - 7)
@@ -397,37 +406,124 @@ def _case_name(c: dict) -> str:
 
 # -- phase 2: kernels ------------------------------------------------------
 
+def ln_fwd_cases():
+    """The LayerNorm forward's cases: (rows, n, x dtype, weight dtype,
+    bytes x's base lies past a 16-byte boundary).  The serving shapes (the
+    decode step, 8 slots x 1 token, and the 128- and 512-token prefill
+    chunks; fp32 and bf16 x with fp32 affine); GPT-2 small's training
+    shape, (16384, 768) fp32 x with bf16 affine (O2 casts every GPT
+    parameter, LayerNorm's included) and with fp32 affine (O0);
+    BERT-large's (6144, 1024) and GPT-2 medium's (8192, 1024) likewise;
+    then the warp instantiations no model shape reaches (bf16 x with bf16
+    affine at n 520, its last vectors masked, and at 1024; bf16 x with
+    fp32 affine at 1024); then the block design (a ragged n, and a base 4
+    bytes off alignment) and the wide design (n 12288 and 16384)."""
+    f32, bf = torch.float32, torch.bfloat16
+    return ((8, 768, f32, f32, 0), (8, 768, bf, f32, 0),
+            (128, 768, f32, f32, 0), (128, 768, bf, f32, 0),
+            (512, 768, f32, f32, 0),
+            (16384, 768, f32, bf, 0), (16384, 768, f32, f32, 0),
+            (6144, 1024, f32, bf, 0), (6144, 1024, f32, f32, 0),
+            (8192, 1024, f32, bf, 0),
+            (4097, 520, bf, bf, 0), (3000, 1024, bf, bf, 0),
+            (4097, 1024, bf, f32, 0),
+            (4099, 1021, f32, bf, 0), (4096, 768, f32, bf, 4),
+            (1024, 12288, f32, bf, 0), (1024, 16384, bf, f32, 0))
+
+
+# the forward cases at a model's training shape, which must take the warp
+# design: GPT-2 small, BERT-large, GPT-2 medium (fp32 x, as every model
+# passes it)
+LN_FWD_TRAIN_SHAPES = ((16384, 768), (6144, 1024), (8192, 1024))
+
+
+def _json_err(got, want):
+    """:func:`_err`, or "nan" where ``got`` holds NaN (JSON has no NaN)."""
+    e = _err(got, want)
+    return e if e == e else "nan"
+
+
+def _offset_copy(t, nbytes: int):
+    """A copy of ``t`` whose base lies ``nbytes`` past a 16-byte
+    boundary."""
+    es = t.element_size()
+    buf = torch.empty(t.numel() + 16 // es, dtype=t.dtype, device=t.device)
+    off = next(i for i in range(16 // es)
+               if (buf.data_ptr() + i * es) % 16 == nbytes)
+    out = buf[off:off + t.numel()].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+def ln_fwd_slack(x, w, b):
+    """Per element of a LayerNorm forward's y, the fp32 rounding that row
+    sums taken in another order can leave in it before its one rounding
+    to bf16: 4 fp32 ulps (2^-21) of (|x| + |mean|) rstd |w| + |b|, the
+    magnitudes y is formed from.  Where y cancels to near 0 that is many
+    of y's own bf16 ulps; elsewhere it is far below one."""
+    x32 = x.float()
+    mean = x32.mean(-1, keepdim=True)
+    rstd = torch.rsqrt((x32 * x32).mean(-1, keepdim=True) - mean * mean
+                       + 1e-5)
+    return 2.0 ** -21 * ((x32.abs() + mean.abs()) * rstd * w.float().abs()
+                         + b.float().abs())
+
+
 def phase_layer_norm(dev):
-    """LayerNorm forward at the serving shapes (the decode step, 8 slots x
-    1 token, and a 128-token prefill chunk; fp32 and bf16 x with fp32
-    affine), at the GPT training shape, (16384, 768) fp32 x with bf16
-    affine (O2 casts every GPT parameter, LayerNorm's included) and with
-    fp32 affine (O0), and at the BERT-large training shape, (6144, 1024),
-    likewise.  fp32 output within 1e-5, bf16 within 1 bf16 ulp."""
+    """LayerNorm forward at each of :func:`ln_fwd_cases` (the port of
+    ``_ln_fwd_kernel``), each line naming the design the wrapper picked
+    (``_ln_fwd_design``) and the instantiation it launched.  fp32 output
+    within 1e-5, bf16 within 1 bf16 ulp of the larger magnitude plus
+    :func:`ln_fwd_slack` of the plain version (``within_1_ulp`` says
+    whether the bare ulp held as well); a second call into a y filled
+    with NaN must give the same bits (every row written, the same sums on
+    every run).  Planted faults the check must reject: the variance
+    without its -mean^2 term, the affine dropped (the kernel without
+    weight and bias) and the last row left unwritten in a y filled with
+    NaN.  The training shapes of :data:`LN_FWD_TRAIN_SHAPES` must take
+    the warp design and every entry of ``LN_FWD_WARP_KERNELS`` must be
+    launched by some case."""
     gen = torch.Generator(device=dev).manual_seed(1)
-    cases = []
-    for rows, n, dtype, w_dt in ((8, 768, torch.float32, torch.float32),
-                                 (8, 768, torch.bfloat16, torch.float32),
-                                 (128, 768, torch.float32, torch.float32),
-                                 (128, 768, torch.bfloat16, torch.float32),
-                                 (16384, 768, torch.float32, torch.bfloat16),
-                                 (16384, 768, torch.float32, torch.float32),
-                                 (6144, 1024, torch.float32, torch.bfloat16),
-                                 (6144, 1024, torch.float32, torch.float32)):
+    out = []
+    for rows, n, dtype, w_dt, misalign in ln_fwd_cases():
         w = (1 + 0.1 * torch.randn(n, device=dev, generator=gen)).to(w_dt)
         b = (0.1 * torch.randn(n, device=dev, generator=gen)).to(w_dt)
         x = (2 * torch.randn(rows, n, device=dev, generator=gen)
              + 0.5).to(dtype)
+        if misalign:
+            x = _offset_copy(x, misalign)
+        design = _ln_fwd_design(x)
         got = layer_norm(x, w, b)
         want = layer_norm_ref(x, w, b)
+        poisoned = _launch_fwd(x, w, b, 1e-5,
+                               out=torch.full_like(x, float("nan")))
         torch.cuda.synchronize()
-        err = (got.float() - want.float()).abs().max().item()
-        if dtype == torch.float32:
-            check(err <= 1e-5, f"layer_norm fp32 rows={rows} n={n} affine "
-                  f"{_dt(w_dt)}: {err}")
-        else:
-            check(bf16_ulp_ok(got, want),
-                  f"layer_norm bf16 rows={rows} n={n}: {err}")
+        err = _err(got, want)
+        slack = ln_fwd_slack(x, w, b)
+
+        def ok(y):
+            if dtype == torch.float32:
+                return _err(y, want) <= 1e-5
+            return bf16_ulp_ok(y, want, ulps=1, floor=slack)
+
+        name = (f"layer_norm rows={rows} n={n} {_dt(dtype)}/{_dt(w_dt)} "
+                f"misalign={misalign}")
+        check(ok(got), f"{name}: {err}")
+        check(_bitwise(poisoned, got),
+              f"{name}: a call into a NaN-filled y differs from the first")
+        x32 = x.float()
+        mean = x32.mean(-1, keepdim=True)
+        no_msq = ((x32 - mean) * torch.rsqrt((x32 * x32).mean(
+            -1, keepdim=True) + 1e-5) * w.float() + b.float()).to(dtype)
+        unwritten = torch.full_like(x, float("nan"))
+        _launch_fwd(x[:-1], w, b, 1e-5, out=unwritten[:-1])
+        faults = {"var_without_mean_sq": no_msq,
+                  "affine_dropped": layer_norm(x),
+                  "last_row_unwritten": unwritten}
+        torch.cuda.synchronize()
+        for fault, y in faults.items():
+            check(not ok(y), f"{name}: the check misses the planted fault "
+                  f"{fault}")
         kern = timings(lambda: layer_norm(x, w, b))
         plain = timings(lambda: layer_norm_ref(x, w, b))
         wd, bd = w.to(dtype), b.to(dtype)
@@ -436,13 +532,33 @@ def phase_layer_norm(dev):
                            + 2 * n * w.element_size(),
                            {FP32_FLOPS: 8 * x.numel()})
         case = {"rows": rows, "n": n, "dtype": _dt(dtype),
-                "w_dtype": _dt(w_dt), "max_abs_err": err,
-                "tol": "1e-5" if dtype == torch.float32 else "1 bf16 ulp",
+                "w_dtype": _dt(w_dt), "misalign_bytes": misalign,
+                "design": LN_FWD_DESIGNS[design],
+                "kernel_instance": ln_fwd_kernel(dtype, w_dt, n, design),
+                "max_abs_err": err,
+                "tol": "1e-5" if dtype == torch.float32
+                else "1 bf16 ulp + 2^-21 (|x| + |mean|) rstd |w| + |b|",
+                "within_1_ulp": None if dtype == torch.float32
+                else bf16_ulp_ok(got, want),
+                "planted_fault_errs": {k: _json_err(y, want)
+                                       for k, y in faults.items()},
                 **_merge(kern, plain, lib), "bound_ms": bound,
                 "bound_by": by}
         emit({"phase": "kernel", "kernel": "layer_norm", **case})
-        cases.append(case)
-    return cases
+        out.append(case)
+        del (x, w, b, got, want, poisoned, x32, mean, no_msq, unwritten,
+             faults, slack)
+    warp = LN_FWD_DESIGNS[LN_FWD_WARP]
+    off = [(c["rows"], c["n"], c["design"]) for c in out
+           if (c["rows"], c["n"]) in LN_FWD_TRAIN_SHAPES
+           and c["dtype"] == "float32" and c["design"] != warp]
+    check(not off, f"layer_norm: training shapes off the warp design {off}")
+    missed = sorted(set(LN_FWD_WARP_KERNELS)
+                    - {c["kernel_instance"] for c in out})
+    check(not missed, f"layer_norm: no case launched the warp kernels "
+          f"{missed}")
+    torch.cuda.empty_cache()
+    return out
 
 
 def _paged_problem(dev, gen, t, pool_dtype, masked, lengths=None):
@@ -819,13 +935,15 @@ def ln_bwd_cases(rows: int = 16384, n: int = 768, bert_rows: int = 6144,
     design takes (a ragged n, and one wider than the warp design takes);
     then the warp instantiations no model shape reaches (bf16 x with an
     fp32 weight, and bf16 at n = 1024), two of them at an n short of
-    the instantiation's width (its last vectors masked)."""
+    the instantiation's width (its last vectors masked); then two rows
+    wider than the block design takes (the wide design)."""
     f32, bf = torch.float32, torch.bfloat16
     return ((rows, n, f32, bf), (rows, n, f32, f32), (rows - 3, n, f32, bf),
             (rows, n, bf, bf), (rows, n, f32, None),
             (bert_rows, bert_n, f32, bf), (bert_rows, bert_n, f32, f32),
             (4099, 1021, f32, bf), (2050, 2304, bf, f32),
-            (4097, 520, bf, f32), (4097, 1000, bf, f32), (3000, 1024, bf, bf))
+            (4097, 520, bf, f32), (4097, 1000, bf, f32), (3000, 1024, bf, bf),
+            (1024, 12288, f32, bf), (1024, 16384, bf, f32))
 
 
 def phase_layer_norm_bwd(dev, cases=None):
@@ -3715,6 +3833,7 @@ def phase_medium_kernels(dev, rows: int = 8192, n: int = 1024,
                        {FP32_FLOPS: 8 * x.numel()})
     out["layer_norm"] = {
         "case": f"rows={rows} n={n} float32/bfloat16",
+        "design": LN_FWD_DESIGNS[_ln_fwd_design(x)],
         "max_abs_err": _err(got, want), "tol": "1e-5",
         **_merge(timings(lambda: layer_norm(x, w, b)),
                  timings(lambda: layer_norm_ref(x, w, b)),
@@ -3725,6 +3844,7 @@ def phase_medium_kernels(dev, rows: int = 8192, n: int = 1024,
                        {FP32_FLOPS: 12 * x.numel()})
     out["layer_norm_bwd"] = {
         "case": f"rows={rows} n={n} float32/bfloat16",
+        "design": LN_BWD_DESIGNS[ln_bwd_blocks(x, w, dy)[0]],
         "max_abs_err": max(errs_b),
         "tol": "1e-5 of max|want| (+1 bf16 ulp for bf16)",
         **_merge(timings(lambda: layer_norm_bwd(x, w, dy)),
@@ -3976,8 +4096,9 @@ def _run() -> int:
 
     def other_path(name, counts, c):
         return {"launches": counts[name], "case": _case_name(c),
-                **{k: c[k] for k in ("max_abs_err", "tol", "ms", "plain_ms",
-                                     "bound_ms", "bound_by", "library_ms")}}
+                **{k: c[k] for k in ("design", "max_abs_err", "tol", "ms",
+                                     "plain_ms", "bound_ms", "bound_by",
+                                     "library_ms") if k in c}}
 
     # LayerNorm forward is on all three paths, its backward and the
     # cross-entropy on both training paths: their rows also carry the
@@ -4005,6 +4126,7 @@ def _run() -> int:
                            "library_ms", "bound_ms", "bound_by")}
         for c in pa_cases]
     by_name["layer_norm_bwd"]["design"] = lnb["design"]
+    by_name["layer_norm"]["design"] = ln["design"]
     # the conv_bn rows hold their first RN50 shape; every case beside it
     for name in CONV_BN_KERNELS:
         by_name[name]["design"] = cb_cases[0][name]["design"]

@@ -234,13 +234,37 @@ def test_layer_norm_bwd_on_cpu_is_the_plain_version():
     assert layer_norm_bwd.launches == 0
 
 
+class _StandInFwdLib:
+    """Records the design code each forward call hands the library."""
+
+    def __init__(self):
+        self.designs = []
+
+    def apex_ln_fwd(self, *args):
+        self.designs.append(args[-2])
+        return 0
+
+
 def test_cuda_path_raises_on_what_the_kernel_does_not_take(monkeypatch):
+    import contextlib
+    import types
+
     ln = importlib.import_module("apex_tpu_torch.ops.layer_norm")
     monkeypatch.setattr(ln, "use_kernel", lambda *t: True)
     with pytest.raises(ValueError, match="fp32/bf16 x"):
         ln.layer_norm(torch.zeros(2, 8, dtype=torch.float16))
-    with pytest.raises(ValueError, match="n <="):
-        ln.layer_norm(torch.zeros(2, ln.MAX_N + 1))
+    # a row wider than the block designs take is accepted and runs the
+    # wide design (any n)
+    lib = _StandInFwdLib()
+    monkeypatch.setattr(ln, "_lib", lambda: lib)
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda dev: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda dev=None: types.SimpleNamespace(cuda_stream=0))
+    wide = torch.zeros(2, ln.BLOCK_MAX_N + 1)
+    assert ln.layer_norm(wide).shape == wide.shape
+    assert lib.designs == [ln.LN_FWD_WIDE]
+    assert ln._ln_bwd_design(wide, wide) == ln.LN_BWD_WIDE
     with pytest.raises(ValueError, match="one dtype"):
         ln.layer_norm(torch.zeros(2, 8), torch.ones(8),
                       torch.zeros(8, dtype=torch.bfloat16))
