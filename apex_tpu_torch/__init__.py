@@ -17,7 +17,12 @@ accumulation over microbatches (``train.accum``: ``amp_microbatch_step``,
 ``MicrobatchedStep``, taken by ``FusedTrainDriver``), activation
 rematerialization per block (``remat``: ``none``, ``dots_saveable``,
 ``full_block``), and the flash kernels' ``probs_bf16`` option and
-dq-accumulating backward (``dq_acc``).  Every kernel on those paths
+dq-accumulating backward (``dq_acc``).  Serving also has the
+contiguous slot cache (``KVCache``, ``ServeEngine(paged=False)``) and
+chain self-speculative decoding (``GPTDecoder(spec_tokens=,
+spec_proposer=)``: n-gram or shallow-exit drafts verified in one block
+forward), with ``reference_generate`` as the full-recompute oracle.
+Every kernel on those paths
 (LayerNorm forward and backward, paged attention, flash attention
 forward and backward with and without an additive bias and its gradient,
 with half-precision probabilities and with dq accumulated in place,
@@ -49,12 +54,15 @@ from apex_tpu_torch.ops import launch_counts, reset_launch_counts  # noqa: F401
 from apex_tpu_torch.parallel import SyncBatchNorm  # noqa: F401
 from apex_tpu_torch.serve import (  # noqa: F401
     GPTDecoder,
+    KVCache,
     PagePool,
     PagedKVCache,
     Request,
     SamplingParams,
     ServeEngine,
+    init_cache,
     init_paged_cache,
+    reference_generate,
     sample_tokens,
 )
 from apex_tpu_torch.train import (  # noqa: F401
@@ -83,6 +91,7 @@ __all__ = [
     "GPTDecoder",
     "GPTLM",
     "GPTLayer",
+    "KVCache",
     "MicrobatchedStep",
     "PagePool",
     "PagedKVCache",
@@ -97,11 +106,13 @@ __all__ = [
     "from_jax_params",
     "from_jax_resnet_params",
     "init_bert_params",
+    "init_cache",
     "init_paged_cache",
     "init_params",
     "init_resnet_params",
     "launch_counts",
     "read_metrics",
+    "reference_generate",
     "reset_launch_counts",
     "resnet50",
     "sample_tokens",

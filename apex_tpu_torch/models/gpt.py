@@ -22,9 +22,15 @@ tied head and dtype discipline:
   accumulation: the JAX package rounds its fp32 logits to that dtype
   before the loss), the mean over labels >= 0;
 - serving: the head is a compute-dtype product with fp32 accumulation
-  and fp32 logits (``_logits``), and each layer's history is read
-  through the page table by
-  :func:`~apex_tpu_torch.ops.attention.paged_fused_attention`.
+  and fp32 logits (``_logits``); each layer's history is read either
+  from the contiguous slot caches by
+  :func:`~apex_tpu_torch.ops.attention.cached_attention` (``prefill``,
+  ``decode_step``, ``decode_block``) or through the page table by
+  :func:`~apex_tpu_torch.ops.attention.paged_fused_attention`
+  (``paged_prefill_chunk``, ``paged_decode_step``,
+  ``paged_decode_block``).  The step methods take ``n_layers`` (the
+  shallow-exit draft of speculative decoding) and the block methods
+  verify a current token plus its drafts in one forward.
 
 Where the JAX serving methods return updated (donated) pools, these write
 the new tokens' K/V into the pool tensors IN PLACE and return the logits.
@@ -141,16 +147,26 @@ class GPTLayer(nn.Module):
             y = dropout(y, cfg.dropout_rate, generator)
         return x + y.to(x.dtype)
 
-    def decode(self, x, *, layer, positions, pool_k, pool_v, page_table,
-               cache_lengths, pool_k_scale=None, pool_v_scale=None):
-        """The cached-attention (serving) branch over the paged pool.
+    def decode(self, x, *, positions, cache_lengths=None, cache_k=None,
+               cache_v=None, layer=0, pool_k=None, pool_v=None,
+               page_table=None, pool_k_scale=None, pool_v_scale=None):
+        """The cached-attention (serving) branch.
 
         ``x`` (B, T, h) in the compute dtype, ``positions`` (B, T) int32
-        global positions of the T new tokens, ``pool_k``/``pool_v`` the
-        full ``(num_pages, L, H, page_len, D)`` pools read at ``layer``
-        through ``page_table`` (B, n_pages) up to ``cache_lengths`` (B,).
+        global positions of the T new tokens.  The history is one of:
+
+        - contiguous: ``cache_k``/``cache_v`` (B, H, S, D), this layer's
+          slot caches, valid up to ``cache_lengths`` (B,), read by
+          :func:`~apex_tpu_torch.ops.attention.cached_attention`; with no
+          cache the block attends to itself alone (causal by position:
+          the prefill);
+        - paged: ``pool_k``/``pool_v`` the full ``(num_pages, L, H,
+          page_len, D)`` pools read at ``layer`` through ``page_table``
+          (B, n_pages) up to ``cache_lengths`` (B,), by
+          :func:`~apex_tpu_torch.ops.attention.paged_fused_attention`.
+
         Returns ``(x_out, k, v)`` with k/v the new tokens' (B, H, T, D)
-        projections for the caller to write into the pool; with int8
+        projections for the caller to write into the cache; with int8
         pools (scales given) they are quantized here and returned as
         ``(int8, scale)`` pairs, and the in-block keys the new tokens
         attend to are the round-tripped values every later read sees.
@@ -170,14 +186,19 @@ class GPTLayer(nn.Module):
             v_att = v.float() * v_s[..., None]
         else:
             k_att, v_att = k, v
-        attn = _attn.paged_fused_attention(
-            q, k_att, v_att,
-            positions=positions,
-            pool_k=pool_k, pool_v=pool_v,
-            page_table=page_table, cache_lengths=cache_lengths,
-            pool_k_scale=pool_k_scale, pool_v_scale=pool_v_scale,
-            layer=layer,
-        )
+        if page_table is not None:
+            attn = _attn.paged_fused_attention(
+                q, k_att, v_att,
+                positions=positions,
+                pool_k=pool_k, pool_v=pool_v,
+                page_table=page_table, cache_lengths=cache_lengths,
+                pool_k_scale=pool_k_scale, pool_v_scale=pool_v_scale,
+                layer=layer,
+            )
+        else:
+            attn = _attn.cached_attention(
+                q, k_att, v_att, positions=positions, cache_k=cache_k,
+                cache_v=cache_v, cache_lengths=cache_lengths)
         attn = attn.transpose(1, 2).reshape(b, s, h)
         x = x + self.proj(attn).to(x.dtype)
         y = self.ln2(x.float()).to(dt)
@@ -287,6 +308,127 @@ class GPTLM(nn.Module):
         x = self.wte(ids) + self.wpe(posq)
         return x.to(self.cfg.compute_dtype)
 
+    def _block_positions(self, start, t, smax):
+        """Positions ``start .. start + t - 1`` (B, t) int32, the write
+        columns clamped to ``smax - 1`` and the position-embedding rows to
+        ``max_position - 1`` (the JAX package's gathers clamp; torch's
+        raise instead)."""
+        positions = start[:, None].to(torch.int32) + torch.arange(
+            t, dtype=torch.int32, device=start.device)
+        posq = torch.clamp(positions, max=self.cfg.max_position - 1)
+        return posq, torch.clamp(positions, max=smax - 1).long()
+
+    # -- contiguous serving (KVCache) -----------------------------------
+
+    def prefill(self, input_ids, lengths):
+        """The prompt pass of the contiguous engine: ``input_ids`` (B, P)
+        right-padded prompts with ``lengths`` (B,) valid tokens.  Each
+        layer attends the block to itself, causal by position (no cache,
+        no flash kernel: the JAX package's ``cached_attention`` path).
+        Returns ``(logits, k, v)``: fp32 (B, V) logits at each prompt's
+        last valid position and the (B, L, H, P, D) K/V for the caller to
+        write into the slots (padding columns too: every reader masks
+        them, and decoding overwrites them)."""
+        b, p = input_ids.shape
+        posq = torch.clamp(
+            torch.arange(p, dtype=torch.int32, device=input_ids.device),
+            max=self.cfg.max_position - 1).expand(b, p)
+        x = self._embed(input_ids, posq)
+        ks, vs = [], []
+        for layer in self.layers:
+            x, k, v = layer.decode(x, positions=posq)
+            ks.append(k)
+            vs.append(v)
+        x = self.ln_f(x.float())
+        last = torch.clamp(lengths.long() - 1, 0, p - 1)
+        logits = self._logits(x[torch.arange(b, device=x.device), last])
+        return logits, torch.stack(ks, 1), torch.stack(vs, 1)
+
+    def _cached_block(self, token_ids, start, cache_lengths, cache_k,
+                      cache_v, n_layers=None):
+        """T tokens a row at positions ``start .. start + T - 1`` over the
+        contiguous slot caches (B, L, H, S, D): the first ``n_layers``
+        layers (None: all) attend to the history below ``cache_lengths``
+        plus the block (causal by position), and write the block's K/V
+        IN PLACE at its positions, clamped to ``S - 1``.  Returns the
+        fp32 post-``ln_f`` hidden (B, T, h)."""
+        b, t = token_ids.shape
+        posq, wpos = self._block_positions(start, t, cache_k.shape[3])
+        x = self._embed(token_ids, posq)
+        bidx = torch.arange(b, device=token_ids.device)[:, None]
+        for li, layer in enumerate(self.layers[:n_layers]):
+            x, k, v = layer.decode(
+                x, positions=posq, cache_k=cache_k[:, li],
+                cache_v=cache_v[:, li], cache_lengths=cache_lengths)
+            # (B, H, T, D) -> (B, T, H, D): the broadcast dims come first
+            cache_k[:, li][bidx, :, wpos] = k.transpose(1, 2).to(
+                cache_k.dtype)
+            cache_v[:, li][bidx, :, wpos] = v.transpose(1, 2).to(
+                cache_v.dtype)
+        return self.ln_f(x.float())
+
+    def decode_step(self, token_ids, cache_k, cache_v, lengths,
+                    n_layers=None):
+        """ONE cached decode token per slot over the contiguous caches.
+
+        ``token_ids`` (B,) the last sampled tokens, ``lengths`` (B,)
+        int32 valid prefixes.  The new K/V is written IN PLACE at
+        ``lengths``, clamped to the last column, so a slot at capacity
+        decodes garbage the engine trims.  ``n_layers`` truncates the
+        stack (the shallow-exit draft of speculative decoding): the first
+        ``n_layers`` blocks run and write their own cache layers, then
+        ``ln_f`` and the tied head.  Returns fp32 (B, V) logits; the
+        caller advances ``lengths``."""
+        pos = torch.clamp(lengths, max=cache_k.shape[3] - 1).to(torch.int32)
+        x = self._cached_block(token_ids[:, None], pos, pos, cache_k,
+                               cache_v, n_layers)
+        return self._logits(x)[:, 0]
+
+    def decode_block(self, token_ids, cache_k, cache_v, lengths):
+        """T cached decode tokens per slot in ONE forward — the verify
+        pass of speculative decoding.  ``token_ids`` (B, T) (the current
+        token, then T - 1 drafts) take positions ``lengths .. lengths + T
+        - 1``; each layer attends the block to the cache (below
+        ``min(lengths, S - 1)``) plus itself, causal by position, and
+        writes the block's K/V IN PLACE.  Returns fp32 (B, T, V) logits:
+        position i's are those of i + 1 successive :meth:`decode_step`
+        calls, up to float summation order."""
+        ln = torch.clamp(lengths, max=cache_k.shape[3] - 1).to(torch.int32)
+        x = self._cached_block(token_ids, lengths, ln, cache_k, cache_v)
+        return self._logits(x)
+
+    # -- paged serving (PagedKVCache) -----------------------------------
+
+    def _paged_block(self, token_ids, start, cache_lengths, pool_k, pool_v,
+                     page_tables, k_scale=None, v_scale=None,
+                     n_layers=None):
+        """T tokens a row at positions ``start .. start + T - 1`` over the
+        paged pools ``(num_pages, L, H, page_len, D)``: the first
+        ``n_layers`` layers (None: all) attend to the history through
+        ``page_tables`` (B, n_pages) below ``cache_lengths`` plus the
+        block (causal by position), and write the block's K/V IN PLACE
+        at physical ``(table[pos // page_len], pos % page_len)``, the
+        positions clamped to the table's last column (int8 pools quantize
+        on write and update ``k_scale``/``v_scale`` in place).  Returns
+        the fp32 post-``ln_f`` hidden (B, T, h)."""
+        b, t = token_ids.shape
+        pl = pool_k.shape[3]
+        posq, wpos = self._block_positions(start, t,
+                                           page_tables.shape[1] * pl)
+        x = self._embed(token_ids, posq)
+        bidx = torch.arange(b, device=token_ids.device)
+        phys = page_tables.long()[bidx[:, None], wpos // pl]  # (B, T)
+        off = wpos % pl
+        for li, layer in enumerate(self.layers[:n_layers]):
+            x, k, v = layer.decode(
+                x, layer=li, positions=posq, pool_k=pool_k, pool_v=pool_v,
+                page_table=page_tables, cache_lengths=cache_lengths,
+                pool_k_scale=k_scale, pool_v_scale=v_scale,
+            )
+            _paged_write(pool_k, k_scale, li, phys, off, k)
+            _paged_write(pool_v, v_scale, li, phys, off, v)
+        return self.ln_f(x.float())
+
     def paged_prefill_chunk(self, input_ids, base, valid, pool_k, pool_v,
                             page_tables, k_scale=None, v_scale=None):
         """One chunk of a chunked paged prefill.
@@ -302,34 +444,17 @@ class GPTLM(nn.Module):
         at each row's last valid chunk position.  The caller must have
         made ``[base, base + valid)`` exclusively writable
         (``PagePool.ensure_writable``)."""
-        cfg = self.cfg
-        b, c = input_ids.shape
-        pl = pool_k.shape[3]
-        smax = page_tables.shape[1] * pl
-        dev = input_ids.device
-        positions = base[:, None].to(torch.int32) + torch.arange(
-            c, dtype=torch.int32, device=dev)
-        posq = torch.clamp(positions, max=cfg.max_position - 1)
-        x = self._embed(input_ids, posq)
-        wpos = torch.clamp(positions, max=smax - 1).long()
-        bidx = torch.arange(b, device=dev)
-        phys = page_tables.long()[bidx[:, None], wpos // pl]  # (B, C)
-        off = wpos % pl
-        lens = base.to(torch.int32)
-        for li, layer in enumerate(self.layers):
-            x, k, v = layer.decode(
-                x, layer=li, positions=posq, pool_k=pool_k, pool_v=pool_v,
-                page_table=page_tables, cache_lengths=lens,
-                pool_k_scale=k_scale, pool_v_scale=v_scale,
-            )
-            _paged_write(pool_k, k_scale, li, phys, off, k)
-            _paged_write(pool_v, v_scale, li, phys, off, v)
-        x = self.ln_f(x.float())
+        c = input_ids.shape[1]
+        base = base.to(torch.int32)
+        x = self._paged_block(input_ids, base, base, pool_k, pool_v,
+                              page_tables, k_scale, v_scale)
         last = torch.clamp(valid.long() - 1, 0, c - 1)
-        return self._logits(x[bidx, last])
+        return self._logits(x[torch.arange(x.shape[0], device=x.device),
+                              last])
 
     def paged_decode_step(self, token_ids, pool_k, pool_v, page_tables,
-                          lengths, k_scale=None, v_scale=None):
+                          lengths, k_scale=None, v_scale=None,
+                          n_layers=None):
         """ONE cached decode token per slot over the paged pool.
 
         ``token_ids`` (B,) the last sampled tokens, ``lengths`` (B,) int32
@@ -338,30 +463,28 @@ class GPTLM(nn.Module):
         ``(table[pos // page_len], pos % page_len)``; free slots' table
         rows point at the trash page, so their writes corrupt nothing.
         Writes clamp to the last column, so a slot at capacity decodes
-        garbage the engine trims.  Returns fp32 (B, V) logits; the
-        caller advances ``lengths``."""
-        cfg = self.cfg
-        b = token_ids.shape[0]
-        pl = pool_k.shape[3]
-        smax = page_tables.shape[1] * pl
-        dev = token_ids.device
+        garbage the engine trims.  ``n_layers`` truncates the stack, as
+        in :meth:`decode_step`.  Returns fp32 (B, V) logits; the caller
+        advances ``lengths``."""
+        smax = page_tables.shape[1] * pool_k.shape[3]
         pos = torch.clamp(lengths, max=smax - 1).to(torch.int32)
-        posq = torch.clamp(pos, max=cfg.max_position - 1)
-        x = self._embed(token_ids[:, None], posq[:, None])
-        bidx = torch.arange(b, device=dev)
-        phys = page_tables.long()[bidx, pos.long() // pl][:, None]  # (B, 1)
-        off = (pos.long() % pl)[:, None]
-        positions = posq[:, None].contiguous()
-        for li, layer in enumerate(self.layers):
-            x, k, v = layer.decode(
-                x, layer=li, positions=positions, pool_k=pool_k,
-                pool_v=pool_v, page_table=page_tables, cache_lengths=pos,
-                pool_k_scale=k_scale, pool_v_scale=v_scale,
-            )
-            _paged_write(pool_k, k_scale, li, phys, off, k)
-            _paged_write(pool_v, v_scale, li, phys, off, v)
-        x = self.ln_f(x.float())
+        x = self._paged_block(token_ids[:, None], pos, pos, pool_k, pool_v,
+                              page_tables, k_scale, v_scale, n_layers)
         return self._logits(x)[:, 0]
+
+    def paged_decode_block(self, token_ids, pool_k, pool_v, page_tables,
+                           lengths, k_scale=None, v_scale=None):
+        """:meth:`decode_block` over the paged pool — the verify pass of
+        speculative decoding.  ``token_ids`` (B, T) take positions
+        ``lengths .. lengths + T - 1``, which the host must have made
+        exclusively writable; the history is read below ``min(lengths,
+        smax - 1)`` and the block is causal by position (no block mask).
+        Returns fp32 (B, T, V) logits at every block position."""
+        smax = page_tables.shape[1] * pool_k.shape[3]
+        ln = torch.clamp(lengths, max=smax - 1).to(torch.int32)
+        x = self._paged_block(token_ids, lengths, ln, pool_k, pool_v,
+                              page_tables, k_scale, v_scale)
+        return self._logits(x)
 
 
 def init_params(cfg: GPTConfig, generator: torch.Generator

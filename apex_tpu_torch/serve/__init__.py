@@ -1,23 +1,32 @@
-"""Paged serving of the port: page pool, decoder, engine."""
+"""Serving of the port: contiguous and paged KV caches, the decoder with
+chain self-speculative decoding, the continuous-batching engine."""
 from apex_tpu_torch.serve.decode import (  # noqa: F401
+    DEFAULT_SPEC_HIST,
     DEFAULT_TOKENS_PER_DISPATCH,
     GPTDecoder,
     SamplingParams,
+    propose_ngram,
+    reference_generate,
     sample_tokens,
 )
 from apex_tpu_torch.serve.engine import Request, ServeEngine  # noqa: F401
 from apex_tpu_torch.serve.kv_cache import (  # noqa: F401
     TRASH_PAGE,
+    KVCache,
     PagedKVCache,
     PagePool,
     SlotAllocator,
     auto_page_len,
+    cache_bytes_per_slot,
+    init_cache,
     init_paged_cache,
 )
 
 __all__ = [
+    "DEFAULT_SPEC_HIST",
     "DEFAULT_TOKENS_PER_DISPATCH",
     "GPTDecoder",
+    "KVCache",
     "PagePool",
     "PagedKVCache",
     "Request",
@@ -26,6 +35,10 @@ __all__ = [
     "SlotAllocator",
     "TRASH_PAGE",
     "auto_page_len",
+    "cache_bytes_per_slot",
+    "init_cache",
     "init_paged_cache",
+    "propose_ngram",
+    "reference_generate",
     "sample_tokens",
 ]

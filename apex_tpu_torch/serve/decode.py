@@ -1,41 +1,73 @@
-"""Paged prefill chunks and K-token decode windows over the page pool.
+"""Prefill and K-token decode windows over the contiguous cache and the
+page pool, with chain self-speculative decoding.
 
-Counterpart of the paged subset of ``apex_tpu/serve/decode.py``:
+Counterpart of ``apex_tpu/serve/decode.py`` without its tensor-parallel
+mesh and tree speculation:
 
 - :class:`SamplingParams`, :func:`sample_tokens` and the filtered
   sampling epilogue (greedy, temperature, top-k, top-p, min-p), drawing
-  from a ``torch.Generator``;
-- :class:`GPTDecoder`: ``init_paged_cache``, ``prefill_chunk``,
-  ``paged_decode_window`` and ``copy_pages``.
+  from a ``torch.Generator``, over (B, V) step logits or (B, T, V)
+  verify blocks (the per-slot params broadcast over T);
+- :func:`propose_ngram`, the suffix-bigram draft proposer;
+- :class:`GPTDecoder`: ``init_cache``, ``prefill`` and ``decode_window``
+  (contiguous), ``init_paged_cache``, ``prefill_chunk``,
+  ``paged_decode_window`` and ``copy_pages`` (paged), and the
+  speculative windows ``spec_decode_window`` and
+  ``paged_spec_decode_window``;
+- :func:`reference_generate`, the per-token full-recompute oracle.
 
-The JAX decoder runs K decode steps inside one donated ``lax.scan``
-dispatch.  Here the K steps are a Python loop over device tensors that
-never leaves the device: sampling, the active mask and the length
-advance all stay there, and the ``(K, slots)`` tokens come back with
-one host sync, at the caller's fetch.  The cache is updated in place
-(the JAX programs donate it instead).  Everything runs under
+Speculative decoding (``spec_tokens`` D > 0): each window step proposes
+D draft tokens (the n-gram proposer over the per-slot token history, or
+a shallow-exit draft running the first ``spec_exit_layers`` blocks
+autoregressively), verifies the current token and the D drafts in ONE
+(1 + D)-position forward (``decode_block``/``paged_decode_block``),
+samples a target at every position and accepts the longest draft
+prefix equal to the targets, plus the target after it.  Accepting and
+rolling back is arithmetic on the device: a slot's length advances by
+the accepted count, and rejected positions hold K/V that every reader
+masks and the next block overwrites.  Under greedy decoding the tokens
+equal the non-speculative engine's.
+
+The JAX decoder runs a window inside one donated ``lax.scan`` dispatch.
+Here its steps are a Python loop over device tensors that never leaves
+the device: proposing, sampling, the active mask and the length advance
+all stay there, and the window's tokens come back with one host sync,
+at the caller's fetch.  The caches are updated in place (the JAX
+programs donate them instead).  Everything runs under
 ``torch.no_grad()``.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional, Union
+import math
+from typing import Callable, Dict, List, Optional, Sequence, Union
 
 import numpy as np
 import torch
 
 from apex_tpu_torch.models.gpt import GPTConfig, GPTLM
 from apex_tpu_torch.ops._common import resolve_device
-from apex_tpu_torch.serve.kv_cache import PagedKVCache, init_paged_cache
+from apex_tpu_torch.serve.kv_cache import (
+    KVCache,
+    PagedKVCache,
+    init_cache,
+    init_paged_cache,
+)
 
 __all__ = [
+    "DEFAULT_SPEC_HIST",
     "DEFAULT_TOKENS_PER_DISPATCH",
     "GPTDecoder",
     "SamplingParams",
+    "propose_ngram",
+    "reference_generate",
     "sample_tokens",
 ]
 
 DEFAULT_TOKENS_PER_DISPATCH = 8
+# tokens of per-slot history the n-gram proposer matches over (the
+# engine keeps it on the host and hands it to every spec window)
+DEFAULT_SPEC_HIST = 32
 
 
 @dataclasses.dataclass
@@ -138,14 +170,51 @@ def sample_tokens(
 
 
 def _sample_params(logits, generator, samp: SamplingParams):
+    """The window epilogue: per-slot params (B,) over (B, V) step logits
+    or (B, T, V) verify blocks, the params reshaped to (B, 1) so that
+    they broadcast over T."""
     if samp.all_greedy:
         return torch.argmax(logits, dim=-1).to(torch.int32)
-    return _sample_filtered(logits, generator, samp.temperature,
-                            samp.top_k, samp.top_p, samp.min_p)
+    extra = logits.dim() - samp.temperature.dim() - 1
+    exp = lambda x: x.reshape(x.shape + (1,) * extra)  # noqa: E731
+    return _sample_filtered(logits, generator, exp(samp.temperature),
+                            exp(samp.top_k), exp(samp.top_p),
+                            exp(samp.min_p))
+
+
+def propose_ngram(hist: torch.Tensor, draft: int) -> torch.Tensor:
+    """Suffix-bigram draft proposal over per-slot token history.
+
+    ``hist`` (B, H) int32: each row the last H tokens of the slot's
+    sequence, its current (not yet cached) token at ``[-1]``; ``-1``
+    pads short histories and never matches.  Finds the latest earlier
+    occurrence of the trailing bigram and proposes the tokens that
+    followed it, cycling with the implied period past the history's end
+    (a period-p repetition proposes its exact continuation).  No match
+    repeats the last token.  Returns (B, draft) int32; device ops only,
+    no host sync."""
+    b, h = hist.shape
+    dev = hist.device
+    a, z = hist[:, -2], hist[:, -1]
+    idx = torch.arange(h - 2, dtype=torch.int32, device=dev)
+    m = (hist[:, :-2] == a[:, None]) & (hist[:, 1:-1] == z[:, None])
+    m = m & ((a >= 0) & (z >= 0))[:, None]
+    j = torch.where(m, idx, -1).amax(dim=1)  # the latest match
+    period = torch.clamp_min((h - 2) - j, 1)
+    take = j[:, None] + 2 + (
+        torch.arange(draft, dtype=torch.int32, device=dev)[None, :]
+        % period[:, None])
+    cand = torch.gather(hist, 1, torch.clamp(take, 0, h - 1).long())
+    fallback = torch.clamp_min(z, 0)[:, None].expand(b, draft)
+    drafts = torch.where((j >= 0)[:, None], cand, fallback)
+    return torch.clamp_min(drafts, 0).to(torch.int32)
 
 
 class GPTDecoder:
-    """Paged prefill chunks and fused K-token decode windows.
+    """Prefill and fused K-token decode windows over a contiguous
+    :class:`~apex_tpu_torch.serve.KVCache` or a paged
+    :class:`~apex_tpu_torch.serve.PagedKVCache`, with chain
+    self-speculative decoding.
 
     Args:
       cfg: the model config; ``compute_dtype`` overrides its compute
@@ -154,11 +223,25 @@ class GPTDecoder:
         (from :func:`~apex_tpu_torch.weights.from_jax_params` or
         :func:`~apex_tpu_torch.models.init_params`); the dense weights
         and the head are cast to the compute dtype once, at load.
-      cache_dtype: pool dtype (None: the compute dtype);
-        ``torch.int8`` selects int8 pages with per-token scales.
+      cache_dtype: cache dtype (None: the compute dtype);
+        ``torch.int8`` selects int8 pages with per-token scales (paged
+        only).
       tokens_per_dispatch: K, the decode steps per window.
       temperature: the default for requests that do not set one
         (0.0 = greedy).
+      spec_tokens: the draft length D of speculative decoding (0: off).
+        A spec window runs ``ceil(K / (D + 1))`` verify forwards of
+        ``D + 1`` positions, so it emits between that many and
+        ``steps * (D + 1)`` tokens a slot.
+      spec_proposer: ``"ngram"`` (suffix bigrams over the slot's
+        history, no model compute) or ``"shallow"`` (the first
+        ``spec_exit_layers`` blocks, ``ln_f`` and the head, run
+        autoregressively for each draft token).
+      spec_hist: history tokens the n-gram proposer matches over.
+      spec_exit_layers: the shallow draft's depth (None: half the
+        layers).
+      spec_tree: tree speculation's branch width; widths above 1 are
+        not ported (ROADMAP A.1c) and raise.
       device: where the model and the cache live; None is the CUDA
         device, and raises when there is none.
     """
@@ -172,6 +255,11 @@ class GPTDecoder:
         compute_dtype: Optional[torch.dtype] = None,
         tokens_per_dispatch: int = DEFAULT_TOKENS_PER_DISPATCH,
         temperature: float = 0.0,
+        spec_tokens: int = 0,
+        spec_proposer: str = "ngram",
+        spec_hist: int = DEFAULT_SPEC_HIST,
+        spec_exit_layers: Optional[int] = None,
+        spec_tree: int = 0,
         device: Optional[Union[str, torch.device]] = None,
     ):
         self.device = resolve_device(device)
@@ -182,6 +270,26 @@ class GPTDecoder:
             raise ValueError("tokens_per_dispatch must be >= 1")
         self.tokens_per_dispatch = int(tokens_per_dispatch)
         self.temperature = float(temperature)
+        self.spec_tokens = int(spec_tokens)
+        if self.spec_tokens < 0:
+            raise ValueError("spec_tokens must be >= 0")
+        if spec_proposer not in ("ngram", "shallow"):
+            raise ValueError(f"spec_proposer must be 'ngram' or 'shallow', "
+                             f"got {spec_proposer!r}")
+        self.spec_proposer = spec_proposer
+        self.spec_hist = int(spec_hist)
+        if self.spec_enabled and self.spec_hist < 4:
+            raise ValueError("spec_hist must be >= 4 (bigram + context)")
+        self.spec_exit_layers = (max(1, cfg.num_layers // 2)
+                                 if spec_exit_layers is None
+                                 else int(spec_exit_layers))
+        if not 1 <= self.spec_exit_layers <= cfg.num_layers:
+            raise ValueError(f"spec_exit_layers {self.spec_exit_layers} "
+                             f"outside [1, {cfg.num_layers}]")
+        if int(spec_tree) > 1:
+            raise NotImplementedError(
+                "tree speculation (spec_tree > 1) is not ported yet "
+                "(ROADMAP A.1c); use the chain (spec_tree 0 or 1)")
         self.cache_dtype = cfg.compute_dtype if cache_dtype is None \
             else cache_dtype
         with torch.device(self.device):
@@ -190,6 +298,61 @@ class GPTDecoder:
         self.model.requires_grad_(False)
         self.model.eval()
         self.model.cast_for_serving()
+
+    # -- speculative geometry -------------------------------------------
+
+    @property
+    def spec_enabled(self) -> bool:
+        return self.spec_tokens > 0
+
+    @property
+    def spec_steps(self) -> int:
+        """Verify forwards per spec window at the configured depth."""
+        return self._spec_steps_for(self.spec_tokens)
+
+    def _spec_steps_for(self, draft: int) -> int:
+        """Verify forwards a window at depth ``draft`` runs to cover
+        ``tokens_per_dispatch`` when every draft is accepted."""
+        return max(1, math.ceil(self.tokens_per_dispatch / (draft + 1)))
+
+    @property
+    def max_tokens_per_dispatch(self) -> int:
+        """The most positions one window may write past a slot's length
+        (``tokens_per_dispatch`` without speculation)."""
+        if not self.spec_enabled:
+            return self.tokens_per_dispatch
+        return self.spec_steps * (self.spec_tokens + 1)
+
+    def write_horizon(self, draft: Optional[int] = None) -> int:
+        """Positions one window at depth ``draft`` (None: the configured
+        one) may write past a slot's length — the span the paged engine
+        makes exclusively writable: ``steps * (draft + 1)`` for the
+        chain, K without speculation."""
+        if not self.spec_enabled:
+            return self.tokens_per_dispatch
+        d = self.spec_tokens if draft is None else int(draft)
+        return self._spec_steps_for(d) * (d + 1)
+
+    @property
+    def max_write_horizon(self) -> int:
+        """:meth:`write_horizon` over every depth 1 .. ``spec_tokens``."""
+        if not self.spec_enabled:
+            return self.tokens_per_dispatch
+        return max(self.write_horizon(d)
+                   for d in range(1, self.spec_tokens + 1))
+
+    def _draft(self, draft: Optional[int]) -> int:
+        d = self.spec_tokens if draft is None else int(draft)
+        if not 1 <= d <= self.spec_tokens:
+            raise ValueError(
+                f"draft override {d} outside [1, {self.spec_tokens}]")
+        return d
+
+    # -- caches ---------------------------------------------------------
+
+    def init_cache(self, slots: int, max_len: int) -> KVCache:
+        return init_cache(self.cfg, slots, max_len, dtype=self.cache_dtype,
+                          device=self.device)
 
     def init_paged_cache(self, num_pages: int, slots: int,
                          page_len: int) -> PagedKVCache:
@@ -202,6 +365,142 @@ class GPTDecoder:
             return x.to(device=self.device, dtype=torch.int32).contiguous()
         a = np.ascontiguousarray(np.asarray(x, dtype=np.int32))
         return torch.from_numpy(a).to(self.device)
+
+    def _window_args(self, tokens, active, samp):
+        tok = self._ints(tokens)
+        act = torch.as_tensor(np.asarray(active, bool) if not isinstance(
+            active, torch.Tensor) else active).to(self.device)
+        if samp is None:
+            samp = SamplingParams.make(tok.shape[0], self.temperature,
+                                       device=self.device)
+        return tok, act, samp
+
+    # -- the window loops -----------------------------------------------
+
+    def _window(self, cache, tok, act, generator, samp, smax: int,
+                step: Callable) -> torch.Tensor:
+        """K decode steps: ``step(tokens, lengths)`` -> (B, V) logits
+        writes each new token's K/V; returns the (K, slots) tokens."""
+        out = torch.empty((self.tokens_per_dispatch, tok.shape[0]),
+                          dtype=torch.int32, device=self.device)
+        n_active = act.sum()
+        for i in range(self.tokens_per_dispatch):
+            nxt = _sample_params(step(tok, cache.lengths), generator, samp)
+            tok = torch.where(act, nxt, tok)
+            cache.lengths.copy_(torch.where(
+                act, torch.clamp(cache.lengths + 1, max=smax),
+                cache.lengths))
+            cache.decoded += n_active
+            out[i] = tok
+        return out
+
+    def _spec_window(self, cache, tok, act, hist, generator, samp,
+                     draft: int, smax: int, step: Callable,
+                     block: Callable) -> torch.Tensor:
+        """``spec_steps`` propose -> verify -> accept steps.
+        ``step(tokens, lengths, n_layers)`` -> (B, V) is the shallow
+        draft's truncated step, ``block(tokens, lengths)`` -> (B, T, V)
+        the verify forward; both write their K/V in place.  Returns one
+        (steps, slots, draft + 2) int32 buffer: the candidate tokens in
+        ``[..., :-1]``, the accepted counts in ``[..., -1]``."""
+        steps = self._spec_steps_for(draft)
+        hs = self._ints(hist)
+        out = torch.empty((steps, tok.shape[0], draft + 2),
+                          dtype=torch.int32, device=self.device)
+        hrange = torch.arange(hs.shape[1], device=self.device)
+        for i in range(steps):
+            ln = cache.lengths
+            if self.spec_proposer == "shallow":
+                # the first E layers draft token by token, writing their
+                # own K/V at the draft positions; the verify block below
+                # overwrites them before anything reads them
+                dtok, dln, ds = tok, ln, []
+                for _ in range(draft):
+                    lgt = step(dtok, dln, self.spec_exit_layers)
+                    dtok = torch.argmax(lgt, dim=-1).to(torch.int32)
+                    ds.append(dtok)
+                    dln = torch.clamp(dln + 1, max=smax - 1)
+                drafts = torch.stack(ds, dim=1)
+            else:
+                drafts = propose_ngram(hs, draft)
+            logits = block(torch.cat([tok[:, None], drafts], dim=1), ln)
+            targ = _sample_params(logits, generator, samp)  # (B, 1 + D)
+            ok = torch.cumprod((drafts == targ[:, :-1]).to(torch.int32), 1)
+            n_acc = 1 + ok.sum(dim=1, dtype=torch.int32)  # in [1, 1 + D]
+            n_eff = torch.where(act, torch.minimum(n_acc, smax - ln), 0)
+            new_tok = torch.gather(targ, 1, (n_acc - 1).long()[:, None])
+            tok = torch.where(act, new_tok[:, 0], tok)
+            hs = torch.gather(torch.cat([hs, targ], dim=1), 1,
+                              n_eff.long()[:, None] + hrange)
+            cache.lengths.copy_(ln + n_eff)
+            cache.decoded += n_eff.sum()
+            out[i, :, :-1] = targ
+            out[i, :, -1] = n_acc
+        return out
+
+    # -- contiguous execution -------------------------------------------
+
+    @torch.no_grad()
+    def prefill(self, cache: KVCache, slots, input_ids,
+                lengths) -> torch.Tensor:
+        """Write a right-padded prompt batch ``input_ids`` (B, P) with
+        ``lengths`` (B,) into cache ``slots`` (B,) in place, and set their
+        lengths.  Returns fp32 (B, V) logits at each prompt's last valid
+        position."""
+        slots = self._ints(slots).long()
+        ids = self._ints(input_ids).long()
+        lengths = self._ints(lengths)
+        logits, ks, vs = self.model.prefill(ids, lengths)
+        p = ids.shape[1]
+        cache.k[slots, :, :, :p] = ks.to(cache.k.dtype)
+        cache.v[slots, :, :, :p] = vs.to(cache.v.dtype)
+        cache.lengths[slots] = lengths
+        return logits
+
+    @torch.no_grad()
+    def decode_window(
+        self, cache: KVCache, tokens, active,
+        generator: Optional[torch.Generator] = None,
+        samp: Optional[SamplingParams] = None,
+    ) -> torch.Tensor:
+        """K decode steps over every slot of the contiguous cache, with
+        no host sync inside.  ``tokens`` (slots,) the last sampled token
+        per slot, ``active`` (slots,) bool: inactive slots decode garbage
+        that never advances their length or the token meter; lengths stop
+        at ``cache.max_len``.  Returns the (K, slots) int32 tokens as a
+        device tensor."""
+        tok, act, samp = self._window_args(tokens, active, samp)
+        return self._window(
+            cache, tok, act, generator, samp, cache.max_len,
+            lambda t, ln: self.model.decode_step(t, cache.k, cache.v, ln))
+
+    @torch.no_grad()
+    def spec_decode_window(
+        self, cache: KVCache, tokens, active, hist,
+        generator: Optional[torch.Generator] = None,
+        samp: Optional[SamplingParams] = None,
+        draft: Optional[int] = None,
+    ) -> torch.Tensor:
+        """One self-speculative window over the contiguous cache:
+        ``spec_steps`` propose -> verify -> accept steps over every slot.
+
+        ``hist`` (slots, spec_hist) int32, each slot's trailing tokens
+        with its current token last (``-1`` padding; the engine keeps it
+        on the host from the tokens it fetches); ``draft`` overrides the
+        configured depth for this window (1 .. ``spec_tokens``).  Returns
+        one (steps, slots, draft + 2) int32 device buffer, so that the
+        host reads it with one copy: ``[..., :-1]`` the candidate tokens,
+        ``[..., -1]`` the accepted counts; slot s emits ``buf[i, s,
+        :buf[i, s, -1]]`` at step i."""
+        d = self._draft(draft)
+        tok, act, samp = self._window_args(tokens, active, samp)
+        return self._spec_window(
+            cache, tok, act, hist, generator, samp, d, cache.max_len,
+            lambda t, ln, n: self.model.decode_step(
+                t, cache.k, cache.v, ln, n_layers=n),
+            lambda t, ln: self.model.decode_block(t, cache.k, cache.v, ln))
+
+    # -- paged execution ------------------------------------------------
 
     @torch.no_grad()
     def prefill_chunk(self, cache: PagedKVCache, slot_tables, slots,
@@ -239,30 +538,38 @@ class GPTDecoder:
         meter.  The host must have made each active slot's ``[len, len
         + K)`` range exclusively writable.  Updates ``cache`` in place
         and returns the (K, slots) int32 tokens as a device tensor."""
-        k = self.tokens_per_dispatch
         tables = self._ints(tables)
-        tok = self._ints(tokens)
-        act = torch.as_tensor(np.asarray(active, bool) if not isinstance(
-            active, torch.Tensor) else active).to(self.device)
-        if samp is None:
-            samp = SamplingParams.make(tok.shape[0], self.temperature,
-                                       device=self.device)
-        smax = tables.shape[1] * cache.page_len
-        out = torch.empty((k, tok.shape[0]), dtype=torch.int32,
-                          device=self.device)
-        n_active = act.sum()
-        for i in range(k):
-            logits = self.model.paged_decode_step(
-                tok, cache.k, cache.v, tables, cache.lengths,
-                k_scale=cache.k_scale, v_scale=cache.v_scale)
-            nxt = _sample_params(logits, generator, samp)
-            tok = torch.where(act, nxt, tok)
-            cache.lengths.copy_(torch.where(
-                act, torch.clamp(cache.lengths + 1, max=smax),
-                cache.lengths))
-            cache.decoded += n_active
-            out[i] = tok
-        return out
+        tok, act, samp = self._window_args(tokens, active, samp)
+        return self._window(
+            cache, tok, act, generator, samp,
+            tables.shape[1] * cache.page_len,
+            lambda t, ln: self.model.paged_decode_step(
+                t, cache.k, cache.v, tables, ln, k_scale=cache.k_scale,
+                v_scale=cache.v_scale))
+
+    @torch.no_grad()
+    def paged_spec_decode_window(
+        self, cache: PagedKVCache, tables, tokens, active, hist,
+        generator: Optional[torch.Generator] = None,
+        samp: Optional[SamplingParams] = None,
+        draft: Optional[int] = None,
+    ) -> torch.Tensor:
+        """:meth:`spec_decode_window` over the page pool: verify blocks
+        and shallow drafts read and write through ``tables``.  The host
+        must have made each active slot's ``[len, len +
+        write_horizon(draft))`` range exclusively writable.  Returns the
+        same one-buffer result."""
+        d = self._draft(draft)
+        tables = self._ints(tables)
+        tok, act, samp = self._window_args(tokens, active, samp)
+        kw = dict(k_scale=cache.k_scale, v_scale=cache.v_scale)
+        return self._spec_window(
+            cache, tok, act, hist, generator, samp, d,
+            tables.shape[1] * cache.page_len,
+            lambda t, ln, n: self.model.paged_decode_step(
+                t, cache.k, cache.v, tables, ln, n_layers=n, **kw),
+            lambda t, ln: self.model.paged_decode_block(
+                t, cache.k, cache.v, tables, ln, **kw))
 
     @torch.no_grad()
     def copy_pages(self, cache: PagedKVCache, src, dst) -> None:
@@ -276,3 +583,54 @@ class GPTDecoder:
         if cache.k_scale is not None:
             cache.k_scale[dst] = cache.k_scale[src]
             cache.v_scale[dst] = cache.v_scale[src]
+
+
+@torch.no_grad()
+def reference_generate(
+    cfg: GPTConfig,
+    params: Dict[str, torch.Tensor],
+    prompt_ids: Sequence[int],
+    n_tokens: int,
+    temperature: float = 0.0,
+    generator: Optional[torch.Generator] = None,
+    pad_to: Optional[int] = None,
+    device: Optional[Union[str, torch.device]] = None,
+) -> List[int]:
+    """The per-token full-recompute oracle: each token runs the whole
+    training forward (``GPTLM.forward``, no cache, no dropout) over the
+    sequence so far and samples from its last position.  The cached
+    engines must give the same greedy tokens.
+
+    The sequence lies in a right-padded buffer of ``pad_to`` tokens
+    (default: the final length rounded up to a power of two, at least
+    8): causal attention makes position ``len - 1`` independent of the
+    padding.  ``device`` None is the CUDA device, as for every entry
+    point."""
+    dev = resolve_device(device)
+    total = len(prompt_ids) + n_tokens
+    if pad_to is None:
+        pad_to = 8
+        while pad_to < total:
+            pad_to *= 2
+    if pad_to < total or pad_to > cfg.max_position:
+        raise ValueError(f"pad_to {pad_to} must fit prompt+n_tokens "
+                         f"({total}) and max_position ({cfg.max_position})")
+    cfg = dataclasses.replace(cfg, dropout_rate=0.0, attn_dropout_rate=0.0,
+                              remat_policy="none")
+    with torch.device(dev):
+        model = GPTLM(cfg)
+    model.load_state_dict(params)
+    model.requires_grad_(False)
+    model.eval()
+    buf = torch.zeros((1, pad_to), dtype=torch.long, device=dev)
+    cur = len(prompt_ids)
+    buf[0, :cur] = torch.as_tensor(list(prompt_ids), dtype=torch.long)
+    out = []
+    for _ in range(n_tokens):
+        logits = model(buf)[0, cur - 1]
+        tok = int(sample_tokens(logits[None], generator, temperature)[0])
+        out.append(tok)
+        if cur < pad_to:
+            buf[0, cur] = tok
+        cur += 1
+    return out

@@ -1,20 +1,28 @@
-"""ServeEngine — continuous batching over the paged KV cache.
+"""ServeEngine — continuous batching over the paged or the contiguous KV
+cache, with chain self-speculative decoding.
 
-Counterpart of the paged path of ``apex_tpu/serve/engine.py``, FIFO
-admission only.  Requests queue on the host; at each dispatch boundary
-the engine (1) admits queued requests into free slots under the page
-budget, mapping shared prompt prefixes onto the same physical pages,
-(2) advances every in-flight prefill by one bucket-padded chunk, (3)
-makes every active slot's next K positions exclusively writable
+Counterpart of ``apex_tpu/serve/engine.py``, FIFO admission only.
+Requests queue on the host; at each dispatch boundary the paged engine
+(1) admits queued requests into free slots under the page budget,
+mapping shared prompt prefixes onto the same physical pages, (2)
+advances every in-flight prefill by one bucket-padded chunk, (3) makes
+every active slot's next write horizon exclusively writable
 (copy-on-write, fresh tail pages, or preemption when the pool is dry)
-and runs ONE K-token decode window over all slots, then (4) fetches the
-(K, slots) tokens in one host sync and retires finished requests.
+and runs ONE decode window over all slots, then (4) fetches the
+window's tokens in one host sync and retires finished requests.  The
+contiguous engine (``paged=False``) admits into free slots with one
+batched, bucket-padded prefill instead, and has no pages to plan.
 
 A preempted request frees its pages and re-enters the queue at the
 front, to be re-prefilled from prompt + tokens so far; under greedy
 decoding the recompute reproduces the same tokens.
 
-Not ported yet: the contiguous cache, speculative and tree decoding,
+With a speculative decoder (``spec_tokens`` > 0) the window is a spec
+window: the engine keeps each slot's token history on the host (the
+n-gram proposer's input), consumes each verify step's accepted tokens,
+and counts drafts, accepted drafts and rollbacks (``stats()["spec"]``).
+
+Not ported yet: tree speculation and the draft auto-tuner,
 tensor-parallel serving, handoff and weight swaps, and the obs, SLO,
 flight-recorder and fault-injection planes.
 """
@@ -56,18 +64,24 @@ class ServeEngine:
     """Continuous-batching scheduler around a :class:`GPTDecoder`.
 
     Args:
-      decoder: the model, its device, K and the default temperature.
+      decoder: the model, its device, K, the default temperature and
+        the speculative settings.
       slots: concurrent sequences.
       max_len: cache columns per slot (default ``max_position``); a
         prompt needs ``len(prompt) < max_len``.
       eos_id: token that ends a sequence (None: run to the budget).
       seed: seed of the sampling generator (on the decoder's device).
+      paged: the paged KV cache (default) or the contiguous one
+        (``False``: every slot owns ``max_len`` columns, no prefix
+        sharing, no preemption).
       page_len: tokens per page (None: the largest power of two <= 16
         dividing ``max_len``).
       num_pages: pool size including the trash page (None: ``1 + slots
         * max_len / page_len``, room for every slot at full length).
       prefill_chunk: most prompt tokens prefilled per request per
         boundary; chunks pad to power-of-two buckets (minimum 8).
+      spec_autotune: the draft-depth auto-tuner, not ported yet (ROADMAP
+        A.1c): True raises.
     """
 
     def __init__(
@@ -77,29 +91,39 @@ class ServeEngine:
         max_len: Optional[int] = None,
         eos_id: Optional[int] = None,
         seed: int = 0,
+        paged: bool = True,
         page_len: Optional[int] = None,
         num_pages: Optional[int] = None,
         prefill_chunk: int = 64,
+        spec_autotune: bool = False,
     ):
+        if spec_autotune:
+            raise NotImplementedError("the draft-depth auto-tuner "
+                                      "(spec_autotune) is not ported yet "
+                                      "(ROADMAP A.1c)")
         self.decoder = decoder
         self.max_len = int(decoder.cfg.max_position if max_len is None
                            else max_len)
         self.eos_id = eos_id
-        self.page_len = (auto_page_len(self.max_len) if page_len is None
-                         else int(page_len))
-        if self.page_len < 1 or self.max_len % self.page_len:
-            raise ValueError(f"page_len {self.page_len} must divide "
-                             f"max_len {self.max_len}")
-        pages_per_slot = self.max_len // self.page_len
-        self.num_pages = (1 + slots * pages_per_slot if num_pages is None
-                          else int(num_pages))
-        if prefill_chunk < 1:
-            raise ValueError("prefill_chunk must be >= 1")
-        self.prefill_chunk = int(prefill_chunk)
-        self.pool = PagePool(self.num_pages, self.page_len, slots,
-                             pages_per_slot)
-        self.cache = decoder.init_paged_cache(self.num_pages, slots,
-                                              self.page_len)
+        self.paged = bool(paged)
+        if self.paged:
+            self.page_len = (auto_page_len(self.max_len) if page_len is None
+                             else int(page_len))
+            if self.page_len < 1 or self.max_len % self.page_len:
+                raise ValueError(f"page_len {self.page_len} must divide "
+                                 f"max_len {self.max_len}")
+            pages_per_slot = self.max_len // self.page_len
+            self.num_pages = (1 + slots * pages_per_slot if num_pages is None
+                              else int(num_pages))
+            if prefill_chunk < 1:
+                raise ValueError("prefill_chunk must be >= 1")
+            self.prefill_chunk = int(prefill_chunk)
+            self.pool = PagePool(self.num_pages, self.page_len, slots,
+                                 pages_per_slot)
+            self.cache = decoder.init_paged_cache(self.num_pages, slots,
+                                                  self.page_len)
+        else:
+            self.cache = decoder.init_cache(slots, self.max_len)
         self.alloc = SlotAllocator(slots)
         self._queue: Deque[Request] = deque()
         self._active: Dict[int, Request] = {}  # slot -> request
@@ -111,6 +135,16 @@ class ServeEngine:
         self._samp_k = np.zeros((slots,), np.int32)
         self._samp_p = np.ones((slots,), np.float32)
         self._samp_mp = np.zeros((slots,), np.float32)
+        # speculation: the host copy of each slot's trailing tokens, the
+        # n-gram proposer's input (rebuilt from the fetched tokens, so
+        # it goes to every window as a plain argument)
+        self._spec = decoder.spec_enabled
+        if self._spec:
+            self._hist = np.full((slots, decoder.spec_hist), -1, np.int32)
+        self._accepted_hist: Dict[int, int] = {}
+        self.spec_draft_tokens = 0
+        self.spec_accepted_tokens = 0
+        self.spec_rollbacks = 0
         self._gen = torch.Generator(device=decoder.device)
         self._gen.manual_seed(seed)
         self._next_uid = 0
@@ -169,15 +203,15 @@ class ServeEngine:
             len(self._samp_t), self._samp_t, self._samp_k, self._samp_p,
             self._samp_mp, device=self.decoder.device)
 
-    def _sample_first(self, logits, r: Request) -> int:
-        """Sample a request's FIRST token from its final prefill chunk's
-        logits with its own params."""
-        t, k, p, mp = self._req_samp(r)
-        tok = sample_tokens(logits, self._gen, np.asarray([t], np.float32),
-                            top_k=np.asarray([k], np.int32),
-                            top_p=np.asarray([p], np.float32),
-                            min_p=np.asarray([mp], np.float32))
-        return int(tok[0])
+    def _sample_first(self, logits, batch: List[Request]) -> List[int]:
+        """Sample each request's FIRST token from its prefill logits (one
+        row a request) with its own params."""
+        ts, ks, ps, mps = zip(*(self._req_samp(r) for r in batch))
+        tok = sample_tokens(logits, self._gen, np.asarray(ts, np.float32),
+                            top_k=np.asarray(ks, np.int32),
+                            top_p=np.asarray(ps, np.float32),
+                            min_p=np.asarray(mps, np.float32))
+        return tok.cpu().tolist()
 
     # -- lifecycle ------------------------------------------------------
 
@@ -191,13 +225,25 @@ class ServeEngine:
         return p
 
     def _activate(self, r: Request, slot: int, ctx: List[int]) -> None:
+        """Slot activation: sampling params bound, and the spec history
+        seeded from the context (the first sampled token lands through
+        the following :meth:`_append`)."""
         self._active[slot] = r
         self._slot_len[slot] = len(ctx)
         self._bind_samp(r, slot)
+        if self._spec:
+            h = self._hist.shape[1]
+            tail = ctx[-h:]
+            self._hist[slot] = -1
+            self._hist[slot, h - len(tail):] = tail
 
     def _append(self, r: Request, token: int) -> None:
         """Record one generated token; retire on EOS or budget."""
         r.tokens.append(token)
+        if self._spec:
+            row = self._hist[r.slot]
+            row[:-1] = row[1:]
+            row[-1] = token
         if (self.eos_id is not None and token == self.eos_id) or (
                 len(r.tokens) >= r.max_new_tokens):
             self._finish(r)
@@ -208,11 +254,37 @@ class ServeEngine:
         r.done = True
         r.truncated = truncated
         self.results[r.uid] = r
-        self.pool.release_slot(r.slot)
+        if self.paged:
+            self.pool.release_slot(r.slot)
         self.alloc.free(r.slot)
         self._active.pop(r.slot, None)
         self._reset_samp(r.slot)
         r.slot = None
+
+    # -- contiguous admission -------------------------------------------
+
+    def _admit(self) -> None:
+        """Fill free slots from the queue with ONE batched prefill, the
+        prompts right-padded to a power-of-two bucket."""
+        batch: List[Request] = []
+        while self._queue and self.alloc.n_free:
+            r = self._queue.popleft()
+            r.slot = self.alloc.allocate()
+            batch.append(r)
+        if not batch:
+            return
+        p = min(self._bucket(max(len(r.prompt) for r in batch)),
+                self.max_len)
+        ids = np.zeros((len(batch), p), np.int32)
+        for i, r in enumerate(batch):
+            ids[i, :len(r.prompt)] = r.prompt
+        logits = self.decoder.prefill(
+            self.cache, [r.slot for r in batch], ids,
+            [len(r.prompt) for r in batch])
+        self.prefill_dispatches += 1
+        for r, first in zip(batch, self._sample_first(logits, batch)):
+            self._activate(r, r.slot, r.prompt)
+            self._append(r, first)
 
     # -- paged scheduling -----------------------------------------------
 
@@ -304,17 +376,18 @@ class ServeEngine:
             if base >= len(ctx):
                 del self._prefilling[slot]
                 self.pool.register(slot, ctx)
-                first = self._sample_first(logits, r)
+                first = self._sample_first(logits, [r])[0]
                 self._activate(r, slot, ctx)
                 self._append(r, first)
             else:
                 entry[2] = base
 
     def _prepare_decode_pages(self) -> None:
-        """Before a window: make every active slot's next-K write range
-        exclusively owned and run the copies; a slot the pool cannot
-        supply is preempted."""
-        k = self.decoder.tokens_per_dispatch
+        """Before a window: make every active slot's write horizon
+        (``decoder.write_horizon()``: K, or every position a fully
+        accepted spec window writes) exclusively owned and run the
+        copies; a slot the pool cannot supply is preempted."""
+        k = self.decoder.write_horizon()
         pairs = []
         for slot, r in list(self._active.items()):
             ln = int(self._slot_len[slot])
@@ -328,22 +401,55 @@ class ServeEngine:
     # -- the dispatch boundary ------------------------------------------
 
     def step(self) -> bool:
-        """One scheduling round: admit, prefill chunks, one decode window,
-        retire.  Returns False once everything is drained."""
-        self._admit_paged()
-        self._prefill_chunks()
+        """One scheduling round: admit (and prefill chunks when paged),
+        one decode window, retire.  Returns False once everything is
+        drained."""
+        if self.paged:
+            self._admit_paged()
+            self._prefill_chunks()
+        else:
+            self._admit()
         if not self._active:
             return bool(self._queue or self._prefilling)
-        self._prepare_decode_pages()
-        if not self._active:
-            return bool(self._queue or self._prefilling)
+        if self.paged:
+            self._prepare_decode_pages()
+            if not self._active:
+                return bool(self._queue or self._prefilling)
         active = np.zeros((self.cache.slots,), bool)
         active[list(self._active)] = True
-        toks = self.decoder.paged_decode_window(
-            self.cache, self.pool.tables, self._last_token, active,
-            self._gen, samp=self._samp_params())
+        samp = self._samp_params()
+        if self._spec:
+            if self.paged:
+                buf = self.decoder.paged_spec_decode_window(
+                    self.cache, self.pool.tables, self._last_token, active,
+                    self._hist, self._gen, samp=samp)
+            else:
+                buf = self.decoder.spec_decode_window(
+                    self.cache, self._last_token, active, self._hist,
+                    self._gen, samp=samp)
+        elif self.paged:
+            buf = self.decoder.paged_decode_window(
+                self.cache, self.pool.tables, self._last_token, active,
+                self._gen, samp=samp)
+        else:
+            buf = self.decoder.decode_window(
+                self.cache, self._last_token, active, self._gen, samp=samp)
         self.decode_dispatches += 1
-        toks = toks.cpu().numpy()  # (K, slots): the one host sync
+        # (K, slots), or (steps, slots, 2 + draft) under speculation:
+        # the one host sync of the window
+        buf = buf.cpu().numpy()
+        if self._spec:
+            self._fetch_spec(buf[..., :-1], buf[..., -1])
+        else:
+            self._fetch(buf)
+        if self.paged:
+            live = sum(int(self._slot_len[s]) for s in self._active)
+            live += sum(e[2] for e in self._prefilling.values())
+            self.peak_live_tokens = max(self.peak_live_tokens, live)
+        return bool(self._queue or self._active or self._prefilling)
+
+    def _fetch(self, toks: np.ndarray) -> None:
+        """Consume a window's (K, slots) tokens."""
         k = toks.shape[0]
         for slot, r in list(self._active.items()):
             base = self._slot_len[slot]
@@ -358,10 +464,37 @@ class ServeEngine:
                     break
             if not r.done:
                 self._slot_len[slot] = base + k
-        live = sum(int(self._slot_len[s]) for s in self._active)
-        live += sum(e[2] for e in self._prefilling.values())
-        self.peak_live_tokens = max(self.peak_live_tokens, live)
-        return bool(self._queue or self._active or self._prefilling)
+
+    def _fetch_spec(self, toks: np.ndarray, acc: np.ndarray) -> None:
+        """Consume a spec window's (steps, slots, 1 + draft) candidate
+        tokens and (steps, slots) accepted counts: each slot emits
+        ``toks[i, s, :acc[i, s]]`` at step i until EOS, budget or
+        capacity retires it (a position at ``max_len`` was clamped on
+        the device: capacity retirement, as in :meth:`_fetch`).  The
+        spec counters stop at the retiring step, so they count tokens
+        that were consumed."""
+        steps, _, d1 = toks.shape
+        for slot, r in list(self._active.items()):
+            base = self._slot_len[slot]
+            count = 0
+            for i in range(steps):
+                n = int(acc[i, slot])
+                self.spec_draft_tokens += d1 - 1
+                self.spec_accepted_tokens += n - 1
+                self.spec_rollbacks += int(n < d1)
+                self._accepted_hist[n] = self._accepted_hist.get(n, 0) + 1
+                for j in range(n):
+                    if base + count >= self.max_len:
+                        self._finish(r, truncated=True)
+                        break
+                    self._append(r, int(toks[i, slot, j]))
+                    count += 1
+                    if r.done:
+                        break
+                if r.done:
+                    break
+            if not r.done:
+                self._slot_len[slot] = base + count
 
     def run(self, max_rounds: int = 100_000) -> Dict[int, List[int]]:
         """Drain the queue; returns ``{uid: generated tokens}``."""
@@ -375,18 +508,42 @@ class ServeEngine:
     # -- accounting -----------------------------------------------------
 
     def stats(self) -> Dict[str, object]:
-        """Dispatch, page and preemption counters, the device token meter
-        (one fetch) and the kernels' launch counts."""
-        in_use = self.pool.in_use
-        live = sum(int(self._slot_len[s]) for s in self._active)
-        live += sum(e[2] for e in self._prefilling.values())
-        return {
+        """Dispatch counters, the device token meter (one fetch), the
+        kernels' launch counts, under speculation the ``"spec"`` counters
+        and, for the paged engine, page, prefix and preemption counters
+        (for the contiguous one, the bytes a slot pins)."""
+        s: Dict[str, object] = {
             "decoded_tokens": int(self.cache.decoded),
             "decode_dispatches": self.decode_dispatches,
             "prefill_dispatches": self.prefill_dispatches,
             "tokens_per_dispatch": self.decoder.tokens_per_dispatch,
             "requests_done": len(self.results),
             "slots": self.cache.slots,
+            "kernel_launches": launch_counts(),
+        }
+        if self._spec:
+            s["spec"] = {
+                "draft_tokens": self.spec_draft_tokens,
+                "accepted_draft_tokens": self.spec_accepted_tokens,
+                "acceptance_rate": round(
+                    self.spec_accepted_tokens
+                    / max(self.spec_draft_tokens, 1), 4),
+                "rollbacks": self.spec_rollbacks,
+                "steps_per_dispatch": self.decoder.spec_steps,
+                "draft_per_step": self.decoder.spec_tokens,
+                "mean_tokens_per_dispatch": round(
+                    s["decoded_tokens"] / max(self.decode_dispatches, 1), 2),
+                "accepted_per_step_hist": {
+                    k: self._accepted_hist[k]
+                    for k in sorted(self._accepted_hist)},
+            }
+        if not self.paged:
+            s["cache_bytes_per_slot"] = self.cache.bytes_per_slot
+            return s
+        in_use = self.pool.in_use
+        live = sum(int(self._slot_len[sl]) for sl in self._active)
+        live += sum(e[2] for e in self._prefilling.values())
+        s.update({
             "kv_dtype": str(self.cache.k.dtype).replace("torch.", ""),
             "kv_quantized": self.cache.quantized,
             "page_len": self.page_len,
@@ -405,5 +562,5 @@ class ServeEngine:
             "cow_copies": self.pool.cow_copies,
             "cow_dispatches": self.cow_dispatches,
             "preemptions": self.preemptions,
-            "kernel_launches": launch_counts(),
-        }
+        })
+        return s

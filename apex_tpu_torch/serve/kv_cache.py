@@ -1,16 +1,20 @@
-"""Paged KV cache — the global page pool and its host-side allocator.
+"""KV caches — the contiguous slot cache, and the global page pool with
+its host-side allocator.
 
-Counterpart of the paged half of ``apex_tpu/serve/kv_cache.py``.  K/V
-live in a global pool of fixed-size pages ``(num_pages, layers, heads,
-page_len, head_dim)`` on the device; a host-side :class:`PagePool` maps
-each slot's logical positions to physical pages and hands the
-``(slots, pages_per_slot)`` int32 page table to every dispatch.  Page
-:data:`TRASH_PAGE` is never allocated: free and unmapped table entries
-point at it, so inactive slots' masked writes land in a sink.
+Counterpart of ``apex_tpu/serve/kv_cache.py``.  :class:`KVCache` is the
+contiguous layout: every slot owns ``max_len`` columns of every layer,
+``(slots, layers, heads, max_len, head_dim)``, for its lifetime.  In the
+paged layout K/V live in a global pool of fixed-size pages
+``(num_pages, layers, heads, page_len, head_dim)`` on the device; a
+host-side :class:`PagePool` maps each slot's logical positions to
+physical pages and hands the ``(slots, pages_per_slot)`` int32 page
+table to every dispatch.  Page :data:`TRASH_PAGE` is never allocated:
+free and unmapped table entries point at it, so inactive slots' masked
+writes land in a sink.
 
-Where the JAX cache is an immutable pytree donated through each
-dispatch, :class:`PagedKVCache` holds device tensors that the prefill,
-decode and copy programs update IN PLACE.  Int8 pools carry per-token
+Where the JAX caches are immutable pytrees donated through each
+dispatch, :class:`KVCache` and :class:`PagedKVCache` hold device tensors
+that the prefill, decode and copy programs update IN PLACE.  Int8 pools carry per-token
 fp32 scales (``k_scale``/``v_scale``) beside the pages.  The allocator
 classes are host code with no framework in them; the port keeps its
 own copy rather than importing the JAX package.
@@ -27,14 +31,92 @@ from apex_tpu_torch.ops._common import resolve_device
 
 __all__ = [
     "TRASH_PAGE",
+    "KVCache",
     "PagePool",
     "PagedKVCache",
     "SlotAllocator",
     "auto_page_len",
+    "cache_bytes_per_slot",
+    "init_cache",
     "init_paged_cache",
 ]
 
 TRASH_PAGE = 0  # physical page 0 is never allocated (see module docs)
+
+
+@dataclasses.dataclass
+class KVCache:
+    """Device state of the contiguous decode engine, updated in place."""
+
+    k: torch.Tensor        # (slots, layers, heads, max_len, head_dim)
+    v: torch.Tensor        # (slots, layers, heads, max_len, head_dim)
+    lengths: torch.Tensor  # (slots,) int32 valid prefix per slot
+    decoded: torch.Tensor  # () int64 total generated tokens (device meter)
+
+    @property
+    def slots(self) -> int:
+        return self.k.shape[0]
+
+    @property
+    def layers(self) -> int:
+        return self.k.shape[1]
+
+    @property
+    def heads(self) -> int:
+        return self.k.shape[2]
+
+    @property
+    def max_len(self) -> int:
+        return self.k.shape[3]
+
+    @property
+    def head_dim(self) -> int:
+        return self.k.shape[4]
+
+    @property
+    def bytes_per_slot(self) -> int:
+        """K+V bytes one slot pins for its lifetime."""
+        per = self.layers * self.heads * self.max_len * self.head_dim
+        return 2 * per * self.k.element_size()
+
+
+def cache_bytes_per_slot(cfg, max_len: int,
+                         dtype: Optional[torch.dtype] = None) -> int:
+    """Shape-only K+V bytes a slot of :class:`KVCache` pins (``dtype``
+    None: the config's compute dtype); no tensor is made."""
+    d = cfg.hidden_size // cfg.num_heads
+    per = cfg.num_layers * cfg.num_heads * max_len * d
+    return 2 * per * (dtype or cfg.compute_dtype).itemsize
+
+
+def init_cache(
+    cfg,
+    slots: int,
+    max_len: int,
+    dtype: Optional[torch.dtype] = None,
+    device: Optional[Union[str, torch.device]] = None,
+) -> KVCache:
+    """A zeroed contiguous cache for ``slots`` sequences on ``device``
+    (None: the CUDA device).  ``dtype`` None -> ``cfg.compute_dtype``;
+    ``max_len`` must fit the learned positions (``cfg.max_position``),
+    and int8 storage is for the page pool only."""
+    if max_len > cfg.max_position:
+        raise ValueError(
+            f"max_len {max_len} exceeds cfg.max_position {cfg.max_position}")
+    dtype = cfg.compute_dtype if dtype is None else dtype
+    if dtype == torch.int8:
+        raise ValueError("int8 KV storage is paged-only: use "
+                         "init_paged_cache, or keep the contiguous cache at "
+                         "bf16/fp32")
+    dev = resolve_device(device)
+    shape = (slots, cfg.num_layers, cfg.num_heads, max_len,
+             cfg.hidden_size // cfg.num_heads)
+    return KVCache(
+        k=torch.zeros(shape, dtype=dtype, device=dev),
+        v=torch.zeros(shape, dtype=dtype, device=dev),
+        lengths=torch.zeros((slots,), dtype=torch.int32, device=dev),
+        decoded=torch.zeros((), dtype=torch.int64, device=dev),
+    )
 
 
 @dataclasses.dataclass

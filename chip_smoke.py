@@ -28,7 +28,19 @@ line) on any failed check:
    pool) through 16 seeded requests, with every kernel's launch count
    read from that run alone; profile: one decode window under
    ``torch.profiler``, with the paged-attention kernels' device time and
-   calls (12 a step);
+   calls (exactly 25 LayerNorms and 12 paged calls a step);
+   speculative decoding and the contiguous cache: ``spec_parity``
+   (GPT-2 small fp32, fp32 pages, TF32 off: a verify block of T = 4 and
+   8 against T decode steps; four requests, one a period-2 repetition,
+   through five engines — paged plain, paged n-gram D = 3, paged
+   shallow D = 2 E = 6, contiguous plain, contiguous n-gram D = 3 — with
+   the same greedy tokens as each other and as ``reference_generate``,
+   the contiguous ones launching no paged or flash kernel, and the
+   repetitive request accepting drafts), ``spec_engine`` (the engine
+   mix through the bf16 n-gram spec engine at D = 3 and 7, each run's
+   launches; bf16 verify blocks against their steps) and
+   ``spec_profile`` (the profile set-up with the D = 3 spec window,
+   beside the plain window);
 5. training kernels: the LayerNorm backward, flash attention forward and
    backward and the fused cross-entropy forward and backward against
    their plain versions at the training shapes (GPT-2 small, batch
@@ -161,6 +173,7 @@ from apex_tpu_torch import (
     init_params,
     init_resnet_params,
     read_metrics,
+    reference_generate,
     resnet50,
 )
 from apex_tpu_torch.ops import _build, launch_counts, reset_launch_counts
@@ -417,7 +430,8 @@ def ln_fwd_cases():
     then the warp instantiations no model shape reaches (bf16 x with bf16
     affine at n 520, its last vectors masked, and at 1024; bf16 x with
     fp32 affine at 1024); then the block design (a ragged n, and a base 4
-    bytes off alignment) and the wide design (n 12288 and 16384)."""
+    bytes off alignment) and the wide design (n 12288 and 16384); then the
+    verify blocks of speculative decoding, 8 slots x 4 and x 8 tokens."""
     f32, bf = torch.float32, torch.bfloat16
     return ((8, 768, f32, f32, 0), (8, 768, bf, f32, 0),
             (128, 768, f32, f32, 0), (128, 768, bf, f32, 0),
@@ -428,7 +442,8 @@ def ln_fwd_cases():
             (4097, 520, bf, bf, 0), (3000, 1024, bf, bf, 0),
             (4097, 1024, bf, f32, 0),
             (4099, 1021, f32, bf, 0), (4096, 768, f32, bf, 4),
-            (1024, 12288, f32, bf, 0), (1024, 16384, bf, f32, 0))
+            (1024, 12288, f32, bf, 0), (1024, 16384, bf, f32, 0),
+            (32, 768, f32, f32, 0), (64, 768, f32, f32, 0))
 
 
 # the forward cases at a model's training shape, which must take the warp
@@ -695,6 +710,14 @@ EDGE_SPLIT_KEYS = (64, 512)
 EDGE_LENGTHS = (0, 64, 65, 128, 129, 1024, 512, 513)
 
 
+#: the chain-verify cases (T, pool dtype, masked, lengths), after the
+#: others so that their random data stays as it was
+CHAIN_VERIFY = [(t, pd, False, None) for t in (2, 4)
+                for pd in (torch.bfloat16, torch.int8)]
+CHAIN_VERIFY += [(8, torch.bfloat16, False, None),
+                 (4, torch.bfloat16, False, EDGE_LENGTHS)]
+
+
 def paged_problems(dev):
     """The cases of :func:`phase_paged_attention`, in order, from one
     seeded generator: ``(name, problem)``.  T = 1 (decode) and 128 (a
@@ -702,7 +725,11 @@ def paged_problems(dev):
     fp32 at T = 1 and 128; T = 8 masked bf16 (a speculative verify
     block: the tensor-core kernel) and T = 4 (the decode kernel's rows
     past the first); then :data:`EDGE_LENGTHS` at T = 1 bf16 and fp32,
-    T = 8 int8 masked and T = 128 bf16 masked."""
+    T = 8 int8 masked and T = 128 bf16 masked; then the chain-verify
+    blocks of speculative decoding, causal by position with no mask
+    (:data:`CHAIN_VERIFY`): T = 2 and 4 with bf16 and int8 pools, T = 8
+    bf16 (the draft of 7: the tensor-core kernel) and T = 4 bf16 at
+    :data:`EDGE_LENGTHS`."""
     gen = torch.Generator(device=dev).manual_seed(2)
     grid = [(t, pd, m, None) for t in (1, 128)
             for pd in (torch.bfloat16, torch.int8) for m in (False, True)]
@@ -712,6 +739,7 @@ def paged_problems(dev):
              (1, torch.float32, False, EDGE_LENGTHS),
              (8, torch.int8, True, EDGE_LENGTHS),
              (128, torch.bfloat16, True, EDGE_LENGTHS)]
+    grid += CHAIN_VERIFY
     for t, pool_dtype, masked, lengths in grid:
         name = f"T={t} pool={_dt(pool_dtype)} masked={masked}"
         if lengths is not None:
@@ -813,21 +841,21 @@ def phase_parity(params):
 
 # -- phase 4: engine ---------------------------------------------------------
 
-def phase_engine(dev, params):
-    cfg = GPTConfig.small()
-    dec = GPTDecoder(cfg, params, compute_dtype=torch.bfloat16,
-                     cache_dtype=torch.bfloat16, tokens_per_dispatch=8,
-                     device=dev)
-    eng = ServeEngine(dec, slots=8, max_len=1024, page_len=16,
-                      prefill_chunk=128, seed=0)
+SERVING = ("layer_norm", "paged_fused_attention")
+
+
+def _run_engine_mix(eng, vocab: int):
+    """The engine phase's 16 seeded requests through ``eng``, 64 new
+    tokens each: a 256-token shared prefix (the second request extends
+    the first through its partial tail page, so it maps the shared pages
+    and its first write copy-on-writes the shared tail) and 14 prompts of
+    64-768 tokens.  The launch counts are set to 0 just before.  Returns
+    (prompt lengths, tokens by request, wall seconds, launches)."""
     rng = torch.Generator().manual_seed(4)
 
     def toks(n):
         return torch.randint(0, 50257, (n,), generator=rng).tolist()
 
-    # a 256-token shared prefix: the second request extends the first
-    # through its partial tail page, so it maps the shared pages and its
-    # first write copy-on-writes the shared tail
     shared = toks(256)
     first = shared + toks(8)
     second = first + toks(40)
@@ -844,37 +872,54 @@ def phase_engine(dev, params):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = launch_counts()
+    got = [out[u] for u in uids]
+    check(all(len(t) == 64 for t in got), "a request fell short")
+    check(all(0 <= t < vocab for r in got for t in r), "token out of range")
     stats = eng.stats()
-    n_tok = sum(len(out[u]) for u in uids)
-    emit({"phase": "engine", "model": "GPT-2 small bf16, bf16 pages",
-          "requests": len(uids), "prompt_lens": [len(first), len(second)]
-          + lens, "generated_tokens": n_tok, "wall_s": wall,
-          "tokens_per_s": n_tok / wall,
-          "windows": stats["decode_dispatches"],
-          "chunks": stats["prefill_dispatches"],
-          "prefix_hits": stats["prefix_hits"],
-          "prefix_hit_tokens": stats["prefix_hit_tokens"],
-          "cow_copies": stats["cow_copies"],
-          "preemptions": stats["preemptions"],
-          "peak_pages_in_use": stats["peak_pages_in_use"],
-          "launches": launches})
-    check(all(len(out[u]) == 64 for u in uids), "a request fell short")
-    check(all(0 <= t < cfg.vocab_size for u in uids for t in out[u]),
-          "token out of range")
     check(stats["prefix_hits"] >= 1 and stats["cow_copies"] >= 1,
           "no prefix reuse / copy-on-write")
-    serving = ("layer_norm", "paged_fused_attention")
-    check(all(launches[n] > 0 for n in serving),
+    check(all(launches[n] > 0 for n in SERVING),
           f"a serving kernel never launched: {launches}")
-    check(all(c == 0 for n, c in launches.items() if n not in serving),
+    check(all(c == 0 for n, c in launches.items() if n not in SERVING),
           f"a training kernel launched while serving: {launches}")
+    return [len(first), len(second)] + lens, got, wall, launches
+
+
+def _engine_record(stats, n_tok, wall):
+    return {"generated_tokens": n_tok, "wall_s": wall,
+            "tokens_per_s": n_tok / wall,
+            "windows": stats["decode_dispatches"],
+            "chunks": stats["prefill_dispatches"],
+            "prefix_hits": stats["prefix_hits"],
+            "prefix_hit_tokens": stats["prefix_hit_tokens"],
+            "cow_copies": stats["cow_copies"],
+            "preemptions": stats["preemptions"],
+            "peak_pages_in_use": stats["peak_pages_in_use"]}
+
+
+def phase_engine(dev, params):
+    cfg = GPTConfig.small()
+    dec = GPTDecoder(cfg, params, compute_dtype=torch.bfloat16,
+                     cache_dtype=torch.bfloat16, tokens_per_dispatch=8,
+                     device=dev)
+    eng = ServeEngine(dec, slots=8, max_len=1024, page_len=16,
+                      prefill_chunk=128, seed=0)
+    lens, got, wall, launches = _run_engine_mix(eng, cfg.vocab_size)
+    emit({"phase": "engine", "model": "GPT-2 small bf16, bf16 pages",
+          "requests": len(got), "prompt_lens": lens,
+          **_engine_record(eng.stats(), sum(map(len, got)), wall),
+          "launches": launches})
     return launches, dec
 
 
-def phase_profile(dec):
-    """Where a decode window's time goes: 8 slots with 512-token
-    histories, one K=8 window under ``torch.profiler`` — wall time,
-    device-busy share and the kernels that take the most device time."""
+def _profile_window(dec, steps: int) -> dict:
+    """The profile set-up: 8 slots with 512-token histories, K=8; one warm
+    window, one timed without the profiler and one under
+    ``torch.profiler`` — wall, device-busy share, the tokens the window
+    emitted, the paged-attention kernels' device time and launches, and
+    the kernels that take the most device time.  The profiled window's
+    launch counts must be ``steps`` verify forwards (decode steps without
+    speculation) of 25 LayerNorms and 12 paged-attention calls each."""
     from torch.profiler import ProfilerActivity, profile
 
     eng = ServeEngine(dec, slots=8, max_len=1024, page_len=16,
@@ -891,16 +936,21 @@ def phase_profile(dec):
     eng.step()  # one window without the profiler's own host cost
     torch.cuda.synchronize()
     plain_wall_ms = (time.perf_counter() - t0) * 1e3
-    calls0 = paged_fused_attention.launches
+    check(len(eng._active) == 8, "a request retired before the profiled "
+          "window")
+    decoded0 = int(eng.cache.decoded)
+    reset_launch_counts()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         eng.step()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    paged_calls = paged_fused_attention.launches - calls0
-    check(paged_calls == 12 * 8, f"{paged_calls} paged-attention calls in "
-          "one K=8 window of GPT-2 small, not 12 a step")
+    launches = launch_counts()
+    want = {"layer_norm": 25 * steps, "paged_fused_attention": 12 * steps}
+    check(launches == {n: want.get(n, 0) for n in launches},
+          f"one window of GPT-2 small launched {launches}, not {steps} "
+          "forwards of 25 LayerNorms and 12 paged-attention calls")
     by_name = {}
     for e in _kernel_events(prof):
         ms, n = by_name.get(e.name, (0.0, 0))
@@ -911,17 +961,202 @@ def phase_profile(dec):
     # the paged-attention kernels' device time and launches in the window
     # (every kernel of csrc/paged_attention.cu has "paged" in its name)
     paged = [(ms, n) for k, ms, n in rows if "paged" in k]
+    return {"wall_ms": wall_ms, "unprofiled_wall_ms": plain_wall_ms,
+            "device_busy_ms": busy_ms if busy_ms > 0 else None,
+            "device_busy_share": busy_ms / wall_ms if busy_ms > 0 else None,
+            "tokens_emitted": int(eng.cache.decoded) - decoded0,
+            "launches": {n: c for n, c in launches.items() if c},
+            "paged_attention_calls": launches["paged_fused_attention"],
+            "paged_attention_kernel_launches": sum(n for _, n in paged),
+            "paged_attention_device_ms": (sum(ms for ms, _ in paged)
+                                          if paged else None),
+            "top_kernels": [{"name": k[:90], "device_ms": ms, "calls": n}
+                            for k, ms, n in rows[:8]]}
+
+
+def phase_profile(dec):
+    """Where a decode window's time goes (:func:`_profile_window`)."""
+    rec = _profile_window(dec, steps=8)
     emit({"phase": "profile", "what": "one K=8 decode window, 8 slots, "
-          "512-token histories, GPT-2 small bf16",
-          "wall_ms": wall_ms, "unprofiled_wall_ms": plain_wall_ms,
-          "device_busy_ms": busy_ms if busy_ms > 0 else None,
-          "device_busy_share": busy_ms / wall_ms if busy_ms > 0 else None,
-          "paged_attention_calls": paged_calls,
-          "paged_attention_kernel_launches": sum(n for _, n in paged),
-          "paged_attention_device_ms": (sum(ms for ms, _ in paged)
-                                        if paged else None),
-          "top_kernels": [{"name": k[:90], "device_ms": ms, "calls": n}
-                          for k, ms, n in rows[:8]]})
+          "512-token histories, GPT-2 small bf16", **rec})
+    return rec
+
+
+# -- phase 4b: speculative decoding and the contiguous cache ------------------
+
+def _block_vs_steps(dec, t: int, slots: int = 4, prompt: int = 64) -> dict:
+    """One ``paged_decode_block`` of T tokens against T successive
+    ``paged_decode_step`` calls on a copy of the pools, after 64-token
+    prefills of ``slots`` rows: the largest logit and K/V differences."""
+    pps = dec.cfg.max_position // 16
+    cache = dec.init_paged_cache(1 + slots * pps, slots, 16)
+    tables = torch.arange(1, 1 + slots * pps, dtype=torch.int32,
+                          device=dec.device).reshape(slots, pps)
+    rng = torch.Generator().manual_seed(40 + t)
+    ids = torch.randint(0, 50257, (slots, prompt), generator=rng)
+    dec.prefill_chunk(cache, tables, list(range(slots)), ids, [0] * slots,
+                      [prompt] * slots)
+    block = torch.randint(0, 50257, (slots, t), generator=rng).to(dec.device)
+    pk, pv = cache.k.clone(), cache.v.clone()
+    lengths = cache.lengths.clone()
+    with torch.no_grad():
+        got = dec.model.paged_decode_block(block, cache.k, cache.v, tables,
+                                           lengths)
+        want = torch.stack([
+            dec.model.paged_decode_step(block[:, i].contiguous(), pk, pv,
+                                        tables, lengths + i)
+            for i in range(t)], dim=1)
+    torch.cuda.synchronize()
+    out = {"T": t, "logits_max_abs_err": (got - want).abs().max().item(),
+           "kv_max_abs_err": max(
+               (cache.k.float() - pk.float()).abs().max().item(),
+               (cache.v.float() - pv.float()).abs().max().item())}
+    del cache, pk, pv
+    torch.cuda.empty_cache()
+    return out
+
+
+def _spec_stats(eng) -> dict:
+    s = eng.stats()
+    return {**s["spec"], "windows": s["decode_dispatches"],
+            "decoded_tokens": s["decoded_tokens"]}
+
+
+def phase_spec_parity(dev, params):
+    """GPT-2 small fp32 (TF32 off) with fp32 pages and the parity phase's
+    weights: (a) a verify block of T = 4 and 8 against T decode steps
+    (logits within the parity phase's 1e-3, K/V within 1e-5); (b) four
+    requests (64-token prompts, 48 new tokens, one a period-2
+    repetition) through five engines — paged without speculation, paged
+    n-gram (D = 3), paged shallow (D = 2, E = 6), contiguous without
+    speculation, contiguous n-gram (D = 3), K = 8 — that must give the
+    same greedy tokens as each other and as ``reference_generate``; the
+    contiguous engines launch no paged or flash kernel; the repetitive
+    request alone through each n-gram engine accepts drafts and emits
+    more tokens a window than verify steps."""
+    cfg = GPTConfig.small(compute_dtype=torch.float32)
+
+    def decoder(**kw):
+        return GPTDecoder(cfg, params, cache_dtype=torch.float32,
+                          tokens_per_dispatch=8, device=dev, **kw)
+
+    decs = {"plain": decoder(), "ngram": decoder(spec_tokens=3),
+            "shallow": decoder(spec_tokens=2, spec_proposer="shallow",
+                               spec_exit_layers=6)}
+    blocks = [_block_vs_steps(decs["plain"], t) for t in (4, 8)]
+    rng = torch.Generator().manual_seed(41)
+    prompts = [torch.randint(0, 50257, (64,), generator=rng).tolist()
+               for _ in range(3)]
+    prompts.insert(1, torch.randint(0, 50257, (2,), generator=rng).tolist()
+                   * 32)
+    engines = {"paged": ("plain", True), "paged_ngram": ("ngram", True),
+               "paged_shallow": ("shallow", True),
+               "contiguous": ("plain", False),
+               "contiguous_ngram": ("ngram", False)}
+    tokens, stats, launches, alone = {}, {}, {}, {}
+    for name, (d, paged) in engines.items():
+        eng = ServeEngine(decs[d], slots=4, max_len=128, page_len=16,
+                          prefill_chunk=64, paged=paged)
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        uids = [eng.submit(p, max_new_tokens=48) for p in prompts]
+        out = eng.run()
+        torch.cuda.synchronize()
+        launches[name] = launch_counts()
+        tokens[name] = [out[u] for u in uids]
+        if d != "plain":
+            stats[name] = _spec_stats(eng)
+        if d == "ngram":  # the repetitive request alone
+            eng = ServeEngine(decs[d], slots=1, max_len=128, page_len=16,
+                              prefill_chunk=64, paged=paged)
+            uid = eng.submit(prompts[1], max_new_tokens=48)
+            alone[name] = {"same_tokens": eng.run()[uid] == tokens[name][1],
+                           **_spec_stats(eng)}
+    ref = [reference_generate(cfg, params, p, 48, device=dev)
+           for p in prompts]
+    same = {n: t == tokens["paged"] for n, t in tokens.items()}
+    emit({"phase": "spec_parity", "model": "GPT-2 small fp32, fp32 "
+          "pages/cache, TF32 off", "blocks_vs_steps": blocks,
+          "identical_to_paged": same, "identical_to_reference":
+          tokens["paged"] == ref, "greedy_tokens": tokens["paged"],
+          "spec_stats": stats, "repetitive_request_alone": alone,
+          "launches": launches})
+    for b in blocks:
+        check(b["logits_max_abs_err"] <= 1e-3,
+              f"fp32 verify block T={b['T']}: logits differ from the steps "
+              f"by {b['logits_max_abs_err']}")
+        check(b["kv_max_abs_err"] <= 1e-5,
+              f"fp32 verify block T={b['T']}: K/V differ from the steps by "
+              f"{b['kv_max_abs_err']}")
+    check(all(same.values()), f"greedy tokens differ across engines: {same}")
+    check(tokens["paged"] == ref, "greedy tokens differ from "
+          "reference_generate")
+    for name, s in alone.items():
+        check(s["same_tokens"] and s["accepted_draft_tokens"] > 0
+              and s["mean_tokens_per_dispatch"] > s["steps_per_dispatch"],
+              f"{name}: the repetitive request alone: {s}")
+    for name in ("contiguous", "contiguous_ngram"):
+        lc = launches[name]
+        check(lc["layer_norm"] > 0 and all(
+            c == 0 for n, c in lc.items() if n != "layer_norm"),
+              f"{name}: the contiguous engine launched {lc}")
+    del decs
+    torch.cuda.empty_cache()
+
+
+def phase_spec_engine(dev, params):
+    """GPT-2 small bf16 with bf16 pages, the engine phase's 16 requests
+    through the n-gram spec engine at D = 3 (verify blocks of T = 4: the
+    decode kernel) and D = 7 (T = 8: the tensor-core kernel), K = 8,
+    each run with its own launch counts; then a verify block of T = 4
+    and 8 against T decode steps, within the bf16 model-logit rule 5e-2.
+    Returns each run's launches by draft."""
+    cfg = GPTConfig.small()
+    out = {}
+    for draft in (3, 7):
+        dec = GPTDecoder(cfg, params, compute_dtype=torch.bfloat16,
+                         cache_dtype=torch.bfloat16, tokens_per_dispatch=8,
+                         spec_tokens=draft, device=dev)
+        eng = ServeEngine(dec, slots=8, max_len=1024, page_len=16,
+                          prefill_chunk=128, seed=0)
+        lens, got, wall, launches = _run_engine_mix(eng, cfg.vocab_size)
+        out[draft] = launches
+        emit({"phase": "spec_engine", "model": "GPT-2 small bf16, bf16 "
+              "pages", "draft": draft, "requests": len(got),
+              "prompt_lens": lens,
+              **_engine_record(eng.stats(), sum(map(len, got)), wall),
+              "spec": _spec_stats(eng), "launches": launches})
+        del eng
+    blocks = [_block_vs_steps(dec, t) for t in (4, 8)]
+    emit({"phase": "spec_engine", "what": "bf16 verify block against "
+          "decode steps", "blocks_vs_steps": blocks, "tol": 5e-2})
+    for b in blocks:
+        check(b["logits_max_abs_err"] <= 5e-2,
+              f"bf16 verify block T={b['T']}: logits differ from the steps "
+              f"by {b['logits_max_abs_err']}")
+    del dec
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_spec_profile(dev, params, plain: dict):
+    """The profile set-up with the n-gram spec engine at D = 3 (2 verify
+    forwards a K = 8 window), beside the plain window of
+    :func:`phase_profile` from the same run.  A record: no gain is
+    claimed."""
+    dec = GPTDecoder(GPTConfig.small(), params,
+                     compute_dtype=torch.bfloat16, cache_dtype=torch.bfloat16,
+                     tokens_per_dispatch=8, spec_tokens=3, device=dev)
+    rec = _profile_window(dec, steps=dec.spec_steps)
+    keys = ("unprofiled_wall_ms", "wall_ms", "device_busy_ms",
+            "device_busy_share", "tokens_emitted", "paged_attention_calls",
+            "paged_attention_device_ms")
+    emit({"phase": "spec_profile", "what": "one K=8 n-gram spec window "
+          "(D=3: 2 verify forwards of 4 positions), 8 slots, 512-token "
+          "histories, GPT-2 small bf16", **rec,
+          "plain_window": {k: plain[k] for k in keys}})
+    del dec
+    torch.cuda.empty_cache()
 
 
 # -- phase 5: training kernels ------------------------------------------------
@@ -3958,9 +4193,12 @@ def _run() -> int:
     params = init_params(GPTConfig.small(), torch.Generator().manual_seed(0))
     phase_parity(params)
     launches, dec = phase_engine(dev, params)
-    phase_profile(dec)
+    plain_profile = phase_profile(dec)
     del dec
     torch.cuda.empty_cache()
+    phase_spec_parity(dev, params)
+    spec_launches = phase_spec_engine(dev, params)
+    phase_spec_profile(dev, params, plain_profile)
 
     lnb_cases = phase_layer_norm_bwd(dev)
     fl_cases = phase_flash(dev)
@@ -4200,10 +4438,27 @@ def _run() -> int:
                       if n != "tc_info" and rec_key in c]}
     by_name["flash_attention_fwd"]["medium_path"]["tc_info_d64"] = \
         tc_info["d64"]["fwd" + pb]
+    # the speculative serving path: the n-gram spec engine's runs of the
+    # engine mix at D = 3 and 7, each with its own launches, beside the
+    # verify block's cases (8 slots x (1 + D) positions, no mask)
+    spec_cases = {
+        "layer_norm": {3: next(c for c in ln_cases if c["rows"] == 32),
+                       7: next(c for c in ln_cases if c["rows"] == 64)},
+        "paged_fused_attention": {
+            3: next(c for c in pa_cases
+                    if c["case"] == "T=4 pool=bfloat16 masked=False"),
+            7: next(c for c in pa_cases
+                    if c["case"] == "T=8 pool=bfloat16 masked=False")}}
+    for name, by_draft in spec_cases.items():
+        for draft, c in by_draft.items():
+            by_name[name][f"spec_path_d{draft}"] = {
+                "launches_of": f"{name}, ServeEngine run, GPT-2 small, "
+                f"n-gram speculation at D = {draft}",
+                **other_path(name, spec_launches[draft], c)}
     check(all(r["launches"] > 0 for r in rows)
           and all(r[p]["launches"] > 0 for r in rows
                   for p in ("train_path", "bert_path", "rn50_path",
-                            "medium_path")
+                            "medium_path", "spec_path_d3", "spec_path_d7")
                   if p in r),
           f"a kernel never launched on its path: {rows}")
     print(smi, flush=True)
