@@ -19,9 +19,13 @@ rematerialization per block (``remat``: ``none``, ``dots_saveable``,
 ``full_block``), and the flash kernels' ``probs_bf16`` option and
 dq-accumulating backward (``dq_acc``).  Serving also has the
 contiguous slot cache (``KVCache``, ``ServeEngine(paged=False)``) and
-chain self-speculative decoding (``GPTDecoder(spec_tokens=,
-spec_proposer=)``: n-gram or shallow-exit drafts verified in one block
-forward), with ``reference_generate`` as the full-recompute oracle.
+chain and tree self-speculative decoding (``GPTDecoder(spec_tokens=,
+spec_proposer=, spec_tree=)``: n-gram or shallow-exit drafts verified in
+one block forward, or W n-gram branches in one masked tree forward) with
+a draft-depth auto-tuner (``ServeEngine(spec_autotune=True)``), the
+policy's KV-cache dtype (``GPTDecoder(policy=, kv_int8=)``) and an
+untied head (``GPTConfig(tie_word_embeddings=False)``), with
+``reference_generate`` as the full-recompute oracle.
 Every kernel on those paths
 (LayerNorm forward and backward, paged attention, flash attention
 forward and backward with and without an additive bias and its gradient,

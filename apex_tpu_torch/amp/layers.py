@@ -37,19 +37,20 @@ def _apply_dtype(dtype: Optional[torch.dtype], *tensors):
 
 
 class Dense(nn.Module):
-    """``y = x @ kernel + bias`` with ``kernel`` of shape (in, out)."""
+    """``y = x @ kernel + bias`` with ``kernel`` of shape (in, out);
+    ``use_bias=False`` leaves the bias out, as flax's ``use_bias``."""
 
     def __init__(self, in_features: int, features: int,
-                 dtype: Optional[torch.dtype] = None):
+                 dtype: Optional[torch.dtype] = None, use_bias: bool = True):
         super().__init__()
         self.dtype = dtype
         self.kernel = nn.Parameter(torch.empty(in_features, features))
-        self.bias = nn.Parameter(torch.zeros(features))
+        self.bias = nn.Parameter(torch.zeros(features)) if use_bias else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.dtype or torch.promote_types(x.dtype, self.kernel.dtype)
         y = torch.matmul(x.to(dt), self.kernel.to(dt))
-        return y + self.bias.to(y.dtype)
+        return y if self.bias is None else y + self.bias.to(y.dtype)
 
 
 def same_padding(size: int, k: int, stride: int) -> Tuple[int, int]:

@@ -32,6 +32,9 @@ class Policy:
     cast_model_dtype: Optional[torch.dtype] = None  # None: params stay fp32
     keep_batchnorm_fp32: Optional[bool] = None
     loss_scale: Union[str, float] = 1.0
+    # serving: the dtype KV caches are stored in (None: the compute
+    # dtype); torch.int8 selects int8 pages with per-token fp32 scales
+    kv_cache_dtype: Optional[torch.dtype] = None
 
     def __post_init__(self):
         if self.cast_model_dtype not in (None, torch.bfloat16, torch.float16,
@@ -45,6 +48,11 @@ class Policy:
                 "float16 (i.e. O2/O3)")
         if isinstance(self.loss_scale, str) and self.loss_scale != "dynamic":
             raise ValueError("loss_scale must be a float or 'dynamic'")
+        if self.kv_cache_dtype not in (None, torch.bfloat16, torch.float16,
+                                       torch.float32, torch.int8):
+            raise ValueError(
+                "kv_cache_dtype must be bfloat16/float16/float32/int8/None, "
+                f"got {self.kv_cache_dtype}")
 
     @property
     def compute_dtype(self) -> torch.dtype:
@@ -52,6 +60,14 @@ class Policy:
         if self.cast_model_dtype in _VALID_HALF:
             return self.cast_model_dtype
         return torch.float32
+
+    @property
+    def cache_dtype(self) -> torch.dtype:
+        """dtype serving KV caches are stored in under this policy: the
+        explicit ``kv_cache_dtype`` when set, else the compute dtype."""
+        if self.kv_cache_dtype is not None:
+            return self.kv_cache_dtype
+        return self.compute_dtype
 
     def make_scaler(self, **kw) -> LossScaler:
         return LossScaler(loss_scale=self.loss_scale, **kw)

@@ -2,7 +2,7 @@
 over the paged KV pool.
 
 Counterpart of ``apex_tpu/models/gpt.py``, with the same pre-LN blocks,
-tied head and dtype discipline:
+head and dtype discipline:
 
 - the residual stream is in the compute dtype, every LayerNorm input is
   fp32 (:class:`~apex_tpu_torch.normalization.FusedLayerNorm`, the
@@ -21,16 +21,21 @@ tied head and dtype discipline:
   compute-dtype logits (a compute-dtype head product with fp32
   accumulation: the JAX package rounds its fp32 logits to that dtype
   before the loss), the mean over labels >= 0;
-- serving: the head is a compute-dtype product with fp32 accumulation
-  and fp32 logits (``_logits``); each layer's history is read either
+- the head is tied to ``wte`` by default; ``tie_word_embeddings=False``
+  gives an fp32 ``head`` ``Dense`` (no bias) whose fp32 product both
+  the loss and ``_logits`` use;
+- serving: the tied head is a compute-dtype product with fp32
+  accumulation and fp32 logits (``_logits``); each layer's history is read either
   from the contiguous slot caches by
   :func:`~apex_tpu_torch.ops.attention.cached_attention` (``prefill``,
   ``decode_step``, ``decode_block``) or through the page table by
   :func:`~apex_tpu_torch.ops.attention.paged_fused_attention`
   (``paged_prefill_chunk``, ``paged_decode_step``,
-  ``paged_decode_block``).  The step methods take ``n_layers`` (the
-  shallow-exit draft of speculative decoding) and the block methods
-  verify a current token plus its drafts in one forward.
+  ``paged_decode_block``, ``paged_decode_tree_block``).  The step
+  methods take ``n_layers`` (the shallow-exit draft of speculative
+  decoding) and the block methods verify a current token plus its
+  drafts in one forward: a chain, or W branches of a tree under a
+  branch mask.
 
 Where the JAX serving methods return updated (donated) pools, these write
 the new tokens' K/V into the pool tensors IN PLACE and return the logits.
@@ -54,7 +59,7 @@ from apex_tpu_torch.ops import attention as _attn
 from apex_tpu_torch.ops.softmax_xentropy import softmax_cross_entropy
 from apex_tpu_torch.remat import checkpoint_policy, remat_call
 
-__all__ = ["GPTConfig", "GPTLayer", "GPTLM", "init_params"]
+__all__ = ["GPTConfig", "GPTLayer", "GPTLM", "init_params", "tree_layout"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -76,6 +81,8 @@ class GPTConfig:
     # the flash backward: the dq-accumulating one (True), the partials one
     # (False), or the module default (None: ops.attention.DQ_ACC_DEFAULT)
     dq_acc: Optional[bool] = None
+    # False: an untied fp32 output head (``head``) instead of wte^T
+    tie_word_embeddings: bool = True
 
     def __post_init__(self):
         checkpoint_policy(self.remat_policy)  # an unknown name raises
@@ -149,7 +156,8 @@ class GPTLayer(nn.Module):
 
     def decode(self, x, *, positions, cache_lengths=None, cache_k=None,
                cache_v=None, layer=0, pool_k=None, pool_v=None,
-               page_table=None, pool_k_scale=None, pool_v_scale=None):
+               page_table=None, pool_k_scale=None, pool_v_scale=None,
+               block_mask=None):
         """The cached-attention (serving) branch.
 
         ``x`` (B, T, h) in the compute dtype, ``positions`` (B, T) int32
@@ -164,6 +172,9 @@ class GPTLayer(nn.Module):
           page_len, D)`` pools read at ``layer`` through ``page_table``
           (B, n_pages) up to ``cache_lengths`` (B,), by
           :func:`~apex_tpu_torch.ops.attention.paged_fused_attention`.
+
+        ``block_mask`` (T, T) bool further restricts which new keys each
+        new query sees (the tree block's branch mask).
 
         Returns ``(x_out, k, v)`` with k/v the new tokens' (B, H, T, D)
         projections for the caller to write into the cache; with int8
@@ -193,12 +204,13 @@ class GPTLayer(nn.Module):
                 pool_k=pool_k, pool_v=pool_v,
                 page_table=page_table, cache_lengths=cache_lengths,
                 pool_k_scale=pool_k_scale, pool_v_scale=pool_v_scale,
-                layer=layer,
+                layer=layer, block_mask=block_mask,
             )
         else:
             attn = _attn.cached_attention(
                 q, k_att, v_att, positions=positions, cache_k=cache_k,
-                cache_v=cache_v, cache_lengths=cache_lengths)
+                cache_v=cache_v, cache_lengths=cache_lengths,
+                block_mask=block_mask)
         attn = attn.transpose(1, 2).reshape(b, s, h)
         x = x + self.proj(attn).to(x.dtype)
         y = self.ln2(x.float()).to(dt)
@@ -207,6 +219,21 @@ class GPTLayer(nn.Module):
         if quant:
             return x, (k, k_s), (v, v_s)
         return x, k, v
+
+
+def tree_layout(width: int, depth: int, device=None):
+    """The tree verify block's static layout ``[root, branch 0's depth
+    nodes, ..., branch width-1's]``: each node's depth, (1, T) int32 (0
+    at the root, j + 1 at a branch's j-th node), and the contiguous (T,
+    T) bool branch mask (a query sees the root and its own branch), T =
+    1 + width * depth, on ``device``."""
+    branch = torch.cat([torch.tensor([-1]),
+                        torch.arange(width).repeat_interleave(depth)])
+    depths = torch.cat([torch.zeros(1, dtype=torch.int64),
+                        torch.arange(1, depth + 1).repeat(width)])
+    mask = (branch[None, :] < 0) | (branch[None, :] == branch[:, None])
+    return (depths[None].to(device=device, dtype=torch.int32),
+            mask.contiguous().to(device))
 
 
 def _paged_write(pool, scale_arr, li, phys, off, kv):
@@ -224,11 +251,13 @@ def _paged_write(pool, scale_arr, li, phys, off, kv):
 
 
 class GPTLM(nn.Module):
-    """Decoder LM: embeddings + pre-LN stack + final LN + tied head.
+    """Decoder LM: embeddings + pre-LN stack + final LN + head (tied to
+    ``wte``, or an untied ``head`` when ``cfg.tie_word_embeddings`` is
+    False).
 
     Parameter names follow the flax tree (see
     :func:`apex_tpu_torch.weights.from_jax_params`): ``wte``/``wpe``
-    embeddings, ``layers.{i}`` blocks, ``ln_f``.
+    embeddings, ``layers.{i}`` blocks, ``ln_f``, ``head``.
     """
 
     def __init__(self, cfg: GPTConfig):
@@ -239,7 +268,12 @@ class GPTLM(nn.Module):
         self.layers = nn.ModuleList(GPTLayer(cfg)
                                     for _ in range(cfg.num_layers))
         self.ln_f = FusedLayerNorm(cfg.hidden_size)
+        if not cfg.tie_word_embeddings:
+            self.head = Dense(cfg.hidden_size, cfg.vocab_size,
+                              dtype=torch.float32, use_bias=False)
         self._head: Optional[torch.Tensor] = None
+        # (width, depth) -> the tree block's node depths and branch mask
+        self._trees: Dict[tuple, tuple] = {}
 
     def forward(self, input_ids: torch.Tensor,
                 labels: Optional[torch.Tensor] = None,
@@ -274,7 +308,10 @@ class GPTLM(nn.Module):
         if labels is None:
             return self._logits(x)
         dt = cfg.compute_dtype
-        logits = torch.matmul(x.to(dt), self.wte.weight.to(dt).T)
+        if cfg.tie_word_embeddings:
+            logits = torch.matmul(x.to(dt), self.wte.weight.to(dt).T)
+        else:
+            logits = self.head(x).to(dt)
         valid = labels >= 0
         per_tok = softmax_cross_entropy(logits,
                                         torch.where(valid, labels, 0))
@@ -285,19 +322,24 @@ class GPTLM(nn.Module):
     @torch.no_grad()
     def cast_for_serving(self) -> None:
         """Make once the weight casts every serving step would repeat:
-        each ``Dense`` kernel and bias goes to its compute dtype in place,
-        and the tied head, rounded to the compute dtype, is kept in fp32
-        for ``_logits``.  The results are the same numbers; embeddings and
-        LayerNorm weights stay fp32.  Call it after loading the weights."""
+        each ``Dense`` kernel and bias goes to its compute dtype in place
+        (the untied head's is fp32), and the tied head, rounded to the
+        compute dtype, is kept in fp32 for ``_logits``.  The results are
+        the same numbers; embeddings and LayerNorm weights stay fp32.
+        Call it after loading the weights."""
         for m in self.modules():
             if isinstance(m, Dense) and m.dtype is not None:
                 m.to(m.dtype)
-        self._head = self.wte.weight.to(self.cfg.compute_dtype).float()
+        if self.cfg.tie_word_embeddings:
+            self._head = self.wte.weight.to(self.cfg.compute_dtype).float()
 
     def _logits(self, x: torch.Tensor) -> torch.Tensor:
-        """(..., h) fp32 post-``ln_f`` hidden -> (..., V) fp32 logits: a
-        compute-dtype product with fp32 accumulation, computed as an
-        fp32 product of compute-dtype-rounded operands."""
+        """(..., h) fp32 post-``ln_f`` hidden -> (..., V) fp32 logits.
+        Tied: a compute-dtype product with fp32 accumulation, computed
+        as an fp32 product of compute-dtype-rounded operands.  Untied: the
+        fp32 ``head`` product."""
+        if not self.cfg.tie_word_embeddings:
+            return self.head(x.float())
         dt = self.cfg.compute_dtype
         head = self._head
         if head is None:
@@ -307,6 +349,13 @@ class GPTLM(nn.Module):
     def _embed(self, ids, posq):
         x = self.wte(ids) + self.wpe(posq)
         return x.to(self.cfg.compute_dtype)
+
+    def _tree(self, width: int, depth: int, device) -> tuple:
+        """:func:`tree_layout` on ``device``, made once per (W, D)."""
+        key = (width, depth, str(device))
+        if key not in self._trees:
+            self._trees[key] = tree_layout(width, depth, device)
+        return self._trees[key]
 
     def _block_positions(self, start, t, smax):
         """Positions ``start .. start + t - 1`` (B, t) int32, the write
@@ -399,22 +448,27 @@ class GPTLM(nn.Module):
 
     # -- paged serving (PagedKVCache) -----------------------------------
 
-    def _paged_block(self, token_ids, start, cache_lengths, pool_k, pool_v,
-                     page_tables, k_scale=None, v_scale=None,
-                     n_layers=None):
-        """T tokens a row at positions ``start .. start + T - 1`` over the
-        paged pools ``(num_pages, L, H, page_len, D)``: the first
+    def _paged_start(self, token_ids, start, pool_k, page_tables):
+        """``(posq, wpos)`` of a block at positions ``start .. start + T
+        - 1`` over the paged pools (:meth:`_block_positions` at the
+        table's capacity)."""
+        return self._block_positions(
+            start, token_ids.shape[1], page_tables.shape[1] * pool_k.shape[3])
+
+    def _paged_block(self, token_ids, posq, wpos, cache_lengths, pool_k,
+                     pool_v, page_tables, k_scale=None, v_scale=None,
+                     n_layers=None, block_mask=None):
+        """T tokens a row at logical positions ``posq`` (B, T) int32 over
+        the paged pools ``(num_pages, L, H, page_len, D)``: the first
         ``n_layers`` layers (None: all) attend to the history through
         ``page_tables`` (B, n_pages) below ``cache_lengths`` plus the
-        block (causal by position), and write the block's K/V IN PLACE
-        at physical ``(table[pos // page_len], pos % page_len)``, the
-        positions clamped to the table's last column (int8 pools quantize
-        on write and update ``k_scale``/``v_scale`` in place).  Returns
-        the fp32 post-``ln_f`` hidden (B, T, h)."""
-        b, t = token_ids.shape
+        block (causal by position and, when given, ``block_mask`` (T, T)),
+        and write the block's K/V IN PLACE at the write slots ``wpos``
+        (B, T), physical ``(table[wpos // page_len], wpos % page_len)``
+        (int8 pools quantize on write and update ``k_scale``/``v_scale``
+        in place).  Returns the fp32 post-``ln_f`` hidden (B, T, h)."""
+        b = token_ids.shape[0]
         pl = pool_k.shape[3]
-        posq, wpos = self._block_positions(start, t,
-                                           page_tables.shape[1] * pl)
         x = self._embed(token_ids, posq)
         bidx = torch.arange(b, device=token_ids.device)
         phys = page_tables.long()[bidx[:, None], wpos // pl]  # (B, T)
@@ -424,6 +478,7 @@ class GPTLM(nn.Module):
                 x, layer=li, positions=posq, pool_k=pool_k, pool_v=pool_v,
                 page_table=page_tables, cache_lengths=cache_lengths,
                 pool_k_scale=k_scale, pool_v_scale=v_scale,
+                block_mask=block_mask,
             )
             _paged_write(pool_k, k_scale, li, phys, off, k)
             _paged_write(pool_v, v_scale, li, phys, off, v)
@@ -446,8 +501,9 @@ class GPTLM(nn.Module):
         (``PagePool.ensure_writable``)."""
         c = input_ids.shape[1]
         base = base.to(torch.int32)
-        x = self._paged_block(input_ids, base, base, pool_k, pool_v,
-                              page_tables, k_scale, v_scale)
+        x = self._paged_block(
+            input_ids, *self._paged_start(input_ids, base, pool_k, page_tables),
+            base, pool_k, pool_v, page_tables, k_scale, v_scale)
         last = torch.clamp(valid.long() - 1, 0, c - 1)
         return self._logits(x[torch.arange(x.shape[0], device=x.device),
                               last])
@@ -468,8 +524,10 @@ class GPTLM(nn.Module):
         advances ``lengths``."""
         smax = page_tables.shape[1] * pool_k.shape[3]
         pos = torch.clamp(lengths, max=smax - 1).to(torch.int32)
-        x = self._paged_block(token_ids[:, None], pos, pos, pool_k, pool_v,
-                              page_tables, k_scale, v_scale, n_layers)
+        ids = token_ids[:, None]
+        x = self._paged_block(
+            ids, *self._paged_start(ids, pos, pool_k, page_tables), pos,
+            pool_k, pool_v, page_tables, k_scale, v_scale, n_layers)
         return self._logits(x)[:, 0]
 
     def paged_decode_block(self, token_ids, pool_k, pool_v, page_tables,
@@ -482,8 +540,46 @@ class GPTLM(nn.Module):
         Returns fp32 (B, T, V) logits at every block position."""
         smax = page_tables.shape[1] * pool_k.shape[3]
         ln = torch.clamp(lengths, max=smax - 1).to(torch.int32)
-        x = self._paged_block(token_ids, lengths, ln, pool_k, pool_v,
-                              page_tables, k_scale, v_scale)
+        x = self._paged_block(
+            token_ids, *self._paged_start(token_ids, lengths, pool_k,
+                                          page_tables),
+            ln, pool_k, pool_v, page_tables, k_scale, v_scale)
+        return self._logits(x)
+
+    def paged_decode_tree_block(self, token_ids, pool_k, pool_v, page_tables,
+                                lengths, k_scale=None, v_scale=None,
+                                width=2, depth=1):
+        """The verify pass of tree speculation: ``width`` draft branches
+        of ``depth`` tokens each in ONE forward over the paged pool.
+
+        ``token_ids`` (B, T), T = 1 + width * depth, laid out ``[root,
+        branch 0's tokens, ..., branch W-1's]``: every branch continues
+        the root, so branch r's token j sits at LOGICAL position
+        ``lengths + 1 + j`` whatever r (clamped to ``max_position - 1``
+        for the embedding), and the static branch mask (:meth:`_tree`)
+        keeps each query to its own branch and the root.  The K/V are
+        PARKED in the sequential write slots ``lengths .. lengths + T -
+        1`` (clamped to the table's last column), which the host must
+        have made exclusively writable; the caller compacts the winning
+        branch into the chain slots (``GPTDecoder._tree_compact``).  The
+        history is read below ``min(lengths, smax - 1)``.  Returns fp32
+        (B, T, V) logits at every node."""
+        b, t = token_ids.shape
+        if t != 1 + width * depth:
+            raise ValueError(f"tree block of width {width} depth {depth} "
+                             f"wants T={1 + width * depth}, got {t}")
+        smax = page_tables.shape[1] * pool_k.shape[3]
+        depths, mask = self._tree(width, depth, token_ids.device)
+        ln32 = lengths.to(torch.int32)
+        posq = torch.clamp(ln32[:, None] + depths,
+                           max=self.cfg.max_position - 1)
+        wslot = ln32[:, None] + torch.arange(t, dtype=torch.int32,
+                                             device=token_ids.device)
+        wpos = torch.clamp(wslot, max=smax - 1).long()
+        ln = torch.clamp(ln32, max=smax - 1)
+        x = self._paged_block(token_ids, posq, wpos, ln, pool_k, pool_v,
+                              page_tables, k_scale, v_scale,
+                              block_mask=mask)
         return self._logits(x)
 
 

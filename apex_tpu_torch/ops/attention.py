@@ -301,8 +301,8 @@ def paged_fused_attention(
     multiple of 32 up to 128; contiguous pools fp32/bf16/int8 starting
     on 16 bytes (int8 with contiguous fp32 scales, others without);
     int32 ``page_table``, ``cache_lengths`` and ``positions``;
-    ``block_mask`` (T, T) bool.  Anything else raises.  CPU tensors run
-    :func:`paged_cached_attention`.
+    ``block_mask`` (T, T) bool.  Anything else raises, fp16 among them
+    (ROADMAP B.2).  CPU tensors run :func:`paged_cached_attention`.
 
     The kernel (:func:`_paged_design`): bf16 q with bf16 or int8 pools
     run the split-K decode kernel (:func:`_paged_split`) below T =
@@ -327,6 +327,9 @@ def paged_fused_attention(
         scale = q.shape[-1] ** -0.5
     b, h, t, d = q.shape
     num_pages, n_layers, hp, page_len, dp = pool_k.shape
+    _check(torch.float16 not in (q.dtype, k_new.dtype, pool_k.dtype),
+           "fp16 q, new keys or pools are not taken yet (ROADMAP B.2: "
+           "fp16 inputs to the kernels)")
     _check(q.dtype in _Q_CODE, lambda: f"q dtype {q.dtype}")
     _check(k_new.dtype in _Q_CODE and v_new.dtype == k_new.dtype,
            lambda: f"k_new/v_new dtypes {k_new.dtype}/{v_new.dtype}")

@@ -1,11 +1,12 @@
 """Serving of the port: contiguous and paged KV caches, the decoder with
-chain self-speculative decoding, the continuous-batching engine."""
+chain and tree self-speculative decoding, the continuous-batching engine."""
 from apex_tpu_torch.serve.decode import (  # noqa: F401
     DEFAULT_SPEC_HIST,
     DEFAULT_TOKENS_PER_DISPATCH,
     GPTDecoder,
     SamplingParams,
     propose_ngram,
+    propose_ngram_tree,
     reference_generate,
     sample_tokens,
 )
@@ -39,6 +40,7 @@ __all__ = [
     "init_cache",
     "init_paged_cache",
     "propose_ngram",
+    "propose_ngram_tree",
     "reference_generate",
     "sample_tokens",
 ]

@@ -1,19 +1,20 @@
 """Prefill and K-token decode windows over the contiguous cache and the
-page pool, with chain self-speculative decoding.
+page pool, with chain and tree self-speculative decoding.
 
 Counterpart of ``apex_tpu/serve/decode.py`` without its tensor-parallel
-mesh and tree speculation:
+mesh:
 
 - :class:`SamplingParams`, :func:`sample_tokens` and the filtered
   sampling epilogue (greedy, temperature, top-k, top-p, min-p), drawing
   from a ``torch.Generator``, over (B, V) step logits or (B, T, V)
   verify blocks (the per-slot params broadcast over T);
-- :func:`propose_ngram`, the suffix-bigram draft proposer;
+- :func:`propose_ngram`, the suffix-bigram draft proposer, and
+  :func:`propose_ngram_tree`, its W-branch widening;
 - :class:`GPTDecoder`: ``init_cache``, ``prefill`` and ``decode_window``
   (contiguous), ``init_paged_cache``, ``prefill_chunk``,
   ``paged_decode_window`` and ``copy_pages`` (paged), and the
-  speculative windows ``spec_decode_window`` and
-  ``paged_spec_decode_window``;
+  speculative windows ``spec_decode_window``,
+  ``paged_spec_decode_window`` and ``paged_tree_spec_decode_window``;
 - :func:`reference_generate`, the per-token full-recompute oracle.
 
 Speculative decoding (``spec_tokens`` D > 0): each window step proposes
@@ -27,6 +28,14 @@ rolling back is arithmetic on the device: a slot's length advances by
 the accepted count, and rejected positions hold K/V that every reader
 masks and the next block overwrites.  Under greedy decoding the tokens
 equal the non-speculative engine's.
+
+Tree speculation (``spec_tree`` W >= 2, paged and n-gram only): each
+step proposes W branches of D drafts (the W latest matches of the
+trailing bigram), verifies them in ONE forward of 1 + W * D positions
+under a branch mask (``paged_decode_tree_block``), takes the branch
+with the longest accepted prefix (ties to branch 0, the chain's draft)
+and moves its parked K/V into the chain slots (``_tree_compact``); the
+carry arithmetic is then the chain's on the winner's D + 1 targets.
 
 The JAX decoder runs a window inside one donated ``lax.scan`` dispatch.
 Here its steps are a Python loop over device tensors that never leaves
@@ -60,6 +69,7 @@ __all__ = [
     "GPTDecoder",
     "SamplingParams",
     "propose_ngram",
+    "propose_ngram_tree",
     "reference_generate",
     "sample_tokens",
 ]
@@ -182,6 +192,37 @@ def _sample_params(logits, generator, samp: SamplingParams):
                             exp(samp.min_p))
 
 
+def _bigram_matches(hist: torch.Tensor) -> torch.Tensor:
+    """(B, H - 2) int32: each earlier occurrence's start index where the
+    trailing bigram of ``hist`` recurs, else -1 (-1 tokens never
+    match)."""
+    a, z = hist[:, -2], hist[:, -1]
+    idx = torch.arange(hist.shape[1] - 2, dtype=torch.int32,
+                       device=hist.device)
+    m = (hist[:, :-2] == a[:, None]) & (hist[:, 1:-1] == z[:, None])
+    m = m & ((a >= 0) & (z >= 0))[:, None]
+    return torch.where(m, idx, -1)
+
+
+def _ngram_readout(hist: torch.Tensor, j: torch.Tensor,
+                   draft: int) -> torch.Tensor:
+    """The drafts that follow each match ``j`` (B, W) of the trailing
+    bigram, cycling with the implied period past the history's end;
+    ``j < 0`` (no match) repeats the last token.  (B, W, draft) int32."""
+    b, h = hist.shape
+    w = j.shape[1]
+    period = torch.clamp_min((h - 2) - j, 1)
+    take = j[..., None] + 2 + (
+        torch.arange(draft, dtype=torch.int32, device=hist.device)
+        % period[..., None])
+    cand = torch.gather(hist[:, None, :].expand(b, w, h), 2,
+                        torch.clamp(take, 0, h - 1).long())
+    fallback = torch.clamp_min(hist[:, -1], 0)[:, None, None].expand(
+        b, w, draft)
+    drafts = torch.where((j >= 0)[..., None], cand, fallback)
+    return torch.clamp_min(drafts, 0).to(torch.int32)
+
+
 def propose_ngram(hist: torch.Tensor, draft: int) -> torch.Tensor:
     """Suffix-bigram draft proposal over per-slot token history.
 
@@ -193,27 +234,28 @@ def propose_ngram(hist: torch.Tensor, draft: int) -> torch.Tensor:
     (a period-p repetition proposes its exact continuation).  No match
     repeats the last token.  Returns (B, draft) int32; device ops only,
     no host sync."""
-    b, h = hist.shape
-    dev = hist.device
-    a, z = hist[:, -2], hist[:, -1]
-    idx = torch.arange(h - 2, dtype=torch.int32, device=dev)
-    m = (hist[:, :-2] == a[:, None]) & (hist[:, 1:-1] == z[:, None])
-    m = m & ((a >= 0) & (z >= 0))[:, None]
-    j = torch.where(m, idx, -1).amax(dim=1)  # the latest match
-    period = torch.clamp_min((h - 2) - j, 1)
-    take = j[:, None] + 2 + (
-        torch.arange(draft, dtype=torch.int32, device=dev)[None, :]
-        % period[:, None])
-    cand = torch.gather(hist, 1, torch.clamp(take, 0, h - 1).long())
-    fallback = torch.clamp_min(z, 0)[:, None].expand(b, draft)
-    drafts = torch.where((j >= 0)[:, None], cand, fallback)
-    return torch.clamp_min(drafts, 0).to(torch.int32)
+    j = _bigram_matches(hist).amax(dim=1)  # the latest match
+    return _ngram_readout(hist, j[:, None], draft)[:, 0]
+
+
+def propose_ngram_tree(hist: torch.Tensor, draft: int,
+                       width: int) -> torch.Tensor:
+    """:func:`propose_ngram` widened to ``width`` branches: the W latest
+    occurrences of the trailing bigram, in descending order, each seed
+    a continuation with the same period-cycling readout; rows with fewer
+    matches fill the spare branches with the no-match fallback (they tie
+    and lose to the lower branch).  Branch 0 is :func:`propose_ngram`'s
+    draft bit for bit.  Returns (B, width, draft) int32; device ops
+    only, no host sync."""
+    j = torch.sort(_bigram_matches(hist), dim=1,
+                   descending=True).values[:, :width]
+    return _ngram_readout(hist, j, draft)
 
 
 class GPTDecoder:
     """Prefill and fused K-token decode windows over a contiguous
     :class:`~apex_tpu_torch.serve.KVCache` or a paged
-    :class:`~apex_tpu_torch.serve.PagedKVCache`, with chain
+    :class:`~apex_tpu_torch.serve.PagedKVCache`, with chain and tree
     self-speculative decoding.
 
     Args:
@@ -223,9 +265,17 @@ class GPTDecoder:
         (from :func:`~apex_tpu_torch.weights.from_jax_params` or
         :func:`~apex_tpu_torch.models.init_params`); the dense weights
         and the head are cast to the compute dtype once, at load.
-      cache_dtype: cache dtype (None: the compute dtype);
-        ``torch.int8`` selects int8 pages with per-token scales (paged
-        only).
+      cache_dtype: cache dtype; None defers to ``policy.cache_dtype``
+        and then to the compute dtype.  ``torch.int8`` selects int8
+        pages with per-token scales (paged only).  An fp16 cache runs
+        the plain versions on the CPU; the paged kernel does not take
+        it yet (ROADMAP B.2).
+      policy: an :class:`~apex_tpu_torch.amp.Policy` whose
+        ``cache_dtype`` (its ``kv_cache_dtype``, else its compute
+        dtype) is the cache dtype when ``cache_dtype`` is None.
+      kv_int8: int8 paged pages whatever the cache dtype (also implied
+        by an int8 cache dtype); the contiguous cache keeps the cache
+        dtype.
       tokens_per_dispatch: K, the decode steps per window.
       temperature: the default for requests that do not set one
         (0.0 = greedy).
@@ -240,8 +290,10 @@ class GPTDecoder:
       spec_hist: history tokens the n-gram proposer matches over.
       spec_exit_layers: the shallow draft's depth (None: half the
         layers).
-      spec_tree: tree speculation's branch width; widths above 1 are
-        not ported (ROADMAP A.1c) and raise.
+      spec_tree: tree speculation's branch width W (0 or 1: the chain).
+        W >= 2 verifies W n-gram branches a step in one tree forward
+        (:meth:`paged_tree_spec_decode_window`); it needs speculation
+        on and the n-gram proposer, and only the paged engine runs it.
       device: where the model and the cache live; None is the CUDA
         device, and raises when there is none.
     """
@@ -252,6 +304,8 @@ class GPTDecoder:
         params: Dict[str, torch.Tensor],
         *,
         cache_dtype: Optional[torch.dtype] = None,
+        policy=None,
+        kv_int8: bool = False,
         compute_dtype: Optional[torch.dtype] = None,
         tokens_per_dispatch: int = DEFAULT_TOKENS_PER_DISPATCH,
         temperature: float = 0.0,
@@ -286,12 +340,20 @@ class GPTDecoder:
         if not 1 <= self.spec_exit_layers <= cfg.num_layers:
             raise ValueError(f"spec_exit_layers {self.spec_exit_layers} "
                              f"outside [1, {cfg.num_layers}]")
-        if int(spec_tree) > 1:
-            raise NotImplementedError(
-                "tree speculation (spec_tree > 1) is not ported yet "
-                "(ROADMAP A.1c); use the chain (spec_tree 0 or 1)")
-        self.cache_dtype = cfg.compute_dtype if cache_dtype is None \
-            else cache_dtype
+        self.spec_tree = int(spec_tree)
+        if self.spec_tree > 1:
+            if not self.spec_enabled:
+                raise ValueError(
+                    "spec_tree needs speculation on (spec_tokens >= 1)")
+            if self.spec_proposer != "ngram":
+                raise ValueError(
+                    "tree speculation only composes with the 'ngram' "
+                    "proposer (the shallow draft is a single chain)")
+        if cache_dtype is None:
+            cache_dtype = (policy.cache_dtype if policy is not None
+                           else cfg.compute_dtype)
+        self.cache_dtype = cache_dtype
+        self.kv_int8 = bool(kv_int8) or cache_dtype == torch.int8
         with torch.device(self.device):
             self.model = GPTLM(cfg)
         self.model.load_state_dict(params)
@@ -316,6 +378,11 @@ class GPTDecoder:
         return max(1, math.ceil(self.tokens_per_dispatch / (draft + 1)))
 
     @property
+    def spec_tree_width(self) -> int:
+        """Tree branches a verify forward (1: the chain)."""
+        return max(1, self.spec_tree)
+
+    @property
     def max_tokens_per_dispatch(self) -> int:
         """The most positions one window may write past a slot's length
         (``tokens_per_dispatch`` without speculation)."""
@@ -327,11 +394,17 @@ class GPTDecoder:
         """Positions one window at depth ``draft`` (None: the configured
         one) may write past a slot's length — the span the paged engine
         makes exclusively writable: ``steps * (draft + 1)`` for the
-        chain, K without speculation."""
+        chain, K without speculation; a tree window's last step also
+        parks every branch node before compaction, so ``(steps - 1) *
+        (draft + 1) + 1 + W * draft``."""
         if not self.spec_enabled:
             return self.tokens_per_dispatch
         d = self.spec_tokens if draft is None else int(draft)
-        return self._spec_steps_for(d) * (d + 1)
+        steps = self._spec_steps_for(d)
+        w = self.spec_tree_width
+        if w > 1:
+            return (steps - 1) * (d + 1) + 1 + w * d
+        return steps * (d + 1)
 
     @property
     def max_write_horizon(self) -> int:
@@ -356,8 +429,9 @@ class GPTDecoder:
 
     def init_paged_cache(self, num_pages: int, slots: int,
                          page_len: int) -> PagedKVCache:
+        dtype = torch.int8 if self.kv_int8 else self.cache_dtype
         return init_paged_cache(self.cfg, num_pages, slots, page_len,
-                                dtype=self.cache_dtype, device=self.device)
+                                dtype=dtype, device=self.device)
 
     def _ints(self, x) -> torch.Tensor:
         """Host ints (numpy, lists) -> a contiguous int32 device tensor."""
@@ -396,47 +470,127 @@ class GPTDecoder:
 
     def _spec_window(self, cache, tok, act, hist, generator, samp,
                      draft: int, smax: int, step: Callable,
-                     block: Callable) -> torch.Tensor:
+                     block: Callable, tables=None) -> torch.Tensor:
         """``spec_steps`` propose -> verify -> accept steps.
         ``step(tokens, lengths, n_layers)`` -> (B, V) is the shallow
         draft's truncated step, ``block(tokens, lengths)`` -> (B, T, V)
-        the verify forward; both write their K/V in place.  Returns one
+        the verify forward (a tree block when ``tables`` is given: the
+        paged tree window); both write their K/V in place.  Returns one
         (steps, slots, draft + 2) int32 buffer: the candidate tokens in
-        ``[..., :-1]``, the accepted counts in ``[..., -1]``."""
+        ``[..., :draft + 1]``, the accepted counts in ``[..., draft +
+        1]``; a tree window adds the winning branch in ``[..., -1]``."""
         steps = self._spec_steps_for(draft)
+        tree = tables is not None
         hs = self._ints(hist)
-        out = torch.empty((steps, tok.shape[0], draft + 2),
+        out = torch.empty((steps, tok.shape[0], draft + 2 + tree),
                           dtype=torch.int32, device=self.device)
         hrange = torch.arange(hs.shape[1], device=self.device)
         for i in range(steps):
             ln = cache.lengths
-            if self.spec_proposer == "shallow":
-                # the first E layers draft token by token, writing their
-                # own K/V at the draft positions; the verify block below
-                # overwrites them before anything reads them
-                dtok, dln, ds = tok, ln, []
-                for _ in range(draft):
-                    lgt = step(dtok, dln, self.spec_exit_layers)
-                    dtok = torch.argmax(lgt, dim=-1).to(torch.int32)
-                    ds.append(dtok)
-                    dln = torch.clamp(dln + 1, max=smax - 1)
-                drafts = torch.stack(ds, dim=1)
+            if tree:
+                targ, n_acc, rstar = self._tree_verify(
+                    tok, ln, hs, generator, samp, draft, smax, block)
             else:
-                drafts = propose_ngram(hs, draft)
-            logits = block(torch.cat([tok[:, None], drafts], dim=1), ln)
-            targ = _sample_params(logits, generator, samp)  # (B, 1 + D)
-            ok = torch.cumprod((drafts == targ[:, :-1]).to(torch.int32), 1)
-            n_acc = 1 + ok.sum(dim=1, dtype=torch.int32)  # in [1, 1 + D]
+                if self.spec_proposer == "shallow":
+                    # the first E layers draft token by token, writing
+                    # their own K/V at the draft positions; the verify
+                    # block below overwrites them before anything reads
+                    # them
+                    dtok, dln, ds = tok, ln, []
+                    for _ in range(draft):
+                        lgt = step(dtok, dln, self.spec_exit_layers)
+                        dtok = torch.argmax(lgt, dim=-1).to(torch.int32)
+                        ds.append(dtok)
+                        dln = torch.clamp(dln + 1, max=smax - 1)
+                    drafts = torch.stack(ds, dim=1)
+                else:
+                    drafts = propose_ngram(hs, draft)
+                logits = block(torch.cat([tok[:, None], drafts], dim=1), ln)
+                targ = _sample_params(logits, generator, samp)  # (B, 1 + D)
+                ok = torch.cumprod((drafts == targ[:, :-1]).to(torch.int32),
+                                   1)
+                n_acc = 1 + ok.sum(dim=1, dtype=torch.int32)  # in [1, 1 + D]
             n_eff = torch.where(act, torch.minimum(n_acc, smax - ln), 0)
             new_tok = torch.gather(targ, 1, (n_acc - 1).long()[:, None])
             tok = torch.where(act, new_tok[:, 0], tok)
             hs = torch.gather(torch.cat([hs, targ], dim=1), 1,
                               n_eff.long()[:, None] + hrange)
+            if tree:
+                self._tree_compact(cache, tables, ln, rstar, n_eff, act,
+                                   draft)
+                out[i, :, -1] = rstar
             cache.lengths.copy_(ln + n_eff)
             cache.decoded += n_eff.sum()
-            out[i, :, :-1] = targ
-            out[i, :, -1] = n_acc
+            out[i, :, :draft + 1] = targ
+            out[i, :, draft + 1] = n_acc
         return out
+
+    def _tree_verify(self, tok, ln, hs, generator, samp, draft: int,
+                     smax: int, block: Callable):
+        """One tree step's propose, verify and branch choice: the W
+        n-gram branches in one ``block`` forward, a target sampled at
+        every node, each branch's longest accepted prefix (draft j is
+        accepted iff every draft up to j equals the target sampled at
+        its predecessor node: the root for j = 0), the first longest
+        branch (ties to branch 0, the chain's draft; branch 0 also near
+        the capacity limit, where the parked branches' writes clamp onto
+        one slot).  Returns the winner's (B, draft + 1) targets, its
+        accepted counts and the winning branch, (B,) int32."""
+        w = self.spec_tree_width
+        b, dev = tok.shape[0], tok.device
+        drafts = propose_ngram_tree(hs, draft, w)  # (B, W, D)
+        logits = block(torch.cat([tok[:, None], drafts.reshape(b, w * draft)],
+                                 dim=1), ln)
+        targ = _sample_params(logits, generator, samp)  # (B, 1 + W * D)
+        jd = torch.arange(draft, dtype=torch.int32, device=dev)
+        node = 1 + torch.arange(w, dtype=torch.int32, device=dev)[:, None] \
+            * draft + jd  # (W, D): branch r's j-th node
+        prev = torch.cat([torch.zeros((w, 1), dtype=torch.int32, device=dev),
+                          node[:, :-1]], dim=1)
+        ok = torch.cumprod((drafts == targ[:, prev.long()]).to(torch.int32),
+                           dim=2)
+        n_acc_r = 1 + ok.sum(dim=2, dtype=torch.int32)  # (B, W)
+        rstar = torch.argmax(n_acc_r, dim=1).to(torch.int32)
+        rstar = torch.where(ln + w * draft <= smax - 1, rstar, 0)
+        n_acc = torch.gather(n_acc_r, 1, rstar.long()[:, None])[:, 0]
+        sel = torch.cat([torch.zeros((b, 1), dtype=torch.int32, device=dev),
+                         1 + rstar[:, None] * draft + jd], dim=1)
+        return torch.gather(targ, 1, sel.long()), n_acc, rstar
+
+    @staticmethod
+    def _tree_compact(cache: PagedKVCache, tables: torch.Tensor,
+                      ln: torch.Tensor, rstar: torch.Tensor,
+                      n_eff: torch.Tensor, active: torch.Tensor,
+                      draft: int) -> None:
+        """Move the winning branch's parked K/V (and int8 scales) into
+        the chain slots, IN PLACE.  The tree block parks branch r's node
+        j at slot ``ln + 1 + r * draft + j``; acceptance commits nodes
+        ``0 .. n_eff - 2`` of branch ``rstar`` to slots ``ln + 1 ..``.
+        Rows that do not move (branch 0 is already in place, inactive
+        rows, nodes past the accepted ones) copy a slot onto itself, so
+        the index shapes are static and nothing syncs with the host.
+        The gather happens before the scatter, and a moving row's
+        sources lie strictly above its destinations: no aliasing.  Pages
+        of the write horizon are a slot's own, so rows collide only on
+        the trash page."""
+        pl = cache.page_len
+        smax = tables.shape[1] * pl
+        dev = tables.device
+        jd = torch.arange(draft, dtype=torch.int32, device=dev)
+        dst = torch.clamp(ln[:, None] + 1 + jd, max=smax - 1)
+        src = torch.clamp(ln[:, None] + 1 + rstar[:, None] * draft + jd,
+                          max=smax - 1)
+        move = (active[:, None] & (rstar > 0)[:, None]
+                & (jd < (n_eff - 1)[:, None]))
+        src = torch.where(move, src, dst).long()
+        dst = dst.long()
+        tl = tables.long()
+        bidx = torch.arange(tables.shape[0], device=dev)[:, None]
+        ps, os_ = tl[bidx, src // pl], src % pl
+        pd, od = tl[bidx, dst // pl], dst % pl
+        for arr in (cache.k, cache.v, cache.k_scale, cache.v_scale):
+            if arr is not None:
+                arr[pd, :, :, od] = arr[ps, :, :, os_]
 
     # -- contiguous execution -------------------------------------------
 
@@ -570,6 +724,39 @@ class GPTDecoder:
                 t, cache.k, cache.v, tables, ln, n_layers=n, **kw),
             lambda t, ln: self.model.paged_decode_block(
                 t, cache.k, cache.v, tables, ln, **kw))
+
+    @torch.no_grad()
+    def paged_tree_spec_decode_window(
+        self, cache: PagedKVCache, tables, tokens, active, hist,
+        generator: Optional[torch.Generator] = None,
+        samp: Optional[SamplingParams] = None,
+        draft: Optional[int] = None,
+    ) -> torch.Tensor:
+        """The tree-speculative paged window (``spec_tree`` W >= 2):
+        each of ``spec_steps`` steps proposes W n-gram branches
+        (:func:`propose_ngram_tree`), verifies them in one
+        :meth:`~apex_tpu_torch.models.GPTLM.paged_decode_tree_block`
+        forward, takes the longest accepted branch and compacts its K/V
+        into the chain slots.  The host must have made each active
+        slot's ``[len, len + write_horizon(draft))`` range exclusively
+        writable (the tree parks every branch before compaction).
+        Returns one (steps, slots, draft + 3) int32 device buffer, read
+        by the host with one copy: the winner's D + 1 candidate tokens,
+        its accepted count and the winning branch."""
+        if self.spec_tree_width < 2:
+            raise ValueError(
+                "paged_tree_spec_decode_window needs spec_tree >= 2")
+        d = self._draft(draft)
+        tables = self._ints(tables)
+        tok, act, samp = self._window_args(tokens, active, samp)
+        w = self.spec_tree_width
+        return self._spec_window(
+            cache, tok, act, hist, generator, samp, d,
+            tables.shape[1] * cache.page_len, None,
+            lambda t, ln: self.model.paged_decode_tree_block(
+                t, cache.k, cache.v, tables, ln, k_scale=cache.k_scale,
+                v_scale=cache.v_scale, width=w, depth=d),
+            tables=tables)
 
     @torch.no_grad()
     def copy_pages(self, cache: PagedKVCache, src, dst) -> None:

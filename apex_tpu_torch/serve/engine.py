@@ -1,5 +1,5 @@
 """ServeEngine — continuous batching over the paged or the contiguous KV
-cache, with chain self-speculative decoding.
+cache, with chain and tree self-speculative decoding.
 
 Counterpart of ``apex_tpu/serve/engine.py``, FIFO admission only.
 Requests queue on the host; at each dispatch boundary the paged engine
@@ -21,10 +21,13 @@ With a speculative decoder (``spec_tokens`` > 0) the window is a spec
 window: the engine keeps each slot's token history on the host (the
 n-gram proposer's input), consumes each verify step's accepted tokens,
 and counts drafts, accepted drafts and rollbacks (``stats()["spec"]``).
+A tree decoder (``spec_tree`` >= 2, paged only) runs the tree window and
+counts the steps a branch other than 0 won.  ``spec_autotune`` walks the
+draft depth between 1 and ``spec_tokens`` from the accepted counts of
+the last :data:`ServeEngine.AUTOTUNE_PERIOD` verify steps.
 
-Not ported yet: tree speculation and the draft auto-tuner,
-tensor-parallel serving, handoff and weight swaps, and the obs, SLO,
-flight-recorder and fault-injection planes.
+Not ported yet: tensor-parallel serving, handoff and weight swaps, and
+the obs, SLO, flight-recorder and fault-injection planes.
 """
 from __future__ import annotations
 
@@ -80,9 +83,16 @@ class ServeEngine:
         * max_len / page_len``, room for every slot at full length).
       prefill_chunk: most prompt tokens prefilled per request per
         boundary; chunks pad to power-of-two buckets (minimum 8).
-      spec_autotune: the draft-depth auto-tuner, not ported yet (ROADMAP
-        A.1c): True raises.
+      spec_autotune: the draft-depth auto-tuner (off without
+        speculation): every :data:`AUTOTUNE_PERIOD` consumed verify
+        steps it deepens the draft when the mean accepted count is at
+        least 0.8 (D + 1) and shallows it when it is at most max(1.25,
+        0.3 (D + 1)), within [1, ``spec_tokens``]; each window runs at
+        the tuner's depth.
     """
+
+    #: consumed verify steps between two auto-tuner decisions
+    AUTOTUNE_PERIOD = 8
 
     def __init__(
         self,
@@ -97,15 +107,20 @@ class ServeEngine:
         prefill_chunk: int = 64,
         spec_autotune: bool = False,
     ):
-        if spec_autotune:
-            raise NotImplementedError("the draft-depth auto-tuner "
-                                      "(spec_autotune) is not ported yet "
-                                      "(ROADMAP A.1c)")
         self.decoder = decoder
         self.max_len = int(decoder.cfg.max_position if max_len is None
                            else max_len)
         self.eos_id = eos_id
         self.paged = bool(paged)
+        self._spec = decoder.spec_enabled
+        # the tree parks sibling branches in pool slots past the length,
+        # which the contiguous layout lacks
+        self._tree = self._spec and decoder.spec_tree_width > 1
+        if self._tree and not self.paged:
+            raise ValueError(
+                "tree speculation (spec_tree > 1) requires the paged cache: "
+                "sibling branches park in pool slots past the committed "
+                "length, which the contiguous layout lacks")
         if self.paged:
             self.page_len = (auto_page_len(self.max_len) if page_len is None
                              else int(page_len))
@@ -138,10 +153,19 @@ class ServeEngine:
         # speculation: the host copy of each slot's trailing tokens, the
         # n-gram proposer's input (rebuilt from the fetched tokens, so
         # it goes to every window as a plain argument)
-        self._spec = decoder.spec_enabled
         if self._spec:
             self._hist = np.full((slots, decoder.spec_hist), -1, np.int32)
         self._accepted_hist: Dict[int, int] = {}
+        # the tree's winning branch a consumed step, and the steps a
+        # branch other than 0 (the chain's draft) won
+        self._tree_branch_hist: Dict[int, int] = {}
+        self.tree_branch_wins = 0
+        # the draft auto-tuner: its depth, the accepted counts since its
+        # last decision, and (window, new depth) at each move
+        self.spec_autotune = bool(spec_autotune) and self._spec
+        self._auto_draft = decoder.spec_tokens if self._spec else 0
+        self._auto_window: List[int] = []
+        self._auto_traj: List[tuple] = []
         self.spec_draft_tokens = 0
         self.spec_accepted_tokens = 0
         self.spec_rollbacks = 0
@@ -382,12 +406,38 @@ class ServeEngine:
             else:
                 entry[2] = base
 
+    def _dispatch_draft(self) -> Optional[int]:
+        """The next spec window's draft depth: the tuner's under
+        auto-tuning, else None (the decoder's ``spec_tokens``)."""
+        if self.spec_autotune:
+            return self._auto_draft
+        return None
+
+    def _autotune_update(self) -> None:
+        """Once :data:`AUTOTUNE_PERIOD` accepted counts have gathered:
+        deepen the draft when their mean is at least 0.8 (D + 1) (nearly
+        every draft lands), shallow it when the mean is at most max(1.25,
+        0.3 (D + 1)) (drafts mostly roll back), within [1,
+        ``spec_tokens``], and record each move."""
+        if len(self._auto_window) < self.AUTOTUNE_PERIOD:
+            return
+        mean = sum(self._auto_window) / len(self._auto_window)
+        self._auto_window.clear()
+        d = self._auto_draft
+        if mean >= 0.8 * (d + 1) and d < self.decoder.spec_tokens:
+            self._auto_draft = d + 1
+        elif mean <= max(1.25, 0.3 * (d + 1)) and d > 1:
+            self._auto_draft = d - 1
+        if self._auto_draft != d:
+            self._auto_traj.append((self.decode_dispatches, self._auto_draft))
+
     def _prepare_decode_pages(self) -> None:
         """Before a window: make every active slot's write horizon
-        (``decoder.write_horizon()``: K, or every position a fully
-        accepted spec window writes) exclusively owned and run the
-        copies; a slot the pool cannot supply is preempted."""
-        k = self.decoder.write_horizon()
+        (``decoder.write_horizon`` at the window's draft depth: K, or
+        every position a fully accepted spec window writes, a tree's
+        parked branches included) exclusively owned and run the copies;
+        a slot the pool cannot supply is preempted."""
+        k = self.decoder.write_horizon(self._dispatch_draft())
         pairs = []
         for slot, r in list(self._active.items()):
             ln = int(self._slot_len[slot])
@@ -419,14 +469,19 @@ class ServeEngine:
         active[list(self._active)] = True
         samp = self._samp_params()
         if self._spec:
-            if self.paged:
+            draft = self._dispatch_draft()
+            if self._tree:
+                buf = self.decoder.paged_tree_spec_decode_window(
+                    self.cache, self.pool.tables, self._last_token, active,
+                    self._hist, self._gen, samp=samp, draft=draft)
+            elif self.paged:
                 buf = self.decoder.paged_spec_decode_window(
                     self.cache, self.pool.tables, self._last_token, active,
-                    self._hist, self._gen, samp=samp)
+                    self._hist, self._gen, samp=samp, draft=draft)
             else:
                 buf = self.decoder.spec_decode_window(
                     self.cache, self._last_token, active, self._hist,
-                    self._gen, samp=samp)
+                    self._gen, samp=samp, draft=draft)
         elif self.paged:
             buf = self.decoder.paged_decode_window(
                 self.cache, self.pool.tables, self._last_token, active,
@@ -435,10 +490,12 @@ class ServeEngine:
             buf = self.decoder.decode_window(
                 self.cache, self._last_token, active, self._gen, samp=samp)
         self.decode_dispatches += 1
-        # (K, slots), or (steps, slots, 2 + draft) under speculation:
-        # the one host sync of the window
+        # (K, slots), or (steps, slots, 2 + draft) under speculation (3 +
+        # draft for a tree): the one host sync of the window
         buf = buf.cpu().numpy()
-        if self._spec:
+        if self._tree:
+            self._fetch_spec(buf[..., :-2], buf[..., -2], buf[..., -1])
+        elif self._spec:
             self._fetch_spec(buf[..., :-1], buf[..., -1])
         else:
             self._fetch(buf)
@@ -465,14 +522,16 @@ class ServeEngine:
             if not r.done:
                 self._slot_len[slot] = base + k
 
-    def _fetch_spec(self, toks: np.ndarray, acc: np.ndarray) -> None:
+    def _fetch_spec(self, toks: np.ndarray, acc: np.ndarray,
+                    branches: Optional[np.ndarray] = None) -> None:
         """Consume a spec window's (steps, slots, 1 + draft) candidate
         tokens and (steps, slots) accepted counts: each slot emits
         ``toks[i, s, :acc[i, s]]`` at step i until EOS, budget or
         capacity retires it (a position at ``max_len`` was clamped on
         the device: capacity retirement, as in :meth:`_fetch`).  The
-        spec counters stop at the retiring step, so they count tokens
-        that were consumed."""
+        spec counters, the tree's winning ``branches`` (steps, slots)
+        and the auto-tuner's samples stop at the retiring step, so they
+        count steps that were consumed."""
         steps, _, d1 = toks.shape
         for slot, r in list(self._active.items()):
             base = self._slot_len[slot]
@@ -483,6 +542,13 @@ class ServeEngine:
                 self.spec_accepted_tokens += n - 1
                 self.spec_rollbacks += int(n < d1)
                 self._accepted_hist[n] = self._accepted_hist.get(n, 0) + 1
+                if self.spec_autotune:
+                    self._auto_window.append(n)
+                if branches is not None:
+                    br = int(branches[i, slot])
+                    self._tree_branch_hist[br] = (
+                        self._tree_branch_hist.get(br, 0) + 1)
+                    self.tree_branch_wins += int(br > 0)
                 for j in range(n):
                     if base + count >= self.max_len:
                         self._finish(r, truncated=True)
@@ -495,6 +561,8 @@ class ServeEngine:
                     break
             if not r.done:
                 self._slot_len[slot] = base + count
+        if self.spec_autotune:
+            self._autotune_update()
 
     def run(self, max_rounds: int = 100_000) -> Dict[int, List[int]]:
         """Drain the queue; returns ``{uid: generated tokens}``."""
@@ -537,6 +605,15 @@ class ServeEngine:
                     k: self._accepted_hist[k]
                     for k in sorted(self._accepted_hist)},
             }
+            if self._tree:
+                s["spec"]["tree"] = {
+                    "width": self.decoder.spec_tree_width,
+                    "branch_wins": self.tree_branch_wins,
+                    "verify_steps": sum(self._tree_branch_hist.values()),
+                }
+            if self.spec_autotune:
+                s["spec"]["autotune"] = {"draft": self._auto_draft,
+                                         "trajectory": list(self._auto_traj)}
         if not self.paged:
             s["cache_bytes_per_slot"] = self.cache.bytes_per_slot
             return s

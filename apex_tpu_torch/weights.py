@@ -43,8 +43,9 @@ def _t(x: Any) -> torch.Tensor:
 
 def from_jax_params(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     """flax ``GPTLM`` params -> the port's ``GPTLM`` state dict (fp32,
-    CPU).  Raises on a tree with keys this mapping does not know (an
-    untied head, for one), so nothing is silently dropped."""
+    CPU); an untied head (``tie_word_embeddings=False``) maps to
+    ``head.kernel``.  Raises on a tree with keys this mapping does not
+    know, so nothing is silently dropped."""
     out = {
         "wte.weight": _t(tree["wte"]["embedding"]),
         "wpe.weight": _t(tree["wpe"]["embedding"]),
@@ -66,7 +67,10 @@ def from_jax_params(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
         extra = set(sub) - {"ln1", "ln2", *_DENSE}
         if extra:
             raise ValueError(f"{name}: unmapped params {sorted(extra)}")
-    extra = set(tree) - {"wte", "wpe", "ln_f", *layers}
+    if "head" in tree:
+        _check_keys(tree["head"], ("kernel",), "head: ")
+        out["head.kernel"] = _t(tree["head"]["kernel"])
+    extra = set(tree) - {"wte", "wpe", "ln_f", "head", *layers}
     if extra:
         raise ValueError(f"unmapped params {sorted(extra)}")
     return out

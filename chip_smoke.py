@@ -18,9 +18,10 @@ line) on any failed check:
    as a yardstick and the least time the card could take (``bound_ms``);
    paged attention at every case of :func:`paged_problems` (decode,
    speculative-verify and prefill sizes, each pool dtype, with and
-   without the mask, and rows on and next to the kernels' split
-   boundaries), each with two planted faults and the same bits on a
-   second call;
+   without the mask, rows on and next to the kernels' split boundaries,
+   and the tree-verify blocks with their shared positions and branch
+   masks, each running the design it must), each with two planted faults
+   and the same bits on a second call;
 3. parity: GPT-2 small at fp32 on the card against the same port on the
    CPU with the same seeded weights (one 64-token prefill chunk, one
    K=8 decode window, one more decode step);
@@ -40,7 +41,17 @@ line) on any failed check:
    mix through the bf16 n-gram spec engine at D = 3 and 7, each run's
    launches; bf16 verify blocks against their steps) and
    ``spec_profile`` (the profile set-up with the D = 3 spec window,
-   beside the plain window);
+   beside the plain window); tree speculation and the draft auto-tuner:
+   ``spec_tree_parity`` (fp32: a tree block's logits at each branch
+   against that branch's chain block within 1e-3; the four requests
+   through the tree engines at (W, D) = (2, 3) and (4, 2) and the
+   auto-tuned chain and tree engines, with the paged engine's and
+   ``reference_generate``'s tokens; the tree banking at least the
+   chain's tokens a window; a poisoned history that branch 1 must win)
+   and ``spec_tree_engine`` (bf16, the engine mix through the tree
+   engines at (2, 3) and (3, 3) and the auto-tuned chain at D = 3, with
+   exactly 25 LayerNorms and 12 paged calls a forward, the tuner's
+   trajectory, and the profile set-up with the (2, 3) tree window);
 5. training kernels: the LayerNorm backward, flash attention forward and
    backward and the fused cross-entropy forward and backward against
    their plain versions at the training shapes (GPT-2 small, batch
@@ -176,6 +187,7 @@ from apex_tpu_torch import (
     reference_generate,
     resnet50,
 )
+from apex_tpu_torch.models.gpt import tree_layout
 from apex_tpu_torch.ops import _build, launch_counts, reset_launch_counts
 from apex_tpu_torch.ops.attention import (
     _pack_seed,
@@ -431,7 +443,8 @@ def ln_fwd_cases():
     affine at n 520, its last vectors masked, and at 1024; bf16 x with
     fp32 affine at 1024); then the block design (a ragged n, and a base 4
     bytes off alignment) and the wide design (n 12288 and 16384); then the
-    verify blocks of speculative decoding, 8 slots x 4 and x 8 tokens."""
+    verify blocks of speculative decoding, 8 slots x 4 and x 8 tokens,
+    and the tree verify blocks, 8 slots x 7 and x 10 nodes."""
     f32, bf = torch.float32, torch.bfloat16
     return ((8, 768, f32, f32, 0), (8, 768, bf, f32, 0),
             (128, 768, f32, f32, 0), (128, 768, bf, f32, 0),
@@ -443,7 +456,8 @@ def ln_fwd_cases():
             (4097, 1024, bf, f32, 0),
             (4099, 1021, f32, bf, 0), (4096, 768, f32, bf, 4),
             (1024, 12288, f32, bf, 0), (1024, 16384, bf, f32, 0),
-            (32, 768, f32, f32, 0), (64, 768, f32, f32, 0))
+            (32, 768, f32, f32, 0), (64, 768, f32, f32, 0),
+            (56, 768, f32, f32, 0), (80, 768, f32, f32, 0))
 
 
 # the forward cases at a model's training shape, which must take the warp
@@ -576,10 +590,12 @@ def phase_layer_norm(dev):
     return out
 
 
-def _paged_problem(dev, gen, t, pool_dtype, masked, lengths=None):
+def _paged_problem(dev, gen, t, pool_dtype, masked, lengths=None, tree=None):
     """GPT-2-small paged read: B=8, H=12, D=64, page_len 16, 64 pages per
     slot, lengths across partial pages (or the given ``lengths``), the
-    full 12-layer pool read at layer 5.  bf16/int8 pools go with bf16 q
+    full 12-layer pool read at layer 5.  ``tree=(W, D)`` makes it a tree
+    verify block (T = 1 + W * D): the positions ``lengths + depth(node)``
+    and the branch mask of :func:`tree_layout`.  bf16/int8 pools go with bf16 q
     (int8 with fp32 dequantized new keys, as the model passes them);
     fp32 with fp32.  q ~ 2·N(0, 1) and k, v ~ N(0, 1) make scores of std
     2: a peaked softmax whose outputs are of order 1, so that one key
@@ -605,6 +621,11 @@ def _paged_problem(dev, gen, t, pool_dtype, masked, lengths=None):
                torch.tensor(lengths, device=dev, dtype=torch.int32))
     positions = (lengths[:, None]
                  + torch.arange(t, device=dev, dtype=torch.int32))
+    if tree is not None:
+        depths, tree_mask = tree_layout(*tree, dev)
+        check(t == depths.shape[1], f"tree {tree} has {depths.shape[1]} "
+              f"nodes, not T = {t}")
+        positions = lengths[:, None] + depths
     q = (2 * torch.randn(b, h, t, d, device=dev, generator=gen)).to(qdt)
     kn = torch.randn(b, h, t, d, device=dev, generator=gen)
     vn = torch.randn(b, h, t, d, device=dev, generator=gen)
@@ -614,7 +635,7 @@ def _paged_problem(dev, gen, t, pool_dtype, masked, lengths=None):
         kn, vn = kq.float() * kqs[..., None], vq.float() * vqs[..., None]
     else:
         kn, vn = kn.to(qdt), vn.to(qdt)
-    mask = None
+    mask = None if tree is None else tree_mask
     if masked:
         mask = torch.rand(t, t, device=dev, generator=gen) < 0.6
         mask.fill_diagonal_(True)
@@ -717,6 +738,23 @@ CHAIN_VERIFY = [(t, pd, False, None) for t in (2, 4)
 CHAIN_VERIFY += [(8, torch.bfloat16, False, None),
                  (4, torch.bfloat16, False, EDGE_LENGTHS)]
 
+#: the tree-verify cases ((W, D), pool dtype, lengths, the design the
+#: wrapper must pick), after the chain's: positions lengths + depth(node)
+#: and the branch mask; T = 7 runs the decode kernel, T = 10 and 17 bf16
+#: the tensor-core kernel, T = 17 fp32 the FMA kernel
+TREE_VERIFY = [((2, 3), torch.bfloat16, None, "split-K decode"),
+               ((2, 3), torch.int8, None, "split-K decode"),
+               ((3, 3), torch.bfloat16, None, "tensor cores"),
+               ((4, 4), torch.bfloat16, None, "tensor cores"),
+               ((4, 4), torch.float32, None, "fp32 FMA"),
+               ((2, 3), torch.bfloat16, EDGE_LENGTHS, "split-K decode")]
+
+
+def _tree_case_name(tree, pool_dtype, lengths) -> str:
+    w, d = tree
+    name = f"T={1 + w * d} pool={_dt(pool_dtype)} tree=W{w}xD{d}"
+    return name + (" edge_lengths" if lengths is not None else "")
+
 
 def paged_problems(dev):
     """The cases of :func:`phase_paged_attention`, in order, from one
@@ -729,7 +767,8 @@ def paged_problems(dev):
     blocks of speculative decoding, causal by position with no mask
     (:data:`CHAIN_VERIFY`): T = 2 and 4 with bf16 and int8 pools, T = 8
     bf16 (the draft of 7: the tensor-core kernel) and T = 4 bf16 at
-    :data:`EDGE_LENGTHS`."""
+    :data:`EDGE_LENGTHS`; then the tree-verify blocks
+    (:data:`TREE_VERIFY`)."""
     gen = torch.Generator(device=dev).manual_seed(2)
     grid = [(t, pd, m, None) for t in (1, 128)
             for pd in (torch.bfloat16, torch.int8) for m in (False, True)]
@@ -745,6 +784,10 @@ def paged_problems(dev):
         if lengths is not None:
             name += " edge_lengths"
         yield name, _paged_problem(dev, gen, t, pool_dtype, masked, lengths)
+    for tree, pool_dtype, lengths, _ in TREE_VERIFY:
+        yield (_tree_case_name(tree, pool_dtype, lengths),
+               _paged_problem(dev, gen, 1 + tree[0] * tree[1], pool_dtype,
+                              False, lengths, tree=tree))
 
 
 def phase_paged_attention(dev):
@@ -757,6 +800,8 @@ def phase_paged_attention(dev):
     designs = {0: "fp32 FMA", 1: "split-K decode",
                2: "split-K tensor cores (mma.sync bf16)"}
 
+    tree_design = {_tree_case_name(tr, pd, ln): want
+                   for tr, pd, ln, want in TREE_VERIFY}
     splits = (_paged_split(page_len=16, n_pages=64)[0] * 16,
               _prefill_split(page_len=16, n_pages=64)[0] * 64)
     check(splits == EDGE_SPLIT_KEYS,
@@ -791,11 +836,14 @@ def phase_paged_attention(dev):
                         iters=20)
         lib = timings(_sdpa_yardstick(p), iters=20)
         bound, by = _paged_bound(p)
+        design = designs[_paged_design(t, q.dtype, p["pool_k"].dtype)]
+        check(tree_design.get(name, "") in design,
+              f"paged attention {name}: ran the {design} kernel, not the "
+              f"{tree_design.get(name)} one")
         case = {"case": name, "B": q.shape[0], "H": q.shape[1], "T": t,
                 "D": q.shape[3], "mean_len": float(p["cache_lengths"]
                                                    .float().mean()),
-                "design": designs[_paged_design(t, q.dtype,
-                                                p["pool_k"].dtype)],
+                "design": design,
                 "max_abs_err": err, "tol": tol, "same_bits_twice": True,
                 "planted_fault_errs": faults, **_merge(kern, plain, lib),
                 "bound_ms": bound, "bound_by": by}
@@ -1033,7 +1081,9 @@ def phase_spec_parity(dev, params):
     same greedy tokens as each other and as ``reference_generate``; the
     contiguous engines launch no paged or flash kernel; the repetitive
     request alone through each n-gram engine accepts drafts and emits
-    more tokens a window than verify steps."""
+    more tokens a window than verify steps.  Returns the prompts, the
+    paged engine's tokens, ``reference_generate``'s and the paged n-gram
+    engine's spec statistics, for :func:`phase_spec_tree_parity`."""
     cfg = GPTConfig.small(compute_dtype=torch.float32)
 
     def decoder(**kw):
@@ -1102,6 +1152,204 @@ def phase_spec_parity(dev, params):
               f"{name}: the contiguous engine launched {lc}")
     del decs
     torch.cuda.empty_cache()
+    return prompts, tokens["paged"], ref, stats["paged_ngram"]
+
+
+def _tree_vs_chains(dec, width: int, depth: int, slots: int = 4,
+                    prompt: int = 64) -> dict:
+    """One ``paged_decode_tree_block`` of (W, D) after 64-token prefills
+    of ``slots`` rows, against W ``paged_decode_block`` chains, one per
+    branch (the root and that branch's tokens), each on its own copy of
+    the pools: the largest difference of the logits at (root, branch r)
+    for every r."""
+    pps = dec.cfg.max_position // 16
+    cache = dec.init_paged_cache(1 + slots * pps, slots, 16)
+    tables = torch.arange(1, 1 + slots * pps, dtype=torch.int32,
+                          device=dec.device).reshape(slots, pps)
+    rng = torch.Generator().manual_seed(50 + 10 * width + depth)
+    ids = torch.randint(0, 50257, (slots, prompt), generator=rng)
+    dec.prefill_chunk(cache, tables, list(range(slots)), ids, [0] * slots,
+                      [prompt] * slots)
+    block = torch.randint(0, 50257, (slots, 1 + width * depth),
+                          generator=rng).to(dec.device)
+    lengths = cache.lengths.clone()
+    errs = []
+    with torch.no_grad():
+        tree = dec.model.paged_decode_tree_block(
+            block, cache.k.clone(), cache.v.clone(), tables, lengths,
+            width=width, depth=depth)
+        for r in range(width):
+            nodes = [0] + list(range(1 + r * depth, 1 + (r + 1) * depth))
+            want = dec.model.paged_decode_block(
+                block[:, nodes].contiguous(), cache.k.clone(),
+                cache.v.clone(), tables, lengths)
+            errs.append((tree[:, nodes] - want).abs().max().item())
+    torch.cuda.synchronize()
+    del cache, tree, want
+    torch.cuda.empty_cache()
+    return {"W": width, "D": depth, "per_branch_logits_max_abs_err": errs}
+
+
+def _forced_branch_win(cfg, params, dev, prompt) -> dict:
+    """The card's run of the JAX package's forced-branch-win test: a
+    poisoned history makes branch 0 (the chain's draft) propose a wrong
+    token after the root while branch 1 proposes the model's own greedy
+    continuation; branch 1 must win with 3 tokens accepted, and the next
+    step, which reads the compacted slots, must still give the
+    reference's tokens."""
+    dec = GPTDecoder(cfg, params, cache_dtype=torch.float32,
+                     tokens_per_dispatch=4, spec_tokens=2, spec_tree=2,
+                     device=dev)
+    want = reference_generate(cfg, params, prompt, 10, device=dev)
+    slots, pps = 2, 4
+    cache = dec.init_paged_cache(1 + slots * pps, slots, 16)
+    tables = torch.arange(1, 1 + slots * pps,
+                          dtype=torch.int32).reshape(slots, pps)
+    logits = dec.prefill_chunk(cache, tables[:1], [0], [prompt], [0],
+                               [len(prompt)])
+    tok0 = int(torch.argmax(logits[0]))
+    wrong = (want[1] + 1) % cfg.vocab_size
+    poison = [prompt[-1], tok0, want[1], want[2],
+              prompt[-1], tok0, wrong, prompt[-1], tok0]
+    hist = torch.full((slots, dec.spec_hist), -1, dtype=torch.int32)
+    hist[0, -len(poison):] = torch.tensor(poison, dtype=torch.int32)
+    buf = dec.paged_tree_spec_decode_window(
+        cache, tables, [tok0, 0], [True, False], hist).cpu()
+    out = [tok0]
+    for i in range(buf.shape[0]):
+        out += buf[i, 0, :int(buf[i, 0, -2])].tolist()
+    rec = {"first_token_is_reference": tok0 == want[0],
+           "winning_branches": buf[:, 0, -1].tolist(),
+           "accepted": buf[:, 0, -2].tolist(), "tokens": out,
+           "reference": want[:len(out)]}
+    del dec, cache
+    return rec
+
+
+def phase_spec_tree_parity(dev, params, prompts, plain, ref, chain_stats):
+    """Tree speculation at GPT-2 small fp32 (TF32 off) with fp32 pages and
+    the parity phase's weights: (a) a tree block of (W, D) = (2, 3) and
+    (4, 2) against one chain block per branch, the logits at (root,
+    branch r) within the parity phase's 1e-3 for every r; (b)
+    :func:`phase_spec_parity`'s four requests (48 new tokens, K = 8)
+    through the tree engines at (2, 3) and (4, 2) and the auto-tuned
+    chain (D = 3) and tree ((2, 3)) engines: the same greedy tokens as
+    the paged engine there and as ``reference_generate``; (c) the tree
+    engine at (2, 3) banks at least the paged n-gram chain engine's
+    (D = 3) mean tokens a window on the same requests; (d)
+    :func:`_forced_branch_win`."""
+    cfg = GPTConfig.small(compute_dtype=torch.float32)
+    base = GPTDecoder(cfg, params, cache_dtype=torch.float32,
+                      tokens_per_dispatch=8, device=dev)
+    blocks = [_tree_vs_chains(base, w, d) for w, d in ((2, 3), (4, 2))]
+    del base
+    runs = {"tree_w2d3": (dict(spec_tokens=3, spec_tree=2), False),
+            "tree_w4d2": (dict(spec_tokens=2, spec_tree=4), False),
+            "autotune_chain_d3": (dict(spec_tokens=3), True),
+            "autotune_tree_w2d3": (dict(spec_tokens=3, spec_tree=2), True)}
+    tokens, stats = {}, {}
+    for name, (kw, auto) in runs.items():
+        dec = GPTDecoder(cfg, params, cache_dtype=torch.float32,
+                         tokens_per_dispatch=8, device=dev, **kw)
+        eng = ServeEngine(dec, slots=4, max_len=128, page_len=16,
+                          prefill_chunk=64, spec_autotune=auto)
+        uids = [eng.submit(p, max_new_tokens=48) for p in prompts]
+        out = eng.run()
+        tokens[name] = [out[u] for u in uids]
+        stats[name] = _spec_stats(eng)
+        del eng, dec
+    forced = _forced_branch_win(cfg, params, dev, prompts[0][:8])
+    torch.cuda.empty_cache()
+    same = {n: t == plain for n, t in tokens.items()}
+    emit({"phase": "spec_tree_parity", "model": "GPT-2 small fp32, fp32 "
+          "pages, TF32 off", "tree_vs_chain_blocks": blocks,
+          "tol": 1e-3, "identical_to_paged": same,
+          "identical_to_reference": {n: t == ref for n, t in tokens.items()},
+          "spec_stats": stats, "chain_d3_stats": chain_stats,
+          "forced_branch_win": forced})
+    for b in blocks:
+        check(max(b["per_branch_logits_max_abs_err"]) <= 1e-3,
+              f"tree block W={b['W']} D={b['D']}: logits differ from the "
+              f"branches' chain blocks by {b['per_branch_logits_max_abs_err']}")
+    check(all(same.values()), f"tree/auto-tuned greedy tokens differ from "
+          f"the paged engine's: {same}")
+    check(plain == ref, "the paged engine's tokens differ from "
+          "reference_generate")
+    check(stats["tree_w2d3"]["mean_tokens_per_dispatch"]
+          >= chain_stats["mean_tokens_per_dispatch"],
+          f"the tree engine banks fewer tokens a window than the chain: "
+          f"{stats['tree_w2d3']} vs {chain_stats}")
+    for name in ("autotune_chain_d3", "autotune_tree_w2d3"):
+        traj = stats[name]["autotune"]["trajectory"]
+        check(all(1 <= d <= 3 for _, d in traj), f"{name}: {traj}")
+    check(forced["first_token_is_reference"]
+          and forced["winning_branches"][0] == 1
+          and forced["accepted"][0] == 3
+          and forced["tokens"] == forced["reference"],
+          f"forced branch win: {forced}")
+
+
+def _verify_forwards(eng) -> int:
+    """Verify forwards the engine's spec windows ran: each window runs
+    ``_spec_steps_for`` its depth, which the auto-tuner's trajectory
+    (window number, new depth) changes after that window."""
+    dec = eng.decoder
+    moves = dict(eng._auto_traj)
+    d, total = dec.spec_tokens, 0
+    for w in range(1, eng.decode_dispatches + 1):
+        total += dec._spec_steps_for(d)
+        d = moves.get(w, d)
+    return total
+
+
+def phase_spec_tree_engine(dev, params):
+    """GPT-2 small bf16 with bf16 pages, the engine phase's 16 requests
+    (K = 8) through the tree engines at (W, D) = (2, 3) (verify blocks of
+    T = 7: the decode kernel) and (3, 3) (T = 10: the tensor-core kernel)
+    and the auto-tuned n-gram chain engine at D = 3, each run with its
+    own launch counts, which must be exactly 25 LayerNorms and 12
+    paged-attention calls a forward (every prefill chunk and verify
+    forward of the run; the tuner's walk sets each window's forwards);
+    every step of the trajectory within [1, D].  Then the profile
+    set-up with the (2, 3) tree window.  Returns each run's launches."""
+    cfg = GPTConfig.small()
+    runs = {"tree_w2d3": dict(spec_tokens=3, spec_tree=2),
+            "tree_w3d3": dict(spec_tokens=3, spec_tree=3),
+            "autotune_chain_d3": dict(spec_tokens=3)}
+    out = {}
+    for name, kw in runs.items():
+        dec = GPTDecoder(cfg, params, compute_dtype=torch.bfloat16,
+                         cache_dtype=torch.bfloat16, tokens_per_dispatch=8,
+                         device=dev, **kw)
+        auto = name.startswith("autotune")
+        eng = ServeEngine(dec, slots=8, max_len=1024, page_len=16,
+                          prefill_chunk=128, seed=0, spec_autotune=auto)
+        lens, got, wall, launches = _run_engine_mix(eng, cfg.vocab_size)
+        st = eng.stats()
+        forwards = st["prefill_dispatches"] + _verify_forwards(eng)
+        want = {"layer_norm": 25 * forwards,
+                "paged_fused_attention": 12 * forwards}
+        out[name] = launches
+        emit({"phase": "spec_tree_engine", "model": "GPT-2 small bf16, "
+              "bf16 pages", "run": name, "requests": len(got),
+              **_engine_record(st, sum(map(len, got)), wall),
+              "spec": st["spec"], "forwards": forwards,
+              "launches": launches})
+        check(launches == {n: want.get(n, 0) for n in launches},
+              f"{name}: launched {launches}, not {forwards} forwards of 25 "
+              "LayerNorms and 12 paged-attention calls")
+        if auto:
+            traj = st["spec"]["autotune"]["trajectory"]
+            check(all(1 <= d <= dec.spec_tokens for _, d in traj),
+                  f"{name}: trajectory {traj}")
+        if name == "tree_w2d3":
+            rec = _profile_window(dec, steps=dec.spec_steps)
+            emit({"phase": "spec_tree_profile", "what": "one K=8 tree "
+                  "window (W=2, D=3: 2 verify forwards of 7 nodes), 8 "
+                  "slots, 512-token histories, GPT-2 small bf16", **rec})
+        del eng, dec
+        torch.cuda.empty_cache()
+    return out
 
 
 def phase_spec_engine(dev, params):
@@ -4196,8 +4444,10 @@ def _run() -> int:
     plain_profile = phase_profile(dec)
     del dec
     torch.cuda.empty_cache()
-    phase_spec_parity(dev, params)
+    prompts, plain, ref, chain_stats = phase_spec_parity(dev, params)
+    phase_spec_tree_parity(dev, params, prompts, plain, ref, chain_stats)
     spec_launches = phase_spec_engine(dev, params)
+    tree_launches = phase_spec_tree_engine(dev, params)
     phase_spec_profile(dev, params, plain_profile)
 
     lnb_cases = phase_layer_norm_bwd(dev)
@@ -4455,10 +4705,28 @@ def _run() -> int:
                 "launches_of": f"{name}, ServeEngine run, GPT-2 small, "
                 f"n-gram speculation at D = {draft}",
                 **other_path(name, spec_launches[draft], c)}
+    # the tree path: the tree engines' runs of the engine mix at (W, D) =
+    # (2, 3) and (3, 3), beside the tree block's cases (8 slots x (1 + W
+    # D) nodes under the branch mask)
+    tree_cases = {
+        "layer_norm": {"w2d3": next(c for c in ln_cases if c["rows"] == 56),
+                       "w3d3": next(c for c in ln_cases if c["rows"] == 80)},
+        "paged_fused_attention": {
+            "w2d3": next(c for c in pa_cases
+                         if c["case"] == "T=7 pool=bfloat16 tree=W2xD3"),
+            "w3d3": next(c for c in pa_cases
+                         if c["case"] == "T=10 pool=bfloat16 tree=W3xD3")}}
+    for name, by_tree in tree_cases.items():
+        for tree, c in by_tree.items():
+            by_name[name][f"spec_tree_path_{tree}"] = {
+                "launches_of": f"{name}, ServeEngine run, GPT-2 small, "
+                f"tree speculation {tree}",
+                **other_path(name, tree_launches[f"tree_{tree}"], c)}
     check(all(r["launches"] > 0 for r in rows)
           and all(r[p]["launches"] > 0 for r in rows
                   for p in ("train_path", "bert_path", "rn50_path",
-                            "medium_path", "spec_path_d3", "spec_path_d7")
+                            "medium_path", "spec_path_d3", "spec_path_d7",
+                            "spec_tree_path_w2d3", "spec_tree_path_w3d3")
                   if p in r),
           f"a kernel never launched on its path: {rows}")
     print(smi, flush=True)

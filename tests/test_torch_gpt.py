@@ -70,9 +70,16 @@ def test_converter_maps_every_param(flax_params):
 
 
 def test_converter_rejects_unmapped_params(flax_params):
-    tree = dict(flax_params, head={"kernel": np.zeros((2, 2), np.float32)})
-    with pytest.raises(ValueError, match="unmapped"):
-        from_jax_params(tree)
+    """An unknown top-level key and a head with a leaf the port's head
+    does not have (a bias) both raise; a bare ``head.kernel`` is the
+    untied head, which maps."""
+    z = np.zeros((2, 2), np.float32)
+    for tree in (dict(flax_params, lm_head={"kernel": z}),
+                 dict(flax_params, head={"kernel": z, "bias": z[0]})):
+        with pytest.raises(ValueError, match="unmapped"):
+            from_jax_params(tree)
+    assert "head.kernel" in from_jax_params(dict(flax_params,
+                                                 head={"kernel": z}))
 
 
 @pytest.mark.parametrize("dtype", [None, "fp32", "bf16"])

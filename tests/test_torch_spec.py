@@ -19,7 +19,8 @@ of their programs compiles once).
   copy-on-write under speculation; a bf16 spec engine equal to the
   port's bf16 non-spec engine.
 - The sampling epilogue on (B, T, V) verify logits with B != T, the
-  paged write horizon, argument validation and the raise without CUDA.
+  paged write horizon, argument validation (the tree's configuration
+  errors among them) and the raise without CUDA.
 """
 import jax
 import jax.numpy as jnp
@@ -480,11 +481,16 @@ def test_validation_and_devices(lm, monkeypatch):
         make(spec_tokens=2, spec_exit_layers=3)
     with pytest.raises(ValueError, match="spec_tokens"):
         make(spec_tokens=-1)
-    with pytest.raises(NotImplementedError, match="A.1c"):
-        make(spec_tokens=2, spec_tree=2)
+    # tree speculation's configuration errors, as in the JAX package
+    with pytest.raises(ValueError, match="spec_tree needs speculation"):
+        make(spec_tree=2)
+    with pytest.raises(ValueError, match="'ngram' proposer"):
+        make(spec_tokens=2, spec_tree=2, spec_proposer="shallow",
+             spec_exit_layers=1)
+    with pytest.raises(ValueError, match="requires the paged cache"):
+        ServeEngine(make(spec_tokens=2, spec_tree=2), slots=1, max_len=32,
+                    paged=False)
     dec = make(spec_tokens=2, tokens_per_dispatch=4)
-    with pytest.raises(NotImplementedError, match="A.1c"):
-        ServeEngine(dec, slots=1, max_len=32, spec_autotune=True)
     cache = dec.init_cache(1, 16)
     pcache = dec.init_paged_cache(3, 1, 8)
     hist = np.full((1, dec.spec_hist), -1, np.int32)
