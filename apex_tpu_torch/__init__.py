@@ -26,6 +26,10 @@ a draft-depth auto-tuner (``ServeEngine(spec_autotune=True)``), the
 policy's KV-cache dtype (``GPTDecoder(policy=, kv_int8=)``) and an
 untied head (``GPTConfig(tie_word_embeddings=False)``), with
 ``reference_generate`` as the full-recompute oracle.
+Training also has AMP O1 (``amp.F`` over the JAX package's cast tables,
+``amp.initialize()``'s default), the accumulate/stash path and the
+unfused optimizer route (``AmpOptimizer.accumulate``), and checkpoints
+(``checkpoint``, ``FusedTrainDriver.save``/``restore``).
 Every kernel on those paths
 (LayerNorm forward and backward, paged attention, flash attention
 forward and backward with and without an additive bias and its gradient,

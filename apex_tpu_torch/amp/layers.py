@@ -1,37 +1,51 @@
-"""Dense and Conv — the flax-layout layers of the JAX package.
+"""Dense and Conv — the policy-aware flax-layout layers of the JAX package.
 
-Counterpart of ``apex_tpu/amp/layers.py`` outside autocast (the ``amp``
-policy tables are not ported yet):
+Counterpart of ``apex_tpu/amp/layers.py``.  Both compute through
+:mod:`apex_tpu_torch.amp.functional` (``dense`` and
+``conv_general_dilated``), so one model definition serves every opt
+level: while an autocast policy is live (O1) the cast tables own the
+operand dtypes and the layer's ``dtype`` is ignored (a bf16 product over
+fp32 parameters); otherwise (O0, O2, O3) a set ``dtype`` casts the
+operands as flax's ``dtype=`` does.
 
 - :class:`Dense`: fp32 ``kernel`` stored ``(in, out)`` as flax stores
   it, fp32 ``bias``, and a ``dtype`` that casts the input, kernel and
-  bias before the product, as flax's ``dtype=`` does.  Without ``dtype``
-  the operands promote to the wider type
-  (``apex_tpu/amp/functional.py::dense``).  The product is a plain
-  ``torch.matmul``: XLA computed it outside any Pallas kernel.
+  bias before the product.  Without ``dtype`` the operands promote to
+  the wider type (``apex_tpu/amp/functional.py::dense``).  The product is
+  a plain ``torch.matmul``: XLA computed it outside any Pallas kernel.
 - :class:`Conv`: NHWC activations and an HWIO ``kernel``, flax's layout;
   ``strides``, ``padding`` (``"SAME"`` — flax's split, the extra row or
   column at the high edge —, ``"VALID"`` or explicit (lo, hi) pairs) and
   ``use_bias``, with the same ``dtype`` cast.  The convolution runs
   ``F.conv2d`` on a channels-last NCHW view (cuDNN on the card: the JAX
   package left convolutions to XLA, outside any Pallas kernel).
+
+Not ported yet: ``ConvTranspose`` and ``functional.conv_transpose``,
+which come with DCGAN.
 """
 from __future__ import annotations
 
-from typing import Optional, Sequence, Tuple, Union
+from typing import Optional, Tuple, Union
 
 import torch
-import torch.nn.functional as F
 from torch import nn
+
+from apex_tpu_torch.amp import functional as amp_F
+from apex_tpu_torch.amp.functional import (  # noqa: F401
+    Padding,
+    conv_nhwc,
+    same_padding,
+)
 
 __all__ = ["Conv", "Dense", "conv_nhwc", "same_padding"]
 
-Padding = Union[str, Sequence[Tuple[int, int]]]
-
 
 def _apply_dtype(dtype: Optional[torch.dtype], *tensors):
-    """flax's ``dtype=``: every operand cast to it; None leaves them."""
-    if dtype is None:
+    """flax's ``dtype=``: every operand cast to it, outside autocast
+    only; None leaves them, and so does a live autocast policy, whose
+    cast tables then own the operand dtypes."""
+    pol = amp_F.current_policy()
+    if dtype is None or (pol is not None and pol.enabled and pol.autocast):
         return tensors
     return tuple(None if t is None else t.to(dtype) for t in tensors)
 
@@ -48,53 +62,8 @@ class Dense(nn.Module):
         self.bias = nn.Parameter(torch.zeros(features)) if use_bias else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        dt = self.dtype or torch.promote_types(x.dtype, self.kernel.dtype)
-        y = torch.matmul(x.to(dt), self.kernel.to(dt))
-        return y if self.bias is None else y + self.bias.to(y.dtype)
-
-
-def same_padding(size: int, k: int, stride: int) -> Tuple[int, int]:
-    """flax/XLA ``"SAME"`` padding of one spatial axis: the output keeps
-    ceil(size / stride) positions, and an odd total puts the extra pad at
-    the high edge (a stride-2 3x3 conv on an even input pads (0, 1))."""
-    out = -(-size // stride)
-    total = max((out - 1) * stride + k - size, 0)
-    return total // 2, total - total // 2
-
-
-def conv_nhwc(x: torch.Tensor, kernel: torch.Tensor,
-              strides: Tuple[int, int] = (1, 1), padding: Padding = "SAME"
-              ) -> torch.Tensor:
-    """``lax.conv_general_dilated`` with ("NHWC", "HWIO", "NHWC"): x (N, H,
-    W, C), kernel (KH, KW, C, O) -> (N, H', W', O), operands promoted to
-    one dtype.  Asymmetric padding is applied explicitly."""
-    dt = torch.promote_types(x.dtype, kernel.dtype)
-    x, kernel = x.to(dt), kernel.to(dt)
-    kh, kw = kernel.shape[:2]
-    if isinstance(padding, str):
-        if padding == "SAME":
-            pads = (same_padding(x.shape[1], kh, strides[0]),
-                    same_padding(x.shape[2], kw, strides[1]))
-        elif padding == "VALID":
-            pads = ((0, 0), (0, 0))
-        else:
-            raise ValueError(f"padding must be 'SAME', 'VALID' or (lo, hi) "
-                             f"pairs, got {padding!r}")
-    else:
-        pads = tuple((int(lo), int(hi)) for lo, hi in padding)
-        if len(pads) != 2:
-            raise ValueError(f"conv_nhwc takes two (lo, hi) pairs, got "
-                             f"{padding!r}")
-    xc = x.permute(0, 3, 1, 2)  # an NCHW view of NHWC memory: channels-last
-    (ht, hb), (wl, wr) = pads
-    if ht == hb and wl == wr:
-        sym = (ht, wl)
-    else:
-        xc = F.pad(xc, (wl, wr, ht, hb))
-        sym = (0, 0)
-    y = F.conv2d(xc, kernel.permute(3, 2, 0, 1), stride=tuple(strides),
-                 padding=sym)
-    return y.permute(0, 2, 3, 1)
+        return amp_F.dense(*_apply_dtype(self.dtype, x, self.kernel,
+                                         self.bias))
 
 
 class Conv(nn.Module):
@@ -119,7 +88,7 @@ class Conv(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x, kernel = _apply_dtype(self.dtype, x, self.kernel)
-        y = conv_nhwc(x, kernel, self.strides, self.padding)
+        y = amp_F.conv_general_dilated(x, kernel, self.strides, self.padding)
         if self.bias is not None:
             y = y + self.bias.to(y.dtype)
         return y

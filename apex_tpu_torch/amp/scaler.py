@@ -69,6 +69,17 @@ class LossScaler:
         return multi_tensor.multi_tensor_unscale(grads,
                                                  1.0 / state.loss_scale)
 
+    def unscale_with_stashed(self, new_scaled_grads: Tree,
+                             stashed_master_grads: Tree,
+                             state: LossScalerState
+                             ) -> Tuple[Tree, torch.Tensor]:
+        """The accumulation merge ``new * (1 / scale) + stashed`` in fp32
+        (ref apex/amp/scaler.py:152-189, ``multi_tensor_axpby`` with
+        ``a = 1/scale``, ``b = 1``), with found_inf over the output."""
+        return multi_tensor.multi_tensor_axpby(
+            new_scaled_grads, stashed_master_grads, 1.0 / state.loss_scale,
+            1.0, check="both")
+
     def update(self, state: LossScalerState,
                found_inf: torch.Tensor) -> LossScalerState:
         """The scale update, where-gated (ref apex/amp/scaler.py:197-217):
@@ -113,7 +124,10 @@ class LossScaler:
 def apply_if_finite(found_inf: torch.Tensor, new_tree: Tree,
                     old_tree: Tree) -> Tree:
     """Select ``old`` wholesale on overflow: the skip step as a where
-    gate over matching dicts (or lists) of tensors."""
+    gate over matching trees of tensors (nested dicts, lists, tuples,
+    NamedTuples).  ``new`` must hold tensors of its own: a leaf that
+    aliases its ``old`` counterpart (state updated in place) has already
+    lost the old value."""
     return multi_tensor.tree_map(
         lambda n, o: torch.where(found_inf, o, n.to(o.dtype)),
         new_tree, old_tree)

@@ -20,7 +20,9 @@ and ``forward`` returns the output tensor alone.
 Masks fold into one additive (B, Sq, Sk) fp32 bias (:func:`_masks_to_bias`),
 a broadcast view that is never copied per query or per head.
 ``include_norm_add`` is the pre-LN variant: LN(query) feeds attention and
-the module returns ``dropout(attn) + query``.  ``EncdecMultiheadAttn`` is
+the module returns ``dropout(attn) + query``.  The projections go
+through :func:`apex_tpu_torch.amp.functional.dense`, so O1's cast tables
+run them in bf16.  ``EncdecMultiheadAttn`` is
 not ported yet.
 """
 from __future__ import annotations
@@ -32,6 +34,7 @@ import torch
 from torch import nn
 
 from apex_tpu_torch._random import attention_seed, dropout
+from apex_tpu_torch.amp import functional as amp_F
 from apex_tpu_torch.normalization import FusedLayerNorm
 from apex_tpu_torch.ops.attention import flash_attention
 
@@ -104,14 +107,6 @@ def _core_attention(q, k, v, bias, scale: float, dropout_rate: float,
         dropout_rate=dropout_rate, deterministic=not is_training,
         generator=generator)
     return torch.einsum("bhqk,bhkd->bhqd", p, v.float()).to(q.dtype)
-
-
-def _dense(x, kernel, bias=None):
-    """``x @ kernel + bias`` with the operands promoted to a common dtype
-    (``apex_tpu/amp/functional.py::dense`` outside autocast)."""
-    dt = torch.promote_types(x.dtype, kernel.dtype)
-    y = torch.matmul(x.to(dt), kernel.to(dt))
-    return y if bias is None else y + bias.to(y.dtype)
 
 
 class SelfMultiheadAttn(nn.Module):
@@ -200,7 +195,7 @@ class SelfMultiheadAttn(nn.Module):
             bvec = (torch.cat([self.q_bias, self.k_bias, self.v_bias])
                     if self.separate_qkv_params else self.in_proj_bias)
             bvec = bvec.to(dt)
-        qkv = _dense(x, w.to(dt), bvec)
+        qkv = amp_F.dense(x, w.to(dt), bvec)
         split = lambda t: t.reshape(b, s, nh, d).transpose(1, 2)  # noqa: E731
         q, k, v = (split(t) for t in qkv.split(h, dim=-1))
         bias = _masks_to_bias(key_padding_mask, attn_mask,
@@ -209,8 +204,9 @@ class SelfMultiheadAttn(nn.Module):
                                is_training, self.impl, self.probs_bf16,
                                generator, self.dq_acc)
         attn = attn.transpose(1, 2).reshape(b, s, h)
-        out = _dense(attn, self.out_proj_weight.to(dt),
-                     self.out_proj_bias.to(dt) if self.use_bias else None)
+        out = amp_F.dense(attn, self.out_proj_weight.to(dt),
+                          self.out_proj_bias.to(dt) if self.use_bias
+                          else None)
         if self.include_norm_add:
             # residual dropout + add of the RAW query (ref :160-167)
             if is_training:

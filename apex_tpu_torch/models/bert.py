@@ -37,6 +37,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from apex_tpu_torch._random import dropout
+from apex_tpu_torch.amp import functional as amp_F
 from apex_tpu_torch.amp.layers import Dense
 from apex_tpu_torch.contrib.multihead_attn import SelfMultiheadAttn
 from apex_tpu_torch.normalization import FusedLayerNorm
@@ -166,11 +167,12 @@ class BertEncoder(nn.Module):
 
     def attend(self, x: torch.Tensor) -> torch.Tensor:
         """Hidden states -> fp32 vocab logits through the word table: a
-        compute-dtype product with fp32 accumulation and output, computed
-        as an fp32 product of compute-dtype-rounded operands."""
+        compute-dtype product (bf16 under O1's cast tables) with fp32
+        accumulation and output, computed as an fp32 product of the
+        rounded operands."""
         dt = self.cfg.compute_dtype
-        table = self.word_embeddings.weight.to(dt).float()
-        return torch.matmul(x.to(dt).float(), table.T)
+        return amp_F.matmul(x.to(dt), self.word_embeddings.weight.to(dt).T,
+                            out_dtype=torch.float32)
 
 
 class BertForMLM(nn.Module):

@@ -21,6 +21,11 @@ head and dtype discipline:
   compute-dtype logits (a compute-dtype head product with fp32
   accumulation: the JAX package rounds its fp32 logits to that dtype
   before the loss), the mean over labels >= 0;
+- O1: built with an fp32 compute dtype and run inside
+  ``amp_.autocast()``, every ``Dense`` and the tied head run as bf16
+  products through :mod:`apex_tpu_torch.amp.functional` (the head with
+  fp32 output), so flash attention takes bf16 q, k, v, the residual
+  stream and LayerNorm stay fp32 and the loss takes fp32 logits;
 - the head is tied to ``wte`` by default; ``tie_word_embeddings=False``
   gives an fp32 ``head`` ``Dense`` (no bias) whose fp32 product both
   the loss and ``_logits`` use;
@@ -53,6 +58,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from apex_tpu_torch._random import attention_seed, dropout
+from apex_tpu_torch.amp import functional as amp_F
 from apex_tpu_torch.amp.layers import Dense
 from apex_tpu_torch.normalization import FusedLayerNorm
 from apex_tpu_torch.ops import attention as _attn
@@ -309,7 +315,10 @@ class GPTLM(nn.Module):
             return self._logits(x)
         dt = cfg.compute_dtype
         if cfg.tie_word_embeddings:
-            logits = torch.matmul(x.to(dt), self.wte.weight.to(dt).T)
+            # through the cast tables (O1: a bf16 product with fp32 output,
+            # computed as an fp32 product of bf16-rounded operands)
+            logits = amp_F.matmul(x.to(dt), self.wte.weight.to(dt).T,
+                                  out_dtype=dt)
         else:
             logits = self.head(x).to(dt)
         valid = labels >= 0

@@ -17,15 +17,21 @@ dtype discipline:
 - the global mean over H and W accumulates in fp32 and rounds to the
   compute dtype (``jnp.mean`` of a bf16 tensor), then the fp32 classifier
   ``Dense(num_classes, dtype=float32)`` over its fp32 cast: under O2 its
-  kernel arrives bf16-rounded and the product is fp32.
+  kernel arrives bf16-rounded and the product is fp32;
+- O1: built with an fp32 compute dtype and run inside
+  ``amp_.autocast()``, every convolution (the stem's too) and the
+  classifier go through the cast tables of
+  :mod:`apex_tpu_torch.amp.functional` as bf16 products, so the
+  activations and the logits are bf16 and BatchNorm computes its
+  statistics in fp32.
 
 The batch statistics are state the caller threads (flax's
 ``batch_stats``): ``forward(x, batch_stats, train)`` returns the logits
 and the updated statistics.  The convolutions run in cuDNN on the card (as
 XLA ran them in the JAX package); the ``conv_bn`` kernels are not wired
 in, as they are not in the JAX model.  Not ported yet: cross-process
-SyncBatchNorm (the JAX model's ``sync_batchnorm``), its plain-stem and
-BatchNorm-hyperparameter options, and O1 autocast.
+SyncBatchNorm (the JAX model's ``sync_batchnorm``) and its plain-stem and
+BatchNorm-hyperparameter options.
 """
 from __future__ import annotations
 
@@ -36,7 +42,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from apex_tpu_torch.amp.layers import Conv, Dense, _apply_dtype, conv_nhwc
+from apex_tpu_torch.amp import functional as amp_F
+from apex_tpu_torch.amp.layers import Conv, Dense, _apply_dtype
 from apex_tpu_torch.parallel.sync_batchnorm import SyncBatchNorm
 
 __all__ = ["Bottleneck", "ResNet", "SpaceToDepthStem", "init_resnet_params",
@@ -59,7 +66,8 @@ class SpaceToDepthStem(nn.Module):
         n, h, w, c = x.shape
         x, kernel = _apply_dtype(self.dtype, x, self.kernel)
         if h % 2 or w % 2:  # odd size: the plain stem convolution
-            return conv_nhwc(x, kernel, (2, 2), ((3, 3), (3, 3)))
+            return amp_F.conv_general_dilated(x, kernel, (2, 2),
+                                              ((3, 3), (3, 3)))
         # 7x7 -> 8x8 (a zero tap at the high edge matches pad (3, 4)),
         # regrouped to (4, 4, 4c, features) in (di, dj, c) order
         k8 = F.pad(kernel, (0, 0, 0, 0, 0, 1, 0, 1))
@@ -71,7 +79,7 @@ class SpaceToDepthStem(nn.Module):
         xs = (xp.reshape(n, hp // 2, 2, wp // 2, 2, c)
               .permute(0, 1, 3, 2, 4, 5)
               .reshape(n, hp // 2, wp // 2, 4 * c))
-        return conv_nhwc(xs, k4, (1, 1), "VALID")
+        return amp_F.conv_general_dilated(xs, k4, (1, 1), "VALID")
 
 
 def _bn(module: SyncBatchNorm, prefix: str, x: torch.Tensor,

@@ -20,6 +20,9 @@ checkpointing).  Dropout draws from an explicit ``torch.Generator``, which
 generator's state in the recompute, making it draw the masks and the
 attention-dropout seed the forward drew, and puts the generator back
 where it was, so that it ends where the unwrapped forward leaves it.
+The recompute also runs under the forward's AMP policy stack
+(:mod:`apex_tpu_torch.amp.functional`), which the backward, outside the
+forward's ``autocast`` block, would otherwise not see.
 """
 from __future__ import annotations
 
@@ -33,6 +36,8 @@ from torch.utils.checkpoint import (
     create_selective_checkpoint_contexts,
     noop_context_fn,
 )
+
+from apex_tpu_torch.amp import functional as amp_F
 
 __all__ = ["REMAT_POLICIES", "checkpoint_policy", "remat_call"]
 
@@ -63,24 +68,29 @@ def checkpoint_policy(policy: Optional[str]) -> Optional[Callable]:
 
 
 class _Replay:
-    """``fn`` whose second and later calls (the recomputes) run with
-    ``generator`` set to the state it had at the first, then restored."""
+    """``fn`` whose second and later calls (the recomputes) run under the
+    AMP policy stack of the first and with ``generator`` set to the state
+    it had at the first, then restored."""
 
     def __init__(self, fn: Callable, generator: Optional[torch.Generator]):
         self.fn, self.generator = fn, generator
         self.state = None if generator is None else generator.get_state()
+        self.policies = amp_F.policy_stack()
         self.calls = 0
 
     def __call__(self, *args):
         self.calls += 1
-        if self.generator is None or self.calls == 1:
+        if self.calls == 1:
             return self.fn(*args)
-        now = self.generator.get_state()
-        self.generator.set_state(self.state)
-        try:
-            return self.fn(*args)
-        finally:
-            self.generator.set_state(now)
+        with amp_F.use_policy_stack(self.policies):
+            if self.generator is None:
+                return self.fn(*args)
+            now = self.generator.get_state()
+            self.generator.set_state(self.state)
+            try:
+                return self.fn(*args)
+            finally:
+                self.generator.set_state(now)
 
 
 def remat_call(fn: Callable, policy: Optional[str], *args: Any,

@@ -15,9 +15,16 @@ runs eagerly, so here a window is a Python loop over the same step, the
 same function of the same state.  A
 :class:`~apex_tpu_torch.train.accum.MicrobatchedStep` in place of
 ``step_fn`` makes each step consume M microbatches with the gradient
-accumulated on the device (:mod:`apex_tpu_torch.train.accum`).  Not
-ported yet: save/restore, the ``mesh``/``carry_spec`` SPMD modes and CUDA
-graphs around the window.
+accumulated on the device (:mod:`apex_tpu_torch.train.accum`).
+:meth:`FusedTrainDriver.save` and :meth:`FusedTrainDriver.restore`
+checkpoint the carry at a window boundary
+(:mod:`apex_tpu_torch.checkpoint`); a carry with the masters, the
+``AmpOptState`` (scaler state included) and the dropout generator
+resumes bit for bit, once the resumed run has called
+``AmpOptimizer.copy_to_model`` (the model's half copy is not in the
+carry).  Not ported yet: the ``mesh``/``carry_spec`` SPMD modes, CUDA
+graphs around the window, and the obs spans and flight-recorder events
+around save and restore.
 """
 from __future__ import annotations
 
@@ -27,6 +34,7 @@ from typing import (Any, Callable, Dict, Iterable, Mapping, NamedTuple,
 
 import torch
 
+from apex_tpu_torch import checkpoint
 from apex_tpu_torch.train.accum import MicrobatchedStep, _index, build_opt_step
 
 __all__ = ["DEFAULT_STEPS_PER_DISPATCH", "FusedTrainDriver", "WindowResult",
@@ -218,3 +226,19 @@ class FusedTrainDriver:
             if on_window is not None:
                 on_window(done, res)
         return carry, done
+
+    # -- checkpointing (window-boundary resume) -------------------------
+
+    def save(self, path: str, carry: Any, step: int, **kw) -> str:
+        """Save the carry at a window boundary under ``path/<step>``
+        (:func:`apex_tpu_torch.checkpoint.save_checkpoint`, whose keyword
+        arguments ``kw`` takes); returns the step's directory."""
+        return checkpoint.save_checkpoint(path, carry, step, **kw)
+
+    def restore(self, path: str, carry_template: Any,
+                step: Optional[int] = None) -> Tuple[Any, int]:
+        """Restore a carry saved by :meth:`save` into the template's
+        structure and devices; returns ``(carry, step)``.  Under O2, call
+        ``AmpOptimizer.copy_to_model(model, masters)`` before the first
+        step of the resumed run."""
+        return checkpoint.restore_checkpoint(path, carry_template, step)

@@ -190,14 +190,13 @@ def from_jax_resnet_params(params: Mapping[str, Any],
 
 def from_jax_opt_state(state: Any, device=None):
     """JAX ``AmpOptState(FusedAdamState | FusedLAMBState (step, m, v) |
-    FusedSGDState (step, momentum_buf), scalers, stash=None)`` over a
+    FusedSGDState (step, momentum_buf), scalers, stash)`` over a
     ``GPTLM``, ``BertForMLM`` or ``ResNet`` params tree -> the port's
     :class:`apex_tpu_torch.amp.AmpOptState` on ``device`` (None: the CUDA
-    device), the per-parameter tensors keyed like :func:`from_jax_params`,
-    :func:`from_jax_bert_params` or :func:`from_jax_resnet_params`."""
+    device), the per-parameter tensors (the stash's too) keyed like
+    :func:`from_jax_params`, :func:`from_jax_bert_params` or
+    :func:`from_jax_resnet_params`."""
     dev = resolve_device(device)
-    if state.stash is not None:
-        raise ValueError("a stashed (accumulating) state is not ported")
     inner = state.opt_state
     kinds = {"FusedAdamState": FusedAdamState,
              "FusedLAMBState": FusedLAMBState,
@@ -230,4 +229,5 @@ def from_jax_opt_state(state: Any, device=None):
             loss_scale=scalar(s.loss_scale, torch.float32),
             unskipped=scalar(s.unskipped, torch.int32),
             overflows=scalar(s.overflows, torch.int32))
-            for s in state.scaler))
+            for s in state.scaler),
+        stash=None if state.stash is None else moments(state.stash))

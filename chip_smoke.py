@@ -147,7 +147,29 @@ line) on any failed check:
     acc backward 24, the partials backward 0, LN backward 49,
     cross-entropy 1 and 1)), an inf in one microbatch that must skip the
     whole accumulated update; the peak memory and wall of one microbatch
-    under each remat policy; and one step under ``torch.profiler``.
+    under each remat policy; and one step under ``torch.profiler``;
+14. AMP O1, checkpoints and the stash route: ``o1_parity`` (GPT-2 small
+    and BERT-large padded to lengths 200 and 256, fp32 parameters under
+    ``amp_.autocast()``, batch 2 x 256, card against CPU: the loss within
+    1e-2, the logits within 5e-2 of the largest, four gradients within
+    2e-2 relative L2, every Dense, projection and head product on bf16
+    operands by the ``amp.F`` product counts, and the launches);
+    ``o1_train`` (GPT-2 small O1 at 8 x 1024, dropout 0.1,
+    ``fused_adam(6e-4, weight_decay=0.1)``, K = 4: tokens/s beside the
+    O2 window's, device-busy share, peak memory, one window's launches
+    (K x (LN 25, LN backward 25, flash 12 + 12, cross-entropy 1 + 1)) and
+    bf16 products, a planted overflow that must be skipped);
+    ``checkpoint_resume`` (the O1 set-up with its dropout generator in
+    the carry: one window, ``FusedTrainDriver.save``, ``restore`` into a
+    carry from another seed, ``copy_to_model``, the second window, bit
+    for bit the unbroken run's losses, scale state, masters, moments and
+    generator state; a corrupted newest step falls back, and restoring
+    it by number raises; save and restore wall, bytes on disk); and
+    ``stash`` (GPT-2 small O2, two microbatches of 8 x 1024 through
+    ``accumulate(update_scaler=False)`` and ``step`` with ``fused_sgd``,
+    ``fused_adam`` and ``fused_lamb``: the stash within 1e-6 of the
+    float64 sum, LAMB stage 1 on this route against its plain version,
+    an inf in the second microbatch leaving every state bit for bit).
 
 Then the ``nvidia-smi`` line, the ``{"kernels": [...]}`` summary and, as
 the last line, ``{"ok": true, "device": {...}}``.  Without a CUDA
@@ -164,6 +186,7 @@ import re
 import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import torch
@@ -187,6 +210,7 @@ from apex_tpu_torch import (
     reference_generate,
     resnet50,
 )
+from apex_tpu_torch import checkpoint
 from apex_tpu_torch.models.gpt import tree_layout
 from apex_tpu_torch.ops import _build, launch_counts, reset_launch_counts
 from apex_tpu_torch.ops.attention import (
@@ -2022,6 +2046,7 @@ def phase_train(dev, params, b: int = 16, s: int = 1024, k: int = 10,
           "max_memory_allocated_bytes": peak,
           "launches_one_window": counted,
           "launches_per_step_expected": per_step})
+    tokens_per_s = b * s * k / med
     losses = warm.per_step["loss"] + sum((w.per_step["loss"]
                                           for w in windows), [])
     check(all(math.isfinite(x) for x in losses), "train: non-finite loss")
@@ -2058,7 +2083,7 @@ def phase_train(dev, params, b: int = 16, s: int = 1024, k: int = 10,
     check(float(scaler.loss_scale) == scale_before / 2
           and int(scaler.unskipped) == 0,
           "train: the overflow did not halve the scale and reset unskipped")
-    return counted, step, carry
+    return counted, step, carry, tokens_per_s
 
 
 # -- phase 8: BERT kernels ----------------------------------------------------
@@ -2646,14 +2671,16 @@ def phase_step_profile(step, carry, phase: str, what: str):
     rows = sorted(((k, ms, n) for k, (ms, n) in by_name.items()),
                   key=lambda r: -r[1])
     busy_ms = sum(r[1] for r in rows)
-    emit({"phase": phase, "what": what,
-          "wall_ms": wall_ms, "unprofiled_wall_ms": plain_wall_ms,
-          "device_busy_ms": busy_ms if busy_ms > 0 else None,
-          "device_busy_share": busy_ms / wall_ms if busy_ms > 0 else None,
-          "device_busy_share_unprofiled":
-              busy_ms / plain_wall_ms if busy_ms > 0 else None,
-          "top_kernels": [{"name": k[:90], "device_ms": ms, "calls": n}
-                          for k, ms, n in rows[:12]]})
+    rec = {"phase": phase, "what": what,
+           "wall_ms": wall_ms, "unprofiled_wall_ms": plain_wall_ms,
+           "device_busy_ms": busy_ms if busy_ms > 0 else None,
+           "device_busy_share": busy_ms / wall_ms if busy_ms > 0 else None,
+           "device_busy_share_unprofiled":
+               busy_ms / plain_wall_ms if busy_ms > 0 else None,
+           "top_kernels": [{"name": k[:90], "device_ms": ms, "calls": n}
+                           for k, ms, n in rows[:12]]}
+    emit(rec)
+    return rec
 
 
 # -- phase 10: the conv+BN matmul kernels --------------------------------------
@@ -4385,6 +4412,506 @@ def phase_medium_kernels(dev, rows: int = 8192, n: int = 1024,
     return out
 
 
+# -- phase 14: AMP O1, checkpoint resume, the stash route ---------------------
+
+O1_GRADS = ("wte.weight", "layers.0.qkv.kernel", "layers.11.ffn_out.kernel",
+            "ln_f.weight")
+O1_TOL = ("loss 1e-2; logits 5e-2 of max|logit|; grads 2e-2 relative L2 "
+          "(ROADMAP's bf16-compute rules)")
+
+
+def _products() -> dict:
+    """The products run through ``amp.F`` since its reset, by op and
+    operand dtype."""
+    return {f"{op} {dt}": n for (op, dt), n in
+            sorted(amp.F.product_counts().items())}
+
+
+def _o1_parity_case(what, make, params, run, names, products, launches,
+                    devices):
+    """One O1 forward and backward under ``amp_.autocast()`` on the card
+    and on the CPU (plain versions), from the same weights and tokens."""
+    amp_ = amp.initialize("O1")
+    out = {}
+    for where in devices:
+        model = make()
+        model.load_state_dict(params)
+        model.to(where)
+        amp.F.reset_product_counts()
+        reset_launch_counts()
+        with amp_.autocast():
+            logits, loss = run(model, where)
+        ps = dict(model.named_parameters())
+        gs = torch.autograd.grad(loss, [ps[n] for n in names])
+        if where == devices[0]:
+            torch.cuda.synchronize()
+        out[where] = dict(
+            loss=float(loss.detach()), logits=logits.detach().float().cpu(),
+            grads=[g.float().cpu() for g in gs], products=_products(),
+            launches={n: c for n, c in launch_counts().items() if c})
+        del model, ps, gs, logits, loss
+    card, cpu = (out[d] for d in devices)
+    rel = {n: float((a - c).norm() / c.norm())
+           for n, a, c in zip(names, card["grads"], cpu["grads"])}
+    loss_err = abs(card["loss"] - cpu["loss"])
+    logit_err = float((card["logits"] - cpu["logits"]).abs().max())
+    top = float(cpu["logits"].abs().max())
+    rec = {"phase": "o1_parity", "model": what, "loss_cuda": card["loss"],
+           "loss_cpu": cpu["loss"], "loss_abs_err": loss_err,
+           "logits_max_abs_err": logit_err, "logits_max_abs": top,
+           "grad_rel_l2": rel, "tol": O1_TOL,
+           "products_cuda": card["products"],
+           "products_cpu": cpu["products"],
+           "products_expected": products, "launches": card["launches"],
+           "launches_expected": launches}
+    emit(rec)
+    check(loss_err <= 1e-2, f"o1 parity {what}: losses differ by {loss_err}")
+    check(logit_err <= 5e-2 * top,
+          f"o1 parity {what}: logits differ by {logit_err} (max {top})")
+    check(all(r <= 2e-2 for r in rel.values()),
+          f"o1 parity {what}: gradients differ {rel}")
+    check(card["products"] == cpu["products"] == products,
+          f"o1 parity {what}: products {card['products']} != {products}")
+    check(card["launches"] == launches,
+          f"o1 parity {what}: launches {card['launches']} != {launches}")
+    return rec
+
+
+def phase_o1_parity(gpt_params, bert_params, b: int = 2, s: int = 256,
+                    devices=("cuda", "cpu")):
+    """AMP O1 (fp32 parameters, an fp32 compute dtype, ``amp_.autocast()``)
+    one forward and backward on the card against the port on the CPU:
+    GPT-2 small and BERT-large (padded to lengths 200 and 256, so flash
+    attention takes bf16 q, k, v beside the fp32 padding bias), batch
+    2 x 256, no dropout.  Every Dense, MHA projection and head product
+    must run on bf16 operands (the ``amp.F`` product counts), and the
+    kernels launch as the path needs them."""
+    cfg = GPTConfig.small(compute_dtype=torch.float32)
+    rng = torch.Generator().manual_seed(40)
+    ids = torch.randint(0, cfg.vocab_size, (b, s), generator=rng)
+    labels = torch.cat([ids[:, 1:], torch.full((b, 1), -100)], dim=1)
+    layers = cfg.num_layers
+    gpt = _o1_parity_case(
+        "GPT-2 small O1", lambda: GPTLM(cfg), gpt_params,
+        lambda m, w: m(ids.to(w), labels.to(w)), O1_GRADS,
+        {"dense bfloat16": 4 * layers, "matmul bfloat16": 1},
+        {"layer_norm": 2 * layers + 1, "layer_norm_bwd": 2 * layers + 1,
+         "flash_attention_fwd": layers, "flash_attention_bwd": layers,
+         "softmax_xentropy_fwd": 1, "softmax_xentropy_bwd": 1}, devices)
+    bcfg = BertConfig.large(compute_dtype=torch.float32)
+    bids, blabels, mask = _mlm_batch("cpu", torch.Generator().manual_seed(41),
+                                     b, s, bcfg.vocab_size, (200, 256))
+    blayers = bcfg.num_layers
+    bert = _o1_parity_case(
+        "BERT-large O1, padded", lambda: BertForMLM(bcfg), bert_params,
+        lambda m, w: m(bids.to(w), blabels.to(w), attention_mask=mask.to(w)),
+        BERT_GRADS,
+        {"dense bfloat16": 4 * blayers + 1, "matmul bfloat16": 1},
+        {"layer_norm": 2 * blayers + 2, "layer_norm_bwd": 2 * blayers + 2,
+         "flash_attention_fwd": blayers, "flash_attention_bwd": blayers,
+         "softmax_xentropy_fwd": 1, "softmax_xentropy_bwd": 1}, devices)
+    return gpt, bert
+
+
+def _o1_setup(dev, params, b, s, gen_seed: int = 43):
+    """GPT-2 small O1 with dropout 0.1, ``fused_adam(6e-4, weight_decay
+    =0.1)``, dynamic scale: the carry is (masters, AmpOptState, the
+    dropout generator), and the step draws its dropout from the carry's
+    generator."""
+    amp_ = amp.initialize("O1")
+    cfg = GPTConfig.small(compute_dtype=torch.float32)
+    model = GPTLM(cfg)
+    model.load_state_dict(params)
+    model.to(dev)
+    opt = amp.AmpOptimizer(fused_adam(6e-4, weight_decay=0.1), amp_)
+    masters = opt.attach(model)
+    data = torch.Generator(device=dev).manual_seed(42)
+    ids = torch.randint(0, cfg.vocab_size, (b, s), device=dev, generator=data)
+    labels = torch.cat([ids[:, 1:], torch.full((b, 1), -100, device=dev)],
+                       dim=1)
+    names, ps = zip(*model.named_parameters())
+    plant = {"inf": False}
+
+    def step(carry, _batch):
+        masters, state, gen = carry
+        with amp_.autocast():
+            _, loss = model(ids, labels, deterministic=False, generator=gen)
+        grads = dict(zip(names, torch.autograd.grad(
+            amp_.scale_loss(loss, state.scaler[0]), ps)))
+        if plant["inf"]:
+            g = grads["ln_f.weight"].clone()
+            g[0] = float("inf")
+            grads["ln_f.weight"] = g
+        masters, state, stats = opt.step(grads, state, masters, model=model)
+        return (masters, state, gen), {"loss": loss.detach(),
+                                       "loss_scale": stats.loss_scale,
+                                       "skipped": stats.found_inf.float()}
+
+    carry = (masters, opt.init(masters),
+             torch.Generator(device=dev).manual_seed(gen_seed))
+    return cfg, model, opt, step, carry, plant
+
+
+def phase_o1_train(dev, params, o2_tokens_per_s: float, b: int = 8,
+                   s: int = 1024, k: int = 4, timed: int = 2):
+    """O1 training of GPT-2 small at full width and depth, batch 8 x 1024,
+    dropout 0.1, ``fused_adam(6e-4, weight_decay=0.1)``, dynamic scale,
+    ``FusedTrainDriver`` at K = 4: one warm window, then ``timed``
+    windows, the first with the launch and product counts set to 0
+    before it (exactly K x (LN 25, LN backward 25, flash 12 + 12,
+    cross-entropy 1 + 1), and K x 49 bf16 products); a planted overflow
+    that must be skipped (masters, Adam moments and step unchanged, the
+    scale halved, no host read in the step); then one step under the
+    profiler.  Reported beside the O2 window's tokens/s of this run.
+    Claims nothing."""
+    cfg, model, opt, step, carry, plant = _o1_setup(dev, params, b, s)
+    driver = FusedTrainDriver(step, steps_per_dispatch=k,
+                              metrics={"loss": "last", "loss_scale": "last",
+                                       "skipped": "sum"},
+                              per_step=("loss",))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    carry, res = driver.run_window(carry)
+    warm = read_metrics(res)
+    walls, windows, counted, products = [], [], None, None
+    for i in range(timed):
+        torch.cuda.synchronize()
+        if i == 0:
+            reset_launch_counts()
+            amp.F.reset_product_counts()
+        t0 = time.perf_counter()
+        carry, res = driver.run_window(carry)
+        host = read_metrics(res)  # the window's one host read
+        walls.append(time.perf_counter() - t0)
+        windows.append(host)
+        if i == 0:
+            counted, products = launch_counts(), _products()
+    peak = torch.cuda.max_memory_allocated()
+    layers = cfg.num_layers
+    per_step = {n: 0 for n in counted}
+    per_step.update({"layer_norm": 2 * layers + 1,
+                     "layer_norm_bwd": 2 * layers + 1,
+                     "flash_attention_fwd": layers,
+                     "flash_attention_bwd": layers,
+                     "softmax_xentropy_fwd": 1, "softmax_xentropy_bwd": 1})
+    want_products = {"dense bfloat16": k * 4 * layers, "matmul bfloat16": k}
+    losses = warm.per_step["loss"] + sum((w.per_step["loss"]
+                                          for w in windows), [])
+    first, last = losses[0], windows[-1].metrics["loss"]
+    check(all(math.isfinite(x) for x in losses), "o1 train: non-finite loss")
+    check(last < first, f"o1 train: loss did not fall ({first} -> {last})")
+    check(counted == {n: k * c for n, c in per_step.items()},
+          f"o1 train: launch counts {counted} != K x {per_step}")
+    check(products == want_products,
+          f"o1 train: products {products} != {want_products}")
+    masters, state, gen = carry
+    before = {n: t.clone() for n, t in masters.items()}
+    m_before = {n: t.clone() for n, t in state.opt_state.m.items()}
+    v_before = {n: t.clone() for n, t in state.opt_state.v.items()}
+    step_before = int(state.opt_state.step)
+    scale_before = float(state.scaler[0].loss_scale)
+    plant["inf"] = True
+    carry, m = step(carry, None)
+    plant["inf"] = False
+    masters, state, gen = carry
+    torch.cuda.synchronize()
+    same = (all(torch.equal(masters[n], before[n]) for n in before)
+            and all(torch.equal(state.opt_state.m[n], m_before[n])
+                    for n in m_before)
+            and all(torch.equal(state.opt_state.v[n], v_before[n])
+                    for n in v_before)
+            and int(state.opt_state.step) == step_before)
+    scaler = state.scaler[0]
+    overflow = {"skipped": bool(m["skipped"]), "state_unchanged": same,
+                "scale_before": scale_before,
+                "scale_after": float(scaler.loss_scale),
+                "unskipped_after": int(scaler.unskipped)}
+    check(overflow["skipped"] and same,
+          "o1 train: the overflow step was not skipped cleanly")
+    check(overflow["scale_after"] == scale_before / 2
+          and overflow["unskipped_after"] == 0,
+          "o1 train: the overflow did not halve the scale")
+    del before, m_before, v_before
+    prof = phase_step_profile(step, carry, "o1_profile", "one O1 step, "
+                              "GPT-2 small, batch 8 x 1024, dropout 0.1, "
+                              "fused_adam")
+    med = sorted(walls)[len(walls) // 2]
+    emit({"phase": "o1_train", "model": "GPT-2 small O1 (fp32 parameters, "
+          "bf16 products through the cast tables), dropout 0.1, "
+          "fused_adam(6e-4, wd 0.1), dynamic loss scale",
+          "batch": [b, s], "steps_per_window": k, "window_walls_s": walls,
+          "median_window_s": med, "tokens_per_s": b * s * k / med,
+          "o2_tokens_per_s_this_run": o2_tokens_per_s,
+          "o2_batch": [16, 1024],
+          "device_busy_share": prof["device_busy_share"],
+          "device_busy_share_unprofiled":
+              prof["device_busy_share_unprofiled"],
+          "loss_first_step": first, "loss_last_window": last,
+          "losses_per_step": losses,
+          "max_memory_allocated_bytes": peak,
+          "launches_one_window": counted,
+          "launches_per_step_expected": per_step,
+          "products_one_window": products, "overflow": overflow})
+    return counted
+
+
+def _leaves(tree) -> dict:
+    """Every tensor of a tree (a carry, an optimizer state) by its
+    checkpoint path; a generator by its ``get_state()``."""
+    return {p: x.get_state() if isinstance(x, torch.Generator) else x
+            for p, x in checkpoint._flatten(tree)}
+
+
+def phase_checkpoint_resume(dev, params, b: int = 8, s: int = 1024,
+                            k: int = 4):
+    """``FusedTrainDriver.save``/``restore`` on the O1 training set-up
+    (dropout on, its generator in the carry): two windows of K = 4 run
+    unbroken; separately one window, ``save``, ``restore`` into a carry
+    built from another seed (masters, generator), ``copy_to_model`` (the
+    resume step: the model's copy is derived state), the second window.
+    The losses, scale state, masters, Adam moments and generator state
+    must equal the unbroken run's bit for bit.  Then a second save, the
+    newest step's file corrupted: ``restore(step=None)`` falls back to
+    the step before and restoring the corrupted step by number raises.
+    Save and restore wall and the bytes on disk are reported; the files
+    live in a temporary directory, removed at the end."""
+    from apex_tpu_torch.checkpoint import (STATE_FILE,
+                                           CheckpointIntegrityError)
+
+    metrics = {"loss": "last", "loss_scale": "last", "skipped": "sum"}
+    _, model, opt, step, carry, _ = _o1_setup(dev, params, b, s)
+    driver = FusedTrainDriver(step, steps_per_dispatch=k, metrics=metrics,
+                              per_step=("loss",))
+    carry, r1 = driver.run_window(carry)
+    carry, r2 = driver.run_window(carry)
+    ref_losses = read_metrics(r1).per_step["loss"] + read_metrics(
+        r2).per_step["loss"]
+    ref = {n: t.clone() for n, t in _leaves(carry).items()}
+    del model, opt, step, carry, driver
+    torch.cuda.empty_cache()
+
+    tmp = tempfile.mkdtemp(prefix="apex_tpu_torch_ckpt_")
+    try:
+        _, model, opt, step, carry, _ = _o1_setup(dev, params, b, s)
+        driver = FusedTrainDriver(step, steps_per_dispatch=k,
+                                  metrics=metrics, per_step=("loss",))
+        carry, r1 = driver.run_window(carry)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        driver.save(tmp, carry, k)
+        save_s = time.perf_counter() - t0
+        disk = sum(os.path.getsize(os.path.join(tmp, str(k), f))
+                   for f in os.listdir(os.path.join(tmp, str(k))))
+        del model, opt, step, carry, driver
+        torch.cuda.empty_cache()
+        # the template: another seed's masters and generator
+        _, model, opt, step, fresh, _ = _o1_setup(dev, params, b, s,
+                                                  gen_seed=99)
+        other = torch.Generator(device=dev).manual_seed(98)
+        masters = {n: 0.02 * torch.randn(t.shape, device=dev, generator=other)
+                   for n, t in fresh[0].items()}
+        template = (masters, opt.init(masters), fresh[2])
+        driver = FusedTrainDriver(step, steps_per_dispatch=k,
+                                  metrics=metrics, per_step=("loss",))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        carry, got_step = driver.restore(tmp, template)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        check(got_step == k, f"checkpoint: restored step {got_step} != {k}")
+        opt.copy_to_model(model, carry[0])  # the resume step
+        carry, r2 = driver.run_window(carry)
+        losses = read_metrics(r1).per_step["loss"] + read_metrics(
+            r2).per_step["loss"]
+        got = _leaves(carry)
+        differing = sorted(n for n, t in ref.items()
+                           if not (t.dtype == got[n].dtype
+                                   and torch.equal(t, got[n])))
+        # the second save, then the newest step's file corrupted
+        driver.save(tmp, carry, 2 * k)
+        path = os.path.join(tmp, str(2 * k), STATE_FILE)
+        size = os.path.getsize(path)
+        with open(path, "r+b") as f:
+            f.seek(size // 2)
+            chunk = f.read(4096)
+            f.seek(size // 2)
+            f.write(bytes(x ^ 0xFF for x in chunk))
+        t0 = time.perf_counter()
+        _, fell_back_to = driver.restore(tmp, template)
+        fallback_s = time.perf_counter() - t0
+        try:
+            driver.restore(tmp, template, step=2 * k)
+            raised = False
+        except CheckpointIntegrityError:
+            raised = True
+        rec = {"phase": "checkpoint_resume", "model": "GPT-2 small O1, "
+               "dropout 0.1, the generator in the carry",
+               "batch": [b, s], "steps_per_window": k,
+               "losses_unbroken": ref_losses, "losses_resumed": losses,
+               "leaves": len(ref), "leaves_differing": differing,
+               "save_s": save_s, "restore_s": restore_s,
+               "bytes_on_disk": disk, "corrupted_step": 2 * k,
+               "fell_back_to": fell_back_to, "fallback_restore_s": fallback_s,
+               "explicit_corrupted_step_raised": raised}
+        emit(rec)
+        check(losses == ref_losses,
+              f"checkpoint: losses {losses} != unbroken {ref_losses}")
+        check(not differing, f"checkpoint: leaves differ: {differing[:8]}")
+        check(fell_back_to == k,
+              f"checkpoint: fell back to {fell_back_to}, not {k}")
+        check(raised, "checkpoint: the corrupted step restored by number "
+              "did not raise")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    del ref
+    torch.cuda.empty_cache()
+    return rec
+
+
+STASH_OPTIMIZERS = (
+    ("fused_sgd", lambda: fused_sgd(0.1, momentum=0.9, weight_decay=1e-4)),
+    ("fused_adam", lambda: fused_adam(6e-4, weight_decay=0.1)),
+    ("fused_lamb", lambda: fused_lamb(1e-3, weight_decay=0.01)))
+
+
+def phase_stash(dev, params, b: int = 8, s: int = 1024):
+    """The accumulate/stash route at GPT-2 small O2, full width: two
+    microbatches of 8 x 1024 (dropout 0.1) through
+    ``accumulate(update_scaler=False)`` and then ``step``, once each with
+    ``fused_sgd``, ``fused_adam`` and ``fused_lamb``.  The merged stash
+    must equal the sum of the two unscaled grads (in float64) within 1e-6
+    relative L2; LAMB stage 1 on this route (g_scale 1/clip alone) must
+    match its plain version under ``phase_lamb``'s gate at two leaves,
+    and its launches are counted; then an inf in the second microbatch
+    of the next step must leave the masters, every moment and the step
+    count bit for bit unchanged and back off the scale."""
+    import importlib
+
+    # the module (the package's ``fused_lamb`` is the factory function)
+    lamb_module = importlib.import_module(
+        "apex_tpu_torch.optimizers.fused_lamb")
+
+    cfg = GPTConfig.small(compute_dtype=torch.bfloat16)
+    data = torch.Generator(device=dev).manual_seed(50)
+    ids = torch.randint(0, cfg.vocab_size, (4, b, s), device=dev,
+                        generator=data)
+    labels = torch.cat([ids[..., 1:], torch.full((4, b, 1), -100,
+                                                 device=dev)], dim=-1)
+    out = {}
+    for name, make in STASH_OPTIMIZERS:
+        amp_ = amp.initialize("O2")
+        model = GPTLM(cfg)
+        model.load_state_dict(params)
+        model.to(dev)
+        opt = amp.AmpOptimizer(make(), amp_)
+        masters = opt.attach(model)
+        state = opt.init(masters)
+        gen = torch.Generator(device=dev).manual_seed(51)
+        names, ps = zip(*model.named_parameters())
+
+        def grads(i, state):
+            _, loss = model(ids[i], labels[i], deterministic=False,
+                            generator=gen)
+            return dict(zip(names, torch.autograd.grad(
+                amp_.scale_loss(loss, state.scaler[0]), ps)))
+
+        g1 = grads(0, state)
+        state = opt.accumulate(g1, state, update_scaler=False)
+        g2 = grads(1, state)
+        scale = state.scaler[0].loss_scale
+        merged, _ = amp_.scalers[0].unscale_with_stashed(g2, state.stash,
+                                                         state.scaler[0])
+        num = den = 0.0
+        for n in names:
+            want = (g1[n].double() + g2[n].double()) / scale.double()
+            num += float((merged[n].double() - want).square().sum())
+            den += float(want.square().sum())
+        stash_err = math.sqrt(num / den)
+        del merged, g1
+        recorded = []
+        real = lamb_module.lamb_stage1
+        watch = {0, len(names) - 1}  # the first and the last leaf
+
+        def recorder(g, p_, m, v, scalars, **hp):
+            """LAMB stage 1 with the inputs and outputs of the watched
+            leaves kept (their launches count as the path's)."""
+            i = recorder.calls
+            recorder.calls += 1
+            if i in watch:
+                inputs = (g.clone(), p_.clone(), m.clone(), v.clone(),
+                          scalars.clone())
+                got = real(g, p_, m, v, scalars, **hp)
+                recorded.append((i, inputs, tuple(t.clone() for t in got),
+                                 hp))
+                return got
+            return real(g, p_, m, v, scalars, **hp)
+
+        recorder.calls = 0
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        lamb_module.lamb_stage1 = recorder
+        try:
+            masters, state, stats = opt.step(g2, state, masters, model=model)
+        finally:
+            lamb_module.lamb_stage1 = real
+        torch.cuda.synchronize()
+        step_launches = {n: c for n, c in launch_counts().items() if c}
+        check(not bool(stats.found_inf) and state.stash is None,
+              f"stash {name}: the clean step was skipped or kept its stash")
+        lamb_cases = []
+        for i, (g, p_, m, v, scal), got, hp in recorded:
+            want = lamb_stage1_ref(g, p_, m.clone(), v.clone(), scal, **hp)
+            errs = [_err(a, w) for a, w in zip(got, want)]
+            lamb_cases.append({"leaf": names[i], "n": g.numel(),
+                               "g_scale_bc1_bc2_skip": scal.tolist(),
+                               "errs_m_v_psq_usq": errs,
+                               "ok": _lamb_ok(got, want)})
+        del recorded, g2
+        # the next step, with an inf in its second microbatch
+        g1 = grads(2, state)
+        state = opt.accumulate(g1, state, update_scaler=False)
+        g2 = grads(3, state)
+        g = g2["ln_f.weight"].clone()
+        g[0] = float("inf")
+        g2["ln_f.weight"] = g
+        before = {n: t.clone() for n, t in masters.items()}
+        opt_before = {n: t.clone()
+                      for n, t in _leaves(state.opt_state).items()}
+        scale_before = float(state.scaler[0].loss_scale)
+        masters, state, stats = opt.step(g2, state, masters, model=model)
+        torch.cuda.synchronize()
+        same = (all(torch.equal(masters[n], before[n]) for n in before)
+                and all(torch.equal(t, opt_before[n]) for n, t in
+                        _leaves(state.opt_state).items()))
+        rec = {"phase": "stash", "optimizer": name,
+               "model": "GPT-2 small O2, two microbatches of 8 x 1024, "
+               "accumulate(update_scaler=False) then step",
+               "stash_rel_l2_vs_float64_sum": stash_err,
+               "stash_tol": 1e-6, "launches_one_step": step_launches,
+               "lamb_stage1_checks": lamb_cases,
+               "lamb_tol": "m, v 1 fp32 ulp; sums 1e-5 relative",
+               "overflow_skipped": bool(stats.found_inf),
+               "overflow_state_unchanged": same,
+               "scale_before": scale_before,
+               "scale_after": float(state.scaler[0].loss_scale)}
+        emit(rec)
+        check(stash_err <= 1e-6, f"stash {name}: stash error {stash_err}")
+        check(all(c["ok"] for c in lamb_cases),
+              f"stash {name}: LAMB stage 1 differs {lamb_cases}")
+        check(name != "fused_lamb" or (
+            len(lamb_cases) == 2
+            and step_launches.get("lamb_stage1") == len(names)),
+              f"stash {name}: LAMB stage 1 launches {step_launches}")
+        check(bool(stats.found_inf) and same,
+              f"stash {name}: the overflow step was not skipped cleanly")
+        check(float(state.scaler[0].loss_scale) == scale_before / 2,
+              f"stash {name}: the overflow did not back off the scale")
+        out[name] = rec
+        del model, opt, masters, state, before, opt_before, g1, g2
+        torch.cuda.empty_cache()
+    return out
+
+
 class _Tee:
     """stdout that also writes to a log file."""
 
@@ -4455,7 +4982,7 @@ def _run() -> int:
     phase_flash_shapes(dev)
     xe_cases = phase_xent(dev)
     phase_train_parity(params)
-    train_launches, step, carry = phase_train(dev, params)
+    train_launches, step, carry, o2_tokens_per_s = phase_train(dev, params)
     phase_step_profile(step, carry, "train_profile", "one O2 step, GPT-2 "
                        "small, batch 16 x 1024, dropout 0.1")
     del step, carry, params
@@ -4501,6 +5028,18 @@ def _run() -> int:
                        "medium, 4 microbatches of 8 x 1024, full_block, "
                        "probs_bf16, dq_acc, fused_adam")
     del step, carry, md_model, md_params
+    torch.cuda.empty_cache()
+
+    params = init_params(GPTConfig.small(), torch.Generator().manual_seed(0))
+    bert_params = init_bert_params(BertConfig.large(),
+                                   torch.Generator().manual_seed(20))
+    phase_o1_parity(params, bert_params)
+    del bert_params
+    o1_launches = phase_o1_train(dev, params, o2_tokens_per_s)
+    torch.cuda.empty_cache()
+    phase_checkpoint_resume(dev, params)
+    stash = phase_stash(dev, params)
+    del params
     torch.cuda.empty_cache()
 
     # the summary rows: the serving kernels at the engine's decode-step
@@ -4722,11 +5261,29 @@ def _run() -> int:
                 "launches_of": f"{name}, ServeEngine run, GPT-2 small, "
                 f"tree speculation {tree}",
                 **other_path(name, tree_launches[f"tree_{tree}"], c)}
+    # AMP O1 training: the GPT kernels at fp32 LayerNorm rows and logits
+    # and bf16 q, k, v, with one O1 window's launches; the stash route's
+    # LAMB stage 1 (g_scale 1/clip alone), with one stash step's launches
+    for name in ("layer_norm", "layer_norm_bwd", "flash_attention_fwd",
+                 "flash_attention_bwd", "softmax_xentropy_fwd",
+                 "softmax_xentropy_bwd"):
+        by_name[name]["o1_path"] = {
+            "launches": o1_launches[name],
+            "launches_of": f"{name}, one O1 training window of GPT-2 small, "
+                           "K = 4 steps of 8 x 1024 (o1_train)"}
+    lamb_stash = stash["fused_lamb"]
+    by_name["lamb_stage1"]["stash_path"] = {
+        "launches": lamb_stash["launches_one_step"]["lamb_stage1"],
+        "launches_of": "lamb_stage1, one stash-route step of GPT-2 small "
+                       "O2 (accumulate, then step), fused_lamb",
+        "checks": lamb_stash["lamb_stage1_checks"],
+        "tol": lamb_stash["lamb_tol"]}
     check(all(r["launches"] > 0 for r in rows)
           and all(r[p]["launches"] > 0 for r in rows
                   for p in ("train_path", "bert_path", "rn50_path",
                             "medium_path", "spec_path_d3", "spec_path_d7",
-                            "spec_tree_path_w2d3", "spec_tree_path_w3d3")
+                            "spec_tree_path_w2d3", "spec_tree_path_w3d3",
+                            "o1_path", "stash_path")
                   if p in r),
           f"a kernel never launched on its path: {rows}")
     print(smi, flush=True)

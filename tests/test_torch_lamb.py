@@ -216,7 +216,7 @@ def test_fused_lamb_class_and_amp_optimizer_take_it():
     with pytest.raises(RuntimeError, match="AMSGrad"):
         FusedLAMB(amsgrad=True)
     amp.AmpOptimizer(fused_lamb(1e-3), amp.initialize("O2"))
-    with pytest.raises(TypeError, match="fused_adam or fused_lamb"):
+    with pytest.raises(TypeError, match="init.*update"):
         amp.AmpOptimizer(object(), amp.initialize("O2"))
 
 

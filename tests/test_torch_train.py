@@ -328,18 +328,16 @@ def test_multi_tensor_matches_jax():
 def test_policies_match_jax_presets():
     dt = {jnp.float32: torch.float32, jnp.bfloat16: torch.bfloat16,
           None: None}
-    for level in ("O0", "O2", "O3"):
+    for level in ("O0", "O1", "O2", "O3"):
         jp, tp = jamp.make_policy(level), amp.make_policy(level)
         assert dt[jp.cast_model_dtype] == tp.cast_model_dtype
-        assert (jp.keep_batchnorm_fp32, jp.loss_scale) == (
-            tp.keep_batchnorm_fp32, tp.loss_scale)
+        assert (jp.keep_batchnorm_fp32, jp.loss_scale, jp.autocast) == (
+            tp.keep_batchnorm_fp32, tp.loss_scale, tp.autocast)
         assert dt[jp.compute_dtype] == tp.compute_dtype
-    # O1's cast tables are not ported: it raises rather than train as
-    # something else
-    with pytest.raises(NotImplementedError, match="O1"):
-        amp.make_policy("O1")
-    with pytest.raises(NotImplementedError, match="O1"):
-        amp.initialize("O1")
+    # O1: the cast tables' policy, bf16 products over fp32 parameters
+    o1 = amp.initialize("O1").policy
+    assert (o1.autocast, o1.compute_dtype, o1.loss_scale) == (
+        True, torch.bfloat16, "dynamic")
     with pytest.raises(ValueError, match="letter O"):
         amp.make_policy("O4")
     with pytest.raises(ValueError, match="keep_batchnorm_fp32"):
