@@ -29,7 +29,13 @@ untied head (``GPTConfig(tie_word_embeddings=False)``), with
 Training also has AMP O1 (``amp.F`` over the JAX package's cast tables,
 ``amp.initialize()``'s default), the accumulate/stash path and the
 unfused optimizer route (``AmpOptimizer.accumulate``), and checkpoints
-(``checkpoint``, ``FusedTrainDriver.save``/``restore``).
+(``checkpoint``, ``FusedTrainDriver.save``/``restore``).  Data
+parallelism runs across processes over ``torch.distributed``
+(``parallel``: ``init_distributed`` and the gang ``launch``,
+``DistributedDataParallel`` with one flat all-reduce a dtype,
+cross-process ``SyncBatchNorm`` and ``convert_syncbn_model``,
+``ResNet(sync_batchnorm=True)``, ``amp_microbatch_step(ddp=)`` with one
+all-reduce a boundary, and ``LARC``).
 Every kernel on those paths
 (LayerNorm forward and backward, paged attention, flash attention
 forward and backward with and without an additive bias and its gradient,
@@ -59,7 +65,19 @@ from apex_tpu_torch.models import (  # noqa: F401
 )
 from apex_tpu_torch.normalization import FusedLayerNorm  # noqa: F401
 from apex_tpu_torch.ops import launch_counts, reset_launch_counts  # noqa: F401
-from apex_tpu_torch.parallel import SyncBatchNorm  # noqa: F401
+from apex_tpu_torch.parallel import (  # noqa: F401
+    DistributedDataParallel,
+    Reducer,
+    SyncBatchNorm,
+    collective_counts,
+    convert_syncbn_model,
+    data_parallel_group,
+    init_distributed,
+    launch,
+    replicate,
+    reset_collective_counts,
+    shard_batch,
+)
 from apex_tpu_torch.serve import (  # noqa: F401
     GPTDecoder,
     KVCache,
@@ -86,13 +104,14 @@ from apex_tpu_torch.weights import (  # noqa: F401
     from_jax_resnet_params,
 )
 
-__version__ = "0.5.0"
+__version__ = "0.6.0"
 
 __all__ = [
     "BertConfig",
     "BertForMLM",
     "Conv",
     "Dense",
+    "DistributedDataParallel",
     "FusedLayerNorm",
     "FusedTrainDriver",
     "GPTConfig",
@@ -103,25 +122,34 @@ __all__ = [
     "MicrobatchedStep",
     "PagePool",
     "PagedKVCache",
+    "Reducer",
     "Request",
     "ResNet",
     "SamplingParams",
     "ServeEngine",
     "SyncBatchNorm",
     "amp_microbatch_step",
+    "collective_counts",
+    "convert_syncbn_model",
+    "data_parallel_group",
     "from_jax_bert_params",
     "from_jax_opt_state",
     "from_jax_params",
     "from_jax_resnet_params",
     "init_bert_params",
     "init_cache",
+    "init_distributed",
     "init_paged_cache",
     "init_params",
     "init_resnet_params",
+    "launch",
     "launch_counts",
     "read_metrics",
     "reference_generate",
+    "replicate",
+    "reset_collective_counts",
     "reset_launch_counts",
     "resnet50",
     "sample_tokens",
+    "shard_batch",
 ]

@@ -29,14 +29,17 @@ The batch statistics are state the caller threads (flax's
 ``batch_stats``): ``forward(x, batch_stats, train)`` returns the logits
 and the updated statistics.  The convolutions run in cuDNN on the card (as
 XLA ran them in the JAX package); the ``conv_bn`` kernels are not wired
-in, as they are not in the JAX model.  Not ported yet: cross-process
-SyncBatchNorm (the JAX model's ``sync_batchnorm``) and its plain-stem and
-BatchNorm-hyperparameter options.
+in, as they are not in the JAX model.  ``sync_batchnorm=True`` makes
+every BatchNorm sum its statistics over a process group (the JAX model's
+``sync_batchnorm`` over ``bn_axis_name``; see
+:mod:`apex_tpu_torch.parallel.sync_batchnorm`).  Not ported yet: the
+plain-stem and BatchNorm-hyperparameter options.
 """
 from __future__ import annotations
 
+import functools
 import math
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -44,6 +47,7 @@ from torch import nn
 
 from apex_tpu_torch.amp import functional as amp_F
 from apex_tpu_torch.amp.layers import Conv, Dense, _apply_dtype
+from apex_tpu_torch.parallel.mesh import Subgroups, data_parallel_group
 from apex_tpu_torch.parallel.sync_batchnorm import SyncBatchNorm
 
 __all__ = ["Bottleneck", "ResNet", "SpaceToDepthStem", "init_resnet_params",
@@ -97,23 +101,24 @@ class Bottleneck(nn.Module):
 
     def __init__(self, in_features: int, features: int,
                  strides: Tuple[int, int] = (1, 1),
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32,
+                 norm: Callable[[int], SyncBatchNorm] = SyncBatchNorm):
         super().__init__()
         out = features * 4
         self.conv1 = Conv(in_features, features, (1, 1), use_bias=False,
                           dtype=dtype)
-        self.bn1 = SyncBatchNorm(features)
+        self.bn1 = norm(features)
         self.conv2 = Conv(features, features, (3, 3), strides,
                           use_bias=False, dtype=dtype)
-        self.bn2 = SyncBatchNorm(features)
+        self.bn2 = norm(features)
         self.conv3 = Conv(features, out, (1, 1), use_bias=False, dtype=dtype)
-        self.bn3 = SyncBatchNorm(out)
+        self.bn3 = norm(out)
         # the JAX block projects when the residual's shape differs
         self.project = in_features != out or tuple(strides) != (1, 1)
         if self.project:
             self.downsample_conv = Conv(in_features, out, (1, 1), strides,
                                         use_bias=False, dtype=dtype)
-            self.downsample_bn = SyncBatchNorm(out)
+            self.downsample_bn = norm(out)
 
     def forward(self, x: torch.Tensor, prefix: str, stats: BatchStats,
                 new: BatchStats, train: bool = True) -> torch.Tensor:
@@ -131,24 +136,35 @@ class Bottleneck(nn.Module):
 
 class ResNet(nn.Module):
     """ResNet-v1 with bottleneck blocks, NHWC, over RGB images, with the
-    space-to-depth stem and single-process BatchNorm (eps 1e-5, momentum
-    0.1).
+    space-to-depth stem and BatchNorm of eps 1e-5 and momentum 0.1.
 
     Args:
       stage_sizes: blocks per stage (RN50: (3, 4, 6, 3)).
       num_classes: classifier width.
       width: the stem's features (64); stage i has width * 2**i.
       compute_dtype: the convolutions' dtype (bf16 for O2/O3).
+      sync_batchnorm: BatchNorm statistics summed over ``bn_group`` (None:
+        the world group of the initialised process group, which must
+        exist), or over this rank's subgroup of ``bn_groups`` (the JAX
+        model's ``bn_axis_index_groups``).
     """
 
     def __init__(self, stage_sizes: Sequence[int] = (3, 4, 6, 3),
                  num_classes: int = 1000, width: int = 64,
-                 compute_dtype: torch.dtype = torch.float32):
+                 compute_dtype: torch.dtype = torch.float32,
+                 sync_batchnorm: bool = False, bn_group=None,
+                 bn_groups: Optional[Subgroups] = None):
         super().__init__()
         self.stage_sizes = tuple(stage_sizes)
         self.compute_dtype = compute_dtype
+        norm = SyncBatchNorm
+        if sync_batchnorm:
+            if bn_group is None and bn_groups is None:
+                bn_group = data_parallel_group()
+            norm = functools.partial(SyncBatchNorm, group=bn_group,
+                                     groups=bn_groups)
         self.conv1 = SpaceToDepthStem(3, width, dtype=compute_dtype)
-        self.bn1 = SyncBatchNorm(width)
+        self.bn1 = norm(width)
         self.block_names = []
         c = width
         for i, n_blocks in enumerate(self.stage_sizes):
@@ -156,7 +172,8 @@ class ResNet(nn.Module):
                 strides = (2, 2) if i > 0 and j == 0 else (1, 1)
                 name = f"stage{i + 1}_block{j + 1}"
                 self.add_module(name, Bottleneck(c, width * 2 ** i, strides,
-                                                 dtype=compute_dtype))
+                                                 dtype=compute_dtype,
+                                                 norm=norm))
                 self.block_names.append(name)
                 c = width * 2 ** i * 4
         self.fc = Dense(c, num_classes, dtype=torch.float32)

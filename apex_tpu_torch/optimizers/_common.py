@@ -10,7 +10,18 @@ from __future__ import annotations
 import dataclasses
 from typing import Callable
 
-__all__ = ["AmpFusedTransformation"]
+__all__ = ["AmpFusedTransformation", "Transformation"]
+
+
+@dataclasses.dataclass(frozen=True)
+class Transformation:
+    """A plain transform (optax's ``GradientTransformation``): ``update``
+    takes fp32 master grads, already unscaled, and returns new state
+    tensors, which :class:`apex_tpu_torch.amp.AmpOptimizer` gates on
+    overflow (its unfused route)."""
+
+    init: Callable
+    update: Callable
 
 
 @dataclasses.dataclass(frozen=True)

@@ -23,15 +23,20 @@ then carry a leading axis of K * M microbatches::
     carry, res = driver.run_window(carry, batches)   # leading axis K * M
 
 Gradients are dicts of tensors by parameter name, the port's convention.
-Not ported yet (queue A.6): the cross-replica modes (``ddp``, the
-``grad_presum`` hook, compressed collectives, ZeRO and FSDP); those
-arguments raise ``NotImplementedError``.
+Across processes (``ddp=``), each rank accumulates its own microbatches
+with no collective (the reference's no-sync ``disable_allreduce``) and
+each boundary makes one all-reduce, of one flat fp32 buffer.  Not ported
+yet (ROADMAP item 6): compressed boundary collectives
+(``train/compress.py``), ZeRO and FSDP; ``compress=`` raises
+``NotImplementedError``.
 """
 from __future__ import annotations
 
 from typing import Any, Callable, Dict, Mapping, NamedTuple, Optional, Tuple
 
 import torch
+
+from apex_tpu_torch.parallel.distributed import flatten_tree, unflatten_tree
 
 __all__ = ["ACCUM_DTYPES", "MicrobatchedStep", "amp_microbatch_step",
            "build_opt_step"]
@@ -154,7 +159,8 @@ def build_opt_step(step: MicrobatchedStep):
 def amp_microbatch_step(grad_fn: GradFn, opt, *, microbatches: int = 1,
                         loss_id: int = 0, accum_dtype: str = "float32",
                         model: Optional[torch.nn.Module] = None, ddp=None,
-                        grad_presum=None, compress=None) -> MicrobatchedStep:
+                        grad_presum: Optional[Callable[[Grads], Grads]] = None,
+                        compress=None) -> MicrobatchedStep:
     """The AMP accumulation step: M grad passes, then one optimizer and
     scaler update on the mean of the accumulated scaled gradients.
 
@@ -166,20 +172,34 @@ def amp_microbatch_step(grad_fn: GradFn, opt, *, microbatches: int = 1,
     the whole accumulated update and halves the scale once.  With
     ``model``, ``opt.step`` copies the new masters into it.  Metrics:
     ``scale`` (the loss scale after the update) and ``skipped`` (1.0 on a
-    skipped boundary).  ``ddp``, ``grad_presum`` and ``compress`` (the
-    cross-replica modes) raise ``NotImplementedError``."""
-    for name, arg in (("ddp", ddp), ("grad_presum", grad_presum),
-                      ("compress", compress)):
-        if arg is not None:
-            raise NotImplementedError(f"amp_microbatch_step: {name}= (the "
-                                      "cross-replica modes) is not ported "
-                                      "yet")
+    skipped boundary).
+
+    ``ddp`` (a :class:`~apex_tpu_torch.parallel.DistributedDataParallel`)
+    reduces the microbatch-mean gradient once per boundary: the whole
+    tree flattened into one fp32 buffer (``flatten_tree``), one
+    ``ddp.allreduce`` of it, unflattened.  ``grad_presum(acc)`` runs on
+    the accumulated gradient before the division by M (in JAX a partial
+    reduction over another mesh axis).  ``compress`` (ROADMAP item 6,
+    ``train/compress.py``) raises ``NotImplementedError``."""
+    if compress is not None:
+        raise NotImplementedError(
+            "amp_microbatch_step: compress= (the compressed boundary "
+            "collective of train/compress.py) is not ported yet: ROADMAP "
+            "item 6")
     m = int(microbatches)
     _accum_validate(accum_dtype)
 
     def update_fn(carry, acc):
         masters, state = carry[0], carry[1]
+        if grad_presum is not None:
+            acc = grad_presum(acc)
         grads = {n: a / m for n, a in acc.items()}
+        if ddp is not None:
+            # one collective a boundary: the flat buffer (the reference's
+            # flat bucket); the grads are fp32 already, so the flatten is
+            # exact
+            flat, spec = flatten_tree(grads)
+            grads = unflatten_tree(ddp.allreduce(flat), spec)
         masters, state, stats = opt.step(grads, state, masters,
                                          loss_id=loss_id, model=model)
         metrics = {"scale": stats.loss_scale,

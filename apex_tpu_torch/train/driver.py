@@ -22,9 +22,16 @@ checkpoint the carry at a window boundary
 ``AmpOptState`` (scaler state included) and the dropout generator
 resumes bit for bit, once the resumed run has called
 ``AmpOptimizer.copy_to_model`` (the model's half copy is not in the
-carry).  Not ported yet: the ``mesh``/``carry_spec`` SPMD modes, CUDA
-graphs around the window, and the obs spans and flight-recorder events
-around save and restore.
+carry).
+
+A data-parallel window runs one driver per process: each rank's driver
+steps its own replica of the carry on its own shard of the batch, and
+``step_fn`` makes the collectives (``ddp.allreduce`` of the gradients,
+or ``amp_microbatch_step(ddp=)``'s one all-reduce a boundary; the
+SyncBatchNorms' own).  Not ported yet: the ``mesh``/``carry_spec`` SPMD
+modes (one program over a mesh, with sharded carries: ROADMAP item 6),
+CUDA graphs around the window, and the obs spans and flight-recorder
+events around save and restore.
 """
 from __future__ import annotations
 

@@ -118,6 +118,17 @@ line) on any failed check:
     one window's launches (K x cross-entropy 1 and 1), a planted
     overflow that must be skipped with the masters, momentum buffers and
     step unchanged, and one step under ``torch.profiler``;
+    data parallelism: ``ddp_resnet`` (the same set-up with
+    ``sync_batchnorm=True`` and ``DistributedDataParallel()`` in an NCCL
+    group of one process: its first window bit for bit the unsynced
+    one's losses, masters, momentum and batch statistics; exactly 53
+    BatchNorm all-reduces forward, 53 backward and one a gradient dtype
+    (bf16 and fp32) a step; images/s, busy share, peak memory, the
+    all-reduces' and flat copies' device ms; a planted inf skipped) and
+    ``ddp_gloo_card`` (two processes on the one card through gloo on
+    CUDA tensors, ResNet-50 O0 fp32, 32 images a rank, 3 steps with DDP
+    + SyncBN, against one process on the 64 images; planted faults: a
+    rank on local BatchNorm statistics, a rank that dies);
 12. the dq-accumulating flash backward against the partials backward,
     bit for bit on five runs of each case (GPT-2 small and medium causal,
     BERT-large with its padding bias, fp32, a ragged Sq != Sk, the
@@ -179,6 +190,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import hashlib
 import json
 import math
 import os
@@ -190,6 +202,7 @@ import tempfile
 import time
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from apex_tpu_torch import (
@@ -266,6 +279,18 @@ from apex_tpu_torch.ops.softmax_xentropy import (
     softmax_cross_entropy_fwd_ref,
 )
 from apex_tpu_torch.optimizers import fused_adam, fused_lamb, fused_sgd
+from apex_tpu_torch.parallel import (
+    DistributedDataParallel,
+    MultiprocError,
+    Reducer,
+    SyncBatchNorm,
+    collective_counts,
+    data_parallel_group,
+    init_distributed,
+    launch,
+    reset_collective_counts,
+)
+from apex_tpu_torch.parallel.multiproc import free_port
 from apex_tpu_torch.train import build_opt_step
 
 # published H100 SXM peaks (NVIDIA data sheet, dense, 700 W)
@@ -2647,9 +2672,11 @@ def phase_bert_train(dev, params, b: int = 12, s: int = 512, k: int = 6,
     return counted, step, carry
 
 
-def phase_step_profile(step, carry, phase: str, what: str):
+def phase_step_profile(step, carry, phase: str, what: str,
+                       kernel_groups=None):
     """Where one training step's time goes: wall time, device-busy share
-    and the kernels that take the most device time."""
+    and the kernels that take the most device time; ``kernel_groups``
+    ({label: name substring}) adds each group's device ms and calls."""
     from torch.profiler import ProfilerActivity, profile
 
     carry, _ = step(carry, None)  # warm
@@ -2679,6 +2706,9 @@ def phase_step_profile(step, carry, phase: str, what: str):
                busy_ms / plain_wall_ms if busy_ms > 0 else None,
            "top_kernels": [{"name": k[:90], "device_ms": ms, "calls": n}
                            for k, ms, n in rows[:12]]}
+    for label, sub in (kernel_groups or {}).items():
+        rec[f"{label}_device_ms"] = sum(r[1] for r in rows if sub in r[0])
+        rec[f"{label}_calls"] = sum(r[2] for r in rows if sub in r[0])
     emit(rec)
     return rec
 
@@ -3298,9 +3328,14 @@ def phase_resnet_parity(params, batch_stats, b: int = 2, hw: int = 224,
           f"on the card {ctl_readings}")
 
 
-def _resnet_setup(dev, params, batch_stats, b, hw, make):
+def _resnet_setup(dev, params, batch_stats, b, hw, make, ddp=None,
+                  bn_group=None):
+    """The O2 step of ``bench.py``'s RN50 configuration; with ``ddp`` its
+    gradients are reduced (a planted inf goes in before), and with
+    ``bn_group`` every BatchNorm syncs over that group."""
     amp_ = amp.initialize("O2")
-    model = make(compute_dtype=amp_.policy.compute_dtype)
+    model = make(compute_dtype=amp_.policy.compute_dtype,
+                 sync_batchnorm=bn_group is not None, bn_group=bn_group)
     model.load_state_dict(params)
     model.to(dev)
     opt = amp.AmpOptimizer(fused_sgd(0.1, momentum=0.9, weight_decay=1e-4),
@@ -3310,18 +3345,27 @@ def _resnet_setup(dev, params, batch_stats, b, hw, make):
     x, y = _images(torch.Generator(device=dev).manual_seed(27), b, hw, dev)
     stats = {k: v.to(dev) for k, v in batch_stats.items()}
     names, ps = zip(*model.named_parameters())
-    plant = {"inf": False}
 
-    def step(carry, _batch):
+    def grads_of(carry):
+        """This rank's scaled gradients, the loss, the new statistics."""
         masters, stats, state = carry
         logits, new_stats = model(x, stats, train=True)
         loss = softmax_cross_entropy(logits, y).mean()
         grads = dict(zip(names, torch.autograd.grad(
             amp_.scale_loss(loss, state.scaler[0]), ps)))
+        return grads, loss, new_stats
+
+    plant = {"inf": False}
+
+    def step(carry, _batch):
+        masters, stats, state = carry
+        grads, loss, new_stats = grads_of(carry)
         if plant["inf"]:
             g = grads["fc.bias"].clone()
             g[0] = float("inf")
             grads["fc.bias"] = g
+        if ddp is not None:
+            grads = ddp.allreduce(grads)
         masters, state, st = opt.step(grads, state, masters, model=model)
         # the new batch statistics are kept on a skipped step too, as
         # bench.py's step keeps them
@@ -3329,7 +3373,16 @@ def _resnet_setup(dev, params, batch_stats, b, hw, make):
             "loss": loss.detach(), "loss_scale": st.loss_scale,
             "skipped": st.found_inf.float()}
 
-    return step, (masters, stats, state), plant
+    return step, (masters, stats, state), plant, grads_of
+
+
+def _clone_carry(carry) -> dict:
+    """A copy of a ResNet carry's masters, statistics and momentum."""
+    masters, stats, state = carry
+    return {"masters": {n: t.clone() for n, t in masters.items()},
+            "stats": {n: t.clone() for n, t in stats.items()},
+            "momentum": {n: t.clone() for n, t in
+                         state.opt_state.momentum_buf.items()}}
 
 
 def phase_resnet_train(dev, params, batch_stats, b: int = 128,
@@ -3343,7 +3396,8 @@ def phase_resnet_train(dev, params, batch_stats, b: int = 128,
     to 0 before it and read after it.  Then one step with an inf planted
     in a gradient, which must be skipped with the masters, the momentum
     buffers and the step count unchanged."""
-    step, carry, plant = _resnet_setup(dev, params, batch_stats, b, hw, make)
+    step, carry, plant, _ = _resnet_setup(dev, params, batch_stats, b, hw,
+                                          make)
     driver = FusedTrainDriver(step, steps_per_dispatch=k,
                               metrics={"loss": "last", "loss_scale": "last",
                                        "skipped": "sum"},
@@ -3354,6 +3408,8 @@ def phase_resnet_train(dev, params, batch_stats, b: int = 128,
     carry, res = driver.run_window(carry)
     warm = read_metrics(res)
     warm_s = time.perf_counter() - t0
+    # the first window, which phase_ddp_resnet must match bit for bit
+    first_window = {"losses": warm.per_step["loss"], **_clone_carry(carry)}
     walls, windows, counted = [], [], None
     for i in range(timed):
         torch.cuda.synchronize()
@@ -3420,7 +3476,362 @@ def phase_resnet_train(dev, params, batch_stats, b: int = 128,
           and int(scaler.unskipped) == 0,
           "resnet: the overflow did not halve the scale and reset unskipped")
     del before, buf_before
-    return counted, step, carry
+    first_window["images_per_s"] = b * k / med
+    return counted, step, carry, first_window
+
+
+# -- phase 11b: data parallelism (DDP + cross-process SyncBatchNorm) ----------
+
+def _tensors_equal(a: dict, b: dict) -> bool:
+    return a.keys() == b.keys() and all(_bitwise(a[n], b[n]) for n in a)
+
+
+def phase_ddp_resnet(dev, params, batch_stats, first_window,
+                     b: int = 128, hw: int = 224, k: int = 10,
+                     timed: int = 2, make=resnet50):
+    """``resnet_train``'s set-up with ``sync_batchnorm=True`` over the
+    world group and ``DistributedDataParallel()`` (the JAX example's
+    defaults), in an NCCL group of one process (one card: world 1).  Its
+    first window must be ``resnet_train``'s first window bit for bit:
+    the per-step losses, the masters, the momentum buffers and the batch
+    statistics (at world 1 each all-reduce sums one operand and the
+    average divides by 1.0).  Each step must make exactly one all-reduce
+    a BatchNorm forward and one backward and one a gradient dtype, and
+    the cross-entropy kernels' launches are counted for the summary.
+    Then ``timed`` windows (images/s beside ``resnet_train``'s), one
+    profiled step (busy share, the NCCL kernels' device ms), the device
+    ms of one ``ddp.allreduce`` of the step's gradients by kernel (the
+    all-reduces and the flat copies) and a planted inf, which must be
+    skipped."""
+    group_ok = init_distributed(
+        "nccl", init_method=f"tcp://127.0.0.1:{free_port()}", rank=0,
+        world_size=1, timeout_s=120)
+    check(group_ok and dist.get_backend() == "nccl",
+          "ddp_resnet: no NCCL group")
+    try:
+        return _ddp_resnet(dev, params, batch_stats, first_window, b, hw, k,
+                           timed, make)
+    finally:
+        dist.destroy_process_group()
+
+
+def _ddp_resnet(dev, params, batch_stats, first_window, b, hw, k, timed,
+                make):
+    ddp = DistributedDataParallel()
+    step, carry, plant, grads_of = _resnet_setup(
+        dev, params, batch_stats, b, hw, make, ddp=ddp,
+        bn_group=data_parallel_group())
+    driver = FusedTrainDriver(step, steps_per_dispatch=k,
+                              metrics={"loss": "last", "loss_scale": "last",
+                                       "skipped": "sum"},
+                              per_step=("loss",))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    reset_collective_counts()
+    carry, res = driver.run_window(carry)
+    host = read_metrics(res)
+    launches, colls = launch_counts(), collective_counts()
+    mine = {"losses": host.per_step["loss"], **_clone_carry(carry)}
+    bitwise = {"losses": mine["losses"] == first_window["losses"],
+               **{part: _tensors_equal(mine[part], first_window[part])
+                  for part in ("masters", "momentum", "stats")}}
+    differing = {part: sum(_differing(mine[part][n], first_window[part][n])
+                           for n in mine[part])
+                 for part in ("masters", "momentum", "stats")}
+    del mine
+    walls = []
+    for _ in range(timed):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        carry, res = driver.run_window(carry)
+        read_metrics(res)
+        walls.append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated()
+    med = sorted(walls)[len(walls) // 2]
+    prof = phase_step_profile(step, carry, "ddp_resnet_profile",
+                              "one O2 step, ResNet-50, batch 128 x 224^2, "
+                              "DDP + SyncBN, NCCL at world 1",
+                              kernel_groups={"nccl": "nccl"})
+    # one step's local gradients: their dtypes, and one reduction of
+    # them by kernel (the NCCL all-reduces, and the flat copies and
+    # divisions around them)
+    grads = grads_of(carry)[0]
+    grad_dtypes = sorted({str(g.dtype) for g in grads.values()})
+    by_kernel = device_ms_by_kernel(lambda: ddp.allreduce(grads))
+    del grads
+    n_bn = sum(n.endswith(".scale") for n in carry[0])
+    per_step = {"sync_bn_fwd": n_bn, "sync_bn_bwd": n_bn,
+                "ddp": len(grad_dtypes)}
+    allreduce_ms = sum(v for n, v in by_kernel.items() if "nccl" in n)
+    copies_ms = sum(v for n, v in by_kernel.items() if "nccl" not in n)
+    emit({"phase": "ddp_resnet", "world_size": 1, "backend": "nccl",
+          "model": "ResNet-50 O2, sync_batchnorm over the world group, "
+          "DistributedDataParallel(), fused_sgd(0.1, momentum 0.9, wd 1e-4)",
+          "batch": [b, hw, hw, 3], "steps_per_window": k,
+          "first_window_bitwise": bitwise, "differing_elements": differing,
+          "grad_dtypes": grad_dtypes,
+          "collectives_one_window": colls,
+          "collectives_per_step_expected": per_step,
+          "launches_one_window": launches,
+          "window_walls_s": walls, "images_per_s": b * k / med,
+          "resnet_train_images_per_s": first_window["images_per_s"],
+          "device_busy_share": prof["device_busy_share"],
+          "nccl_device_ms_one_step": prof["nccl_device_ms"],
+          "nccl_kernels_one_step": prof["nccl_calls"],
+          "ddp_allreduce_ms_by_kernel": by_kernel,
+          "ddp_allreduce_nccl_ms": allreduce_ms,
+          "ddp_allreduce_copies_ms": copies_ms,
+          "max_memory_allocated_bytes": peak})
+    check(all(bitwise.values()), f"ddp_resnet: the first window is not "
+          f"resnet_train's bit for bit: {bitwise} {differing}")
+    check(grad_dtypes == ["torch.bfloat16", "torch.float32"],
+          f"ddp_resnet: O2 gradient dtypes {grad_dtypes}")
+    check(colls == {n: k * c for n, c in per_step.items()},
+          f"ddp_resnet: collectives {colls} != K x {per_step}")
+    xent = {"softmax_xentropy_fwd": k, "softmax_xentropy_bwd": k}
+    check(all(launches[n] == (xent.get(n, 0)) for n in launches),
+          f"ddp_resnet: launches {launches} != {xent}")
+    # a planted inf in one rank's gradients, before the all-reduce
+    masters, _, state = carry
+    before = {n: t.clone() for n, t in masters.items()}
+    buf_before = {n: t.clone() for n, t in
+                  state.opt_state.momentum_buf.items()}
+    scale_before = float(state.scaler[0].loss_scale)
+    plant["inf"] = True
+    carry, m = step(carry, None)
+    plant["inf"] = False
+    masters, _, state = carry
+    same = (_tensors_equal(masters, before)
+            and _tensors_equal(state.opt_state.momentum_buf, buf_before))
+    emit({"phase": "ddp_resnet_overflow", "world_size": 1,
+          "skipped": bool(m["skipped"]), "state_unchanged": same,
+          "scale_before": scale_before,
+          "scale_after": float(state.scaler[0].loss_scale)})
+    check(bool(m["skipped"]) and same
+          and float(state.scaler[0].loss_scale) == scale_before / 2,
+          "ddp_resnet: the planted inf was not skipped cleanly")
+    return launches
+
+
+GLOO_WORLD = 2
+GLOO_IMAGES = 64
+GLOO_HW = 224
+GLOO_STEPS = 3
+GLOO_TIMEOUT_S = 300
+
+
+def _gloo_setup(seed: int = 24):
+    """ResNet-50's seeded fp32 weights and statistics and the 64 images
+    the two-process phase shares (on the CPU, the same in every rank)."""
+    with torch.device("meta"):
+        shapes = resnet50()
+    params, stats = init_resnet_params(shapes, torch.Generator()
+                                       .manual_seed(seed))
+    x, y = _images(torch.Generator().manual_seed(28), GLOO_IMAGES, GLOO_HW)
+    return params, stats, x, y
+
+
+def _rel_l2_max(got: dict, want: dict) -> float:
+    return max(float((got[n].double() - w.double()).norm()
+                     / w.double().norm().clamp_min(1e-30))
+               for n, w in want.items())
+
+
+def _digest(tensors: dict) -> str:
+    h = hashlib.sha256()
+    for t in tensors.values():
+        h.update(t.cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def _local_sums(group):
+    """The planted fault's BatchNorm sync: the all-reduce made on a copy,
+    this rank's own sums kept."""
+    from apex_tpu_torch.parallel import all_reduce
+
+    def sync(t, tag):
+        all_reduce(t.clone(), group, tag=tag)
+        return t
+
+    return sync
+
+
+def _gloo_steps(dev, rank: int, local_stats: bool) -> dict:
+    """GLOO_STEPS fp32 (O0, TF32 off) SGD steps of ResNet-50 in this
+    gang against world 1: one process's model on all 64 images,
+    BatchNorm over them, no DDP, computed in every rank alike
+    (deterministic cuDNN).  Each step starts from world 1's state
+    (masters, momentum, scaler, statistics) and takes three steps: the
+    gang's (DDP + SyncBN on this rank's 32 images), world 1's on the 64
+    images in another order (the halves swapped: the floor, how far
+    rounding alone moves world 1), and world 1's own, which goes on.
+    From random weights at lr 0.1 a step's rounding differences grow to
+    a different trajectory within two steps, so each step is held
+    against world 1 alone.  ``local_stats`` (the planted fault) makes
+    this rank's BatchNorms make their all-reduce on a copy and keep
+    their own sums."""
+    from apex_tpu_torch.multi_tensor import tree_map
+
+    params, stats, x, y = _gloo_setup()
+    n = GLOO_IMAGES // GLOO_WORLD
+    rows = slice(rank * n, (rank + 1) * n)
+    swap = torch.cat([torch.arange(n, GLOO_IMAGES), torch.arange(0, n)])
+    amp_ = amp.initialize("O0")
+    opt = amp.AmpOptimizer(fused_sgd(0.1, momentum=0.9, weight_decay=1e-4),
+                           amp_)
+    ref_model = resnet50()
+    gang_model = resnet50(sync_batchnorm=True, bn_group=data_parallel_group())
+    for model in (ref_model, gang_model):
+        model.load_state_dict(params)
+        model.to(dev)
+    if local_stats:
+        for mod in gang_model.modules():
+            if isinstance(mod, SyncBatchNorm):
+                mod._sync = lambda g=mod.group: _local_sums(g)
+    masters = opt.attach(ref_model)
+    opt.attach(gang_model)
+    state = opt.init(masters)
+    st = {k: v.to(dev) for k, v in stats.items()}
+    x, y = x.to(dev), y.to(dev)
+    ddp, mean = DistributedDataParallel(), Reducer(average=True)
+
+    def one_step(model, xb, yb, reduce, copy):
+        """One step of ``model`` from world 1's current state (a copy of
+        it with ``copy``): loss, masters, statistics."""
+        m, s_, stt = masters, state, st
+        if copy:
+            m, s_ = {k: v.clone() for k, v in m.items()}, tree_map(
+                torch.clone, s_)
+        opt.copy_to_model(model, m)
+        names, ps = zip(*model.named_parameters())
+        logits, stt = model(xb, stt, train=True)
+        loss = softmax_cross_entropy(logits, yb).mean()
+        grads = dict(zip(names, torch.autograd.grad(loss, ps)))
+        if reduce:
+            grads = ddp.allreduce(grads)
+            loss = mean.reduce(loss.detach())
+        m, s_, _ = opt.step(grads, s_, m, model=model)
+        return float(loss.detach()), m, s_, stt
+
+    steps = []
+    for _ in range(GLOO_STEPS):
+        g_loss, g_masters, _, g_st = one_step(gang_model, x[rows], y[rows],
+                                              True, True)
+        f_loss, f_masters, _, f_st = one_step(ref_model, x[swap], y[swap],
+                                              False, True)
+        loss, masters, state, st = one_step(ref_model, x, y, False, False)
+        steps.append({
+            "loss": g_loss, "world1_loss": loss,
+            "loss_rel_err": abs(g_loss - loss) / abs(loss),
+            "masters_max_rel_l2": _rel_l2_max(g_masters, masters),
+            "stats_max_rel_l2": _rel_l2_max(g_st, st),
+            "floor": {"loss_rel_err": abs(f_loss - loss) / abs(loss),
+                      "masters_max_rel_l2": _rel_l2_max(f_masters, masters),
+                      "stats_max_rel_l2": _rel_l2_max(f_st, st)},
+            "masters_sha256": _digest(g_masters),
+            "world1_sha256": _digest(masters)})
+    return {"steps": steps, "ok": all(_gloo_ok(s) for s in steps)}
+
+
+def _gloo_ok(step: dict) -> bool:
+    """A step within the gate: the loss within 1e-4 relative of world
+    1's and every statistic within 1e-3 relative L2 (forward quantities,
+    rounding alone moves them about 1e-6); every master within 1e-3
+    relative L2, or within twice the floor where rounding alone moves a
+    master further (BatchNorm biases: their gradients cancel)."""
+    return (step["loss_rel_err"] <= 1e-4 and step["stats_max_rel_l2"] <= 1e-3
+            and step["masters_max_rel_l2"]
+            <= max(1e-3, 2 * step["floor"]["masters_max_rel_l2"]))
+
+
+def gloo_worker(out_dir: str) -> int:
+    """One rank of ``ddp_gloo_card`` (``chip_smoke.py --gloo-worker DIR``,
+    spawned by :func:`phase_ddp_gloo_card`): gloo on CUDA tensors, both
+    ranks on the one card (the device named in DIR/device.json); the run
+    and the planted fault (rank 1's BatchNorms on local statistics), each
+    held against world 1; writes the readings to DIR/rank<r>.json."""
+    fp32_precision()
+    # world 1 is computed in each rank: the same bits in both
+    torch.backends.cudnn.deterministic = True
+    init_distributed("gloo", init_method=f"file://{out_dir}/rendezvous",
+                     timeout_s=GLOO_TIMEOUT_S)
+    try:
+        rank = dist.get_rank()
+        with open(os.path.join(out_dir, "device.json")) as fh:
+            dev = torch.device(json.load(fh))
+        out = {"ddp": _gloo_steps(dev, rank, False),
+               "fault_local_stats": _gloo_steps(dev, rank, rank == 1)}
+        with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as fh:
+            json.dump(out, fh)
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def phase_ddp_gloo_card(dev):
+    """Two processes on the one card, gloo on CUDA tensors (NCCL takes
+    one rank a card): ResNet-50 at O0 fp32, DDP + SyncBN, 32 images a
+    rank, 3 SGD steps, each against world 1 (one process, the same 64
+    images, no DDP) from the same state (:func:`_gloo_steps`,
+    :func:`_gloo_ok`): the mean of the ranks' losses within 1e-4
+    relative, every statistic within 1e-3 relative L2, every master
+    within 1e-3 relative L2 or twice world 1's own rounding floor, both
+    ranks' masters (and their world 1) bit for bit the same.  Planted faults: rank 1's BatchNorms keeping their local
+    statistics must fail that check, and a gang with a rank that raises
+    must fail with that rank's stderr tail."""
+    out_dir = tempfile.mkdtemp(prefix="apex_gloo_card_")
+    try:
+        with open(os.path.join(out_dir, "device.json"), "w") as fh:
+            json.dump(str(dev), fh)
+        t0 = time.perf_counter()
+        launch([os.path.abspath(__file__), "--gloo-worker", out_dir],
+               GLOO_WORLD, timeout_s=GLOO_TIMEOUT_S, echo_stderr=False,
+               check=True)
+        gang_s = time.perf_counter() - t0
+        ranks = []
+        for r in range(GLOO_WORLD):
+            with open(os.path.join(out_dir, f"rank{r}.json")) as fh:
+                ranks.append(json.load(fh))
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    code = ("import os, time\n"
+            "if os.environ['RANK'] == '1':\n"
+            "    raise RuntimeError('planted: rank 1 died')\n"
+            "time.sleep(60)\n")
+    try:
+        launch(["-c", code], GLOO_WORLD, timeout_s=60, echo_stderr=False,
+               check=True)
+        dead_rank = None
+    except MultiprocError as err:
+        dead_rank = {"guilty_ranks": err.guilty_ranks(),
+                     "stderr_tail_names_it": "planted: rank 1 died"
+                     in str(err)}
+    good = [rk["ddp"] for rk in ranks]
+    fault = [rk["fault_local_stats"] for rk in ranks]
+    same = all(len({g["steps"][i][k] for g in good}) == 1
+               for i in range(GLOO_STEPS)
+               for k in ("masters_sha256", "world1_sha256"))
+    emit({"phase": "ddp_gloo_card", "world_size": GLOO_WORLD,
+          "backend": "gloo (CUDA tensors, both ranks on one card)",
+          "model": "ResNet-50 O0 fp32 (TF32 off), DDP + SyncBN, "
+          "fused_sgd(0.1, momentum 0.9, wd 1e-4)",
+          "images_per_rank": GLOO_IMAGES // GLOO_WORLD,
+          "steps": GLOO_STEPS, "gang_s": gang_s, "ranks": good,
+          "ranks_masters_identical": same,
+          "tol": "each step from world 1's state: the loss 1e-4 "
+          "relative; statistics 1e-3 relative L2 each; masters 1e-3 "
+          "relative L2 each, or twice the floor (world 1 on the images "
+          "reordered) where that is larger",
+          "planted_fault_local_stats": fault,
+          "planted_dead_rank": dead_rank})
+    check(all(g["ok"] for g in good), f"ddp_gloo_card: two ranks are not "
+          f"world 1's steps: {good}")
+    check(same, "ddp_gloo_card: the ranks' masters differ")
+    check(not any(f["ok"] for f in fault), "ddp_gloo_card: the check "
+          "misses a rank on local BatchNorm statistics")
+    check(dead_rank == {"guilty_ranks": [1], "stderr_tail_names_it": True},
+          f"ddp_gloo_card: a dead rank was not surfaced: {dead_rank}")
 
 
 # -- phase 12: the dq-accumulating flash backward ------------------------------
@@ -4932,7 +5343,11 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--log", help="also write every output line to this "
                     "file (the output can be longer than a terminal keeps)")
+    ap.add_argument("--gloo-worker", metavar="DIR",
+                    help=argparse.SUPPRESS)  # a rank of ddp_gloo_card
     args = ap.parse_args(argv)
+    if args.gloo_worker is not None:
+        return gloo_worker(args.gloo_worker)
     if args.log is None:
         return _run()
     os.makedirs(os.path.dirname(os.path.abspath(args.log)), exist_ok=True)
@@ -5008,11 +5423,16 @@ def _run() -> int:
     rn_params, rn_stats = init_resnet_params(
         rn_shapes, torch.Generator().manual_seed(24))
     phase_resnet_parity(rn_params, rn_stats)
-    rn_launches, step, carry = phase_resnet_train(dev, rn_params, rn_stats)
+    rn_launches, step, carry, rn_first = phase_resnet_train(dev, rn_params,
+                                                            rn_stats)
     phase_step_profile(step, carry, "rn50_profile", "one O2 step, ResNet-50, "
                        "batch 128 x 224^2, fused_sgd")
-    del step, carry, rn_params, rn_stats
+    del step, carry
     torch.cuda.empty_cache()
+    ddp_launches = phase_ddp_resnet(dev, rn_params, rn_stats, rn_first)
+    del rn_first, rn_params, rn_stats
+    torch.cuda.empty_cache()
+    phase_ddp_gloo_card(dev)
 
     acc_cases = phase_flash_acc(dev)
     pb_cases = phase_flash_probs_bf16(dev)
@@ -5147,6 +5567,10 @@ def _run() -> int:
     for name, c in zip(("softmax_xentropy_fwd", "softmax_xentropy_bwd"),
                        xe_rn):
         by_name[name]["rn50_path"] = other_path(name, rn_launches, c)
+        by_name[name]["ddp_path"] = {
+            "launches_of": f"{name}, one O2 training window of ResNet-50 "
+                           "with DDP + SyncBN, NCCL at world 1 (ddp_resnet)",
+            **other_path(name, ddp_launches, c)}
     # the paged row holds the decode step's case; every case beside it
     by_name["paged_fused_attention"]["cases"] = [
         {k: c[k] for k in ("case", "design", "max_abs_err", "ms", "plain_ms",
@@ -5281,7 +5705,7 @@ def _run() -> int:
     check(all(r["launches"] > 0 for r in rows)
           and all(r[p]["launches"] > 0 for r in rows
                   for p in ("train_path", "bert_path", "rn50_path",
-                            "medium_path", "spec_path_d3", "spec_path_d7",
+                            "ddp_path", "medium_path", "spec_path_d3", "spec_path_d7",
                             "spec_tree_path_w2d3", "spec_tree_path_w3d3",
                             "o1_path", "stash_path")
                   if p in r),
