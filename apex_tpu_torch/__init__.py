@@ -35,7 +35,13 @@ parallelism runs across processes over ``torch.distributed``
 ``DistributedDataParallel`` with one flat all-reduce a dtype,
 cross-process ``SyncBatchNorm`` and ``convert_syncbn_model``,
 ``ResNet(sync_batchnorm=True)``, ``amp_microbatch_step(ddp=)`` with one
-all-reduce a boundary, and ``LARC``).
+all-reduce a boundary, and ``LARC``).  The rest of the library follows:
+the encoder-decoder ``EncdecMultiheadAttn``, BERT's token types and
+untied head, ``fused_novograd`` and ``fused_adagrad``, ``ConvTranspose``
+and the DCGAN ``Generator``/``Discriminator`` with the three-scaler
+example (``examples/dcgan.py``), the contrib ``SoftmaxCrossEntropyLoss``
+and ``BatchNorm2d_NHWC``, ``mlp.MLP``, ``bf16_utils`` and
+``reparameterization``.
 Every kernel on those paths
 (LayerNorm forward and backward, paged attention, flash attention
 forward and backward with and without an additive bias and its gradient,
@@ -50,15 +56,20 @@ Entry points run on the CUDA device unless the caller passes
 ``device="cpu"``, where every kernel wrapper runs its plain PyTorch
 version instead.  This package imports neither JAX nor ``apex_tpu``.
 """
-from apex_tpu_torch.amp import Conv, Dense  # noqa: F401
+from apex_tpu_torch.amp import Conv, ConvTranspose, Dense  # noqa: F401
+from apex_tpu_torch.mlp import MLP  # noqa: F401
 from apex_tpu_torch.models import (  # noqa: F401
     BertConfig,
+    BertEncoder,
     BertForMLM,
+    Discriminator,
     GPTConfig,
     GPTLM,
     GPTLayer,
+    Generator,
     ResNet,
     init_bert_params,
+    init_dcgan_params,
     init_params,
     init_resnet_params,
     resnet50,
@@ -99,18 +110,23 @@ from apex_tpu_torch.train import (  # noqa: F401
 )
 from apex_tpu_torch.weights import (  # noqa: F401
     from_jax_bert_params,
+    from_jax_dcgan_params,
     from_jax_opt_state,
     from_jax_params,
     from_jax_resnet_params,
+    to_jax_bert_params,
 )
 
-__version__ = "0.6.0"
+__version__ = "0.7.0"
 
 __all__ = [
     "BertConfig",
+    "BertEncoder",
     "BertForMLM",
     "Conv",
+    "ConvTranspose",
     "Dense",
+    "Discriminator",
     "DistributedDataParallel",
     "FusedLayerNorm",
     "FusedTrainDriver",
@@ -118,7 +134,9 @@ __all__ = [
     "GPTDecoder",
     "GPTLM",
     "GPTLayer",
+    "Generator",
     "KVCache",
+    "MLP",
     "MicrobatchedStep",
     "PagePool",
     "PagedKVCache",
@@ -133,11 +151,13 @@ __all__ = [
     "convert_syncbn_model",
     "data_parallel_group",
     "from_jax_bert_params",
+    "from_jax_dcgan_params",
     "from_jax_opt_state",
     "from_jax_params",
     "from_jax_resnet_params",
     "init_bert_params",
     "init_cache",
+    "init_dcgan_params",
     "init_distributed",
     "init_paged_cache",
     "init_params",
@@ -152,4 +172,5 @@ __all__ = [
     "resnet50",
     "sample_tokens",
     "shard_batch",
+    "to_jax_bert_params",
 ]

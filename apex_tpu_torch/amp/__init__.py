@@ -54,7 +54,7 @@ from apex_tpu_torch.amp.functional import (  # noqa: F401
     register_half_function,
     register_promote_function,
 )
-from apex_tpu_torch.amp.layers import Conv, Dense  # noqa: F401
+from apex_tpu_torch.amp.layers import Conv, ConvTranspose, Dense  # noqa: F401
 from apex_tpu_torch.amp.policy import (  # noqa: F401
     O0,
     O1,
@@ -72,8 +72,9 @@ from apex_tpu_torch.amp.scaler import (  # noqa: F401
 from apex_tpu_torch.optimizers._common import AmpFusedTransformation
 
 __all__ = [
-    "Amp", "AmpOptState", "AmpOptimizer", "Conv", "Dense", "F", "LossScaler",
-    "LossScalerState", "O0", "O1", "O2", "O3", "Policy", "StepStats",
+    "Amp", "AmpOptState", "AmpOptimizer", "Conv", "ConvTranspose", "Dense",
+    "F", "LossScaler", "LossScalerState", "O0", "O1", "O2", "O3", "Policy",
+    "StepStats",
     "apply_if_finite", "autocast", "current_policy", "default_is_batchnorm",
     "disable_casts", "float_function", "half_function", "initialize",
     "make_policy", "master_params", "maybe_print", "opt_levels",

@@ -23,9 +23,9 @@ which differ between the CPU and CUDA; here the JAX package's tables
 decide, on every device alike.
 
 Every product (``matmul``, ``einsum``, ``dense``,
-``conv_general_dilated``) adds one to :func:`product_counts` under its op
-name and the dtype its operands had when it ran, so a caller can show
-which products ran in half precision.
+``conv_general_dilated``, ``conv_transpose``) adds one to
+:func:`product_counts` under its op name and the dtype its operands had
+when it ran, so a caller can show which products ran in half precision.
 
 The decorators (``half_function``, ``float_function``,
 ``promote_function``) and their ``register_*`` forms (which rebind a
@@ -322,6 +322,79 @@ def conv_general_dilated(lhs, rhs, window_strides, padding):
         _count("conv", lhs.dtype)
         return conv_nhwc(lhs, rhs, tuple(window_strides), padding)
     return apply_cast_policy("conv", _conv, lhs, rhs)
+
+
+def conv_transpose_padding(k: int, stride: int, padding: str
+                           ) -> Tuple[int, int]:
+    """``lax.conv_transpose``'s (lo, hi) padding of one spatial axis of
+    the stride-dilated input for ``"SAME"`` or ``"VALID"`` (jax's
+    ``_conv_transpose_padding``): ``"SAME"`` gives ``size * stride``
+    outputs, ``"VALID"`` ``(size - 1) * stride + k``."""
+    if padding == "SAME":
+        total = k + stride - 2
+        lo = k - 1 if stride > k - 1 else -(-total // 2)
+    elif padding == "VALID":
+        total = k + stride - 2 + max(k - stride, 0)
+        lo = k - 1
+    else:
+        raise ValueError(f"padding must be 'SAME', 'VALID' or (lo, hi) "
+                         f"pairs, got {padding!r}")
+    return lo, total - lo
+
+
+def conv_transpose_nhwc(x: torch.Tensor, kernel: torch.Tensor,
+                        strides: Tuple[int, int] = (1, 1),
+                        padding: Padding = "SAME") -> torch.Tensor:
+    """``lax.conv_transpose`` with ("NHWC", "HWIO", "NHWC") and
+    ``transpose_kernel=False``: x (N, H, W, I), kernel (KH, KW, I, O) ->
+    (N, H', W', O), operands promoted to one dtype.
+
+    That is a correlation, with the kernel as it is, of x dilated by the
+    strides (stride - 1 zeros between neighbours) and padded by (lo, hi)
+    a spatial axis (:func:`conv_transpose_padding` for ``"SAME"`` and
+    ``"VALID"``, explicit pairs as given).  ``F.conv_transpose2d`` is the
+    correlation of the same dilated input with the kernel flipped,
+    padded by k - 1 - p at both edges plus ``output_padding`` at the high
+    one; so the kernel goes in flipped, as (I, O, KH, KW), with p = k - 1
+    - lo and output_padding = hi - lo where torch takes them (p >= 0, 0
+    <= hi - lo < stride), else the full transposed convolution (p = 0) is
+    cropped or zero-padded to (lo, hi) by ``F.pad``."""
+    dt = torch.promote_types(x.dtype, kernel.dtype)
+    x, kernel = x.to(dt), kernel.to(dt)
+    ks = tuple(kernel.shape[:2])
+    if isinstance(padding, str):
+        pads = tuple(conv_transpose_padding(k, s, padding)
+                     for k, s in zip(ks, strides))
+    else:
+        pads = tuple((int(lo), int(hi)) for lo, hi in padding)
+        if len(pads) != 2:
+            raise ValueError(f"conv_transpose_nhwc takes two (lo, hi) pairs, "
+                             f"got {padding!r}")
+    w = kernel.permute(2, 3, 0, 1).flip(2, 3)
+    xc = x.permute(0, 3, 1, 2)  # an NCHW view of NHWC memory
+    if all(0 <= hi - lo < s and lo <= k - 1
+           for (lo, hi), k, s in zip(pads, ks, strides)):
+        y = torch_F.conv_transpose2d(
+            xc, w, stride=tuple(strides),
+            padding=tuple(k - 1 - lo for (lo, _), k in zip(pads, ks)),
+            output_padding=tuple(hi - lo for lo, hi in pads))
+    else:
+        y = torch_F.conv_transpose2d(xc, w, stride=tuple(strides))
+        (ht, hb), (wl, wr) = ((lo - (k - 1), hi - (k - 1))
+                              for (lo, hi), k in zip(pads, ks))
+        y = torch_F.pad(y, (wl, wr, ht, hb))
+    return y.permute(0, 2, 3, 1)
+
+
+def conv_transpose(lhs, rhs, strides, padding):
+    """Transposed convolution under the conv rule (ref conv_transpose2d in
+    FP16_FUNCS): NHWC activations, HWIO kernel, ``padding`` as
+    :func:`conv_transpose_nhwc` takes it."""
+    def _convt(lhs, rhs):
+        lhs, rhs = _promote(lhs, rhs)
+        _count("conv_transpose", lhs.dtype)
+        return conv_transpose_nhwc(lhs, rhs, tuple(strides), padding)
+    return apply_cast_policy("conv", _convt, lhs, rhs)
 
 
 def softmax(x, axis: int = -1):

@@ -1,8 +1,9 @@
-"""Dense and Conv — the policy-aware flax-layout layers of the JAX package.
+"""Dense, Conv and ConvTranspose — the policy-aware flax-layout layers of
+the JAX package.
 
-Counterpart of ``apex_tpu/amp/layers.py``.  Both compute through
-:mod:`apex_tpu_torch.amp.functional` (``dense`` and
-``conv_general_dilated``), so one model definition serves every opt
+Counterpart of ``apex_tpu/amp/layers.py``.  They compute through
+:mod:`apex_tpu_torch.amp.functional` (``dense``, ``conv_general_dilated``
+and ``conv_transpose``), so one model definition serves every opt
 level: while an autocast policy is live (O1) the cast tables own the
 operand dtypes and the layer's ``dtype`` is ignored (a bf16 product over
 fp32 parameters); otherwise (O0, O2, O3) a set ``dtype`` casts the
@@ -19,9 +20,12 @@ operands as flax's ``dtype=`` does.
   ``use_bias``, with the same ``dtype`` cast.  The convolution runs
   ``F.conv2d`` on a channels-last NCHW view (cuDNN on the card: the JAX
   package left convolutions to XLA, outside any Pallas kernel).
-
-Not ported yet: ``ConvTranspose`` and ``functional.conv_transpose``,
-which come with DCGAN.
+- :class:`ConvTranspose`: flax ``nn.ConvTranspose`` in NHWC/HWIO
+  (``kernel`` of shape ``kernel_size + (in, features)``, not flipped:
+  ``lax.conv_transpose``'s ``transpose_kernel=False``), ``"SAME"``,
+  ``"VALID"`` or explicit padding of the dilated input, through
+  ``F.conv_transpose2d`` (:func:`~apex_tpu_torch.amp.functional.
+  conv_transpose_nhwc` says how the layouts and paddings map).
 """
 from __future__ import annotations
 
@@ -37,7 +41,7 @@ from apex_tpu_torch.amp.functional import (  # noqa: F401
     same_padding,
 )
 
-__all__ = ["Conv", "Dense", "conv_nhwc", "same_padding"]
+__all__ = ["Conv", "ConvTranspose", "Dense", "conv_nhwc", "same_padding"]
 
 
 def _apply_dtype(dtype: Optional[torch.dtype], *tensors):
@@ -89,6 +93,33 @@ class Conv(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x, kernel = _apply_dtype(self.dtype, x, self.kernel)
         y = amp_F.conv_general_dilated(x, kernel, self.strides, self.padding)
+        if self.bias is not None:
+            y = y + self.bias.to(y.dtype)
+        return y
+
+
+class ConvTranspose(nn.Module):
+    """flax ``nn.ConvTranspose`` in NHWC/HWIO: ``kernel`` of shape
+    ``kernel_size + (in, features)``, optional fp32 ``bias``."""
+
+    def __init__(self, in_features: int, features: int,
+                 kernel_size: Tuple[int, int],
+                 strides: Union[int, Tuple[int, int]] = 1,
+                 padding: Padding = "SAME", use_bias: bool = True,
+                 dtype: Optional[torch.dtype] = None):
+        super().__init__()
+        ks = tuple(kernel_size)
+        self.strides = ((strides,) * len(ks) if isinstance(strides, int)
+                        else tuple(strides))
+        self.padding = padding
+        self.dtype = dtype
+        self.kernel = nn.Parameter(torch.empty(*ks, in_features, features))
+        self.bias = (nn.Parameter(torch.zeros(features)) if use_bias
+                     else None)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x, kernel = _apply_dtype(self.dtype, x, self.kernel)
+        y = amp_F.conv_transpose(x, kernel, self.strides, self.padding)
         if self.bias is not None:
             y = y + self.bias.to(y.dtype)
         return y

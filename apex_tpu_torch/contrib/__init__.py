@@ -1,2 +1,3 @@
 """Contrib modules of the port (``apex_tpu/contrib``): the fused
-multihead-attention modules so far."""
+multihead-attention modules, the cross-entropy loss module and the NHWC
+group BatchNorm."""

@@ -1,4 +1,5 @@
-"""Fused multihead self-attention — ``SelfMultiheadAttn``.
+"""Fused multihead attention — ``SelfMultiheadAttn`` and
+``EncdecMultiheadAttn``.
 
 Counterpart of ``apex_tpu/contrib/multihead_attn/__init__.py`` (itself
 apex's ``apex/contrib/multihead_attn``), with the JAX package's layout:
@@ -22,8 +23,10 @@ a broadcast view that is never copied per query or per head.
 ``include_norm_add`` is the pre-LN variant: LN(query) feeds attention and
 the module returns ``dropout(attn) + query``.  The projections go
 through :func:`apex_tpu_torch.amp.functional.dense`, so O1's cast tables
-run them in bf16.  ``EncdecMultiheadAttn`` is
-not ported yet.
+run them in bf16.  ``EncdecMultiheadAttn`` is the cross-attention of an
+encoder-decoder: Q from the decoder's query, K and V both from the
+encoder's ``key`` through the joint (h, 2h) ``in_proj_weight_kv``, the
+(B, Sq, Sk) bias from the encoder's key-padding mask.
 """
 from __future__ import annotations
 
@@ -38,7 +41,7 @@ from apex_tpu_torch.amp import functional as amp_F
 from apex_tpu_torch.normalization import FusedLayerNorm
 from apex_tpu_torch.ops.attention import flash_attention
 
-__all__ = ["SelfMultiheadAttn", "mask_softmax_dropout"]
+__all__ = ["EncdecMultiheadAttn", "SelfMultiheadAttn", "mask_softmax_dropout"]
 
 
 def _masks_to_bias(key_padding_mask, attn_mask, mask_additive: bool, b: int,
@@ -209,6 +212,91 @@ class SelfMultiheadAttn(nn.Module):
                           else None)
         if self.include_norm_add:
             # residual dropout + add of the RAW query (ref :160-167)
+            if is_training:
+                out = dropout(out, self.dropout, generator)
+            out = out + query.to(out.dtype)
+        return out
+
+
+class EncdecMultiheadAttn(nn.Module):
+    """Encoder-decoder cross-attention (ref encdec_multihead_attn.py:27-159).
+
+    Q is projected from the decoder ``query`` by ``in_proj_weight_q``
+    (h, h); K and V both from the encoder ``key`` by the joint
+    ``in_proj_weight_kv`` (h, 2h), split k | v on its last axis.
+    ``bias``, ``include_norm_add``, ``impl``, ``probs_bf16`` and ``dtype``
+    as in :class:`SelfMultiheadAttn` (``bias`` works on both impls).
+    Initialised as the reference: the kv weight like an h x h matrix
+    (variance scaling 1.5, fan average, uniform), the others
+    Xavier-uniform, biases zero.
+    """
+
+    def __init__(self, embed_dim: int, num_heads: int, dropout: float = 0.0,
+                 bias: bool = False, include_norm_add: bool = False,
+                 impl: str = "fast", probs_bf16: bool = False,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        if embed_dim % num_heads != 0:
+            raise ValueError("embed_dim must be divisible by num_heads")
+        if impl not in ("fast", "default"):
+            raise ValueError(f"Unsupported impl: {impl}")
+        h = embed_dim
+        self.embed_dim, self.num_heads = embed_dim, num_heads
+        self.dropout, self.use_bias = dropout, bias
+        self.include_norm_add, self.impl = include_norm_add, impl
+        self.probs_bf16, self.dtype = probs_bf16, dtype
+        self.in_proj_weight_q = nn.Parameter(
+            nn.init.xavier_uniform_(torch.empty(h, h)))
+        limit = math.sqrt(3.0 * 1.5 / ((h + 2 * h) / 2.0))
+        self.in_proj_weight_kv = nn.Parameter(
+            torch.empty(h, 2 * h).uniform_(-limit, limit))
+        self.out_proj_weight = nn.Parameter(
+            nn.init.xavier_uniform_(torch.empty(h, h)))
+        if bias:
+            self.in_proj_bias_q = nn.Parameter(torch.zeros(h))
+            self.in_proj_bias_kv = nn.Parameter(torch.zeros(2 * h))
+            self.out_proj_bias = nn.Parameter(torch.zeros(h))
+        if include_norm_add:
+            self.lyr_nrm = FusedLayerNorm(h)
+
+    def _bias(self, name: str) -> Optional[torch.Tensor]:
+        return getattr(self, name).to(self.dtype) if self.use_bias else None
+
+    def forward(self, query: torch.Tensor, key: torch.Tensor, value=None,
+                key_padding_mask: Optional[torch.Tensor] = None,
+                attn_mask: Optional[torch.Tensor] = None,
+                is_training: bool = True,
+                generator: Optional[torch.Generator] = None
+                ) -> torch.Tensor:
+        """``query`` (B, Sq, H) decoder side, ``key`` (B, Sk, H) encoder
+        side; ``value`` exists for API parity and is ignored (K and V both
+        come from ``key``, as in the reference).  ``key_padding_mask``
+        (B, Sk), nonzero = pad; ``attn_mask`` (Sq, Sk), nonzero = masked."""
+        del value
+        h, nh = self.embed_dim, self.num_heads
+        d = h // nh
+        b, sq, _ = query.shape
+        sk = key.shape[1]
+        dt = self.dtype
+        x = query
+        if self.include_norm_add:
+            x = self.lyr_nrm(x.float())
+        q = amp_F.dense(x.to(dt), self.in_proj_weight_q.to(dt),
+                        self._bias("in_proj_bias_q"))
+        kv = amp_F.dense(key.to(dt), self.in_proj_weight_kv.to(dt),
+                         self._bias("in_proj_bias_kv"))
+        k, v = kv.split(h, dim=-1)
+        q4 = q.reshape(b, sq, nh, d).transpose(1, 2)
+        k4 = k.reshape(b, sk, nh, d).transpose(1, 2)
+        v4 = v.reshape(b, sk, nh, d).transpose(1, 2)
+        bias = _masks_to_bias(key_padding_mask, attn_mask, False, b, sq, sk)
+        attn = _core_attention(q4, k4, v4, bias, d ** -0.5, self.dropout,
+                               is_training, self.impl, self.probs_bf16,
+                               generator)
+        attn = attn.transpose(1, 2).reshape(b, sq, h)
+        out = amp_F.dense(attn, self.out_proj_weight.to(dt),
+                          self._bias("out_proj_bias"))
+        if self.include_norm_add:
             if is_training:
                 out = dropout(out, self.dropout, generator)
             out = out + query.to(out.dtype)

@@ -6,6 +6,11 @@ from apex_tpu_torch.models.bert import (  # noqa: F401
     BertLayer,
     init_bert_params,
 )
+from apex_tpu_torch.models.dcgan import (  # noqa: F401
+    Discriminator,
+    Generator,
+    init_dcgan_params,
+)
 from apex_tpu_torch.models.gpt import (  # noqa: F401
     GPTConfig,
     GPTLayer,
@@ -23,6 +28,7 @@ from apex_tpu_torch.models.resnet import (  # noqa: F401
 )
 
 __all__ = ["BertConfig", "BertEncoder", "BertForMLM", "BertLayer",
-           "Bottleneck", "GPTConfig", "GPTLayer", "GPTLM", "ResNet",
-           "SpaceToDepthStem", "init_bert_params", "init_params",
-           "init_resnet_params", "resnet101", "resnet152", "resnet50"]
+           "Bottleneck", "Discriminator", "GPTConfig", "GPTLayer", "GPTLM",
+           "Generator", "ResNet", "SpaceToDepthStem", "init_bert_params",
+           "init_dcgan_params", "init_params", "init_resnet_params",
+           "resnet101", "resnet152", "resnet50"]

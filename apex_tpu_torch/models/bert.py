@@ -1,12 +1,15 @@
-"""BERT encoder with the tied MLM head — the FusedLAMB pretraining model.
+"""BERT encoder with the MLM head — the FusedLAMB pretraining model.
 
 Counterpart of ``apex_tpu/models/bert.py``, with the same post-LN blocks,
-tied decoder and dtype discipline:
+decoder and dtype discipline:
 
 - the embeddings are an fp32 lookup of the (possibly bf16) word and
-  position tables, summed, LayerNorm'd and cast to the compute dtype;
-  there is no token-type table (``BertForMLM`` never passes
-  ``token_type_ids``, so the flax model never creates one);
+  position tables, plus, when ``token_type_ids`` are given, of the
+  token-type table (``type_vocab_size`` rows), summed, LayerNorm'd and
+  cast to the compute dtype.  ``BertForMLM`` never passes
+  ``token_type_ids`` (nor does the JAX model), so its encoder has no
+  token-type table, as the flax tree has none; a standalone
+  ``BertEncoder`` has one unless built with ``token_types=False``;
 - a padding ``attention_mask`` (B, S), 1 = token, becomes the additive
   fp32 key bias ``(1 - mask) * -1e9``, which every layer's
   :class:`~apex_tpu_torch.contrib.multihead_attn.SelfMultiheadAttn`
@@ -15,17 +18,18 @@ tied decoder and dtype discipline:
 - each block is post-LN with fp32 residual adds: ``LN(x + attn)``, then
   ``LN(x + ffn)``, the FFN with tanh GELU (``jax.nn.gelu``'s default) and
   residual dropout after the attention and the FFN;
-- the MLM head: a dense transform, GELU and LayerNorm, then the decoder
-  tied to the word table — a compute-dtype product with fp32 output
-  (an fp32 product of compute-dtype-rounded operands), plus the fp32
-  ``mlm_bias``, cast to the compute dtype before the fused cross-entropy;
-  the loss is the mean over labels >= 0.
+- the MLM head: a dense transform, GELU and LayerNorm, then the decoder:
+  tied to the word table (``tie_word_embeddings``, the default) — a
+  compute-dtype product with fp32 output (an fp32 product of
+  compute-dtype-rounded operands), plus the fp32 ``mlm_bias`` — or
+  untied, ``Dense(vocab_size)`` in the compute dtype (``mlm_head``);
+  the logits are cast to the compute dtype before the fused
+  cross-entropy, and the loss is the mean over labels >= 0.
 
 Dropout draws from an explicit ``torch.Generator`` on the model's device;
 its bits cannot match flax's, except the attention-dropout mask, which is
 the JAX package's counter hash.  Each encoder block runs under the
-config's ``remat_policy`` (:mod:`apex_tpu_torch.remat`).  Not ported
-yet: ``token_type_ids`` and an untied decoder.
+config's ``remat_policy`` (:mod:`apex_tpu_torch.remat`).
 """
 from __future__ import annotations
 
@@ -56,6 +60,7 @@ class BertConfig:
     num_heads: int = 16
     intermediate_size: int = 4096
     max_position: int = 512
+    type_vocab_size: int = 2
     dropout_rate: float = 0.1
     attn_dropout_rate: float = 0.1
     probs_bf16: bool = False
@@ -66,6 +71,7 @@ class BertConfig:
     # the flash backward: dq-accumulating (True), partials (False) or the
     # module default (None)
     dq_acc: Optional[bool] = None
+    tie_word_embeddings: bool = True  # the MLPerf recipe ties the decoder
 
     def __post_init__(self):
         checkpoint_policy(self.remat_policy)  # an unknown name raises
@@ -125,14 +131,19 @@ class BertLayer(nn.Module):
 
 class BertEncoder(nn.Module):
     """Embeddings and the encoder stack; :meth:`attend` is the tied
-    decoder over the word table."""
+    decoder over the word table.  ``token_types`` gives it the
+    ``token_type_embeddings`` table that ``token_type_ids`` read (flax
+    creates it at the first call with them; ``BertForMLM`` never makes
+    one)."""
 
-    def __init__(self, cfg: BertConfig):
+    def __init__(self, cfg: BertConfig, token_types: bool = True):
         super().__init__()
         self.cfg = cfg
         h = cfg.hidden_size
         self.word_embeddings = nn.Embedding(cfg.vocab_size, h)
         self.position_embeddings = nn.Embedding(cfg.max_position, h)
+        self.token_type_embeddings = (
+            nn.Embedding(cfg.type_vocab_size, h) if token_types else None)
         self.embed_ln = FusedLayerNorm(h)
         self.layers = nn.ModuleList(BertLayer(cfg)
                                     for _ in range(cfg.num_layers))
@@ -142,10 +153,12 @@ class BertEncoder(nn.Module):
                 deterministic: bool = True,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """(B, S) ids -> (B, S, h) hidden states in the compute dtype;
+        ``token_type_ids`` (B, S) in [0, type_vocab_size) or None;
         ``attention_mask`` (B, S), 1 = token, 0 = padding."""
-        if token_type_ids is not None:
-            raise NotImplementedError("token_type_ids (the token-type "
-                                      "table) is not ported yet")
+        if token_type_ids is not None and self.token_type_embeddings is None:
+            raise ValueError("token_type_ids given to an encoder built "
+                             "without a token-type table (token_types="
+                             "False, as BertForMLM builds it)")
         cfg = self.cfg
         b, s = input_ids.shape
         if s > cfg.max_position:
@@ -155,6 +168,9 @@ class BertEncoder(nn.Module):
         # flax nn.Embed(dtype=float32): the table is promoted, then looked up
         x = (F.embedding(input_ids, self.word_embeddings.weight.float())
              + F.embedding(pos, self.position_embeddings.weight.float())[None])
+        if token_type_ids is not None:
+            x = x + F.embedding(token_type_ids,
+                                self.token_type_embeddings.weight.float())
         x = self.embed_ln(x)
         mask_bias = None
         if attention_mask is not None:
@@ -176,7 +192,8 @@ class BertEncoder(nn.Module):
 
 
 class BertForMLM(nn.Module):
-    """Encoder + MLM head tied to the word table + fused cross-entropy.
+    """Encoder + MLM head (tied to the word table with ``mlm_bias``, or
+    the untied ``mlm_head``) + fused cross-entropy.
 
     Parameter names follow the flax tree (see
     :func:`apex_tpu_torch.weights.from_jax_bert_params`)."""
@@ -185,17 +202,21 @@ class BertForMLM(nn.Module):
         super().__init__()
         self.cfg = cfg
         h, dt = cfg.hidden_size, cfg.compute_dtype
-        self.encoder = BertEncoder(cfg)
+        self.encoder = BertEncoder(cfg, token_types=False)
         self.mlm_transform = Dense(h, h, dtype=dt)
         self.mlm_ln = FusedLayerNorm(h)
-        self.mlm_bias = nn.Parameter(torch.zeros(cfg.vocab_size))
+        if cfg.tie_word_embeddings:
+            self.mlm_bias = nn.Parameter(torch.zeros(cfg.vocab_size))
+        else:
+            self.mlm_head = Dense(h, cfg.vocab_size, dtype=dt)
 
     def forward(self, input_ids: torch.Tensor,
                 labels: Optional[torch.Tensor] = None,
                 attention_mask: Optional[torch.Tensor] = None,
                 deterministic: bool = True,
                 generator: Optional[torch.Generator] = None):
-        """Without ``labels``: fp32 (B, S, V) logits.  With ``labels``
+        """Without ``labels``: (B, S, V) logits, fp32 from the tied decoder,
+        the compute dtype from ``mlm_head``.  With ``labels``
         (negative = ignore): ``(logits, loss)``, the logits in the compute
         dtype (the loss path's) and the fp32 mean loss over labels >= 0,
         ignored labels replaced by 0 before the fused cross-entropy.
@@ -205,7 +226,10 @@ class BertForMLM(nn.Module):
                          deterministic=deterministic, generator=generator)
         x = F.gelu(self.mlm_transform(x.to(dt)), approximate="tanh")
         x = self.mlm_ln(x.float())
-        logits = self.encoder.attend(x) + self.mlm_bias.float()
+        if cfg.tie_word_embeddings:
+            logits = self.encoder.attend(x) + self.mlm_bias.float()
+        else:
+            logits = self.mlm_head(x)
         if labels is None:
             return logits
         logits = logits.to(dt)

@@ -59,7 +59,7 @@ RunningStats = Tuple[torch.Tensor, torch.Tensor]
 #: module's group
 Sync = Callable[[torch.Tensor, str], torch.Tensor]
 
-EPS = 1e-5       # the JAX module's defaults; no ported caller sets others
+EPS = 1e-5       # the JAX module's defaults
 MOMENTUM = 0.1
 
 
@@ -100,10 +100,10 @@ class _BnTrain(torch.autograd.Function):
     only.  With ``sync`` the count (a (1,) tensor) is a fourth output."""
 
     @staticmethod
-    def forward(ctx, x, scale, bias, out_dtype, sync):
+    def forward(ctx, x, scale, bias, out_dtype, sync, eps):
         x32 = x.float()
         mean, var, count = _bn_stats(x32, sync)
-        rstd = torch.rsqrt(var + EPS)
+        rstd = torch.rsqrt(var + eps)
         y = (x32 - mean) * rstd * scale.float() + bias.float()
         ctx.save_for_backward(x, mean, rstd, scale, bias)
         ctx.count = count
@@ -135,13 +135,14 @@ class _BnTrain(torch.autograd.Function):
         m1 = _div(sum_dxhat, ctx.count)
         m2 = _div(sum_dxhat_xhat, ctx.count)
         dx = (rstd * (dxhat - m1 - xhat * m2)).to(x.dtype)
-        return dx, dscale.to(scale.dtype), dbias.to(bias.dtype), None, None
+        return (dx, dscale.to(scale.dtype), dbias.to(bias.dtype), None, None,
+                None)
 
 
 class SyncBatchNorm(nn.Module):
     """BatchNorm over every axis but the last, with flax's ``scale`` and
-    ``bias`` parameters, eps :data:`EPS` and momentum :data:`MOMENTUM`
-    (the JAX module's defaults, the only ones its ResNet uses).
+    ``bias`` parameters, ``eps`` (default :data:`EPS`) and ``momentum``
+    (default :data:`MOMENTUM`: the JAX module's defaults).
 
     ``group`` (a process group) sums the statistics over its ranks;
     ``groups`` (:class:`~.mesh.Subgroups`) over this rank's subgroup
@@ -149,9 +150,11 @@ class SyncBatchNorm(nn.Module):
 
     def __init__(self, num_features: int, group=None,
                  groups: Optional[mesh_lib.Subgroups] = None,
-                 fuse_relu: bool = False):
+                 fuse_relu: bool = False, eps: float = EPS,
+                 momentum: float = MOMENTUM):
         super().__init__()
         self.num_features = num_features
+        self.eps, self.momentum = eps, momentum
         self.group = group
         self.groups = groups
         self.fuse_relu = fuse_relu
@@ -189,7 +192,7 @@ class SyncBatchNorm(nn.Module):
         new_stats = stats
         if use_running_average:
             ra_mean, ra_var = stats
-            y = (x.float() - ra_mean) * torch.rsqrt(ra_var + EPS)
+            y = (x.float() - ra_mean) * torch.rsqrt(ra_var + self.eps)
             y = y * self.scale.float() + self.bias.float()
             if residual is None:
                 y = y.to(x.dtype)
@@ -199,7 +202,8 @@ class SyncBatchNorm(nn.Module):
             sync = self._sync()
             y, mean, var, *synced = _BnTrain.apply(
                 x, self.scale, self.bias,
-                torch.float32 if residual is not None else None, sync)
+                torch.float32 if residual is not None else None, sync,
+                self.eps)
             if stats is not None:
                 count = synced[0] if synced else float(x.numel() // c)
                 ra_mean, ra_var = stats
@@ -207,7 +211,7 @@ class SyncBatchNorm(nn.Module):
                 factor = (one * count) / torch.clamp_min(one * (count - 1.0),
                                                          1.0)
                 unbiased = var * factor
-                m = MOMENTUM
+                m = self.momentum
                 new_stats = ((1 - m) * ra_mean + m * mean.detach(),
                              (1 - m) * ra_var + m * unbiased.detach())
         if residual is not None:

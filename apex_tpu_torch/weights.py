@@ -2,12 +2,15 @@
 
 :func:`from_jax_params` maps a ``GPTLM`` params tree (nested dicts of
 numpy arrays, or anything ``np.asarray`` takes) to a state dict of
-:class:`apex_tpu_torch.models.GPTLM`, and :func:`from_jax_bert_params` a
-``BertForMLM`` tree to a state dict of
-:class:`apex_tpu_torch.models.BertForMLM`, and
-:func:`from_jax_resnet_params` a ``ResNet`` tree with its ``batch_stats``
-to a state dict of :class:`apex_tpu_torch.models.ResNet` and its batch
-statistics, so both packages compute with the same numbers.  Dense kernels and the attention projections keep
+:class:`apex_tpu_torch.models.GPTLM`, :func:`from_jax_bert_params` a
+``BertForMLM`` (tied or untied) or ``BertEncoder`` tree to a state dict of
+:class:`apex_tpu_torch.models.BertForMLM` or ``BertEncoder``
+(:func:`to_jax_bert_params` back), :func:`from_jax_resnet_params` a
+``ResNet`` tree with its ``batch_stats`` to a state dict of
+:class:`apex_tpu_torch.models.ResNet` and its batch statistics, and
+:func:`from_jax_dcgan_params` a DCGAN ``Generator`` or ``Discriminator``
+tree the same way, so both packages compute with the same numbers.
+Dense kernels and the attention projections keep
 their flax ``(in, out)`` layout and convolution kernels their HWIO one,
 so no transpose happens on the way; a key the mapping does not know
 raises, so nothing is silently dropped.  :func:`from_jax_opt_state` maps
@@ -28,13 +31,15 @@ from apex_tpu_torch.ops._common import resolve_device
 from apex_tpu_torch.optimizers import (FusedAdamState, FusedLAMBState,
                                        FusedSGDState)
 
-__all__ = ["from_jax_bert_params", "from_jax_opt_state", "from_jax_params",
-           "from_jax_resnet_params"]
+__all__ = ["from_jax_bert_params", "from_jax_dcgan_params",
+           "from_jax_opt_state", "from_jax_params", "from_jax_resnet_params",
+           "to_jax_bert_params"]
 
 _DENSE = ("qkv", "proj", "ffn_in", "ffn_out")
 _MHA = ("in_proj_weight", "in_proj_bias", "q_weight", "k_weight",
         "v_weight", "q_bias", "k_bias", "v_bias", "out_proj_weight",
-        "out_proj_bias")
+        "out_proj_bias", "in_proj_weight_q", "in_proj_weight_kv",
+        "in_proj_bias_q", "in_proj_bias_kv")
 
 
 def _t(x: Any) -> torch.Tensor:
@@ -98,9 +103,9 @@ def _check_keys(tree: Mapping[str, Any], known, where: str) -> None:
 
 def _mha_state(sub: Mapping[str, Any], prefix: str
                ) -> Dict[str, torch.Tensor]:
-    """A flax ``SelfMultiheadAttn`` params dict -> the port's module
-    state under ``prefix`` ('' for the module itself; the same names,
-    ``lyr_nrm`` as a LayerNorm)."""
+    """A flax ``SelfMultiheadAttn`` or ``EncdecMultiheadAttn`` params
+    dict -> the port's module state under ``prefix`` ('' for the module
+    itself; the same names, ``lyr_nrm`` as a LayerNorm)."""
     _check_keys(sub, (*_MHA, "lyr_nrm"), f"{prefix}: ")
     out = {_join(prefix, k): _t(sub[k]) for k in _MHA if k in sub}
     if "lyr_nrm" in sub:
@@ -108,39 +113,80 @@ def _mha_state(sub: Mapping[str, Any], prefix: str
     return out
 
 
-def from_jax_bert_params(tree: Mapping[str, Any]
-                         ) -> Dict[str, torch.Tensor]:
-    """flax ``BertForMLM`` params -> the port's ``BertForMLM`` state dict
-    (fp32, CPU).  Raises on a tree with keys this mapping does not know
-    (a token-type table or an untied head, for two)."""
-    _check_keys(tree, ("encoder", "mlm_transform", "mlm_ln", "mlm_bias"), "")
-    enc = tree["encoder"]
+def _bert_encoder(enc: Mapping[str, Any], pre: str
+                  ) -> Dict[str, torch.Tensor]:
     layers = sorted((k for k in enc if k.startswith("layer_")),
                     key=lambda k: int(k.split("_")[1]))
-    _check_keys(enc, ("word_embeddings", "position_embeddings", "embed_ln",
-                      *layers), "encoder: ")
+    _check_keys(enc, ("word_embeddings", "position_embeddings",
+                      "token_type_embeddings", "embed_ln", *layers),
+                f"{pre or 'encoder'}: ")
     out = {
-        "encoder.word_embeddings.weight":
+        _join(pre, "word_embeddings.weight"):
             _t(enc["word_embeddings"]["embedding"]),
-        "encoder.position_embeddings.weight":
+        _join(pre, "position_embeddings.weight"):
             _t(enc["position_embeddings"]["embedding"]),
-        **_ln(enc["embed_ln"], "encoder.embed_ln"),
+        **_ln(enc["embed_ln"], _join(pre, "embed_ln")),
     }
+    if "token_type_embeddings" in enc:
+        out[_join(pre, "token_type_embeddings.weight")] = _t(
+            enc["token_type_embeddings"]["embedding"])
     for i, name in enumerate(layers):
         if name != f"layer_{i}":
             raise ValueError(f"layer keys not contiguous: {layers}")
-        sub, pre = enc[name], f"encoder.layers.{i}"
+        sub, lpre = enc[name], _join(pre, f"layers.{i}")
         _check_keys(sub, ("self_attn", "attn_ln", "ffn_in", "ffn_out",
                           "ffn_ln"), f"{name}: ")
-        out.update(_mha_state(sub["self_attn"], f"{pre}.self_attn"))
+        out.update(_mha_state(sub["self_attn"], f"{lpre}.self_attn"))
         for ln in ("attn_ln", "ffn_ln"):
-            out.update(_ln(sub[ln], f"{pre}.{ln}"))
+            out.update(_ln(sub[ln], f"{lpre}.{ln}"))
         for dense in ("ffn_in", "ffn_out"):
-            out.update(_dense(sub[dense], f"{pre}.{dense}"))
+            out.update(_dense(sub[dense], f"{lpre}.{dense}"))
+    return out
+
+
+def from_jax_bert_params(tree: Mapping[str, Any]
+                         ) -> Dict[str, torch.Tensor]:
+    """flax ``BertForMLM`` params -> the port's ``BertForMLM`` state dict
+    (fp32, CPU): the tied head's ``mlm_bias`` or the untied
+    ``mlm_head``.  A flax ``BertEncoder`` tree (``word_embeddings`` at
+    its top, a ``token_type_embeddings`` table when it was called with
+    token types) maps to a ``BertEncoder`` state dict.  Raises on a tree
+    with keys this mapping does not know."""
+    if "encoder" not in tree:
+        return _bert_encoder(tree, "")
+    _check_keys(tree, ("encoder", "mlm_transform", "mlm_ln", "mlm_bias",
+                       "mlm_head"), "")
+    out = _bert_encoder(tree["encoder"], "encoder")
     out.update(_dense(tree["mlm_transform"], "mlm_transform"))
     out.update(_ln(tree["mlm_ln"], "mlm_ln"))
-    out["mlm_bias"] = _t(tree["mlm_bias"])
+    if "mlm_head" in tree:
+        _check_keys(tree["mlm_head"], ("kernel", "bias"), "mlm_head: ")
+        out.update(_dense(tree["mlm_head"], "mlm_head"))
+    if "mlm_bias" in tree:
+        out["mlm_bias"] = _t(tree["mlm_bias"])
     return out
+
+
+def to_jax_bert_params(state: Mapping[str, torch.Tensor]
+                       ) -> Dict[str, Any]:
+    """The inverse of :func:`from_jax_bert_params`: a port ``BertForMLM``
+    (or ``BertEncoder``) state dict -> the flax params tree, as nested
+    dicts of fp32 numpy arrays."""
+    tree: Dict[str, Any] = {}
+    for name, t in state.items():
+        parts = name.split(".")
+        if "layers" in parts:  # layers.i -> layer_i
+            i = parts.index("layers")
+            parts[i:i + 2] = [f"layer_{parts[i + 1]}"]
+        if len(parts) > 1 and parts[-2].endswith("embeddings"):
+            parts[-1] = "embedding"
+        elif len(parts) > 1 and parts[-2].endswith(("_ln", "lyr_nrm")):
+            parts[-1] = "scale" if parts[-1] == "weight" else "bias"
+        node = tree
+        for p in parts[:-1]:
+            node = node.setdefault(p, {})
+        node[parts[-1]] = t.detach().float().cpu().numpy()
+    return tree
 
 
 _RESNET_LEAVES = {"conv": ("kernel",), "bn": ("scale", "bias")}
@@ -186,6 +232,36 @@ def from_jax_resnet_params(params: Mapping[str, Any],
     stats = _resnet_leaves(batch_stats,
                            {"bn": ("running_mean", "running_var")})
     return state, stats
+
+
+_DCGAN_LEAVES = {"ConvTranspose": ("kernel",), "Conv": ("kernel",),
+                 "BatchNorm": ("scale", "bias")}
+
+
+def _dcgan_leaves(tree: Mapping[str, Any], leaves: Mapping[str, Tuple]
+                  ) -> Dict[str, torch.Tensor]:
+    out = {}
+    for name, sub in tree.items():
+        kind, _, idx = name.rpartition("_")
+        if kind not in leaves or not idx.isdigit():
+            raise ValueError(f"unmapped params {[name]}")
+        _check_keys(sub, leaves[kind], f"{name}: ")
+        out.update({f"{name}.{k}": _t(v) for k, v in sub.items()})
+    return out
+
+
+def from_jax_dcgan_params(params: Mapping[str, Any],
+                          batch_stats: Optional[Mapping[str, Any]] = None):
+    """flax DCGAN ``Generator`` or ``Discriminator`` ``params`` (and
+    ``batch_stats``) -> the port's state dict (fp32, CPU; HWIO kernels as
+    they are, ``ConvTranspose_i.kernel``, ``BatchNorm_i.scale``, ...)
+    and, with ``batch_stats``, its statistics (``BatchNorm_i.mean``,
+    ``BatchNorm_i.var``), ``(state, stats)``.  Raises on a module or leaf
+    name the models do not have."""
+    state = _dcgan_leaves(params, _DCGAN_LEAVES)
+    if batch_stats is None:
+        return state
+    return state, _dcgan_leaves(batch_stats, {"BatchNorm": ("mean", "var")})
 
 
 def from_jax_opt_state(state: Any, device=None):

@@ -180,7 +180,31 @@ line) on any failed check:
     ``accumulate(update_scaler=False)`` and ``step`` with ``fused_sgd``,
     ``fused_adam`` and ``fused_lamb``: the stash within 1e-6 of the
     float64 sum, LAMB stage 1 on this route against its plain version,
-    an inf in the second microbatch leaving every state bit for bit).
+    an inf in the second microbatch leaving every state bit for bit);
+15. the rest of the library: ``novograd_adagrad`` (GPT-2 small O2 at
+    16 x 1024, K = 4, through ``fused_novograd`` and ``fused_adagrad``:
+    losses finite and falling, exact launches, the first update card
+    against CPU within 1e-5, a planted overflow skipped with the state
+    bit for bit); ``encdec_attn`` (``EncdecMultiheadAttn`` at
+    Transformer-big widths, batch 16, 256 decoder over 384 encoder
+    tokens with seeded key padding, bf16 O2, dropout 0.1, without and
+    with ``include_norm_add``: forward and backward against the same
+    module on the kernels' plain versions at the same dropout seed,
+    exact launches, the Sq != Sk padded flash kernels timed beside SDPA,
+    fp32 card against CPU at batch 2); ``bert_untied`` (BERT-large with
+    the untied ``mlm_head``: fp32 card against CPU, ``BertEncoder`` with
+    two token types card against CPU, O2 + ``fused_lamb`` at 12 x 512,
+    K = 2, one LAMB launch a leaf of the untied tree); ``dcgan`` (the
+    DCGAN example at nz 100, ngf = ndf = 64, batch 128, O1, three loss
+    scalers: two windows of 5 iterations, images/s, a planted overflow
+    in errD_fake skipping D's step alone and halving scaler 1 alone, one
+    fp32 iteration at batch 8 card against CPU); ``library_modules``
+    (``MLP`` at apex's test sizes card against CPU, fp32 and bf16;
+    ``SoftmaxCrossEntropyLoss`` at (16384, 50304) bf16 against its plain
+    version; ``BatchNorm2d_NHWC`` with the fused add + ReLU at RN50's
+    (128, 56, 56, 256) bit for bit ``SyncBatchNorm`` + add + ReLU in an
+    NCCL group of one; weight norm card against CPU; ``BF16_Optimizer``
+    over ``fused_adam`` with a planted overflow).
 
 Then the ``nvidia-smi`` line, the ``{"kernels": [...]}`` summary and, as
 the last line, ``{"ok": true, "device": {...}}``.  Without a CUDA
@@ -189,8 +213,10 @@ device it exits with status 1 and prints no result.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import hashlib
+import importlib
 import json
 import math
 import os
@@ -206,17 +232,22 @@ import torch.distributed as dist
 import torch.nn.functional as F
 
 from apex_tpu_torch import (
+    MLP,
     BertConfig,
+    BertEncoder,
     BertForMLM,
+    Discriminator,
     FusedTrainDriver,
     GPTConfig,
     GPTDecoder,
     GPTLM,
+    Generator,
     MicrobatchedStep,
     ServeEngine,
     amp,
     amp_microbatch_step,
     init_bert_params,
+    init_dcgan_params,
     init_params,
     init_resnet_params,
     read_metrics,
@@ -224,6 +255,11 @@ from apex_tpu_torch import (
     resnet50,
 )
 from apex_tpu_torch import checkpoint
+from apex_tpu_torch.bf16_utils import BF16_Optimizer
+from apex_tpu_torch.contrib.groupbn import BatchNorm2d_NHWC
+from apex_tpu_torch.contrib.multihead_attn import EncdecMultiheadAttn
+from apex_tpu_torch.contrib.xentropy import SoftmaxCrossEntropyLoss
+from apex_tpu_torch.examples import dcgan as dcgan_example
 from apex_tpu_torch.models.gpt import tree_layout
 from apex_tpu_torch.ops import _build, launch_counts, reset_launch_counts
 from apex_tpu_torch.ops.attention import (
@@ -278,7 +314,13 @@ from apex_tpu_torch.ops.softmax_xentropy import (
     softmax_cross_entropy_fwd,
     softmax_cross_entropy_fwd_ref,
 )
-from apex_tpu_torch.optimizers import fused_adam, fused_lamb, fused_sgd
+from apex_tpu_torch.optimizers import (
+    fused_adagrad,
+    fused_adam,
+    fused_lamb,
+    fused_novograd,
+    fused_sgd,
+)
 from apex_tpu_torch.parallel import (
     DistributedDataParallel,
     MultiprocError,
@@ -291,6 +333,7 @@ from apex_tpu_torch.parallel import (
     reset_collective_counts,
 )
 from apex_tpu_torch.parallel.multiproc import free_port
+from apex_tpu_torch.reparameterization import apply_weight_norm, compute_weights
 from apex_tpu_torch.train import build_opt_step
 
 # published H100 SXM peaks (NVIDIA data sheet, dense, 700 W)
@@ -1982,13 +2025,16 @@ def phase_train_parity(params, b: int = 2, s: int = 256):
 
 # -- phase 7: train ------------------------------------------------------------
 
-def _train_setup(dev, params, b, s):
+def _train_setup(dev, params, b, s, tx=None, on_grads=None):
+    """GPT-2 small O2 with ``tx`` (default ``fused_adam(6e-4,
+    weight_decay=0.1)``); ``on_grads(grads, masters, state)`` sees each
+    step's scaled grads before the optimizer does."""
     amp_ = amp.initialize("O2")
     cfg = GPTConfig.small(compute_dtype=amp_.policy.compute_dtype)
     model = GPTLM(cfg)
     model.load_state_dict(params)
     model.to(dev)
-    opt = amp.AmpOptimizer(fused_adam(6e-4, weight_decay=0.1), amp_)
+    opt = amp.AmpOptimizer(tx or fused_adam(6e-4, weight_decay=0.1), amp_)
     masters = opt.attach(model)
     state = opt.init(masters)
     data = torch.Generator(device=dev).manual_seed(10)
@@ -2008,6 +2054,8 @@ def _train_setup(dev, params, b, s):
             g = grads["ln_f.weight"].clone()
             g[0] = float("inf")
             grads["ln_f.weight"] = g
+        if on_grads is not None:
+            on_grads(grads, masters, state)
         masters, state, stats = opt.step(grads, state, masters, model=model)
         return (masters, state), {"loss": loss.detach(),
                                   "loss_scale": stats.loss_scale,
@@ -2506,7 +2554,7 @@ def _mlm_batch(dev, gen, b: int, s: int, vocab: int, lengths=None):
 
 def phase_bert_parity(params, cfg=None, b: int = 2, s: int = 256,
                       lengths=(200, 256), devices=("cuda", "cpu"),
-                      names=BERT_GRADS):
+                      names=BERT_GRADS, phase: str = "bert_parity"):
     """BERT-large at fp32 (O0, TF32 off, no dropout) with a padding mask,
     batch 2 x 256 with lengths 200 and 256: the MLM loss within 1e-4 and
     four gradients within 1e-3 relative L2 error, card against the port
@@ -2529,13 +2577,14 @@ def phase_bert_parity(params, cfg=None, b: int = 2, s: int = 256,
     rel = {n: float((x - y).norm() / y.norm())
            for n, x, y in zip(names, out[a][1], out[c][1])}
     err = abs(out[a][0] - out[c][0])
-    emit({"phase": "bert_parity", "model": "BERT-large fp32 O0, padded",
+    emit({"phase": phase, "model": "BERT-large fp32 O0, padded",
+          "tie_word_embeddings": cfg.tie_word_embeddings,
           "batch": [b, s], "lengths": list(lengths),
           "loss_cuda": out[a][0], "loss_cpu": out[c][0],
           "loss_abs_err": err, "grad_rel_l2": rel})
-    check(err <= 1e-4, f"bert parity: losses differ by {err}")
+    check(err <= 1e-4, f"{phase}: losses differ by {err}")
     check(all(r <= 1e-3 for r in rel.values()),
-          f"bert parity: gradients differ {rel}")
+          f"{phase}: gradients differ {rel}")
 
 
 def _bert_setup(dev, params, b, s, cfg=None):
@@ -2572,7 +2621,7 @@ def _bert_setup(dev, params, b, s, cfg=None):
 
 
 def phase_bert_train(dev, params, b: int = 12, s: int = 512, k: int = 6,
-                     timed: int = 3, cfg=None):
+                     timed: int = 3, cfg=None, phase: str = "bert_train"):
     """O2 (bf16 model, fp32 masters, dynamic loss scale, keep_batchnorm_fp32)
     BERT-large MLM with fused_lamb(1e-3, weight decay 0.01) at batch
     12 x 512 (the JAX bench's BERT_BATCH, BERT_SEQ, BERT_SCAN = 12, 512, 6),
@@ -2620,9 +2669,10 @@ def phase_bert_train(dev, params, b: int = 12, s: int = 512, k: int = 6,
     first, last = warm.per_step["loss"][0], windows[-1].metrics["loss"]
     losses = warm.per_step["loss"] + sum((w.per_step["loss"]
                                           for w in windows), [])
-    emit({"phase": "bert_train", "model": "BERT-large MLM O2 (bf16 model, "
+    emit({"phase": phase, "model": "BERT-large MLM O2 (bf16 model, "
           "fp32 masters, dynamic loss scale), dropout 0.1, "
-          "fused_lamb(1e-3, wd 0.01)", "batch": [b, s],
+          "fused_lamb(1e-3, wd 0.01)",
+          "tie_word_embeddings": cfg.tie_word_embeddings, "batch": [b, s],
           "valid_tokens_per_step": valid, "steps_per_window": k,
           "warm_window_s": warm_s, "window_walls_s": walls,
           "median_window_s": med, "sequences_per_s": b * k / med,
@@ -2635,10 +2685,10 @@ def phase_bert_train(dev, params, b: int = 12, s: int = 512, k: int = 6,
           "max_memory_allocated_bytes": peak,
           "launches_one_window": counted,
           "launches_per_step_expected": per_step})
-    check(all(math.isfinite(x) for x in losses), "bert: non-finite loss")
-    check(last < first, f"bert: loss did not fall ({first} -> {last})")
+    check(all(math.isfinite(x) for x in losses), f"{phase}: non-finite loss")
+    check(last < first, f"{phase}: loss did not fall ({first} -> {last})")
     check(counted == {n: k * c for n, c in per_step.items()},
-          f"bert: launch counts {counted} != K x {per_step}")
+          f"{phase}: launch counts {counted} != K x {per_step}")
     masters, state = carry
     before = {n: t.clone() for n, t in masters.items()}
     m_before = {n: t.clone() for n, t in state.opt_state.m.items()}
@@ -2657,17 +2707,19 @@ def phase_bert_train(dev, params, b: int = 12, s: int = 512, k: int = 6,
                     for n in v_before)
             and int(state.opt_state.step) == step_before)
     scaler = state.scaler[0]
-    emit({"phase": "bert_overflow", "skipped": bool(m["skipped"]),
+    emit({"phase": phase.replace("train", "overflow"),
+          "skipped": bool(m["skipped"]),
           "state_unchanged": same, "lamb_step": int(state.opt_state.step),
           "scale_before": scale_before,
           "scale_after": float(scaler.loss_scale),
           "unskipped_after": int(scaler.unskipped),
           "overflows": int(scaler.overflows)})
-    check(bool(m["skipped"]) and same, "bert: the overflow step was not "
+    check(bool(m["skipped"]) and same, f"{phase}: the overflow step was not "
           "skipped cleanly")
     check(float(scaler.loss_scale) == scale_before / 2
           and int(scaler.unskipped) == 0,
-          "bert: the overflow did not halve the scale and reset unskipped")
+          f"{phase}: the overflow did not halve the scale and reset "
+          "unskipped")
     del before, m_before, v_before
     return counted, step, carry
 
@@ -5323,6 +5375,844 @@ def phase_stash(dev, params, b: int = 8, s: int = 1024):
     return out
 
 
+# -- phase 15: the rest of the library ----------------------------------------
+
+#: the two sides of a card-against-CPU check: (key, device)
+SIDES = (("card", "cuda"), ("cpu", "cpu"))
+
+
+@contextlib.contextmanager
+def _plain_kernels():
+    """Every kernel wrapper takes its plain PyTorch version inside the
+    block, on the card too: the dispatch rule of the wrappers' modules
+    swapped for one that always answers no.  This is how a module's
+    whole path is held against the same path without the kernels."""
+    mods = [importlib.import_module(f"apex_tpu_torch.ops.{m}") for m in
+            ("attention", "layer_norm", "softmax_xentropy", "fused_optim")]
+    saved = [m.use_kernel for m in mods]
+    for m in mods:
+        m.use_kernel = lambda *tensors: False
+    try:
+        yield
+    finally:
+        for m, fn in zip(mods, saved):
+            m.use_kernel = fn
+
+
+def _rel(got, want) -> float:
+    return float((got.float() - want.float()).norm()
+                 / want.float().norm().clamp_min(1e-30))
+
+
+#: the module-level gate of a bf16 path with the kernels against the same
+#: path on their plain versions: the output within 1e-3 of its largest
+#: magnitude plus 2 bf16 ulps (the flash kernels move <= 2 % of their
+#: outputs by <= 2 ulps, which the bf16 products after them spread), the
+#: gradients within 1e-2 relative L2 error
+MODULE_TOL = ("output 1e-3 of max|want| + 2 bf16 ulps; gradients 1e-2 "
+              "relative L2")
+
+
+def _encdec_run(mod, q, k, pad, cot, seed: int):
+    """One training forward and backward of the cross-attention with
+    dropout from ``seed``: the output and the grads of q, k and every
+    parameter."""
+    gen = torch.Generator(device=q.device).manual_seed(seed)
+    qg, kg = q.detach().requires_grad_(), k.detach().requires_grad_()
+    out = mod(qg, kg, key_padding_mask=pad, is_training=True, generator=gen)
+    grads = torch.autograd.grad(out, [qg, kg, *mod.parameters()], cot)
+    return out.detach(), grads
+
+
+def phase_encdec_attn(dev, b: int = 16, sq: int = 256, sk: int = 384,
+                      h: int = 1024, nh: int = 16, parity_b: int = 2):
+    """``EncdecMultiheadAttn`` at Transformer-big widths (d_model 1024, 16
+    heads of 64; Vaswani et al. 2017): batch 16, 256 decoder queries over
+    384 encoder keys, per-row key lengths seeded in 192-384, bf16 under
+    O2 (the module's parameters cast by ``amp.initialize("O2")``),
+    ``impl="fast"``, dropout 0.1, without and with ``include_norm_add``.
+    Each forward and backward is held against the same module on the
+    kernels' plain versions (:func:`_plain_kernels`) at the same dropout
+    seed, within :data:`MODULE_TOL` (the planted fault, another seed,
+    must fail it); launches exactly flash 1 + 1 a call and, with
+    norm-add, LayerNorm 1 + 1.  The flash kernels at this Sq != Sk
+    padded shape are timed beside SDPA with the float mask and the
+    bound.  Then fp32 (TF32 off, no dropout) card against CPU at batch
+    2: the output within 1e-5 of its largest magnitude, the grads within
+    1e-4 relative L2."""
+    t_phase = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(60)
+    amp_ = amp.initialize("O2")
+    dt = amp_.policy.compute_dtype
+    q = torch.randn(b, sq, h, device=dev, generator=gen).to(dt)
+    k = torch.randn(b, sk, h, device=dev, generator=gen).to(dt)
+    cot = torch.randn(b, sq, h, device=dev, generator=gen).to(dt)
+    lengths = torch.randint(sk // 2, sk + 1, (b,), device=dev, generator=gen)
+    pad = (torch.arange(sk, device=dev)[None, :] >= lengths[:, None]).int()
+    names = ["query", "key"]
+    launches, records = {}, {}
+    for norm_add in (False, True):
+        torch.manual_seed(61)
+        mod = EncdecMultiheadAttn(h, nh, dropout=0.1, bias=True,
+                                  include_norm_add=norm_add, impl="fast",
+                                  dtype=dt)
+        amp_.cast_module_(mod)
+        mod.to(dev)
+        pnames = names + [n for n, _ in mod.named_parameters()]
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        out, grads = _encdec_run(mod, q, k, pad, cot, 62)
+        torch.cuda.synchronize()
+        counted = launch_counts()
+        with _plain_kernels():
+            out_p, grads_p = _encdec_run(mod, q, k, pad, cot, 62)
+            out_f, _ = _encdec_run(mod, q, k, pad, cot, 63)
+        torch.cuda.synchronize()
+        want = {n: 0 for n in counted}
+        want.update({"flash_attention_fwd": 1, "flash_attention_bwd": 1})
+        if norm_add:
+            want.update({"layer_norm": 1, "layer_norm_bwd": 1})
+        rel = {n: _rel(a, w) for n, a, w in zip(pnames, grads, grads_p)}
+        case = "norm_add" if norm_add else "plain"
+        rec = {"out_max_abs_err": _err(out, out_p),
+               "out_frac_differing": _frac_differing(out, out_p),
+               "grad_rel_l2": rel, "launches": counted,
+               "planted_fault_other_seed_err": _err(out_f, out_p)}
+        emit({"phase": "encdec_attn", "case": case, "batch": [b, sq, sk],
+              "d_model": h, "heads": nh, "dtype": _dt(dt), "dropout": 0.1,
+              "key_lengths": lengths.tolist(), "tol": MODULE_TOL, **rec})
+        check(counted == want, f"encdec_attn {case}: launches {counted} "
+              f"!= {want}")
+        check(_close(out, out_p, 1e-3, ulps=2),
+              f"encdec_attn {case}: output {rec['out_max_abs_err']}")
+        check(all(r <= 1e-2 for r in rel.values()),
+              f"encdec_attn {case}: gradients {rel}")
+        check(not _close(out_f, out_p, 1e-3, ulps=2),
+              f"encdec_attn {case}: the check misses another dropout seed")
+        launches[case], records[case] = counted, rec
+        del mod, out, grads, out_p, grads_p, out_f
+    # the flash kernels alone at this shape: (B*H, S, 64) with the
+    # broadcast (B, Sq, Sk) key-padding bias, dropout 0.1
+    d = h // nh
+    q3 = torch.randn(b * nh, sq, d, device=dev, generator=gen).to(dt)
+    k3 = torch.randn(b * nh, sk, d, device=dev, generator=gen).to(dt)
+    v3 = torch.randn(b * nh, sk, d, device=dev, generator=gen).to(dt)
+    do = torch.randn(b * nh, sq, d, device=dev, generator=gen).to(dt)
+    bias = torch.where(pad.bool(), -1e9, 0.0)[:, None, :].expand(b, sq, sk)
+    args = (_pack_seed(97531, device=dev), d ** -0.5, False, 0.1, (nh, nh))
+    o, lse = flash_attention_fwd(q3, k3, v3, *args, bias=bias)
+    o_ref, lse_ref = flash_attention_fwd_ref(q3, k3, v3, *args, bias=bias)
+    g = flash_attention_bwd(q3, k3, v3, o, lse, do, *args, bias=bias)
+    g_ref = flash_attention_bwd_ref(q3, k3, v3, o, lse, do, *args, bias=bias)
+    torch.cuda.synchronize()
+    errs = [_err(o, o_ref), _err(lse, lse_ref)] + [
+        _err(a, w) for a, w in zip(g[:3], g_ref[:3])]
+    check(_split_close(o, o_ref) and _close(lse, lse_ref, 1e-5)
+          and all(_split_close(a, w) for a, w in zip(g[:3], g_ref[:3])),
+          f"encdec flash kernels: {errs}")
+    q4, k4, v4, do4 = (t.reshape(b, nh, -1, d) for t in (q3, k3, v3, do))
+    sdpa_mask = torch.where(pad.bool(), -1e9, 0.0).to(dt)[:, None, None, :]
+    kern_f = timings(lambda: flash_attention_fwd(q3, k3, v3, *args,
+                                                 bias=bias), iters=20)
+    plain_f = timings(lambda: flash_attention_fwd_ref(q3, k3, v3, *args,
+                                                      bias=bias), iters=5)
+    lib_f = timings(lambda: F.scaled_dot_product_attention(
+        q4, k4, v4, attn_mask=sdpa_mask), iters=20)
+    kern_b = timings(lambda: flash_attention_bwd(q3, k3, v3, o, lse, do,
+                                                 *args, bias=bias), iters=10)
+    plain_b = timings(lambda: flash_attention_bwd_ref(
+        q3, k3, v3, o, lse, do, *args, bias=bias), iters=3)
+    qg, kg, vg = (t.detach().requires_grad_() for t in (q4, k4, v4))
+
+    def sdpa_fwd_bwd():
+        out = F.scaled_dot_product_attention(qg, kg, vg, attn_mask=sdpa_mask)
+        torch.autograd.grad(out, (qg, kg, vg), do4)
+
+    lib_b = timings(sdpa_fwd_bwd, iters=10)
+    name = (f"Transformer-big cross-attention B={b} H={nh} Sq={sq} Sk={sk} "
+            f"bf16 dropout=0.1 padding bias")
+    cases = {}
+    for kind, kern, plain, lib, backward, err in (
+            ("fwd", kern_f, plain_f, lib_f, False, max(errs[:2])),
+            ("bwd", kern_b, plain_b, lib_b, True, max(errs[2:]))):
+        bound, by = _flash_bound(q3, k3, bias, backward=backward,
+                                 causal=False)
+        cases[kind] = {"case": name, "design": FLASH_DESIGN[dt],
+                       "max_abs_err": err, "tol": SPLIT_TOL,
+                       **_merge(kern, plain, lib), "bound_ms": bound,
+                       "bound_by": by,
+                       "library": "F.scaled_dot_product_attention with the "
+                       "float key mask, no dropout" + (
+                           ", forward + backward" if backward else "")}
+        emit({"phase": "kernel", "kernel": f"flash_attention_{kind}_bias",
+              **cases[kind]})
+    del q3, k3, v3, do, o, lse, g, g_ref, o_ref, lse_ref, qg, kg, vg
+    torch.cuda.empty_cache()
+    # fp32 card against CPU, TF32 off, no dropout
+    cpu = torch.Generator().manual_seed(64)
+    xq = torch.randn(parity_b, sq, h, generator=cpu)
+    xk = torch.randn(parity_b, sk, h, generator=cpu)
+    xc = torch.randn(parity_b, sq, h, generator=cpu)
+    xpad = (torch.arange(sk)[None, :]
+            >= torch.tensor([3 * sk // 4, sk])[:, None]).int()
+    torch.manual_seed(65)
+    ref_mod = EncdecMultiheadAttn(h, nh, bias=True, include_norm_add=True)
+    with torch.no_grad():
+        for p in ref_mod.parameters():
+            p.add_(0.1 * torch.randn(p.shape, generator=cpu))
+    res = {}
+    for key, where in SIDES:
+        mod = EncdecMultiheadAttn(h, nh, bias=True, include_norm_add=True)
+        mod.load_state_dict(ref_mod.state_dict())
+        mod.to(where)
+        qg, kg = xq.to(where).requires_grad_(), xk.to(where).requires_grad_()
+        out = mod(qg, kg, key_padding_mask=xpad.to(where), is_training=False)
+        gs = torch.autograd.grad(out, [qg, kg, *mod.parameters()],
+                                 xc.to(where))
+        res[key] = (out.detach().cpu(), [t.cpu() for t in gs])
+    pnames = names + [n for n, _ in ref_mod.named_parameters()]
+    out_err = _err(res["card"][0], res["cpu"][0])
+    rel = {n: _rel(a, w) for n, a, w in zip(pnames, res["card"][1],
+                                            res["cpu"][1])}
+    emit({"phase": "encdec_parity", "batch": [parity_b, sq, sk],
+          "dtype": "float32", "include_norm_add": True,
+          "out_max_abs_err": out_err,
+          "out_max_abs": float(res["cpu"][0].abs().max()),
+          "grad_rel_l2": rel, "phase_s": time.perf_counter() - t_phase,
+          "tol": "output 1e-5 of max|want|; gradients 1e-4 relative L2"})
+    check(_close(res["card"][0], res["cpu"][0], 1e-5),
+          f"encdec parity: output differs by {out_err}")
+    check(all(r <= 1e-4 for r in rel.values()),
+          f"encdec parity: gradients differ {rel}")
+    return launches, cases
+
+
+UNTIED_GRADS = ("encoder.layers.0.self_attn.in_proj_weight",
+                "encoder.layers.23.ffn_out.kernel", "mlm_head.kernel",
+                "encoder.word_embeddings.weight")
+TOKEN_TYPE_GRADS = ("token_type_embeddings.weight", "word_embeddings.weight",
+                    "layers.0.self_attn.in_proj_weight",
+                    "layers.23.ffn_out.kernel")
+
+
+def phase_bert_untied(dev, b: int = 12, s: int = 512, k: int = 2,
+                      parity_b: int = 2, parity_s: int = 256):
+    """BERT-large with the untied MLM head (``tie_word_embeddings=False``:
+    ``mlm_head`` (1024, 30592) in the compute dtype in place of the tied
+    decoder and ``mlm_bias``): fp32 card against CPU at 2 x 256 (the
+    BERT gate: loss 1e-4, four grads 1e-3 relative L2); ``BertEncoder``
+    with ``token_type_ids`` (two types, the boundary seeded), fp32 card
+    against CPU at the same size (sum(x * cot) within 1e-4 relative, four
+    grads, the token-type table's among them, 1e-3 relative L2); then O2
+    + ``fused_lamb(1e-3, weight_decay=0.01)`` training at 12 x 512
+    padded, K = 2, through :func:`phase_bert_train`: losses finite and
+    falling, a planted overflow skipped, and exactly K x (LN 50, LN
+    backward 50, flash 24 + 24, cross-entropy 1 + 1, LAMB one a leaf)
+    launches, the leaves counted from the tree: the tied model's, plus
+    ``mlm_head``'s kernel and bias, less ``mlm_bias``."""
+    t_phase = time.perf_counter()
+    params = init_bert_params(BertConfig.large(tie_word_embeddings=False),
+                              torch.Generator().manual_seed(20))
+    phase_bert_parity(params, cfg=BertConfig.large(
+        compute_dtype=torch.float32, tie_word_embeddings=False),
+        b=parity_b, s=parity_s, devices=tuple(w for _, w in SIDES),
+        names=UNTIED_GRADS, phase="bert_untied_parity")
+    # token types: the encoder's own tree plus a seeded two-row table
+    cfg = BertConfig.large(compute_dtype=torch.float32)
+    gen = torch.Generator().manual_seed(21)
+    enc_state = {n[len("encoder."):]: t for n, t in params.items()
+                 if n.startswith("encoder.")}
+    enc_state["token_type_embeddings.weight"] = torch.empty(
+        cfg.type_vocab_size, cfg.hidden_size).normal_(0.0, 0.02,
+                                                      generator=gen)
+    ids, _, mask = _mlm_batch("cpu", gen, parity_b, parity_s, cfg.vocab_size,
+                              (200, parity_s))
+    cut = torch.randint(1, parity_s, (parity_b,), generator=gen)
+    types = (torch.arange(parity_s)[None, :] >= cut[:, None]).long()
+    cot = torch.randn(parity_b, parity_s, cfg.hidden_size, generator=gen)
+    out = {}
+    for key, where in SIDES:
+        enc = BertEncoder(cfg)
+        enc.load_state_dict(enc_state)
+        enc.to(where)
+        x = enc(ids.to(where), token_type_ids=types.to(where),
+                attention_mask=mask.to(where))
+        obj = (x * cot.to(where)).sum()
+        ps = dict(enc.named_parameters())
+        gs = torch.autograd.grad(obj, [ps[n] for n in TOKEN_TYPE_GRADS])
+        out[key] = (float(obj.detach()), [t.cpu() for t in gs])
+        del enc, x, ps, gs
+    rel = {n: _rel(a, w) for n, a, w in zip(TOKEN_TYPE_GRADS,
+                                            out["card"][1], out["cpu"][1])}
+    obj_err = abs(out["card"][0] - out["cpu"][0]) / abs(out["cpu"][0])
+    emit({"phase": "bert_token_types", "model": "BERT-large encoder fp32, "
+          "two token types, padded", "batch": [parity_b, parity_s],
+          "type_cut": cut.tolist(), "objective_card": out["card"][0],
+          "objective_cpu": out["cpu"][0], "objective_rel_err": obj_err,
+          "grad_rel_l2": rel})
+    check(obj_err <= 1e-4, f"bert_token_types: objectives differ {obj_err}")
+    check(all(r <= 1e-3 for r in rel.values()),
+          f"bert_token_types: gradients differ {rel}")
+    with torch.device("meta"):
+        tied_leaves = sum(1 for _ in BertForMLM(BertConfig.large())
+                          .parameters())
+    counted, step, carry = phase_bert_train(
+        dev, params, b=b, s=s, k=k, timed=1,
+        cfg=BertConfig.large(tie_word_embeddings=False),
+        phase="bert_untied_train")
+    n_leaves = len(carry[0])
+    emit({"phase": "bert_untied_leaves", "lamb_leaves": n_leaves,
+          "tied_leaves": tied_leaves, "phase_s": time.perf_counter()
+          - t_phase})
+    check(n_leaves == tied_leaves + 2 - 1 and "mlm_bias" not in carry[0],
+          f"bert_untied: {n_leaves} leaves, tied {tied_leaves}")
+    del step, carry, params
+    torch.cuda.empty_cache()
+    return counted
+
+
+NOVOGRAD_ADAGRAD = (
+    ("fused_novograd", "fused_novograd(1e-2, betas=(0.95, 0.98), "
+     "weight_decay=1e-3, bias_correction=True)",
+     lambda: fused_novograd(1e-2, betas=(0.95, 0.98), weight_decay=1e-3,
+                            bias_correction=True)),
+    ("fused_adagrad", "fused_adagrad(1e-2)", lambda: fused_adagrad(1e-2)),
+)
+
+
+def _state_leaves(opt_state) -> dict:
+    """Every tensor of an optimizer state, by field and name."""
+    out = {}
+    for field, val in opt_state._asdict().items():
+        if isinstance(val, dict):
+            out.update({f"{field}.{n}": t for n, t in val.items()})
+        else:
+            out[field] = val
+    return out
+
+
+def phase_novograd_adagrad(dev, params, b: int = 16, s: int = 1024,
+                           k: int = 4, windows: int = 2):
+    """GPT-2 small O2 at 16 x 1024 with dropout (``_train_setup``) under
+    ``fused_novograd`` and then ``fused_adagrad``, each through
+    ``AmpOptimizer``'s fused route, ``windows`` windows of K = 4, one
+    host read each, the launch counts reset before the first and read
+    after it (K x (LN 25, LN backward 25, flash 12 + 12, cross-entropy
+    1 + 1)): losses finite, the last window's last below the first step's
+    (two windows: this set-up's loss jumps at step 4 under any of the
+    optimizers, fused_adam's in ``train`` too, and falls again after).
+    The first step's updates on the card within 1e-5 relative L2 of the
+    same transform on the CPU over the same fp32 grads and masters.  A planted overflow: skipped, the
+    masters and the whole optimizer state bit for bit, the scale
+    halved."""
+    out = {}
+    for name, what, make in NOVOGRAD_ADAGRAD:
+        first = {}
+
+        def keep_first(grads, masters, state, first=first):
+            if not first:
+                first.update(
+                    grads={n: g.float().clone() for n, g in grads.items()},
+                    masters={n: t.clone() for n, t in masters.items()},
+                    inv_scale=1.0 / state.scaler[0].loss_scale.clone())
+
+        cfg, step, carry, plant = _train_setup(dev, params, b, s, tx=make(),
+                                               on_grads=keep_first)
+        driver = FusedTrainDriver(step, steps_per_dispatch=k,
+                                  metrics={"loss": "last", "skipped": "sum",
+                                           "loss_scale": "last"},
+                                  per_step=("loss",))
+        walls, reads = [], []
+        for i in range(windows):
+            torch.cuda.synchronize()
+            if i == 0:
+                reset_launch_counts()
+            t0 = time.perf_counter()
+            carry, res = driver.run_window(carry)
+            reads.append(read_metrics(res))  # the window's one host read
+            walls.append(time.perf_counter() - t0)
+            if i == 0:
+                counted = launch_counts()
+        layers = cfg.num_layers
+        per_step = {n: 0 for n in counted}
+        per_step.update({"layer_norm": 2 * layers + 1,
+                         "layer_norm_bwd": 2 * layers + 1,
+                         "flash_attention_fwd": layers,
+                         "flash_attention_bwd": layers,
+                         "softmax_xentropy_fwd": 1,
+                         "softmax_xentropy_bwd": 1})
+        losses = sum((r.per_step["loss"] for r in reads), [])
+        # the first step's update, card against CPU
+        tx = make()
+        upd = {}
+        for key, where in SIDES:
+            ms = {n: t.to(where) for n, t in first["masters"].items()}
+            gs = {n: t.to(where) for n, t in first["grads"].items()}
+            u, _ = tx.update(gs, tx.init(ms), ms,
+                             inv_scale=first["inv_scale"].to(where),
+                             found_inf=torch.tensor(False, device=where))
+            upd[key] = u
+        rel = max(_rel(upd["card"][n].cpu(), upd["cpu"][n])
+                  for n in upd["cpu"] if upd["cpu"][n].any())
+        del upd, first
+        # a planted overflow
+        masters, state = carry
+        before = {n: t.clone() for n, t in masters.items()}
+        st_before = {n: t.clone()
+                     for n, t in _state_leaves(state.opt_state).items()}
+        scale_before = float(state.scaler[0].loss_scale)
+        plant["inf"] = True
+        carry, m = step(carry, None)
+        plant["inf"] = False
+        masters, state = carry
+        torch.cuda.synchronize()
+        same = (all(torch.equal(masters[n], before[n]) for n in before)
+                and all(torch.equal(t, st_before[n]) for n, t in
+                        _state_leaves(state.opt_state).items()))
+        scale_after = float(state.scaler[0].loss_scale)
+        rec = {"optimizer": what, "batch": [b, s], "steps_per_window": k,
+               "window_walls_s": walls, "tokens_per_s": b * s * k / walls[-1],
+               "losses_per_step": losses,
+               "loss_scale": reads[-1].metrics["loss_scale"],
+               "launches_one_window": counted,
+               "first_step_update_rel_l2_card_vs_cpu": rel,
+               "overflow_skipped": bool(m["skipped"]),
+               "overflow_state_unchanged": same,
+               "scale_before_after": [scale_before, scale_after]}
+        emit({"phase": "novograd_adagrad", "model": "GPT-2 small O2, "
+              "dropout 0.1", **rec})
+        check(all(math.isfinite(x) for x in losses),
+              f"{name}: non-finite loss")
+        check(losses[-1] < losses[0], f"{name}: loss did not fall {losses}")
+        check(counted == {n: k * c for n, c in per_step.items()},
+              f"{name}: launch counts {counted} != K x {per_step}")
+        check(rel <= 1e-5, f"{name}: first update card vs CPU {rel}")
+        check(bool(m["skipped"]) and same and scale_after
+              == scale_before / 2, f"{name}: the overflow was not skipped "
+              "cleanly")
+        out[name] = counted
+        del step, carry, masters, state, before, st_before
+        torch.cuda.empty_cache()
+    return out
+
+
+DCGAN_KEYS = ("errD", "errG", "scale_d_real", "scale_d_fake", "scale_g")
+
+
+def _bn_forward_f64(self, x, stats, train: bool = True):
+    """``models.dcgan.BatchNorm.forward`` with its statistics and
+    normalisation in float64 (the fp32 floor's reference)."""
+    x64 = x.double()
+    if train:
+        dims = tuple(range(x.dim() - 1))
+        mean = x64.mean(dims)
+        var = torch.clamp_min((x64 * x64).mean(dims) - mean * mean, 0.0)
+        m = self.momentum
+        stats = (m * stats[0] + (1.0 - m) * mean.detach().float(),
+                 m * stats[1] + (1.0 - m) * var.detach().float())
+    else:
+        mean, var = (t.double() for t in stats)
+    mul = torch.rsqrt(var + self.eps) * self.scale.double()
+    return (x64 - mean) * mul + self.bias.double(), stats
+
+
+class _ContiguousConvs:
+    """``torch.nn.functional`` with contiguous convolution operands (the
+    CPU's float64 convolution backward refuses the channels-last views)."""
+
+    def __getattr__(self, name):
+        return getattr(F, name)
+
+    @staticmethod
+    def conv2d(x, w, **kw):
+        return F.conv2d(x.contiguous(), w.contiguous(), **kw)
+
+    @staticmethod
+    def conv_transpose2d(x, w, **kw):
+        return F.conv_transpose2d(x.contiguous(), w.contiguous(), **kw)
+
+
+@contextlib.contextmanager
+def _dcgan_float64(gan):
+    """The DCGAN's convolutions and BatchNorms in float64 inside the block
+    (parameters, activations, statistics; the masters and the optimizer
+    stay fp32)."""
+    from apex_tpu_torch.amp import functional as amp_fn
+    from apex_tpu_torch.amp.layers import Conv, ConvTranspose
+    from apex_tpu_torch.models import dcgan as dcgan_models
+    for net in (gan.netG, gan.netD):
+        net.to(torch.float64)
+        net.compute_dtype = torch.float64
+        for m in net.modules():
+            if isinstance(m, (Conv, ConvTranspose)):
+                m.dtype = torch.float64
+    saved = dcgan_models.BatchNorm.forward, amp_fn.torch_F
+    dcgan_models.BatchNorm.forward = _bn_forward_f64
+    amp_fn.torch_F = _ContiguousConvs()
+    try:
+        yield
+    finally:
+        dcgan_models.BatchNorm.forward, amp_fn.torch_F = saved
+
+
+#: the DCGAN parity's bound on each grad's relative L2 error, card against
+#: CPU: a leaky-ReLU kink decided the other way at one element whose
+#: input rounds across 0 moved D's real-loss grads 3.5e-3 at batch 8
+#: (one of 131,072 elements of BN_1's output: tools/dcgan_probe.py)
+DCGAN_GRAD_LIMIT = 1e-2
+
+
+def _dcgan_parity(params, nz: int, b: int) -> dict:
+    """One G+D iteration of the example's step at O0 (fp32), card against
+    CPU, from the same weights and data: errD and errG within 1e-4, and
+    the grads each optimizer was handed (D's two losses', then G's)
+    within :data:`DCGAN_GRAD_LIMIT` relative L2.  G's grads are taken
+    through the same D on both sides: the card's D is set to the CPU's
+    after its step (D's first Adam step moves each weight by lr * sign(g),
+    so where g rounds across 0 the two D's differ by 2 lr and G's grads
+    through them by per cents).  Beside them, each side against the same
+    iteration on the CPU with the convolutions and BatchNorms in float64
+    (the fp32 floor)."""
+    gen = torch.Generator().manual_seed(71)
+    real = torch.rand((b, 64, 64, 3), generator=gen) * 2 - 1
+    z = torch.randn((b, 1, 1, nz), generator=gen)
+    out, d_after = {}, {}
+    for key, where in (SIDES[1], ("f64", "cpu"), SIDES[0]):
+        gan, carry = dcgan_example.build("O0", nz=nz, device=where,
+                                         params=params)
+        seen = {}
+
+        def spy(opt, tag, method, net=None):
+            fn = getattr(opt, method)
+
+            def wrapped(grads, *a, **kw):
+                seen[tag] = {n: g.detach().double().cpu()
+                             for n, g in grads.items()}
+                res = fn({n: g.float() for n, g in grads.items()}, *a, **kw)
+                if net is not None:  # D's step: every side goes on from
+                    dm = res[0]      # the CPU's D
+                    if key == "cpu":
+                        d_after.update({n: t.clone() for n, t in dm.items()})
+                    else:
+                        for n, t in dm.items():
+                            t.copy_(d_after[n])
+                        amp.AmpOptimizer.copy_to_model(net, dm)
+                return res
+            setattr(opt, method, wrapped)
+
+        spy(gan.optD, "d_real", "accumulate")
+        spy(gan.optD, "d_fake", "step", gan.netD)
+        spy(gan.optG, "g", "step")
+        ctx = _dcgan_float64(gan) if key == "f64" else contextlib.nullcontext()
+        with ctx:
+            _, m = dcgan_example.make_step(gan)(carry, (real.to(where),
+                                                        z.to(where)))
+        out[key] = ({n: float(m[n]) for n in ("errD", "errG")}, seen)
+    (lc, gc), (lp, gp), (_, g64) = out["card"], out["cpu"], out["f64"]
+    loss_err = max(abs(lc[n] - lp[n]) for n in lc)
+    names = [(tag, n) for tag in gp for n in gp[tag]]
+    rel = {f"{t}.{n}": _rel(gc[t][n], gp[t][n]) for t, n in names}
+    card64 = {f"{t}.{n}": _rel(gc[t][n], g64[t][n]) for t, n in names}
+    floor = {f"{t}.{n}": _rel(gp[t][n], g64[t][n]) for t, n in names}
+    worst = sorted(rel, key=lambda k: -rel[k])[:4]
+    by_loss = {t: max(v for k, v in rel.items() if k.startswith(t + "."))
+               for t in gp}
+    emit({"phase": "dcgan_parity", "batch": b, "dtype": "float32 (O0)",
+          "losses_card": lc, "losses_cpu": lp, "loss_abs_err": loss_err,
+          "grad_rel_l2_max_by_loss": by_loss,
+          "worst_card_vs_cpu_f64_floor": {k: [rel[k], card64[k], floor[k]]
+                                          for k in worst},
+          "grad_rel_l2_cpu_vs_f64_max": max(floor.values()),
+          "tol": f"losses 1e-4; every grad {DCGAN_GRAD_LIMIT} relative L2"})
+    check(loss_err <= 1e-4, f"dcgan parity: losses differ by {loss_err}")
+    check(all(r <= DCGAN_GRAD_LIMIT for r in rel.values()),
+          f"dcgan parity: grads differ {by_loss}")
+    return rel
+
+
+def phase_dcgan(dev, b: int = 128, nz: int = 100, k: int = 5,
+                windows: int = 2, parity_b: int = 8):
+    """The DCGAN example (``apex_tpu_torch/examples/dcgan.py``) at the
+    published widths (Radford et al. 2016: nz 100, ngf = ndf = 64,
+    64 x 64 x 3, batch 128) under O1 with its three loss scalers:
+    ``windows`` windows of K = 5 G+D iterations, each read once
+    (losses finite, the three scales read there), images/s from the
+    last; the hand-written kernels' launches over those windows (the
+    path runs none: cuDNN convolutions, plain BatchNorm); then one
+    iteration with an inf planted in D's errD_fake gradients, which must
+    skip D's step alone (D's masters and state bit for bit, G's moved)
+    and halve scaler 1 alone; one iteration under ``torch.profiler``;
+    then :func:`_dcgan_parity` at batch 8."""
+    t_phase = time.perf_counter()
+    with torch.device("meta"):
+        shapes_g, shapes_d = Generator(nz=nz), Discriminator()
+    init = torch.Generator().manual_seed(70)
+    params = (*init_dcgan_params(shapes_g, init),
+              *init_dcgan_params(shapes_d, init))
+    gan, carry = dcgan_example.build("O1", nz=nz, device=dev, params=params)
+    plant = {"on": False}
+    d_step = gan.optD.step
+
+    def planted(grads, *a, **kw):
+        if plant["on"]:
+            g = grads["Conv_4.kernel"].clone()
+            g[0, 0, 0, 0] = float("inf")
+            grads = dict(grads, **{"Conv_4.kernel": g})
+        return d_step(grads, *a, **kw)
+
+    gan.optD.step = planted
+    step = dcgan_example.make_step(gan)
+    driver = FusedTrainDriver(step, steps_per_dispatch=k,
+                              metrics=dcgan_example.METRICS)
+    data = torch.Generator(device=dev).manual_seed(72)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    amp.F.reset_product_counts()
+    reads, walls = [], []
+    for _ in range(windows):
+        window = dcgan_example.synthetic_window(data, k, b, nz)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        carry, res = driver.run_window(carry, window)
+        reads.append(read_metrics(res.metrics))  # one host read a window
+        walls.append(time.perf_counter() - t0)
+    counted = launch_counts()
+    products = {f"{op} {dt}": n for (op, dt), n
+                in amp.F.product_counts().items()}
+    gm, _, gstate, dm, _, dstate = carry
+    g_before = {n: t.clone() for n, t in gm.items()}
+    d_before = {n: t.clone() for n, t in dm.items()}
+    d_state = {n: t.clone() for n, t in _state_leaves(dstate.opt_state)
+               .items()}
+    scales = [float(s.loss_scale) for s in (*dstate.scaler[:2],
+                                            gstate.scaler[2])]
+    real, z = dcgan_example.synthetic_window(data, 1, b, nz)
+    plant["on"] = True
+    carry, m = step(carry, (real[0], z[0]))
+    plant["on"] = False
+    gm, _, gstate, dm, _, dstate = carry
+    torch.cuda.synchronize()
+    after = [float(s.loss_scale) for s in (*dstate.scaler[:2],
+                                           gstate.scaler[2])]
+    d_kept = (all(torch.equal(dm[n], d_before[n]) for n in dm)
+              and all(torch.equal(t, d_state[n]) for n, t in
+                      _state_leaves(dstate.opt_state).items()))
+    g_moved = any(not torch.equal(gm[n], g_before[n]) for n in gm)
+    rec = {"batch": b, "nz": nz, "ngf": 64, "ndf": 64, "opt_level": "O1",
+           "steps_per_window": k, "window_walls_s": walls,
+           "images_per_s": b * k / walls[-1],
+           "window_reads": reads, "launches_windows": counted,
+           "products_windows": products,
+           "overflow": {"scales_before": scales, "scales_after": after,
+                        "d_state_unchanged": d_kept, "g_moved": g_moved}}
+    emit({"phase": "dcgan", "model": "DCGAN 64 x 64, three loss scalers "
+          "(errD_real 0, errD_fake 1, errG 2), fused_adam(2e-4, betas=(0.5, "
+          "0.999))", **rec})
+    check(all(math.isfinite(r[n]) for r in reads for n in DCGAN_KEYS),
+          f"dcgan: non-finite meters {reads}")
+    check(not any(counted.values()), f"dcgan: a kernel launched {counted}")
+    check(d_kept and g_moved, "dcgan: the errD_fake overflow did not skip "
+          "D's step alone")
+    check(after == [scales[0], scales[1] / 2, scales[2]],
+          f"dcgan: scales {scales} -> {after}: scaler 1 alone must halve")
+    phase_step_profile(lambda c, _batch: step(c, (real[0], z[0])), carry,
+                       "dcgan_profile", f"one O1 G+D iteration of the DCGAN "
+                       f"example, batch {b}, three loss scalers")
+    del gan, carry, gm, dm, g_before, d_before, d_state
+    torch.cuda.empty_cache()
+    _dcgan_parity(params, nz, parity_b)
+    emit({"phase": "dcgan_done", "phase_s": time.perf_counter() - t_phase})
+    return rec
+
+
+MLP_SIZES = [480, 1024, 1024, 512, 256, 1]  # apex tests/L0/run_mlp
+
+
+def phase_library_modules(dev, batch: int = 1024,
+                          xent=(16384, 50304), bn=(128, 56, 56, 256)):
+    """The remaining library modules at their own sizes: ``MLP`` at
+    apex's test sizes ([480, 1024, 1024, 512, 256, 1], batch 1024; the
+    sigmoid activation: with ReLU after every layer this seed's one output
+    unit is dead for every row, and the check would hold zeros), fp32
+    (TF32 off: output and grads within 1e-5 relative L2) and bf16 (5e-2
+    of the largest magnitude), forward and backward against the CPU;
+    ``SoftmaxCrossEntropyLoss`` at (16384, 50304) bf16 with smoothing 0.1
+    and ``padding_idx`` 0 against the same module on the kernels' plain
+    versions (losses 2e-6 of max, dlogits 1 bf16 ulp + 1e-9), its
+    launches counted (1 + 1); ``BatchNorm2d_NHWC(fuse_relu=True)`` with
+    ``z`` at RN50's (128, 56, 56, 256) fp32 in an NCCL group of one, bit
+    for bit ``SyncBatchNorm`` over the group + add + ReLU, forward and
+    backward, with no collective of its own; ``compute_weights`` of the
+    weight-normed MLP, card against CPU within 1e-6 of the largest
+    weight; ``BF16_Optimizer(fused_adam, dynamic_loss_scale=True)`` on
+    the bf16 MLP, five steps, the third with a planted inf: losses
+    finite and falling, the skip keeping the masters bit for bit, the
+    scale 2^32 halved once."""
+    t_phase = time.perf_counter()
+    out = {}
+    # MLP, fp32 and bf16, card against CPU
+    torch.manual_seed(80)
+    mlp = MLP(MLP_SIZES, activation="sigmoid")
+    gen = torch.Generator().manual_seed(81)
+    x = torch.randn(batch, MLP_SIZES[0], generator=gen)
+    cot = torch.randn(batch, MLP_SIZES[-1], generator=gen)
+    for dt, tol in ((torch.float32, 1e-5), (torch.bfloat16, 5e-2)):
+        res = {}
+        for key, where in SIDES:
+            m = MLP(MLP_SIZES, activation="sigmoid").to(dtype=dt)
+            m.load_state_dict(mlp.state_dict())
+            m.to(where)
+            xg = x.to(where, dt).requires_grad_()
+            y = m(xg)
+            gs = torch.autograd.grad(y, [xg, *m.parameters()],
+                                     cot.to(where, dt))
+            res[key] = [y.detach().cpu().float()] + [
+                g.cpu().float() for g in gs]
+        if dt == torch.float32:
+            errs = [_rel(a, w) for a, w in zip(res["card"], res["cpu"])]
+        else:
+            errs = [_err(a, w) / float(w.abs().max().clamp_min(1e-30))
+                    for a, w in zip(res["card"], res["cpu"])]
+        out[f"mlp_{_dt(dt)}"] = max(errs)
+        check(max(errs) <= tol, f"mlp {_dt(dt)}: card vs CPU {errs}")
+        check(all(bool(t.any()) for t in res["cpu"]),
+              f"mlp {_dt(dt)}: an output or gradient is all zero")
+    # SoftmaxCrossEntropyLoss through the kernels and their plain versions
+    rows, v = xent
+    g = torch.Generator(device=dev).manual_seed(82)
+    logits = (3 * torch.randn(rows, v, device=dev, generator=g)).to(
+        torch.bfloat16)
+    labels = torch.randint(0, v, (rows,), device=dev, generator=g)
+    labels[::7] = 0
+    loss_mod = SoftmaxCrossEntropyLoss(smoothing=0.1, padding_idx=0)
+
+    def xe_run():
+        lg = logits.detach().requires_grad_()
+        loss = loss_mod(lg, labels)
+        (dl,) = torch.autograd.grad(loss.sum(), lg)
+        return loss.detach(), dl
+
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    loss, dl = xe_run()
+    torch.cuda.synchronize()
+    xe_counts = launch_counts()
+    with _plain_kernels():
+        want_l, want_d = xe_run()
+    torch.cuda.synchronize()
+    xe_errs = [_err(loss, want_l), _err(dl, want_d)]
+    out["xentropy"] = {"launches": xe_counts, "errs_loss_dlogits": xe_errs,
+                       "padded_rows_zero": bool((loss[::7] == 0).all()
+                                                and (dl[::7] == 0).all())}
+    check(_close(loss, want_l, 2e-6)
+          and bf16_ulp_ok(dl, want_d, ulps=1, floor=1e-9),
+          f"SoftmaxCrossEntropyLoss: {xe_errs}")
+    check(out["xentropy"]["padded_rows_zero"],
+          "SoftmaxCrossEntropyLoss: a padded row has a loss or a gradient")
+    check(xe_counts["softmax_xentropy_fwd"] == 1
+          and xe_counts["softmax_xentropy_bwd"] == 1
+          and sum(xe_counts.values()) == 2,
+          f"SoftmaxCrossEntropyLoss: launches {xe_counts}")
+    del logits, labels, loss, dl, want_l, want_d
+    torch.cuda.empty_cache()
+    # BatchNorm2d_NHWC with the fused add + ReLU, NCCL world 1
+    group_ok = init_distributed(
+        "nccl", init_method=f"tcp://127.0.0.1:{free_port()}", rank=0,
+        world_size=1, timeout_s=120)
+    check(group_ok and dist.get_backend() == "nccl",
+          "library_modules: no NCCL group")
+    try:
+        c = bn[-1]
+        gb = torch.Generator(device=dev).manual_seed(83)
+        xb = 2 + 1.5 * torch.randn(bn, device=dev, generator=gb)
+        zb = torch.randn(bn, device=dev, generator=gb)
+        cotb = torch.randn(bn, device=dev, generator=gb)
+        scale = 1 + 0.1 * torch.randn(c, device=dev, generator=gb)
+        shift = 0.1 * torch.randn(c, device=dev, generator=gb)
+        runs = {}
+        for kind in ("groupbn", "syncbn"):
+            if kind == "groupbn":
+                mod = BatchNorm2d_NHWC(c, fuse_relu=True, bn_group=1,
+                                       world_size=1)
+                inner = mod.bn
+            else:
+                mod = inner = SyncBatchNorm(c, group=data_parallel_group())
+            inner.load_state_dict({"scale": scale, "bias": shift})
+            mod.to(dev)
+            xg, zg = xb.clone().requires_grad_(), zb.clone().requires_grad_()
+            stats = inner.init_stats(dev)
+            reset_collective_counts()
+            if kind == "groupbn":
+                y, new = mod(xg, zg, stats)
+            else:
+                y0, new = mod(xg, stats)
+                y = torch.relu(y0 + zg)
+            grads = torch.autograd.grad(
+                y, [xg, zg, inner.scale, inner.bias], cotb)
+            torch.cuda.synchronize()
+            runs[kind] = ([y.detach(), *new, *grads], collective_counts())
+        (a, ca), (w, cw) = runs["groupbn"], runs["syncbn"]
+        bitwise = all(torch.equal(p, q) for p, q in zip(a, w))
+        out["groupbn"] = {"bit_for_bit": bitwise, "collectives_groupbn": ca,
+                          "collectives_syncbn": cw,
+                          "max_abs_errs": [_err(p, q) for p, q in zip(a, w)]}
+        check(bitwise, f"BatchNorm2d_NHWC: not bit for bit {out['groupbn']}")
+        check(ca == {} and cw == {"sync_bn_fwd": 1, "sync_bn_bwd": 1},
+              f"BatchNorm2d_NHWC: collectives {ca} / {cw}")
+        del runs, a, w, xb, zb, cotb
+    finally:
+        dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    # weight norm of the MLP, card against CPU
+    wn = apply_weight_norm(dict(mlp.named_parameters()))
+    wn = {n: t.detach() for n, t in wn.items()}
+    w_card = compute_weights({n: t.to(dev) for n, t in wn.items()})
+    w_cpu = compute_weights(wn)
+    top = max(float(t.abs().max()) for t in w_cpu.values())
+    wn_err = max(_err(w_card[n].cpu(), w_cpu[n]) for n in w_cpu) / top
+    out["weight_norm_rel_err"] = wn_err
+    check(wn_err <= 1e-6, f"compute_weights: card vs CPU {wn_err}")
+    # BF16_Optimizer over fused_adam on the bf16 MLP
+    opt = BF16_Optimizer(fused_adam(1e-3), dynamic_loss_scale=True)
+    model = {n: t.detach().to(dev, torch.bfloat16)
+             for n, t in mlp.named_parameters()}
+    state = opt.init(model)
+    net = MLP(MLP_SIZES, activation="sigmoid").to(dev, torch.bfloat16)
+    xs = x.to(dev, torch.bfloat16)
+    target = torch.randn(batch, 1, device=dev, generator=g)
+    losses, scales, kept = [], [], None
+    for i in range(5):
+        ps = {n: t.requires_grad_() for n, t in model.items()}
+        y = torch.func.functional_call(net, ps, (xs,))
+        loss = F.mse_loss(y.float(), target)
+        grads = dict(zip(ps, torch.autograd.grad(opt.scale_loss(loss, state),
+                                                 list(ps.values()))))
+        if i == 2:
+            grads["kernel_0"] = grads["kernel_0"].clone()
+            grads["kernel_0"][0, 0] = float("inf")
+            before = {n: t.clone() for n, t in state.master.items()}
+        model = {n: t.detach() for n, t in model.items()}
+        model, state = opt.step(grads, state, model)
+        if i == 2:
+            kept = all(torch.equal(state.master[n], before[n])
+                       for n in before)
+        losses.append(float(loss.detach()))
+        scales.append(float(state.scaler.loss_scale))
+    out["bf16_optimizer"] = {"losses": losses, "scales": scales,
+                             "skip_kept_masters": kept}
+    emit({"phase": "library_modules", "mlp_sizes": MLP_SIZES, "batch": batch,
+          "xentropy_shape": list(xent), "groupbn_shape": list(bn),
+          "phase_s": time.perf_counter() - t_phase, **out,
+          "tol": "MLP fp32 1e-5 relative L2, bf16 5e-2 of max; xentropy "
+                 "losses 2e-6 of max, dlogits 1 bf16 ulp + 1e-9; groupbn bit "
+                 "for bit; weight norm 1e-6 of max"})
+    check(all(math.isfinite(v) for v in losses) and losses[-1] < losses[0],
+          f"BF16_Optimizer: {losses}")
+    check(kept and scales == [2.0 ** 32] * 2 + [2.0 ** 31] * 3,
+          f"BF16_Optimizer: skip kept {kept}, scales {scales}")
+    return xe_counts
+
+
 class _Tee:
     """stdout that also writes to a log file."""
 
@@ -5459,8 +6349,13 @@ def _run() -> int:
     torch.cuda.empty_cache()
     phase_checkpoint_resume(dev, params)
     stash = phase_stash(dev, params)
+    na_launches = phase_novograd_adagrad(dev, params)
     del params
     torch.cuda.empty_cache()
+    ed_launches, ed_cases = phase_encdec_attn(dev)
+    untied_launches = phase_bert_untied(dev)
+    phase_dcgan(dev)
+    xm_launches = phase_library_modules(dev)
 
     # the summary rows: the serving kernels at the engine's decode-step
     # shape with the engine run's launches, the GPT training kernels at
@@ -5702,12 +6597,55 @@ def _run() -> int:
                        "O2 (accumulate, then step), fused_lamb",
         "checks": lamb_stash["lamb_stage1_checks"],
         "tol": lamb_stash["lamb_tol"]}
+    # the rest of the library: each path's launches, counted around that
+    # path alone (the flash wrappers count with and without a bias alike)
+    paths = {
+        "encdec_path": ({n: sum(ed_launches[c].get(n, 0) for c in ed_launches)
+                         for n in ed_launches["plain"]},
+                        "EncdecMultiheadAttn at Transformer-big, one forward "
+                        "and backward without and one with include_norm_add "
+                        "(encdec_attn)"),
+        "bert_untied_path": (untied_launches, "one O2 training window of "
+                             "BERT-large MLM with the untied head, K = 2 "
+                             "(bert_untied_train)"),
+        "novograd_path": (na_launches["fused_novograd"], "one O2 training "
+                          "window of GPT-2 small, fused_novograd, K = 4"),
+        "adagrad_path": (na_launches["fused_adagrad"], "one O2 training "
+                         "window of GPT-2 small, fused_adagrad, K = 4"),
+        "xentropy_module_path": (xm_launches, "SoftmaxCrossEntropyLoss at "
+                                 "(16384, 50304) bf16, one forward and "
+                                 "backward (library_modules)")}
+    on_paths = {
+        "layer_norm": ("encdec_path", "bert_untied_path", "novograd_path",
+                       "adagrad_path"),
+        "layer_norm_bwd": ("encdec_path", "bert_untied_path",
+                           "novograd_path", "adagrad_path"),
+        "flash_attention_fwd": ("novograd_path", "adagrad_path"),
+        "flash_attention_bwd": ("novograd_path", "adagrad_path"),
+        "flash_attention_fwd_bias": ("encdec_path", "bert_untied_path"),
+        "flash_attention_bwd_bias": ("encdec_path", "bert_untied_path"),
+        "softmax_xentropy_fwd": ("bert_untied_path", "novograd_path",
+                                 "adagrad_path", "xentropy_module_path"),
+        "softmax_xentropy_bwd": ("bert_untied_path", "novograd_path",
+                                 "adagrad_path", "xentropy_module_path"),
+        "lamb_stage1": ("bert_untied_path",)}
+    counter_of = {r["name"]: r["launches_of"].split(",")[0] for r in rows}
+    for name, names in on_paths.items():
+        for p in names:
+            counts, what = paths[p]
+            by_name[name][p] = {"launches": counts[counter_of[name]],
+                                "launches_of": f"{counter_of[name]}, {what}"}
+    for kind in ("fwd", "bwd"):
+        by_name[f"flash_attention_{kind}_bias"]["encdec_path"].update(
+            {k: ed_cases[kind][k] for k in (
+                "case", "max_abs_err", "tol", "ms", "plain_ms", "library_ms",
+                "bound_ms", "bound_by")})
     check(all(r["launches"] > 0 for r in rows)
           and all(r[p]["launches"] > 0 for r in rows
                   for p in ("train_path", "bert_path", "rn50_path",
                             "ddp_path", "medium_path", "spec_path_d3", "spec_path_d7",
                             "spec_tree_path_w2d3", "spec_tree_path_w3d3",
-                            "o1_path", "stash_path")
+                            "o1_path", "stash_path", *paths)
                   if p in r),
           f"a kernel never launched on its path: {rows}")
     print(smi, flush=True)
