@@ -28,6 +28,7 @@ from typing import Callable, Dict, Mapping, NamedTuple, Tuple, Union
 
 import torch
 
+from apex_tpu_torch.multi_tensor import multi_tensor_l2norm
 from apex_tpu_torch.ops.fused_optim import lamb_stage1
 from apex_tpu_torch.optimizers._common import AmpFusedTransformation
 
@@ -80,8 +81,7 @@ def fused_lamb(
         g32 = [grads[k].to(torch.float32, copy=True) for k in names]
         if inv_scale is not None:
             torch._foreach_mul_(g32, inv_scale)
-        norms = torch._foreach_norm(g32, 2.0, dtype=torch.float32)
-        global_norm = torch.sqrt(torch.stack(norms).square().sum())
+        global_norm = multi_tensor_l2norm(g32)
         del g32
         clip = (torch.clamp_min(global_norm / max_grad_norm, 1.0)
                 if max_grad_norm else one)
