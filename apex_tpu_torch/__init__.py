@@ -41,7 +41,10 @@ untied head, ``fused_novograd`` and ``fused_adagrad``, ``ConvTranspose``
 and the DCGAN ``Generator``/``Discriminator`` with the three-scaler
 example (``examples/dcgan.py``), the contrib ``SoftmaxCrossEntropyLoss``
 and ``BatchNorm2d_NHWC``, ``mlp.MLP``, ``bf16_utils`` and
-``reparameterization``.
+``reparameterization``; then the recurrent stacks of ``RNN`` (the LSTM,
+GRU, ReLU, Tanh and mLSTM factories, stacked and bidirectional) and 2:4
+structured sparsity (``contrib.sparsity``: the mask library, ``ASP`` and
+``sparsify``), which complete the library.
 Every kernel on those paths
 (LayerNorm forward and backward, paged attention, flash attention
 forward and backward with and without an additive bias and its gradient,
@@ -114,10 +117,11 @@ from apex_tpu_torch.weights import (  # noqa: F401
     from_jax_opt_state,
     from_jax_params,
     from_jax_resnet_params,
+    from_jax_rnn_params,
     to_jax_bert_params,
 )
 
-__version__ = "0.7.0"
+__version__ = "0.8.0"
 
 __all__ = [
     "BertConfig",
@@ -155,6 +159,7 @@ __all__ = [
     "from_jax_opt_state",
     "from_jax_params",
     "from_jax_resnet_params",
+    "from_jax_rnn_params",
     "init_bert_params",
     "init_cache",
     "init_dcgan_params",

@@ -69,7 +69,8 @@ from apex_tpu_torch.amp.scaler import (  # noqa: F401
     LossScalerState,
     apply_if_finite,
 )
-from apex_tpu_torch.optimizers._common import AmpFusedTransformation
+from apex_tpu_torch.optimizers._common import (AmpFusedTransformation,
+                                               gates_overflow)
 
 __all__ = [
     "Amp", "AmpOptState", "AmpOptimizer", "Conv", "ConvTranspose", "Dense",
@@ -280,10 +281,11 @@ class AmpOptimizer:
     - unfused (a stash, or any other transform): the unscale (merged
       with the stash), ``tx.update`` on the fp32 master grads, the state
       and updates gated on found_inf, the stash cleared.  An AMP-fused
-      transform gets ``found_inf`` for its own gate here, because it
-      updates state in place (``fused_lamb``'s m and v): a gate applied
-      after such an update would choose between two names for one
-      tensor.  Any other transform must return new state tensors, which
+      transform, or one built with ``gates_overflow`` (``sparsify``),
+      gets ``found_inf`` for its own gate here, because it (or the
+      transform it wraps) updates state in place (``fused_lamb``'s m and
+      v): a gate applied after such an update would choose between two
+      names for one tensor.  Any other transform must return new state tensors, which
       :func:`apply_if_finite` gates.
 
     Either way the masters are updated in place, the scaler is updated,
@@ -342,7 +344,7 @@ class AmpOptimizer:
             master_grads, found_inf = scaler.unscale(scaled_grads, sstate)
         grad_norm = (multi_tensor.multi_tensor_l2norm(master_grads)
                      if self.track_grad_norm else None)
-        if isinstance(self.tx, AmpFusedTransformation):
+        if gates_overflow(self.tx):
             updates, new_opt_state = self.tx.update(
                 master_grads, state.opt_state, master_params,
                 found_inf=found_inf)

@@ -38,7 +38,7 @@ from apex_tpu_torch import multi_tensor
 from apex_tpu_torch.amp import default_is_batchnorm
 from apex_tpu_torch.amp.scaler import LossScaler as _AmpScaler
 from apex_tpu_torch.amp.scaler import LossScalerState, apply_if_finite
-from apex_tpu_torch.optimizers._common import AmpFusedTransformation
+from apex_tpu_torch.optimizers._common import gates_overflow
 
 __all__ = [
     "BF16OptState", "BF16_Optimizer", "DynamicLossScaler", "LossScaler",
@@ -221,7 +221,7 @@ class BF16_Optimizer:
         if self.clip_master_grads:
             master_grads, _ = clip_grad_norm(master_grads,
                                              self.clip_master_grads)
-        if isinstance(self.inner, AmpFusedTransformation):
+        if gates_overflow(self.inner):
             # a fused transform may update its state in place (fused_lamb):
             # it gates itself
             updates, new_inner = self.inner.update(

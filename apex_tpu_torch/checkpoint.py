@@ -256,8 +256,19 @@ def _verify(path: str, step: int, pairs, flat) -> Optional[bool]:
 def _rebuild(tree: Any, flat: Dict[str, torch.Tensor], prefix: str = ""):
     """The template's structure with its leaves taken from ``flat``:
     tensors on the template leaf's device (dtype and shape must match),
-    generators set to the stored state."""
+    generators set to the stored state.  A ``None`` of the template
+    with stored leaves beneath it raises: restoring a ``sparsify`` state
+    into a fresh ``tx.init`` (its masks all ``None``) must not quietly
+    turn sparsity off."""
     if tree is None:
+        stored = [p for p in flat if p == prefix
+                  or p.startswith((prefix + "[", prefix + "."))]
+        if stored:
+            raise ValueError(
+                f"checkpoint holds {len(stored)} leaves under {prefix} "
+                f"(first {stored[0]}) where the template has None; build "
+                "the template with them (for sparsity masks: "
+                "ASP.enable(tx.init(params), masks))")
         return None
     if isinstance(tree, dict):
         return {k: _rebuild(v, flat, f"{prefix}[{k!r}]")

@@ -1,3 +1,3 @@
 """Contrib modules of the port (``apex_tpu/contrib``): the fused
-multihead-attention modules, the cross-entropy loss module and the NHWC
-group BatchNorm."""
+multihead-attention modules, the cross-entropy loss module, the NHWC
+group BatchNorm and 2:4 structured sparsity (``sparsity``)."""

@@ -10,7 +10,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Callable
 
-__all__ = ["AmpFusedTransformation", "Transformation"]
+__all__ = ["AmpFusedTransformation", "Transformation", "gates_overflow"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -18,10 +18,14 @@ class Transformation:
     """A plain transform (optax's ``GradientTransformation``): ``update``
     takes fp32 master grads, already unscaled, and returns new state
     tensors, which :class:`apex_tpu_torch.amp.AmpOptimizer` gates on
-    overflow (its unfused route)."""
+    overflow (its unfused route).  With ``gates_overflow``, ``update``
+    also takes ``found_inf=`` and gates its state and updates itself (a
+    wrapper around a transform that updates its state in place, as
+    ``sparsify(fused_lamb(...))`` is)."""
 
     init: Callable
     update: Callable
+    gates_overflow: bool = False
 
 
 @dataclasses.dataclass(frozen=True)
@@ -35,3 +39,14 @@ class AmpFusedTransformation:
 
     init: Callable
     update: Callable
+
+
+def gates_overflow(tx) -> bool:
+    """True when ``tx.update`` takes ``found_inf=`` and gates its own
+    state and updates on it: every :class:`AmpFusedTransformation`, and a
+    :class:`Transformation` built with ``gates_overflow=True``.  The
+    unfused routes hand such a transform ``found_inf`` instead of gating
+    its new state after the update, which cannot undo an update made in
+    place."""
+    return isinstance(tx, AmpFusedTransformation) or getattr(
+        tx, "gates_overflow", False)

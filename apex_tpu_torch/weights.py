@@ -9,7 +9,9 @@ numpy arrays, or anything ``np.asarray`` takes) to a state dict of
 ``ResNet`` tree with its ``batch_stats`` to a state dict of
 :class:`apex_tpu_torch.models.ResNet` and its batch statistics, and
 :func:`from_jax_dcgan_params` a DCGAN ``Generator`` or ``Discriminator``
-tree the same way, so both packages compute with the same numbers.
+tree the same way, and :func:`from_jax_rnn_params` an ``RNN`` stack
+(``StackedRNN`` or ``BidirectionalRNN``) to a state dict of the port's
+module, so both packages compute with the same numbers.
 Dense kernels and the attention projections keep
 their flax ``(in, out)`` layout and convolution kernels their HWIO one,
 so no transpose happens on the way; a key the mapping does not know
@@ -33,7 +35,7 @@ from apex_tpu_torch.optimizers import (FusedAdamState, FusedLAMBState,
 
 __all__ = ["from_jax_bert_params", "from_jax_dcgan_params",
            "from_jax_opt_state", "from_jax_params", "from_jax_resnet_params",
-           "to_jax_bert_params"]
+           "from_jax_rnn_params", "to_jax_bert_params"]
 
 _DENSE = ("qkv", "proj", "ffn_in", "ffn_out")
 _MHA = ("in_proj_weight", "in_proj_bias", "q_weight", "k_weight",
@@ -262,6 +264,33 @@ def from_jax_dcgan_params(params: Mapping[str, Any],
     if batch_stats is None:
         return state
     return state, _dcgan_leaves(batch_stats, {"BatchNorm": ("mean", "var")})
+
+
+_RNN_CELL = ("wi", "wh", "bi", "bh", "wmx", "wmh")
+
+
+def from_jax_rnn_params(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """flax ``StackedRNN`` params (``layer_{i}/ScanRNNCell_0/...``) or
+    ``BidirectionalRNN`` params (``fwd/...``, ``bwd/...``) -> the port's
+    state dict (``layers.{i}.cell.*``, ``fwd.cell.*``, ``bwd.cell.*``;
+    fp32, CPU: ``load_state_dict`` casts to a bf16 module's dtype
+    exactly).  The weights keep their (in, out) layout.  Raises on a key
+    this mapping does not know."""
+    layers = sorted((k for k in tree if k.startswith("layer_")),
+                    key=lambda k: int(k.split("_")[1]))
+    for i, name in enumerate(layers):
+        if name != f"layer_{i}":
+            raise ValueError(f"layer keys not contiguous: {layers}")
+    _check_keys(tree, ("fwd", "bwd", *layers), "")
+    out = {}
+    for name in tree:
+        prefix = f"layers.{name.split('_')[1]}" if name in layers else name
+        _check_keys(tree[name], ("ScanRNNCell_0",), f"{name}: ")
+        cell = tree[name]["ScanRNNCell_0"]
+        _check_keys(cell, _RNN_CELL, f"{name}/ScanRNNCell_0: ")
+        out.update({f"{prefix}.cell.{k}": _t(cell[k]) for k in _RNN_CELL
+                    if k in cell})
+    return out
 
 
 def from_jax_opt_state(state: Any, device=None):
