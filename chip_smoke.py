@@ -204,7 +204,23 @@ line) on any failed check:
     version; ``BatchNorm2d_NHWC`` with the fused add + ReLU at RN50's
     (128, 56, 56, 256) bit for bit ``SyncBatchNorm`` + add + ReLU in an
     NCCL group of one; weight norm card against CPU; ``BF16_Optimizer``
-    over ``fused_adam`` with a planted overflow).
+    over ``fused_adam`` with a planted overflow);
+16. the rest of the library, part 2: ``l2norm_card`` (after the BERT
+    phases: ``multi_tensor_l2norm``'s one launch on GPT-2's word table
+    within 1e-6 of the fp32 sum of squares); ``asp`` (BERT-large pruned
+    2:4 by ``ASP().prune_trained_model`` with ``sparsify(fused_lamb)``
+    through ``AmpOptimizer``'s unfused route at ``bert_train``'s
+    configuration, one K = 6 window: exact launches, the pruned
+    positions exactly 0 in the fp32 masters and the bf16 model, a
+    planted overflow skipped with the masks unchanged, every sparse leaf
+    half dense, the card's masks equal to the CPU's, the masks bit for
+    bit through a checkpoint and a restore into masks of ``None``
+    refused, ``m4n2_2d_best`` and ``m4n2_2d_greedy`` timed on a
+    (1024, 1024) leaf, sequences/s beside ``bert_train``'s); and, last,
+    ``rnn`` (the LSTM and GRU at the large PTB model's sizes and the
+    byte-level mLSTM, fp32: card against CPU on 16 steps at batch 4,
+    forward and backward timed at full size with the device-busy share,
+    the mLSTM once in bf16 against its fp32 run).
 
 Then the ``nvidia-smi`` line, the ``{"kernels": [...]}`` summary and, as
 the last line, ``{"ok": true, "device": {...}}``.  Without a CUDA
@@ -256,11 +272,14 @@ from apex_tpu_torch import (
 )
 from apex_tpu_torch import checkpoint
 from apex_tpu_torch.bf16_utils import BF16_Optimizer
+from apex_tpu_torch.RNN import GRU, LSTM, mLSTM
 from apex_tpu_torch.contrib.groupbn import BatchNorm2d_NHWC
 from apex_tpu_torch.contrib.multihead_attn import EncdecMultiheadAttn
+from apex_tpu_torch.contrib.sparsity import ASP, sparse_masklib
 from apex_tpu_torch.contrib.xentropy import SoftmaxCrossEntropyLoss
 from apex_tpu_torch.examples import dcgan as dcgan_example
 from apex_tpu_torch.models.gpt import tree_layout
+from apex_tpu_torch.multi_tensor import multi_tensor_l2norm
 from apex_tpu_torch.ops import _build, launch_counts, reset_launch_counts
 from apex_tpu_torch.ops.attention import (
     _pack_seed,
@@ -2587,15 +2606,26 @@ def phase_bert_parity(params, cfg=None, b: int = 2, s: int = 256,
           f"{phase}: gradients differ {rel}")
 
 
-def _bert_setup(dev, params, b, s, cfg=None):
+def _bert_setup(dev, params, b, s, cfg=None, sparse=False):
+    """BERT-large O2 under ``fused_lamb(1e-3, weight_decay=0.01)``; with
+    ``sparse``, pruned first on the card by
+    ``ASP().prune_trained_model``, whose ``sparsify`` transform takes
+    ``AmpOptimizer``'s unfused route."""
     amp_ = amp.initialize("O2", keep_batchnorm_fp32=True)
     cfg = cfg or BertConfig.large(compute_dtype=amp_.policy.compute_dtype)
     model = BertForMLM(cfg)
-    model.load_state_dict(params)
     model.to(dev)
-    opt = amp.AmpOptimizer(fused_lamb(1e-3, weight_decay=0.01), amp_)
+    tx = fused_lamb(1e-3, weight_decay=0.01)
+    if sparse:
+        params, tx, sparse_state = ASP().prune_trained_model(
+            {n: t.to(dev) for n, t in params.items()}, tx)
+    model.load_state_dict(params)
+    opt = amp.AmpOptimizer(tx, amp_)
     masters = opt.attach(model)
-    state = opt.init(masters)
+    state = (amp.AmpOptState(opt_state=sparse_state,
+                             scaler=amp_.init_state(dev)) if sparse
+             else opt.init(masters))
+    del params
     ids, labels, mask = _mlm_batch(dev, torch.Generator(device=dev)
                                    .manual_seed(16), b, s, cfg.vocab_size)
     gen = torch.Generator(device=dev).manual_seed(17)
@@ -2617,11 +2647,23 @@ def _bert_setup(dev, params, b, s, cfg=None):
                                   "loss_scale": stats.loss_scale,
                                   "skipped": stats.found_inf.float()}
 
-    return cfg, step, (masters, state), plant, mask
+    return cfg, step, (masters, state), plant, mask, model
+
+
+def _lamb_state(opt_state):
+    """FusedLAMB's state, inside a ``sparsify`` state or not."""
+    return getattr(opt_state, "inner", opt_state)
+
+
+def _pruned_nonzero(masks, tensors) -> int:
+    """How many positions that a mask prunes are not exactly 0."""
+    return sum(int((tensors[n][m == 0] != 0).sum())
+               for n, m in masks.items() if m is not None)
 
 
 def phase_bert_train(dev, params, b: int = 12, s: int = 512, k: int = 6,
-                     timed: int = 3, cfg=None, phase: str = "bert_train"):
+                     timed: int = 3, cfg=None, phase: str = "bert_train",
+                     sparse: bool = False):
     """O2 (bf16 model, fp32 masters, dynamic loss scale, keep_batchnorm_fp32)
     BERT-large MLM with fused_lamb(1e-3, weight decay 0.01) at batch
     12 x 512 (the JAX bench's BERT_BATCH, BERT_SEQ, BERT_SCAN = 12, 512, 6),
@@ -2630,8 +2672,13 @@ def phase_bert_train(dev, params, b: int = 12, s: int = 512, k: int = 6,
     K = 6: one warm window, then ``timed`` windows, the first with the
     launch counts set to 0 before it and read after it.  Then one step
     with an inf planted in a gradient, which must be skipped with LAMB's
-    m, v and step unchanged."""
-    cfg, step, carry, plant, mask = _bert_setup(dev, params, b, s, cfg)
+    m, v and step unchanged.  With ``sparse`` (the model pruned 2:4 by
+    ASP, see :func:`_bert_setup`) every pruned position must also be
+    exactly 0 in the fp32 masters and the bf16 model after the windows,
+    and the overflow step must leave the masks as they were.  Returns
+    the launch counts, the step, the carry and the emitted record."""
+    cfg, step, carry, plant, mask, model = _bert_setup(dev, params, b, s,
+                                                       cfg, sparse)
     driver = FusedTrainDriver(step, steps_per_dispatch=k,
                               metrics={"loss": "last", "loss_scale": "last",
                                        "skipped": "sum"},
@@ -2669,47 +2716,67 @@ def phase_bert_train(dev, params, b: int = 12, s: int = 512, k: int = 6,
     first, last = warm.per_step["loss"][0], windows[-1].metrics["loss"]
     losses = warm.per_step["loss"] + sum((w.per_step["loss"]
                                           for w in windows), [])
-    emit({"phase": phase, "model": "BERT-large MLM O2 (bf16 model, "
-          "fp32 masters, dynamic loss scale), dropout 0.1, "
-          "fused_lamb(1e-3, wd 0.01)",
-          "tie_word_embeddings": cfg.tie_word_embeddings, "batch": [b, s],
-          "valid_tokens_per_step": valid, "steps_per_window": k,
-          "warm_window_s": warm_s, "window_walls_s": walls,
-          "median_window_s": med, "sequences_per_s": b * k / med,
-          "valid_tokens_per_s": valid * k / med,
-          "loss_first_step": first, "loss_last_window": last,
-          "losses_per_step": losses,
-          "loss_scale": windows[-1].metrics["loss_scale"],
-          "skipped_steps": warm.metrics["skipped"]
-          + sum(w.metrics["skipped"] for w in windows),
-          "max_memory_allocated_bytes": peak,
-          "launches_one_window": counted,
-          "launches_per_step_expected": per_step})
+    rec = {"phase": phase, "model": "BERT-large MLM O2 (bf16 model, "
+           "fp32 masters, dynamic loss scale), dropout 0.1, "
+           + ("sparsify(fused_lamb(1e-3, wd 0.01)), pruned 2:4 by ASP "
+              "(m4n2_1d)" if sparse else "fused_lamb(1e-3, wd 0.01)"),
+           "tie_word_embeddings": cfg.tie_word_embeddings, "batch": [b, s],
+           "valid_tokens_per_step": valid, "steps_per_window": k,
+           "warm_window_s": warm_s, "window_walls_s": walls,
+           "median_window_s": med, "sequences_per_s": b * k / med,
+           "valid_tokens_per_s": valid * k / med,
+           "loss_first_step": first, "loss_last_window": last,
+           "losses_per_step": losses,
+           "loss_scale": windows[-1].metrics["loss_scale"],
+           "skipped_steps": warm.metrics["skipped"]
+           + sum(w.metrics["skipped"] for w in windows),
+           "max_memory_allocated_bytes": peak,
+           "launches_one_window": counted,
+           "launches_per_step_expected": per_step}
+    emit(rec)
     check(all(math.isfinite(x) for x in losses), f"{phase}: non-finite loss")
     check(last < first, f"{phase}: loss did not fall ({first} -> {last})")
     check(counted == {n: k * c for n, c in per_step.items()},
           f"{phase}: launch counts {counted} != K x {per_step}")
     masters, state = carry
+    if sparse:
+        masks = state.opt_state.masks
+        model_params = dict(model.named_parameters())
+        rec["pruned_nonzero_masters"] = _pruned_nonzero(masks, masters)
+        rec["pruned_nonzero_model"] = _pruned_nonzero(masks, model_params)
+        rec["model_dtype"] = _dt(model_params[next(
+            n for n, m in masks.items() if m is not None)].dtype)
+        emit({"phase": phase + "_pruned",
+              **{n: rec[n] for n in ("pruned_nonzero_masters",
+                                     "pruned_nonzero_model", "model_dtype")}})
+        check(rec["pruned_nonzero_masters"] == 0
+              and rec["pruned_nonzero_model"] == 0,
+              f"{phase}: pruned positions moved off 0")
+        masks_before = {n: m.clone() for n, m in masks.items()
+                        if m is not None}
+    lamb = _lamb_state(state.opt_state)
     before = {n: t.clone() for n, t in masters.items()}
-    m_before = {n: t.clone() for n, t in state.opt_state.m.items()}
-    v_before = {n: t.clone() for n, t in state.opt_state.v.items()}
-    step_before = int(state.opt_state.step)
+    m_before = {n: t.clone() for n, t in lamb.m.items()}
+    v_before = {n: t.clone() for n, t in lamb.v.items()}
+    step_before = int(lamb.step)
     scale_before = float(state.scaler[0].loss_scale)
     plant["inf"] = True
     carry, m = step(carry, None)
     plant["inf"] = False
     masters, state = carry
+    lamb = _lamb_state(state.opt_state)
     torch.cuda.synchronize()
     same = (all(torch.equal(masters[n], before[n]) for n in before)
-            and all(torch.equal(state.opt_state.m[n], m_before[n])
-                    for n in m_before)
-            and all(torch.equal(state.opt_state.v[n], v_before[n])
-                    for n in v_before)
-            and int(state.opt_state.step) == step_before)
+            and all(torch.equal(lamb.m[n], m_before[n]) for n in m_before)
+            and all(torch.equal(lamb.v[n], v_before[n]) for n in v_before)
+            and int(lamb.step) == step_before)
+    if sparse:
+        same = same and all(torch.equal(state.opt_state.masks[n], mb)
+                            for n, mb in masks_before.items())
     scaler = state.scaler[0]
     emit({"phase": phase.replace("train", "overflow"),
           "skipped": bool(m["skipped"]),
-          "state_unchanged": same, "lamb_step": int(state.opt_state.step),
+          "state_unchanged": same, "lamb_step": int(lamb.step),
           "scale_before": scale_before,
           "scale_after": float(scaler.loss_scale),
           "unskipped_after": int(scaler.unskipped),
@@ -2721,7 +2788,7 @@ def phase_bert_train(dev, params, b: int = 12, s: int = 512, k: int = 6,
           f"{phase}: the overflow did not halve the scale and reset "
           "unskipped")
     del before, m_before, v_before
-    return counted, step, carry
+    return counted, step, carry, rec
 
 
 def phase_step_profile(step, carry, phase: str, what: str,
@@ -5656,7 +5723,7 @@ def phase_bert_untied(dev, b: int = 12, s: int = 512, k: int = 2,
     with torch.device("meta"):
         tied_leaves = sum(1 for _ in BertForMLM(BertConfig.large())
                           .parameters())
-    counted, step, carry = phase_bert_train(
+    counted, step, carry, _ = phase_bert_train(
         dev, params, b=b, s=s, k=k, timed=1,
         cfg=BertConfig.large(tie_word_embeddings=False),
         phase="bert_untied_train")
@@ -6213,6 +6280,307 @@ def phase_library_modules(dev, batch: int = 1024,
     return xe_counts
 
 
+# -- phase 16: the rest of the library, part 2: ASP sparsity and the RNNs ------
+
+C1_SHAPE = (50257, 768)  # GPT-2's word table
+
+
+def phase_l2norm_card(dev, shape=C1_SHAPE):
+    """``multi_tensor_l2norm`` on the card (one ``_foreach_norm`` launch)
+    against the sum-of-squares form ``sqrt(sum(x * x))`` in fp32 on the
+    card and against float64, on one N(0, 0.02^2) leaf of GPT-2's word
+    table: within 1e-6 relative of the sum of squares (the CPU takes
+    that form, as the JAX package does)."""
+    gen = torch.Generator(device=dev).manual_seed(50)
+    x = torch.empty(shape, device=dev).normal_(0.0, 0.02, generator=gen)
+    launch = float(multi_tensor_l2norm([x]))
+    sumsq = float(torch.sqrt(torch.sum(x * x)))
+    exact = float(torch.sqrt(torch.sum(x.double() * x.double())))
+    rec = {"phase": "l2norm_card", "shape": list(shape),
+           "multi_tensor_l2norm": launch, "sum_of_squares_fp32": sumsq,
+           "float64": exact,
+           "rel_launch_vs_sum_of_squares": abs(launch - sumsq) / sumsq,
+           "rel_launch_vs_float64": abs(launch - exact) / exact,
+           "rel_sum_of_squares_vs_float64": abs(sumsq - exact) / exact}
+    emit(rec)
+    check(rec["rel_launch_vs_sum_of_squares"] <= 1e-6,
+          f"l2norm_card: the launch is {rec['rel_launch_vs_sum_of_squares']}"
+          " from the sum of squares")
+    del x
+    return rec
+
+
+def _mask_mismatch(w, got, want, m: int = 4, n: int = 2):
+    """m4n2_1d masks of one ``io`` leaf: (groups that differ, of them the
+    groups whose two best scores are within 4 fp32 ulps)."""
+    groups = [sparse_masklib._pad_cols(sparse_masklib._canonicalize(
+        t.float().cpu(), "io")[0], m).reshape(-1, m) for t in (w, got, want)]
+    bad = (groups[1] != groups[2]).any(dim=1)
+    if not bool(bad.any()):
+        return 0, 0
+    table = torch.from_numpy(sparse_masklib.compute_valid_1d_patterns(m, n))
+    top2 = (groups[0][bad].abs() @ table.T).topk(2, dim=1).values
+    ulp = torch.finfo(torch.float32).eps * top2[:, 0]
+    return int(bad.sum()), int((top2[:, 0] - top2[:, 1] <= 4 * ulp).sum())
+
+
+def phase_asp(dev, params, dense_rec, b: int = 12, s: int = 512, k: int = 6,
+              leaf_2d: str = "mlm_transform.kernel"):
+    """BERT-large MLM pruned 2:4 by ASP on the card: ``bert_train``'s
+    configuration (O2, 12 x 512 padded, dropout 0.1) with
+    ``ASP().prune_trained_model(params, fused_lamb(1e-3,
+    weight_decay=0.01))`` through ``AmpOptimizer``'s unfused route, one
+    K = 6 window (:func:`phase_bert_train` with ``sparse``: exact
+    launches, every pruned position exactly 0 in the masters and the
+    bf16 model, a planted overflow skipped with the masks unchanged)
+    and one profiled step.  Then: every sparse leaf exactly half dense; the card's m4n2_1d masks
+    against the CPU's, leaf by leaf (a differing group counted apart
+    when its two best scores are within 4 fp32 ulps); a checkpoint round
+    trip of the masks bit for bit, and a restore into masks of ``None``
+    raising; ``m4n2_2d_best`` on the card and the host's
+    ``m4n2_2d_greedy`` timed on one (1024, 1024) leaf; sequences/s
+    beside ``bert_train``'s dense window of the same run (reported, not
+    gated)."""
+    t_phase = time.perf_counter()
+    phase_l2norm_card(dev)
+    counted, step, carry, rec = phase_bert_train(
+        dev, params, b=b, s=s, k=k, timed=1, phase="asp_train", sparse=True)
+    phase_step_profile(step, carry, "asp_profile", "one O2 step, BERT-large "
+                       "MLM pruned 2:4, batch 12 x 512 padded, dropout 0.1, "
+                       "sparsify(fused_lamb) on the unfused route")
+    del step
+    masters, state = carry
+    masks = state.opt_state.masks
+    sparse = [n for n, m in masks.items() if m is not None]
+    half = {n: int(masks[n].double().sum()) * 2 == masks[n].numel()
+            for n in sparse}
+    t0 = time.perf_counter()
+    cpu_masks, _ = ASP().compute_sparse_masks(params)
+    cpu_mask_s = time.perf_counter() - t0
+    differ = {n: _mask_mismatch(params[n], masks[n], cpu_masks[n])
+              for n in sparse}
+    same_leaves = [n for n in sparse if cpu_masks[n] is not None
+                   and torch.equal(masks[n].cpu(), cpu_masks[n])]
+    # the masks through a checkpoint: bit for bit into a template that
+    # holds masks, refused by one whose masks are all None
+    tmp = tempfile.mkdtemp(prefix="asp_ckpt_")
+    try:
+        t0 = time.perf_counter()
+        checkpoint.save_checkpoint(tmp, {"masks": masks}, 1)
+        save_s = time.perf_counter() - t0
+        template = {"masks": {n: None if m is None else torch.empty_like(m)
+                              for n, m in masks.items()}}
+        t0 = time.perf_counter()
+        got, _ = checkpoint.restore_checkpoint(tmp, template)
+        restore_s = time.perf_counter() - t0
+        restored = all(torch.equal(got["masks"][n], masks[n])
+                       for n in sparse) and all(
+            got["masks"][n] is None for n in masks if n not in sparse)
+        del got
+        try:
+            checkpoint.restore_checkpoint(
+                tmp, {"masks": {n: None for n in masks}})
+            none_template = "restored (sparsity dropped)"
+        except checkpoint.CheckpointIntegrityError as e:
+            none_template = f"raised {type(e).__name__}"
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    # the 2d masks on one (1024, 1024) leaf: exhaustive on the card,
+    # greedy on the host
+    w = params[leaf_2d].to(dev)
+    best = sparse_masklib.create_mask(w, "m4n2_2d_best", layout="io")
+    best_cpu = sparse_masklib.create_mask(params[leaf_2d], "m4n2_2d_best",
+                                          layout="io")
+    best_ms = time_ms(lambda: sparse_masklib.create_mask(
+        w, "m4n2_2d_best", layout="io"), iters=5, warmup=1)
+    t0 = time.perf_counter()
+    greedy = sparse_masklib.create_mask(w, "m4n2_2d_greedy", layout="io")
+    torch.cuda.synchronize()
+    greedy_s = time.perf_counter() - t0
+    out = {"phase": "asp", "model": "BERT-large MLM, O2, 12 x 512 padded, "
+           "ASP m4n2_1d over every Dense kernel, sparsify(fused_lamb)",
+           "sparse_leaves": len(sparse),
+           "sparse_leaf_names_sample": sparse[:3] + sparse[-2:],
+           "sparse_elements": sum(masks[n].numel() for n in sparse),
+           "all_half_dense": all(half.values()),
+           "masks_equal_cpu_leaves": len(same_leaves),
+           "mask_groups_differing": sum(d[0] for d in differ.values()),
+           "mask_groups_differing_near_tie": sum(d[1]
+                                                 for d in differ.values()),
+           "cpu_masks_s": cpu_mask_s,
+           "checkpoint": {"save_s": save_s, "restore_s": restore_s,
+                          "masks_bit_for_bit": restored,
+                          "restore_into_none_masks": none_template},
+           "m4n2_2d_best_ms_1024x1024": best_ms,
+           "m4n2_2d_best_equal_cpu": bool(torch.equal(best.cpu(), best_cpu)),
+           "m4n2_2d_best_half_dense": int(best.double().sum()) * 2
+           == best.numel(),
+           "m4n2_2d_greedy_s_1024x1024_host": greedy_s,
+           "sequences_per_s": rec["sequences_per_s"],
+           "dense_sequences_per_s_bert_train":
+               dense_rec["sequences_per_s"],
+           "valid_tokens_per_s": rec["valid_tokens_per_s"],
+           "loss_first_step": rec["loss_first_step"],
+           "loss_last_window": rec["loss_last_window"],
+           "launches_one_window": counted,
+           "phase_s": time.perf_counter() - t_phase}
+    emit(out)
+    check(out["all_half_dense"], f"asp: a leaf is not half dense: {half}")
+    check(len(sparse) > 0 and all(d[0] == d[1] for d in differ.values())
+          and len(same_leaves) + sum(1 for d in differ.values() if d[0])
+          == len(sparse), f"asp: card masks differ from the CPU's {differ}")
+    check(restored, "asp: the masks changed through a checkpoint")
+    check(none_template.startswith("raised"),
+          "asp: a restore into masks of None did not raise")
+    check(out["m4n2_2d_best_half_dense"], "asp: 2d-best is not half dense")
+    del carry, masters, state, masks, cpu_masks, w, best, greedy
+    torch.cuda.empty_cache()
+    return counted
+
+
+# (mode, source, input width, hidden, layers, steps, batch)
+RNN_CONFIGS = (
+    ("lstm", "Zaremba et al. 2014, the large PTB LSTM: 2 layers of 1500, "
+     "35 steps, batch 20", 1500, 1500, 2, 35, 20),
+    ("gru", "the large PTB LSTM's sizes (Zaremba et al. 2014) through the "
+     "GRU", 1500, 1500, 2, 35, 20),
+    ("mlstm", "Radford et al. 2017, the byte-level mLSTM: 1 layer of 4096 "
+     "over 64-wide byte embeddings, 256 steps, batch 128", 64, 4096, 1, 256,
+     128),
+)
+RNN_PARITY = (16, 4)  # steps, batch of the card-vs-CPU check
+RNN_TOL = ("outputs 1e-4 max abs; gradients of sum(outputs) 1e-4 "
+           "relative L2 per weight and for the input")
+
+
+def _rnn_flops(mode, inp, hidden, layers, t, b) -> float:
+    """Multiply-adds x 2 of the gate products (and the mLSTM's m)."""
+    gates = {"lstm": 4, "gru": 3, "mlstm": 4}[mode] * hidden
+    per = 0
+    for i in range(layers):
+        fan_in = inp if i == 0 else hidden
+        per += fan_in * gates + hidden * gates
+        if mode == "mlstm":
+            per += fan_in * hidden + hidden * hidden
+    return 2.0 * per * t * b
+
+
+def _rnn_grads(model, x):
+    ys, _ = model(x)
+    ps = list(model.parameters())
+    gs = torch.autograd.grad(ys.float().sum(), ps + [x])
+    return ys.detach(), gs
+
+
+def phase_rnn(dev, configs=RNN_CONFIGS, parity=RNN_PARITY, repeats: int = 3):
+    """The RNN stacks at published sizes, fp32 with TF32 off: each
+    against the port on the CPU on its first 16 steps at batch 4 (the
+    same seeded weights; :data:`RNN_TOL`), then forward and forward plus
+    backward timed at full size (host wall around a synchronised run,
+    the device-busy share of one profiled forward and backward; the
+    steps run as a Python loop of eager launches), and the mLSTM once in
+    bf16 against its fp32 run (the gap reported)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    factories = {"lstm": LSTM, "gru": GRU, "mlstm": mLSTM}
+    out = {}
+    for i, (mode, source, inp, hidden, layers, t, b) in enumerate(configs):
+        t_case = time.perf_counter()
+        model = factories[mode](inp, hidden_size=hidden, num_layers=layers,
+                                generator=torch.Generator().manual_seed(40 + i))
+        card = factories[mode](inp, hidden_size=hidden, num_layers=layers)
+        card.load_state_dict(model.state_dict())
+        card.to(dev)
+        pt, pb = parity
+        gen = torch.Generator().manual_seed(45 + i)
+        x = torch.randn(pt, pb, inp, generator=gen)
+        got = _rnn_grads(card, x.to(dev).requires_grad_(True))
+        want = _rnn_grads(model, x.clone().requires_grad_(True))
+        names = [n for n, _ in model.named_parameters()] + ["input"]
+        out_err = _err(got[0].cpu(), want[0])
+        grad_rel = {n: _rel(g.cpu(), w) for n, g, w in zip(names, got[1],
+                                                           want[1])}
+        del model, got, want
+        xs = torch.randn(t, b, inp, device=dev,
+                         generator=torch.Generator(device=dev)
+                         .manual_seed(47 + i))
+        xg = xs.clone().requires_grad_(True)
+
+        def fwd():
+            with torch.no_grad():
+                return card(xs)[0]
+
+        def fwd_bwd():
+            return _rnn_grads(card, xg)
+
+        walls = {}
+        for name, fn in (("fwd", fwd), ("fwd_bwd", fwd_bwd)):
+            fn()
+            torch.cuda.synchronize()
+            ms = []
+            for _ in range(repeats):
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t0) * 1e3)
+            walls[name] = sorted(ms)[len(ms) // 2]
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fwd_bwd()
+            torch.cuda.synchronize()
+            prof_wall = (time.perf_counter() - t0) * 1e3
+        busy = sum(e.time_range.elapsed_us() for e in _kernel_events(prof)
+                   ) / 1e3
+        flops = _rnn_flops(mode, inp, hidden, layers, t, b)
+        rec = {"phase": "rnn", "mode": mode, "source": source,
+               "input": inp, "hidden": hidden, "layers": layers,
+               "steps": t, "batch": b, "dtype": "float32 (TF32 off)",
+               "parity_steps_batch": list(parity), "tol": RNN_TOL,
+               "parity_out_max_abs_err": out_err,
+               "parity_grad_rel_l2": grad_rel,
+               "fwd_ms": walls["fwd"], "fwd_bwd_ms": walls["fwd_bwd"],
+               "fwd_flops": flops,
+               # the products' operations alone at the fp32 peak (the
+               # backward's two products a forward one: 3x)
+               "fwd_ops_ms_at_fp32_peak": flops / FP32_FLOPS * 1e3,
+               "fwd_bwd_ops_ms_at_fp32_peak": 3 * flops / FP32_FLOPS * 1e3,
+               "profiled_fwd_bwd_wall_ms": prof_wall,
+               "device_busy_ms": busy or None,
+               "device_busy_share": busy / prof_wall if busy else None,
+               "sequences_per_s_fwd_bwd": b / walls["fwd_bwd"] * 1e3}
+        if mode == "mlstm":
+            # the same weights in bf16 (compute and outputs; fp32 carries)
+            half = factories[mode](inp, hidden_size=hidden,
+                                   num_layers=layers, dtype=torch.bfloat16)
+            half.load_state_dict(card.state_dict())
+            half.to(dev)
+            with torch.no_grad():
+                ys32 = card(xs)[0]
+                ys16 = half(xs)[0]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with torch.no_grad():
+                half(xs)
+            torch.cuda.synchronize()
+            rec["bf16"] = {"fwd_ms": (time.perf_counter() - t0) * 1e3,
+                           "max_abs_gap_vs_fp32": _err(ys16, ys32),
+                           "rel_l2_gap_vs_fp32": _rel(ys16.float(), ys32),
+                           "finite": bool(torch.isfinite(ys16).all())}
+            del half, ys32, ys16
+        rec["case_s"] = time.perf_counter() - t_case
+        emit(rec)
+        check(out_err <= 1e-4, f"rnn {mode}: outputs differ by {out_err}")
+        check(all(r <= 1e-4 for r in grad_rel.values()),
+              f"rnn {mode}: gradients differ {grad_rel}")
+        check(rec.get("bf16", {"finite": True})["finite"],
+              f"rnn {mode}: non-finite bf16 outputs")
+        out[mode] = rec
+        del card, xs, xg
+        torch.cuda.empty_cache()
+    return out
+
+
 class _Tee:
     """stdout that also writes to a log file."""
 
@@ -6298,10 +6666,13 @@ def _run() -> int:
     bert_params = init_bert_params(BertConfig.large(),
                                    torch.Generator().manual_seed(20))
     phase_bert_parity(bert_params)
-    bert_launches, step, carry = phase_bert_train(dev, bert_params)
+    bert_launches, step, carry, bert_rec = phase_bert_train(dev, bert_params)
     phase_step_profile(step, carry, "bert_profile", "one O2 step, BERT-large "
                        "MLM, batch 12 x 512 padded, dropout 0.1, fused_lamb")
-    del step, carry, bert_params
+    del step, carry
+    torch.cuda.empty_cache()
+    asp_launches = phase_asp(dev, bert_params, bert_rec)
+    del bert_params
     torch.cuda.empty_cache()
 
     phase_conv_bn_tile_check(dev)
@@ -6356,6 +6727,7 @@ def _run() -> int:
     untied_launches = phase_bert_untied(dev)
     phase_dcgan(dev)
     xm_launches = phase_library_modules(dev)
+    phase_rnn(dev)
 
     # the summary rows: the serving kernels at the engine's decode-step
     # shape with the engine run's launches, the GPT training kernels at
@@ -6614,21 +6986,28 @@ def _run() -> int:
                          "window of GPT-2 small, fused_adagrad, K = 4"),
         "xentropy_module_path": (xm_launches, "SoftmaxCrossEntropyLoss at "
                                  "(16384, 50304) bf16, one forward and "
-                                 "backward (library_modules)")}
+                                 "backward (library_modules)"),
+        "asp_path": (asp_launches, "one O2 training window of BERT-large "
+                     "MLM pruned 2:4 by ASP, sparsify(fused_lamb), K = 6 "
+                     "(asp_train)")}
     on_paths = {
         "layer_norm": ("encdec_path", "bert_untied_path", "novograd_path",
-                       "adagrad_path"),
+                       "adagrad_path", "asp_path"),
         "layer_norm_bwd": ("encdec_path", "bert_untied_path",
-                           "novograd_path", "adagrad_path"),
+                           "novograd_path", "adagrad_path", "asp_path"),
         "flash_attention_fwd": ("novograd_path", "adagrad_path"),
         "flash_attention_bwd": ("novograd_path", "adagrad_path"),
-        "flash_attention_fwd_bias": ("encdec_path", "bert_untied_path"),
-        "flash_attention_bwd_bias": ("encdec_path", "bert_untied_path"),
+        "flash_attention_fwd_bias": ("encdec_path", "bert_untied_path",
+                                     "asp_path"),
+        "flash_attention_bwd_bias": ("encdec_path", "bert_untied_path",
+                                     "asp_path"),
         "softmax_xentropy_fwd": ("bert_untied_path", "novograd_path",
-                                 "adagrad_path", "xentropy_module_path"),
+                                 "adagrad_path", "xentropy_module_path",
+                                 "asp_path"),
         "softmax_xentropy_bwd": ("bert_untied_path", "novograd_path",
-                                 "adagrad_path", "xentropy_module_path"),
-        "lamb_stage1": ("bert_untied_path",)}
+                                 "adagrad_path", "xentropy_module_path",
+                                 "asp_path"),
+        "lamb_stage1": ("bert_untied_path", "asp_path")}
     counter_of = {r["name"]: r["launches_of"].split(",")[0] for r in rows}
     for name, names in on_paths.items():
         for p in names:
