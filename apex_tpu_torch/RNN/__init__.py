@@ -11,7 +11,13 @@ from apex_tpu_torch.RNN.backend import (  # noqa: F401
     RNNCell,
     StackedRNN,
 )
-from apex_tpu_torch.RNN.models import GRU, LSTM, ReLU, Tanh, mLSTM  # noqa: F401
+from apex_tpu_torch.RNN.models import (  # noqa: F401
+    GRU,
+    LSTM,
+    ReLU,
+    Tanh,
+    mLSTM,
+)
 
 __all__ = ["BidirectionalRNN", "GRU", "LSTM", "RNNCell", "ReLU",
            "StackedRNN", "Tanh", "mLSTM"]

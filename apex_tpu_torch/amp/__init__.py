@@ -285,8 +285,8 @@ class AmpOptimizer:
       gets ``found_inf`` for its own gate here, because it (or the
       transform it wraps) updates state in place (``fused_lamb``'s m and
       v): a gate applied after such an update would choose between two
-      names for one tensor.  Any other transform must return new state tensors, which
-      :func:`apply_if_finite` gates.
+      names for one tensor.  Any other transform must return new state
+      tensors, which :func:`apply_if_finite` gates.
 
     Either way the masters are updated in place, the scaler is updated,
     and nothing is read on the host.  ``track_grad_norm`` adds the

@@ -13,6 +13,8 @@ from apex_tpu_torch.contrib.sparsity.asp import (  # noqa: F401
     SparsityState,
     sparsify,
 )
-from apex_tpu_torch.contrib.sparsity.sparse_masklib import create_mask  # noqa: F401
+from apex_tpu_torch.contrib.sparsity.sparse_masklib import (  # noqa: F401
+    create_mask,
+)
 
 __all__ = ["ASP", "SparsityState", "create_mask", "sparsify"]

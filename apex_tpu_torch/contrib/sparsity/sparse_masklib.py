@@ -39,7 +39,8 @@ __all__ = ["compute_valid_1d_patterns", "compute_valid_2d_patterns",
 
 @lru_cache(maxsize=None)
 def compute_valid_1d_patterns(m: int, n: int) -> np.ndarray:
-    """All binary m-vectors with exactly n ones.  ref sparse_masklib.py:25-34."""
+    """All binary m-vectors with exactly n ones.  ref
+    sparse_masklib.py:25-34."""
     base = [1.0] * n + [0.0] * (m - n)
     pats = sorted(set(permutations(base)))
     return np.asarray(pats, dtype=np.float32)
@@ -62,7 +63,8 @@ def compute_valid_2d_patterns(m: int, n: int) -> np.ndarray:
 
 
 def _pad_cols(mat: torch.Tensor, m: int) -> torch.Tensor:
-    """Zero-pad the last axis to a multiple of m.  ref sparse_masklib.py:13-21."""
+    """Zero-pad the last axis to a multiple of m.  ref
+    sparse_masklib.py:13-21."""
     rem = mat.shape[-1] % m
     return F.pad(mat, (0, m - rem)) if rem else mat
 

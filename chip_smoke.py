@@ -6280,7 +6280,7 @@ def phase_library_modules(dev, batch: int = 1024,
     return xe_counts
 
 
-# -- phase 16: the rest of the library, part 2: ASP sparsity and the RNNs ------
+# -- phase 16: the rest of the library, part 2: ASP sparsity and the RNNs ----
 
 C1_SHAPE = (50257, 768)  # GPT-2's word table
 
@@ -6333,14 +6333,14 @@ def phase_asp(dev, params, dense_rec, b: int = 12, s: int = 512, k: int = 6,
     K = 6 window (:func:`phase_bert_train` with ``sparse``: exact
     launches, every pruned position exactly 0 in the masters and the
     bf16 model, a planted overflow skipped with the masks unchanged)
-    and one profiled step.  Then: every sparse leaf exactly half dense; the card's m4n2_1d masks
-    against the CPU's, leaf by leaf (a differing group counted apart
-    when its two best scores are within 4 fp32 ulps); a checkpoint round
-    trip of the masks bit for bit, and a restore into masks of ``None``
-    raising; ``m4n2_2d_best`` on the card and the host's
-    ``m4n2_2d_greedy`` timed on one (1024, 1024) leaf; sequences/s
-    beside ``bert_train``'s dense window of the same run (reported, not
-    gated)."""
+    and one profiled step.  Then: every sparse leaf exactly half dense;
+    the card's m4n2_1d masks against the CPU's, leaf by leaf (a
+    differing group counted apart when its two best scores are within 4
+    fp32 ulps); a checkpoint round trip of the masks bit for bit, and a
+    restore into masks of ``None`` raising; ``m4n2_2d_best`` on the card
+    and the host's ``m4n2_2d_greedy`` timed on one (1024, 1024) leaf;
+    sequences/s beside ``bert_train``'s dense window of the same run
+    (reported, not gated)."""
     t_phase = time.perf_counter()
     phase_l2norm_card(dev)
     counted, step, carry, rec = phase_bert_train(
@@ -6487,7 +6487,8 @@ def phase_rnn(dev, configs=RNN_CONFIGS, parity=RNN_PARITY, repeats: int = 3):
     for i, (mode, source, inp, hidden, layers, t, b) in enumerate(configs):
         t_case = time.perf_counter()
         model = factories[mode](inp, hidden_size=hidden, num_layers=layers,
-                                generator=torch.Generator().manual_seed(40 + i))
+                                generator=torch.Generator()
+                                .manual_seed(40 + i))
         card = factories[mode](inp, hidden_size=hidden, num_layers=layers)
         card.load_state_dict(model.state_dict())
         card.to(dev)

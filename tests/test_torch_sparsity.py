@@ -13,10 +13,11 @@ same numpy-seeded weights:
   deny regexes on the layer path) on the reference's MLP tree and on
   GPT and BERT tiny, the JAX paths mapped to the port's names by
   ``weights.py``'s rules, with the masks bit for bit;
-- ``sparsify(fused_adam)`` and ``sparsify(fused_lamb)``: five updates
-  within 1e-6 (relative L2) of JAX's, pruned weights exactly 0; the
-  same through ``AmpOptimizer`` (O2, the unfused route), where a planted
-  overflow leaves the masters, the moments and the masks bit for bit;
+- ``sparsify`` over ``fused_adam``, ``fused_lamb`` and LARC over
+  ``fused_sgd``: five updates within 1e-6 (relative L2) of JAX's, pruned
+  weights exactly 0; the same through ``AmpOptimizer`` (O2, the unfused
+  route), where a planted overflow leaves the masters, the optimizer
+  state and the masks bit for bit;
 - the restore stash, disabled by default, ``is_sparsity_enabled``'s
   three outcomes;
 - the checkpoint round trip: masks bit for bit into an enabled
@@ -38,16 +39,25 @@ from apex_tpu.models.gpt import GPTConfig as JaxGPTConfig
 from apex_tpu.models.gpt import GPTLM as JaxGPTLM
 from apex_tpu.optimizers import fused_adam as jax_adam
 from apex_tpu.optimizers import fused_lamb as jax_lamb
+from apex_tpu.optimizers import fused_sgd as jax_sgd
+from apex_tpu.optimizers import larc as jax_larc
 from apex_tpu_torch import amp, checkpoint
 from apex_tpu_torch.contrib.sparsity import ASP, SparsityState, sparsify
 from apex_tpu_torch.contrib.sparsity import sparse_masklib as tml
-from apex_tpu_torch.optimizers import fused_adam, fused_lamb
+from apex_tpu_torch.multi_tensor import tree_leaves
+from apex_tpu_torch.optimizers import fused_adam, fused_lamb, fused_sgd, larc
 from apex_tpu_torch.weights import from_jax_bert_params, from_jax_params
 
+# the AMP-fused transforms gate themselves under sparsify; LARC over SGD
+# is a plain transform, which sparsify gates
 OPTIMIZERS = {
     "fused_adam": (lambda: jax_adam(1e-2), lambda: fused_adam(1e-2)),
     "fused_lamb": (lambda: jax_lamb(1e-2, weight_decay=0.01),
                    lambda: fused_lamb(1e-2, weight_decay=0.01)),
+    "larc_sgd": (lambda: jax_larc(jax_sgd(0.1, momentum=0.9),
+                                  learning_rate=0.1),
+                 lambda: larc(fused_sgd(0.1, momentum=0.9),
+                              learning_rate=0.1)),
 }
 
 
@@ -315,13 +325,23 @@ def test_sparsify_updates_match_jax(name, rng):
     assert (tp["dense1.bias"] != 0).any()
 
 
+def _state_leaves(state):
+    """Every tensor of an optimizer state (NamedTuples of tensors and
+    dicts), in a fixed order."""
+    if isinstance(state, torch.Tensor):
+        return [state]
+    parts = tree_leaves(state) if isinstance(state, dict) else list(state)
+    return [t for part in parts for t in _state_leaves(part)]
+
+
 @pytest.mark.parametrize("name", list(OPTIMIZERS))
 def test_sparsify_through_amp_unfused_route(name, rng):
     """O2 ``AmpOptimizer`` over ``sparsify(tx)``: a plain transform, so
     both packages take the unfused route; five steps against JAX, the
     third with an inf in a pruned position of a sparse leaf's grads,
     which must leave the masters, the inner state and the masks bit for
-    bit."""
+    bit (the fused transforms gate themselves, LARC's state is gated by
+    ``sparsify``)."""
     jtx, ttx = OPTIMIZERS[name]
     jparams = _mlp_params(rng)
     jp, jwrapped, jstate = JaxASP().prune_trained_model(jparams, jtx())
@@ -341,9 +361,8 @@ def test_sparsify_through_amp_unfused_route(name, rng):
         if plant:
             g["dense1.kernel"][pruned_at] = np.inf
             before = {k: v.clone() for k, v in tp.items()}
-            inner = ts.opt_state.inner
-            m_before = {k: v.clone() for k, v in inner.m.items()}
-            v_before = {k: v.clone() for k, v in inner.v.items()}
+            inner_before = [t.clone() for t in _state_leaves(
+                ts.opt_state.inner)]
         jg = {k1: {k2: jnp.asarray(g[f"{k1}.{k2}"]).astype(jnp.bfloat16)
                    for k2 in sub} for k1, sub in jp.items()}
         tg = {k: _t(v).to(torch.bfloat16) for k, v in g.items()}
@@ -353,10 +372,10 @@ def test_sparsify_through_amp_unfused_route(name, rng):
         assert float(ts.scaler[0].loss_scale) == float(js.scaler[0].loss_scale)
         assert ts.opt_state.masks is masks
         if plant:
-            inner = ts.opt_state.inner
             assert all(torch.equal(tp[k], before[k]) for k in tp)
-            assert all(torch.equal(inner.m[k], m_before[k]) for k in m_before)
-            assert all(torch.equal(inner.v[k], v_before[k]) for k in v_before)
+            after = _state_leaves(ts.opt_state.inner)
+            assert len(after) == len(inner_before)
+            assert all(torch.equal(a, b) for a, b in zip(after, inner_before))
         assert int(ts.opt_state.inner.step) == int(js.opt_state.inner.step)
         want = _flat(jp)
         for k in tp:
@@ -371,7 +390,8 @@ def test_allow_recompute_restore(rng):
     asp = ASP(allow_recompute_mask=True)
     masks, pruned = asp.compute_sparse_masks(params)
     sparse = asp.apply_masks(params, masks)
-    assert pruned["dense1.kernel"] is not None and pruned["dense1.bias"] is None
+    assert pruned["dense1.kernel"] is not None
+    assert pruned["dense1.bias"] is None
     dense = asp.restore_pruned_weights(sparse, pruned)
     assert all(torch.equal(dense[k], params[k]) for k in params)
     again, _ = asp.compute_sparse_masks(sparse, pruned)
