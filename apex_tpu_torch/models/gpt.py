@@ -117,12 +117,21 @@ class GPTConfig:
 
 
 class GPTLayer(nn.Module):
-    """Pre-LN decoder block: x + attn(LN(x)); x + mlp(LN(x))."""
+    """Pre-LN decoder block: x + attn(LN(x)); x + mlp(LN(x)).
 
-    def __init__(self, cfg: GPTConfig):
+    ``attention_fn(q, k, v, *, dropout_rate, dropout_seed) -> out`` (q, k,
+    v and out (B, H, S, D)) replaces the causal flash attention of the
+    training branch, as JAX's ``GPTLayer(attention_fn=)`` does: a
+    sequence-parallel attention (``parallel.ring_attention``,
+    ``parallel.ulysses_attention``) over sequence shards.  It owns its
+    kernel options: the config's ``probs_bf16`` and ``dq_acc`` apply to
+    the built-in attention only."""
+
+    def __init__(self, cfg: GPTConfig, attention_fn=None):
         super().__init__()
         h, dt = cfg.hidden_size, cfg.compute_dtype
         self.cfg = cfg
+        self.attention_fn = attention_fn
         self.ln1 = FusedLayerNorm(h)
         self.qkv = Dense(h, 3 * h, dtype=dt)
         self.proj = Dense(h, h, dtype=dt)
@@ -146,10 +155,15 @@ class GPTLayer(nn.Module):
         seed = None
         if drop_attn:
             seed = attention_seed(generator, x.device)
-        attn = _attn.flash_attention(
-            split(q), split(k), split(v), causal=True,
-            dropout_rate=cfg.attn_dropout_rate if drop_attn else 0.0,
-            dropout_seed=seed, probs_bf16=cfg.probs_bf16, dq_acc=cfg.dq_acc)
+        rate = cfg.attn_dropout_rate if drop_attn else 0.0
+        if self.attention_fn is None:
+            attn = _attn.flash_attention(
+                split(q), split(k), split(v), causal=True,
+                dropout_rate=rate, dropout_seed=seed,
+                probs_bf16=cfg.probs_bf16, dq_acc=cfg.dq_acc)
+        else:
+            attn = self.attention_fn(split(q), split(k), split(v),
+                                     dropout_rate=rate, dropout_seed=seed)
         attn = self.proj(attn.transpose(1, 2).reshape(b, s, h))
         if not deterministic:
             attn = dropout(attn, cfg.dropout_rate, generator)

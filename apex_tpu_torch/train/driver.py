@@ -28,20 +28,40 @@ A data-parallel window runs one driver per process: each rank's driver
 steps its own replica of the carry on its own shard of the batch, and
 ``step_fn`` makes the collectives (``ddp.allreduce`` of the gradients,
 or ``amp_microbatch_step(ddp=)``'s one all-reduce a boundary; the
-SyncBatchNorms' own).  Not ported yet: the ``mesh``/``carry_spec`` SPMD
-modes (one program over a mesh, with sharded carries: ROADMAP item 6),
-CUDA graphs around the window, and the obs spans and flight-recorder
-events around save and restore.
+SyncBatchNorms' own).
+
+With a ``mesh`` (:func:`apex_tpu_torch.parallel.make_mesh`) the driver
+plays JAX's ``shard_map`` around the window, still one driver per rank:
+a batched window holds the global batch on every rank, and each rank
+steps on its block of it by ``batch_spec`` (a
+:class:`~apex_tpu_torch.parallel.mesh.P` or a tree of them over the
+per-step batch; default ``P(axis_name)``, the leading dimension split
+over ``axis_name``).  ``carry_spec`` (a tree of ``P``, a prefix of the
+carry; default all replicated) marks the carry leaves that are
+rank-local shards, as ZeRO's and FSDP's state are
+(``accum.zero_state_spec``, ``fsdp_param_spec``, ``fsdp_state_spec``):
+:meth:`FusedTrainDriver.save` and :meth:`~FusedTrainDriver.restore`
+then keep each rank's carry in a directory of its own
+(``<path>/process_<rank>``), since no rank holds the whole state.  The
+metrics are the step's own on each rank (the steps of this package
+return the same loss, scale and skip flag on every rank).  A rules table
+(``sharding/rules.py``) as ``carry_spec`` is not ported yet (ROADMAP
+item 6, part 2), nor are CUDA graphs around the window and the obs spans
+and flight-recorder events around save and restore.
 """
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import (Any, Callable, Dict, Iterable, Mapping, NamedTuple,
                     Optional, Sequence, Tuple)
 
 import torch
 
+import torch.distributed as dist
+
 from apex_tpu_torch import checkpoint
+from apex_tpu_torch.parallel.mesh import Mesh, P
 from apex_tpu_torch.train.accum import MicrobatchedStep, _index, build_opt_step
 
 __all__ = ["DEFAULT_STEPS_PER_DISPATCH", "FusedTrainDriver", "WindowResult",
@@ -121,6 +141,10 @@ class FusedTrainDriver:
       steps_per_dispatch: K (None: :data:`DEFAULT_STEPS_PER_DISPATCH`).
       metrics: ``{name: reduction}``; undeclared names are ``mean``.
       per_step: names also returned as (K,) traces.
+      mesh / axis_name / batch_spec / carry_spec: the mesh mode (see the
+        module docstring): ``batch_spec`` splits each rank's block out of
+        the global batch, ``carry_spec`` marks the rank-local carry
+        leaves.
     """
 
     # Callable[(carry, batch) -> (carry, metrics)] | MicrobatchedStep
@@ -128,8 +152,17 @@ class FusedTrainDriver:
     steps_per_dispatch: Optional[int] = None
     metrics: Optional[Mapping[str, str]] = None
     per_step: Sequence[str] = ()
+    mesh: Optional[Mesh] = None
+    axis_name: str = "data"
+    batch_spec: Any = None
+    carry_spec: Any = None
 
     def __post_init__(self):
+        _check_spec(self.carry_spec, "carry_spec")
+        _check_spec(self.batch_spec, "batch_spec")
+        if self.mesh is None and (self.batch_spec is not None
+                                  or self.carry_spec is not None):
+            raise ValueError("batch_spec and carry_spec need a mesh")
         if self.steps_per_dispatch is None:
             self.steps_per_dispatch = DEFAULT_STEPS_PER_DISPATCH
         if self.steps_per_dispatch < 1:
@@ -170,7 +203,12 @@ class FusedTrainDriver:
         None for ``steps_per_dispatch`` steps on closure-captured data."""
         if batches is None:
             return self._window(carry, self.steps_per_dispatch, None)
-        return self._window(carry, self._steps(batches), batches)
+        k = self._steps(batches)
+        if self.mesh is not None:
+            spec = (P(self.axis_name) if self.batch_spec is None
+                    else self.batch_spec)
+            batches = _local(batches, spec, self.mesh.coords, self.mesh)
+        return self._window(carry, k, batches)
 
     def _window(self, carry, k: int, batches):
         declared = dict(self.metrics or {})
@@ -219,8 +257,9 @@ class FusedTrainDriver:
             if steps is not None:
                 raise ValueError("pass either windows or steps, not both")
             for w in windows:
+                steps = self._steps(w)
                 carry, res = self.run_window(carry, w)
-                done += self._steps(w)
+                done += steps
                 if on_window is not None:
                     on_window(done, res)
             return carry, done
@@ -236,11 +275,21 @@ class FusedTrainDriver:
 
     # -- checkpointing (window-boundary resume) -------------------------
 
+    def _ckpt_path(self, path: str) -> str:
+        """Each rank's own directory when the carry has rank-local
+        leaves, else ``path``."""
+        if _sharded(self.carry_spec):
+            return os.path.join(path, f"process_{dist.get_rank()}")
+        return path
+
     def save(self, path: str, carry: Any, step: int, **kw) -> str:
         """Save the carry at a window boundary under ``path/<step>``
-        (:func:`apex_tpu_torch.checkpoint.save_checkpoint`, whose keyword
-        arguments ``kw`` takes); returns the step's directory."""
-        return checkpoint.save_checkpoint(path, carry, step, **kw)
+        (``path/process_<rank>/<step>`` when ``carry_spec`` marks
+        rank-local leaves) through
+        :func:`apex_tpu_torch.checkpoint.save_checkpoint`, whose keyword
+        arguments ``kw`` takes; returns the step's directory."""
+        return checkpoint.save_checkpoint(self._ckpt_path(path), carry, step,
+                                          **kw)
 
     def restore(self, path: str, carry_template: Any,
                 step: Optional[int] = None) -> Tuple[Any, int]:
@@ -248,4 +297,76 @@ class FusedTrainDriver:
         structure and devices; returns ``(carry, step)``.  Under O2, call
         ``AmpOptimizer.copy_to_model(model, masters)`` before the first
         step of the resumed run."""
-        return checkpoint.restore_checkpoint(path, carry_template, step)
+        return checkpoint.restore_checkpoint(self._ckpt_path(path),
+                                             carry_template, step)
+
+
+def _is_spec_tree(spec: Any) -> bool:
+    if spec is None or isinstance(spec, P):
+        return True
+    if isinstance(spec, Mapping):
+        return all(_is_spec_tree(v) for v in spec.values())
+    if isinstance(spec, (list, tuple)):
+        return all(_is_spec_tree(v) for v in spec)
+    return False
+
+
+def _check_spec(spec: Any, what: str) -> None:
+    """A tree of ``P`` (None: replicated) passes; a rules table raises
+    ``NotImplementedError``, anything else ``TypeError``."""
+    if _is_spec_tree(spec):
+        return
+    if type(spec).__name__ == "RulesTable":
+        raise NotImplementedError(
+            f"{what}: a RulesTable (sharding/rules.py) is not ported yet: "
+            f"ROADMAP item 6, part 2; pass a tree of P")
+    raise TypeError(f"{what} must be a tree of P (tuples, lists, dicts, "
+                    f"NamedTuples), got {type(spec).__name__}")
+
+
+def _sharded(spec: Any) -> bool:
+    """Whether any leaf of the spec tree is sharded over some axis."""
+    if spec is None:
+        return False
+    if isinstance(spec, P):
+        return any(d is not None for d in spec.dims)
+    vals = spec.values() if isinstance(spec, Mapping) else spec
+    return any(_sharded(v) for v in vals)
+
+
+def _block(t, spec: P, coords: Mapping[str, int], mesh: Mesh):
+    """This rank's block of a window leaf ``t`` (window axis first) by
+    ``spec`` over the per-step dimensions."""
+    for dim, axes in enumerate(spec.dims, start=1):
+        if axes is None:
+            continue
+        axes = (axes,) if isinstance(axes, str) else tuple(axes)
+        n, i = 1, 0
+        for a in axes:  # row-major over the named axes
+            size = mesh.shape[mesh.axis_names.index(a)]
+            n, i = n * size, i * size + coords[a]
+        if t.shape[dim] % n:
+            raise ValueError(f"batch dimension {dim - 1} of "
+                             f"{tuple(t.shape[1:])} does not divide into "
+                             f"{n} blocks over {axes}")
+        size = t.shape[dim] // n
+        t = t.narrow(dim, i * size, size)
+    return t
+
+
+def _local(batches: Any, spec: Any, coords, mesh: Mesh) -> Any:
+    """The window with every leaf cut to this rank's block; a single
+    ``P`` applies to every leaf."""
+    if isinstance(spec, P) or spec is None:
+        spec = P() if spec is None else spec
+        if isinstance(batches, torch.Tensor):
+            return _block(batches, spec, coords, mesh)
+        if isinstance(batches, Mapping):
+            return {k: _local(v, spec, coords, mesh)
+                    for k, v in batches.items()}
+        return type(batches)(_local(v, spec, coords, mesh) for v in batches)
+    if isinstance(batches, Mapping):
+        return {k: _local(batches[k], spec[k], coords, mesh)
+                for k in batches}
+    return type(batches)(_local(b, s, coords, mesh)
+                         for b, s in zip(batches, spec))

@@ -19,7 +19,12 @@ raises, so nothing is silently dropped.  :func:`from_jax_opt_state` maps
 an ``AmpOptState`` over any of these trees (FusedAdam's or FusedLAMB's
 step, m and v, FusedSGD's step and momentum buffers, and each loss
 scaler's state) to the port's, so both packages can also continue
-training from the same optimizer state.
+training from the same optimizer state, sharded or not.  For tensor and
+pipeline parallelism, :func:`from_jax_tp_params` gives a rank its local
+shards of a JAX ``Stage`` tree (the partition-major fused QKV included;
+a stage of a stacked tree), :func:`tp_shard_params` the same from the
+port's own full weights, and :func:`qkv_partition_major` /
+:func:`qkv_natural` convert the fused QKV's column order.
 """
 from __future__ import annotations
 
@@ -35,7 +40,9 @@ from apex_tpu_torch.optimizers import (FusedAdamState, FusedLAMBState,
 
 __all__ = ["from_jax_bert_params", "from_jax_dcgan_params",
            "from_jax_opt_state", "from_jax_params", "from_jax_resnet_params",
-           "from_jax_rnn_params", "to_jax_bert_params"]
+           "from_jax_rnn_params", "from_jax_tp_params", "jax_leaf_order",
+           "qkv_natural", "qkv_partition_major", "tp_shard_params",
+           "to_jax_bert_params"]
 
 _DENSE = ("qkv", "proj", "ffn_in", "ffn_out")
 _MHA = ("in_proj_weight", "in_proj_bias", "q_weight", "k_weight",
@@ -293,15 +300,88 @@ def from_jax_rnn_params(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     return out
 
 
-def from_jax_opt_state(state: Any, device=None):
+def _scalers(state, dev):
+    return tuple(LossScalerState(
+        loss_scale=torch.tensor(float(np.asarray(s.loss_scale)),
+                                dtype=torch.float32, device=dev),
+        unskipped=torch.tensor(int(np.asarray(s.unskipped)),
+                               dtype=torch.int32, device=dev),
+        overflows=torch.tensor(int(np.asarray(s.overflows)),
+                               dtype=torch.int32, device=dev))
+        for s in state.scaler)
+
+
+def _sharded_opt_state(state: Any, dev, rank: Optional[int],
+                       world: Optional[int]):
+    """JAX ``ShardedOptState``, ``ZeroAmpState`` or ``FsdpAmpState``
+    (flat shards as one global array, or this rank's) -> the port's, with
+    rank ``rank`` of ``world``'s slice of each flat shard."""
+    from apex_tpu_torch.contrib.optimizers import ShardedOptState
+    from apex_tpu_torch.train.accum import (FsdpAmpState, FsdpOptState,
+                                            ZeroAmpState)
+
+    def shard(x):
+        a = np.asarray(x, np.float32).reshape(-1)
+        if rank is not None:
+            n = a.size // world
+            a = a[rank * n:(rank + 1) * n]
+        return torch.from_numpy(a.copy()).to(dev)
+
+    kind = type(state).__name__
+    if kind == "ShardedOptState":
+        return ShardedOptState(
+            torch.tensor(int(np.asarray(state.step)), dtype=torch.int32,
+                         device=dev),
+            shard(state.master_shard), shard(state.m_shard),
+            shard(state.v_shard))
+    inner = state.opt_state
+    if kind == "ZeroAmpState":
+        return ZeroAmpState(_sharded_opt_state(inner, dev, rank, world),
+                            _scalers(state, dev))
+    return FsdpAmpState(
+        FsdpOptState(torch.tensor(int(np.asarray(inner.step)),
+                                  dtype=torch.int32, device=dev),
+                     shard(inner.m_shard), shard(inner.v_shard)),
+        _scalers(state, dev))
+
+
+def jax_leaf_order(tree: Mapping[str, Any], mapping=None) -> list:
+    """The port's names of ``mapping(tree)`` (None:
+    :func:`from_jax_params`) in the JAX leaf order of ``tree`` (dict keys
+    sorted, depth first), which is the flat order of JAX's
+    ``ShardedOptState``: a ZeRO carry taken over from JAX needs its
+    ``make_spec`` over a parameter dict in this order."""
+    counter = iter(range(1 << 30))
+
+    def tag(t):
+        if isinstance(t, Mapping):
+            return {k: tag(t[k]) for k in sorted(t)}
+        return np.full(np.shape(t), next(counter), np.float32)
+
+    mapped = (mapping or from_jax_params)(tag(tree))
+    return sorted(mapped, key=lambda k: float(mapped[k].reshape(-1)[0]))
+
+
+def from_jax_opt_state(state: Any, device=None, *, rank: Optional[int] = None,
+                       world: Optional[int] = None):
     """JAX ``AmpOptState(FusedAdamState | FusedLAMBState (step, m, v) |
     FusedSGDState (step, momentum_buf), scalers, stash)`` over a
     ``GPTLM``, ``BertForMLM`` or ``ResNet`` params tree -> the port's
     :class:`apex_tpu_torch.amp.AmpOptState` on ``device`` (None: the CUDA
     device), the per-parameter tensors (the stash's too) keyed like
     :func:`from_jax_params`, :func:`from_jax_bert_params` or
-    :func:`from_jax_resnet_params`."""
+    :func:`from_jax_resnet_params`.
+
+    The sharded states too: ``ShardedOptState`` (of
+    ``DistributedFusedAdam``/``LAMB``), ``ZeroAmpState`` and
+    ``FsdpAmpState`` map to the port's classes of those names; given the
+    global arrays ``shard_map`` returns, ``rank`` and ``world`` pick this
+    rank's slice of each flat shard.  The flat order is JAX's leaf order
+    (:func:`jax_leaf_order`)."""
     dev = resolve_device(device)
+    if type(state).__name__ in ("ShardedOptState", "ZeroAmpState",
+                                "FsdpAmpState"):
+        return _sharded_opt_state(state, dev, rank, world)
     inner = state.opt_state
     kinds = {"FusedAdamState": FusedAdamState,
              "FusedLAMBState": FusedLAMBState,
@@ -330,9 +410,87 @@ def from_jax_opt_state(state: Any, device=None):
         opt_state = kind(step=step, m=moments(inner.m), v=moments(inner.v))
     return AmpOptState(
         opt_state=opt_state,
-        scaler=tuple(LossScalerState(
-            loss_scale=scalar(s.loss_scale, torch.float32),
-            unskipped=scalar(s.unskipped, torch.int32),
-            overflows=scalar(s.overflows, torch.int32))
-            for s in state.scaler),
+        scaler=_scalers(state, dev),
         stash=None if state.stash is None else moments(state.stash))
+
+
+# -- tensor-parallel shards, pipeline stages and the sharded optimizer states --
+
+#: a tensor-parallel Stage's column-parallel and row-parallel layers
+#: (``examples/transformer_parallel``): column kernels and biases split on
+#: their last dimension, row kernels on their first; everything else,
+#: the row biases included, is replicated
+_TP_COLUMN = ("attn.qkv", "mlp.wi")
+_TP_ROW = ("attn.proj", "mlp.wo")
+_TP_STAGE = {"ln1": ("scale", "bias"), "ln2": ("scale", "bias"),
+             "attn": ("qkv", "proj"), "mlp": ("wi", "wo")}
+
+
+def qkv_partition_major(w: torch.Tensor, n: int) -> torch.Tensor:
+    """A fused QKV kernel (in, 3 H hd) or bias (3 H hd,) with columns in
+    the natural (3, H, hd) order, reordered partition-major, (n, 3,
+    H / n, hd): the order in which n tensor-parallel ranks' local
+    (3, h_local, hd) columns concatenate."""
+    lead = w.shape[:-1]
+    return (w.reshape(*lead, 3, n, -1).transpose(-3, -2)
+            .reshape(*lead, -1).contiguous())
+
+
+def qkv_natural(w: torch.Tensor, n: int) -> torch.Tensor:
+    """The inverse of :func:`qkv_partition_major`."""
+    lead = w.shape[:-1]
+    return (w.reshape(*lead, n, 3, -1).transpose(-3, -2)
+            .reshape(*lead, -1).contiguous())
+
+
+def _tp_split(name: str, t: torch.Tensor, rank: int, n: int) -> torch.Tensor:
+    if any(f"{c}." in name for c in _TP_COLUMN):
+        size = t.shape[-1] // n
+        return t[..., rank * size:(rank + 1) * size].clone()
+    if any(f"{r}.kernel" in name for r in _TP_ROW):
+        size = t.shape[0] // n
+        return t[rank * size:(rank + 1) * size].clone()
+    return t.clone()
+
+
+def tp_shard_params(full: Mapping[str, torch.Tensor], rank: int, n: int
+                    ) -> Dict[str, torch.Tensor]:
+    """Rank ``rank`` of ``n``'s local state dict of a tensor-parallel
+    stage from its full weights, the fused QKV in the natural (3, H, hd)
+    column order (:func:`qkv_partition_major` first, then the split)."""
+    out = {}
+    for name, t in full.items():
+        if ".qkv." in name:
+            t = qkv_partition_major(t, n)
+        out[name] = _tp_split(name, t, rank, n)
+    return out
+
+
+def from_jax_tp_params(tree: Mapping[str, Any], rank: int, n: int, *,
+                       stage: Optional[int] = None, prefix: str = "0"
+                       ) -> Dict[str, torch.Tensor]:
+    """A JAX tensor-parallel ``Stage`` tree (``ln1``, ``attn/{qkv,proj}``,
+    ``ln2``, ``mlp/{wi,wo}``) holding FULL weights, as ``shard_map``'s
+    ``out_specs`` gathers the ranks' local ones (the QKV partition-major
+    already), -> rank ``rank`` of ``n``'s local state dict of the port's
+    block ``prefix``: ``split_column``/``split_row`` of the full tree.
+    ``stage`` picks one stage of a tree stacked by
+    ``stack_stage_params`` (leading stage axis)."""
+    _check_keys(tree, tuple(_TP_STAGE), "tp stage: ")
+    out = {}
+    for mod, subs in _TP_STAGE.items():
+        for sub in subs:
+            if mod.startswith("ln"):
+                leaves = {("weight" if sub == "scale" else "bias"):
+                          tree[mod][sub]}
+                base = f"{prefix}.{mod}"
+            else:
+                _check_keys(tree[mod][sub], ("kernel", "bias"),
+                            f"{mod}/{sub}: ")
+                leaves = tree[mod][sub]
+                base = f"{prefix}.{mod}.{sub}"
+            for leaf, x in leaves.items():
+                t = _t(x if stage is None else np.asarray(x)[stage])
+                name = f"{base}.{leaf}"
+                out[name] = _tp_split(name, t, rank, n)
+    return out

@@ -220,7 +220,29 @@ line) on any failed check:
     ``rnn`` (the LSTM and GRU at the large PTB model's sizes and the
     byte-level mLSTM, fp32: card against CPU on 16 steps at batch 4,
     forward and backward timed at full size with the device-busy share,
-    the mLSTM once in bf16 against its fp32 run).
+    the mLSTM once in bf16 against its fp32 run);
+17. scale-out: ``sp_world1`` (NCCL at world 1: ring and Ulysses attention
+    on a mesh of one rank bit for bit ``flash_attention``, forward and
+    gradients, at 12 heads x 2048 positions bf16 with dropout; one ZeRO
+    and one FSDP boundary of the long-context recipe within 1e-5 relative
+    L2 of ``amp_microbatch_step(fused_adam)``'s master movement; exact
+    collectives), ``long_context_gang`` (four gloo processes on the one
+    card, a (data 2, seq 2) mesh: ring and Ulysses attention at the
+    model's attention shape against the unsharded kernels, every ring
+    block's dropout mask bit for bit the unsharded one's, the first layer
+    on the kernels against their plain versions; then
+    ``examples/gpt_long_context`` at GPT-2 small's width, 12 layers,
+    S 4096, M = 2, ``dots_saveable``, ZeRO, two O2 steps against the same
+    model on one rank over the whole sequence and batch, beside that
+    run's floor on the kernels' plain versions; exact launches, r + 1
+    flash blocks a layer on seq rank r, and collectives; each rank's step
+    wall and busy share; planted: a wrong column offset, the causal mask
+    off the diagonal, a dead rank) and ``tp_pipeline_gang`` (four gloo
+    processes, a (pipe 2, model 2) mesh: ``examples/transformer_parallel``
+    at GPT-2 small's width, 12 blocks as two stages of 6, S 1024, M = 4
+    of 2, two O2 steps against the unsharded model on one rank with the
+    merged weights; exact launches and collectives; planted: a
+    row-parallel backward without its cotangent sum).
 
 Then the ``nvidia-smi`` line, the ``{"kernels": [...]}`` summary and, as
 the last line, ``{"ok": true, "device": {...}}``.  Without a CUDA
@@ -6582,6 +6604,846 @@ def phase_rnn(dev, configs=RNN_CONFIGS, parity=RNN_PARITY, repeats: int = 3):
     return out
 
 
+# -- phase 17: scale-out (meshes, sequence, tensor and pipeline parallelism) --
+
+#: the long-context gang: GPT-2 small's width, 12 GPTLayers, a (data 2,
+#: seq 2) mesh of gloo ranks on the one card, global S 4096 (2048 a
+#: rank), batch 1 a data rank, O2, attention dropout, dots_saveable, M = 2
+#: microbatches, 2 steps of DistributedFusedAdam
+LC = dict(layers=12, hidden=768, heads=12, data=2, seq=2, s_local=2048,
+          b_local=1, m=2, steps=2, rate=0.1, remat="dots_saveable")
+#: the tensor/pipeline gang: transformer_parallel at GPT-2 small's width
+#: (12 heads: 6 a rank; MLP 3072: 1536 a rank), 12 blocks as 2 stages of
+#: 6 on a (pipe 2, model 2) mesh, S 1024, M = 4 microbatches of 2, 2 steps
+TPP = dict(pipe=2, model=2, blocks=6, d_model=768, d_ff=3072, heads=12,
+           head_dim=64, seq=1024, m=4, mb=2, steps=2)
+SP_GANG = 4
+SP_TIMEOUT_S = 300
+#: layers of sp_world1's boundaries (depth cut: the update's arithmetic,
+#: not the depth, is what that check holds)
+SP_WORLD1_LAYERS = 2
+#: the flash kernels' bf16 rule, for a sharded attention against the
+#: unsharded kernel call
+SP_TOL = ("outputs: within 1 bf16 ulp or 1e-2 of max|want|; lse: within "
+          "1e-3 absolute (fp32); gradients: within 2 bf16 ulps + 1e-2 of "
+          "max|want|")
+#: a gang's training against the one-rank run of the same model on the
+#: card: each step's loss within 1e-3 relative, and the masters' movement
+#: from their start within max(0.05, 2 x floor) relative L2 (the floor:
+#: the one-rank run on the kernels' plain versions against itself on the
+#: kernels; Adam's first steps turn rounding-level gradient differences
+#: on near-zero gradients into +-lr moves, so the movement, not the
+#: masters, is compared)
+SP_TRAIN_TOL = ("loss 1e-3 relative a step; masters' movement within "
+                "max(0.05, 2 x floor) relative L2, floor = the one-rank "
+                "run on the kernels' plain versions against itself")
+
+
+def _sp_out_ok(got, want) -> bool:
+    return bf16_ulp_ok(got, want, ulps=1, floor=1e-2 * want.float().abs()
+                       .max().item())
+
+
+def _sp_grad_ok(got, want) -> bool:
+    return bf16_ulp_ok(got, want, ulps=2, floor=1e-2 * want.float().abs()
+                       .max().item())
+
+
+def _sp_counts():
+    return {k: v for k, v in launch_counts().items() if v}
+
+
+def _lc_cfg(cfg: dict, dtype=torch.bfloat16) -> GPTConfig:
+    return GPTConfig(hidden_size=cfg["hidden"], num_heads=cfg["heads"],
+                     num_layers=cfg["layers"], dropout_rate=0.0,
+                     attn_dropout_rate=cfg["rate"], compute_dtype=dtype)
+
+
+def _grads_of(fn, *inputs, cot):
+    """``fn(*inputs)`` and the gradients of sum(out * cot) w.r.t. the
+    inputs (fresh leaves)."""
+    leaves = [t.detach().clone().requires_grad_() for t in inputs]
+    out = fn(*leaves)
+    (out.float() * cot.float()).sum().backward()
+    return [out.detach()] + [t.grad for t in leaves]
+
+
+def _sp_attention(dev, seq, cfg: dict) -> dict:
+    """Ring and Ulysses attention over ``seq`` at the model's attention
+    shape (batch 1, 12 heads of 64, this rank's 2048 of 4096 positions,
+    bf16, causal, dropout 0.1) against the unsharded flash kernels on the
+    whole sequence: outputs, lse and gradients within :data:`SP_TOL`; the
+    dropout mask of every block this rank runs bit for bit the unsharded
+    mask's slice; the launches (r + 1 forward and r + 1 backward blocks on
+    seq rank r); the ring on the kernels against the ring on their plain
+    versions; the two planted ring faults must miss."""
+    from apex_tpu_torch.ops.attention import _drop_keep
+    from apex_tpu_torch.parallel import (ring_attention, ring_attention_fwd,
+                                         ulysses_attention)
+
+    h, d, rate, seed = cfg["heads"], cfg["hidden"] // cfg["heads"], \
+        cfg["rate"], 77
+    n, r, sl = seq.size, seq.index, cfg["s_local"]
+    s = n * sl
+    gen = torch.Generator(device=dev).manual_seed(60)
+    q, k, v, do = (torch.randn(1, h, s, d, generator=gen, device=dev,
+                               dtype=torch.bfloat16) for _ in range(4))
+    rows = slice(r * sl, (r + 1) * sl)
+    loc = [t[:, :, rows].contiguous() for t in (q, k, v, do)]
+    pack = _pack_seed(seed, device=dev)
+    scale = d ** -0.5
+    o_full, lse_full = flash_attention_fwd(
+        *(t.reshape(h, s, d).contiguous() for t in (q, k, v)), pack, scale,
+        True, rate, (h, h))
+    o_full = o_full.reshape(1, h, s, d)
+    reset_launch_counts()
+    reset_collective_counts()
+    o_ring, lse_ring = ring_attention_fwd(*loc[:3], seq, causal=True,
+                                          dropout_rate=rate,
+                                          dropout_seed=seed)
+    fwd_launches = _sp_counts()
+    want_o = o_full[:, :, rows]
+    want_lse = lse_full.reshape(1, h, s)[:, :, rows]
+
+    def ring(a, b, c):
+        return ring_attention(a, b, c, seq, causal=True, dropout_rate=rate,
+                              dropout_seed=seed)
+
+    def full(a, b, c):
+        return flash_attention(a, b, c, causal=True, dropout_rate=rate,
+                               dropout_seed=seed)
+
+    reset_launch_counts()
+    reset_collective_counts()
+    got = _grads_of(ring, *loc[:3], cot=loc[3])
+    ring_launches, ring_colls = _sp_counts(), collective_counts()
+    ref = [t[:, :, rows] for t in _grads_of(full, q, k, v, cot=do)]
+    with _plain_kernels():
+        plain = _grads_of(ring, *loc[:3], cot=loc[3])
+    # the dropout mask of each block this rank runs (row and column
+    # offsets as the ring packs them) against the unsharded mask
+    full_mask = _drop_keep(pack, h, (h, h), s, s, rate)
+    masks = []
+    for i in range(n):
+        src = (r - i) % n
+        if i > r:
+            continue  # a causal ring skips the future blocks
+        bp = _pack_seed(seed, r * sl, src * sl, device=dev)
+        masks.append(bool(torch.equal(
+            _drop_keep(bp, h, (h, h), sl, sl, rate),
+            full_mask[:, rows, src * sl:(src + 1) * sl])))
+    del full_mask
+    faults = {}
+    for name, fault in (("column_offset", {"col": 64}),
+                        ("mask_off_diagonal", {"mask_all": True})):
+        o_f, _ = ring_attention_fwd(*loc[:3], seq, causal=True,
+                                    dropout_rate=rate, dropout_seed=seed,
+                                    _fault=fault)
+        faults[name] = {"passes_gate": _sp_out_ok(o_f, want_o),
+                        "max_abs_err": _err(o_f, want_o)}
+    reset_collective_counts()
+    uly = _grads_of(lambda a, b, c: ulysses_attention(
+        a, b, c, seq, causal=True, dropout_rate=rate, dropout_seed=seed),
+        *loc[:3], cot=loc[3])
+    uly_colls = collective_counts()
+    rec = {
+        "shape": f"batch 1, {h} heads x {d}, {sl} of {s} positions a rank, "
+                 f"bf16, causal, dropout {rate}",
+        "ring_out_ok": _sp_out_ok(o_ring, want_o),
+        "ring_out_err": _err(o_ring, want_o),
+        "ring_lse_err": _err(lse_ring, want_lse),
+        "ring_grads_ok": [_sp_grad_ok(g, w) for g, w in zip(got[1:],
+                                                            ref[1:])],
+        "ring_grads_err": [_err(g, w) for g, w in zip(got[1:], ref[1:])],
+        "ring_autograd_out_ok": _sp_out_ok(got[0], want_o),
+        "ring_fwd_launches": fwd_launches,
+        "ring_fwd_bwd_launches": ring_launches,
+        "ring_collectives": ring_colls,
+        "ring_vs_plain_out_err": _err(got[0], plain[0]),
+        "ring_vs_plain_ok": _close(got[0], plain[0], 1e-3, ulps=2)
+        and all(_rel(g, p) <= 1e-2 for g, p in zip(got[1:], plain[1:])),
+        "ring_vs_plain_grad_rel": [_rel(g, p)
+                                   for g, p in zip(got[1:], plain[1:])],
+        "masks_bitwise": masks,
+        "planted_faults": faults,
+        "ulysses_out_ok": _sp_out_ok(uly[0], want_o),
+        "ulysses_out_err": _err(uly[0], want_o),
+        "ulysses_grads_ok": [_sp_grad_ok(g, w)
+                             for g, w in zip(uly[1:], ref[1:])],
+        "ulysses_grads_err": [_err(g, w) for g, w in zip(uly[1:], ref[1:])],
+        "ulysses_collectives": uly_colls}
+    # the off-diagonal mask can show only where an off-diagonal block runs
+    faults["mask_off_diagonal"]["can_show"] = r > 0
+    rec["ok"] = (rec["ring_out_ok"] and rec["ring_lse_err"] <= 1e-3
+                 and all(rec["ring_grads_ok"])
+                 and rec["ring_autograd_out_ok"] and rec["ring_vs_plain_ok"]
+                 and all(masks) and len(masks) == r + 1
+                 and not any(f["passes_gate"] for f in faults.values()
+                             if f.get("can_show", True))
+                 and rec["ulysses_out_ok"] and all(rec["ulysses_grads_ok"]))
+    return rec
+
+
+#: a GPTLayer on the kernels against itself on their plain versions: the
+#: attention's few-ulp differences pass through two bf16 products and a
+#: LayerNorm, so the output is held like the gradients, by relative L2
+LAYER_TOL = "output and every gradient within 1e-2 relative L2"
+
+
+def _layer_vs_plain(layer, x, gen_seed: int = 3) -> dict:
+    """One GPTLayer forward and backward with the kernels against the same
+    on their plain versions (LayerNorm, the ring's flash blocks), the same
+    dropout: :data:`LAYER_TOL` (the ring's attention alone is held to the
+    bf16 rule in :func:`_sp_attention`)."""
+    dev = x.device
+    cot = torch.randn(x.shape, generator=torch.Generator(device=dev)
+                      .manual_seed(4), device=dev, dtype=x.dtype)
+    res = []
+    for plain in (False, True):
+        gen = torch.Generator(device=dev).manual_seed(gen_seed)
+        for p in layer.parameters():
+            p.grad = None
+        xi = x.detach().clone().requires_grad_()
+        with _plain_kernels() if plain else contextlib.nullcontext():
+            out = layer(xi, False, gen)
+            (out.float() * cot.float()).sum().backward()
+        res.append((out.detach(), xi.grad,
+                    {n: p.grad.clone() for n, p in layer.named_parameters()}))
+    for p in layer.parameters():
+        p.grad = None
+    (o, dx, g), (po, pdx, pg) = res
+    rels = {n: _rel(g[n], pg[n]) for n in g}
+    return {"out_err": _err(o, po), "out_rel": _rel(o, po),
+            "dx_rel": _rel(dx, pdx), "grad_rel_max": max(rels.values()),
+            "ok": max(_rel(o, po), _rel(dx, pdx), *rels.values()) <= 1e-2,
+            "tol": LAYER_TOL}
+
+
+def _masters_flat(masters: dict) -> torch.Tensor:
+    return torch.cat([v.detach().float().reshape(-1) for v in
+                      masters.values()]).cpu()
+
+
+def _movement(got: torch.Tensor, want: torch.Tensor,
+              start: torch.Tensor) -> float:
+    d = (want.double() - start.double())
+    return float((got.double() - want.double()).norm()
+                 / d.norm().clamp_min(1e-30))
+
+
+def _timed_step(run_step, profiled: bool) -> dict:
+    """``run_step()``'s wall; under ``torch.profiler`` (``profiled``) also
+    this process's device-busy ms and share of the wall."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    ctx = (profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+           if profiled else contextlib.nullcontext())
+    with ctx as prof:
+        t0 = time.perf_counter()
+        run_step()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    if not profiled:
+        return {"wall_ms": wall_ms}
+    busy = sum(e.time_range.elapsed_us() for e in _kernel_events(prof)) / 1e3
+    return {"wall_ms": wall_ms, "profiled": True, "device_busy_ms": busy,
+            "device_busy_share": busy / wall_ms}
+
+
+def _lc_run(dev, cfg, seq, data, mesh=None, plain=False) -> dict:
+    """``cfg["steps"]`` steps of examples/gpt_long_context over ``mesh``
+    (None: one rank, the whole batch and sequence, its loss taken n_seq
+    times for the gang's gradient): per-step losses and flat masters (on
+    the CPU), the launches and collectives of the steps, each step's
+    wall (the last profiled, on a mesh)."""
+    from apex_tpu_torch.examples import gpt_long_context as lc
+    from apex_tpu_torch.parallel import P
+
+    mcfg = _lc_cfg(cfg)
+    attend = None if mesh is None else lc.sequence_attention(
+        "ring", seq, data.index * cfg["b_local"])
+    layers = lc.make_layers(mcfg, cfg["layers"], attend, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    step, carry, cspec = lc.build(
+        layers, seq, data, microbatches=cfg["m"], remat_policy=cfg["remat"],
+        generator=gen, grad_factor=1.0 if mesh else float(cfg["seq"]))
+    driver = FusedTrainDriver(
+        step, steps_per_dispatch=1, mesh=mesh,
+        batch_spec=P("data", "seq") if mesh else None,
+        carry_spec=cspec if mesh else None, per_step=("loss",))
+    x, y = lc.synthetic_data(mcfg, cfg["data"] * cfg["b_local"],
+                             cfg["seq"] * cfg["s_local"])
+    x, y = x.to(dev), y.to(dev)
+    window = (x.expand(cfg["m"], *x.shape), y.expand(cfg["m"], *y.shape))
+    state = {"carry": carry, "losses": []}
+
+    def one():
+        state["carry"], res = driver.run_window(state["carry"], window)
+        state["losses"].append(res.per_step["loss"])
+
+    start = _masters_flat(carry[0])
+    masters, times = [], []
+    reset_launch_counts()
+    reset_collective_counts()
+    with _plain_kernels() if plain else contextlib.nullcontext():
+        for i in range(cfg["steps"]):
+            times.append(_timed_step(one, mesh is not None
+                                     and i == cfg["steps"] - 1))
+            masters.append(_masters_flat(state["carry"][0]))
+    return {"losses": [float(t) for t in state["losses"]],
+            "masters": masters, "start": start, "launches": _sp_counts(),
+            "collectives": collective_counts(), "times": times,
+            "layers": layers}
+
+
+def _lc_compare(gang: dict, ref: dict, floor: dict) -> dict:
+    """The gang's steps against the one-rank run's (:data:`SP_TRAIN_TOL`),
+    beside the floor's."""
+    steps = []
+    for i in range(len(ref["losses"])):
+        fl = _movement(floor["masters"][i], ref["masters"][i], ref["start"])
+        steps.append({
+            "loss": gang["losses"][i], "one_rank_loss": ref["losses"][i],
+            "loss_rel_err": abs(gang["losses"][i] - ref["losses"][i])
+            / abs(ref["losses"][i]),
+            "movement_rel_l2": _movement(gang["masters"][i],
+                                         ref["masters"][i], ref["start"]),
+            "floor_movement_rel_l2": fl,
+            "floor_loss_rel_err": abs(floor["losses"][i] - ref["losses"][i])
+            / abs(ref["losses"][i])})
+    ok = all(st["loss_rel_err"] <= 1e-3 and st["movement_rel_l2"]
+             <= max(0.05, 2 * st["floor_movement_rel_l2"]) for st in steps)
+    return {"steps": steps, "ok": ok, "tol": SP_TRAIN_TOL}
+
+
+def _lc_worker(dev, out_dir: str, rank: int, cfg: dict) -> dict:
+    """One rank of ``long_context_gang``; rank 0 also runs the one-rank
+    model and its floor after the gang."""
+    from apex_tpu_torch.parallel import make_mesh
+
+    mesh = make_mesh([("data", cfg["data"]), ("seq", cfg["seq"])])
+    data, seq = mesh["data"], mesh["seq"]
+    out = {"rank": rank, "coords": mesh.coords,
+           "attention": _sp_attention(dev, seq, cfg)}
+    gang = _lc_run(dev, cfg, seq, data, mesh)
+    layers = gang.pop("layers")
+    x = torch.randn(cfg["b_local"], cfg["s_local"], cfg["hidden"],
+                    generator=torch.Generator(device=dev).manual_seed(8),
+                    device=dev, dtype=torch.bfloat16)
+    out["layer_vs_plain"] = _layer_vs_plain(layers[0], x)
+    del layers
+    digest = hashlib.sha256(gang["masters"][-1].numpy().tobytes())
+    out.update({"losses": gang["losses"], "launches": gang["launches"],
+                "collectives": gang["collectives"], "times": gang["times"],
+                "masters_sha256": digest.hexdigest()})
+    dist.barrier()
+    dist.destroy_process_group()
+    if rank == 0:
+        torch.cuda.empty_cache()
+        from apex_tpu_torch.parallel import Axis
+        single = (Axis.single("seq"), Axis.single("data"))
+        ref = _lc_run(dev, cfg, *single)
+        ref.pop("layers")
+        floor = _lc_run(dev, cfg, *single, plain=True)
+        floor.pop("layers")
+        out["one_rank"] = {"times": ref["times"],
+                           "floor_times": floor["times"]}
+        out["vs_one_rank"] = _lc_compare(gang, ref, floor)
+    return out
+
+
+def _tp_weights(stage_single, pipe_index: int):
+    """Stage ``pipe_index``'s full weights, as the example seeds them."""
+    from apex_tpu_torch.examples import transformer_parallel as ex
+    return ex.full_weights(stage_single, 1, seed=100 + pipe_index)
+
+
+def _tp_run(dev, cfg, pipe, model, data, plain=False) -> dict:
+    """``cfg["steps"]`` O2 steps of examples/transformer_parallel: on the
+    (pipe, model) mesh each rank's stage shard, or on one rank (axes of
+    one member) all 2 x blocks blocks unsharded from the same weights."""
+    from apex_tpu_torch.examples import transformer_parallel as ex
+    from apex_tpu_torch.parallel import Axis
+    from apex_tpu_torch.weights import tp_shard_params
+
+    amp_ = amp.initialize("O2")
+    dims = (cfg["d_model"], cfg["d_ff"], cfg["heads"], cfg["head_dim"])
+    single = Axis.single("model")
+    if pipe.group is None:  # one rank: the stages' full weights, in order
+        stage = ex.make_stage(cfg["pipe"] * cfg["blocks"], *dims, single)
+        full = {}
+        for p in range(cfg["pipe"]):
+            w = _tp_weights(ex.make_stage(cfg["blocks"], *dims, single), p)
+            full.update({f"{int(k.split('.', 1)[0]) + p * cfg['blocks']}."
+                         f"{k.split('.', 1)[1]}": v for k, v in w.items()})
+        stage.load_state_dict(full)
+    else:
+        stage = ex.make_stage(cfg["blocks"], *dims, model)
+        w = _tp_weights(ex.make_stage(cfg["blocks"], *dims, single),
+                        pipe.index)
+        stage.load_state_dict(tp_shard_params(w, model.index, cfg["model"]))
+    stage.to(dev)
+    opt = amp.AmpOptimizer(fused_adam(ex.LR), amp_)
+    masters = opt.attach(stage)
+    state = opt.init(masters)
+    step = ex.make_step(stage, amp_, opt, pipe, model, data)
+    g = torch.Generator().manual_seed(0)
+    shape = (cfg["m"], cfg["mb"], cfg["seq"], cfg["d_model"])
+    x = (torch.randn(shape, generator=g) * 0.5).to(dev)
+    y = (torch.randn(shape, generator=g) * 0.5).to(dev)
+    run = {"masters": masters, "state": state, "losses": []}
+    start = {k: v.detach().cpu().clone() for k, v in masters.items()}
+
+    def one():
+        run["masters"], run["state"], loss = step(run["masters"],
+                                                  run["state"], x, y)
+        run["losses"].append(loss)
+
+    reset_launch_counts()
+    reset_collective_counts()
+    times = []
+    with _plain_kernels() if plain else contextlib.nullcontext():
+        for i in range(cfg["steps"]):
+            times.append(_timed_step(one, pipe.group is not None
+                                     and i == cfg["steps"] - 1))
+    return {"losses": [float(t) for t in run["losses"]], "start": start,
+            "masters": {k: v.detach().cpu() for k, v in
+                        run["masters"].items()},
+            "launches": _sp_counts(), "collectives": collective_counts(),
+            "times": times, "stage": stage}
+
+
+def _tp_fault(stage, dev, cfg, model) -> dict:
+    """The first block's MLP with its row-parallel backward passing the
+    cotangent through unsummed (planted) against the same MLP summed:
+    the input gradient must move by the factor the missing sum takes."""
+    from apex_tpu_torch.parallel import replicated_loss
+
+    mlp = stage[0].mlp
+    g = torch.Generator(device=dev).manual_seed(9)
+    x = torch.randn(cfg["mb"], cfg["seq"], cfg["d_model"], generator=g,
+                    device=dev)
+    cot = torch.randn(x.shape, generator=g, device=dev)
+    grads = []
+    for fault in (False, True):
+        mlp.wo._fault = fault
+        xi = x.clone().requires_grad_()
+        loss = replicated_loss((mlp(xi).float() * cot).sum(), model)
+        grads.append(torch.autograd.grad(loss, mlp.wi.kernel)[0])
+    mlp.wo._fault = False
+    return {"wi_grad_rel_change": _rel(grads[1], grads[0])}
+
+
+def _tp_worker(dev, out_dir: str, rank: int, cfg: dict) -> dict:
+    """One rank of ``tp_pipeline_gang``: the steps, its masters saved for
+    rank 0, which then runs the one-rank model and its floor and holds
+    every rank's shards against it."""
+    from apex_tpu_torch.parallel import Axis, make_mesh
+
+    mesh = make_mesh([("data", 1), ("pipe", cfg["pipe"]),
+                      ("model", cfg["model"])])
+    data, pipe, model = mesh["data"], mesh["pipe"], mesh["model"]
+    gang = _tp_run(dev, cfg, pipe, model, data)
+    out = {"rank": rank, "coords": mesh.coords, "losses": gang["losses"],
+           "launches": gang["launches"],
+           "collectives": gang["collectives"], "times": gang["times"],
+           "planted_row_no_sum": _tp_fault(gang["stage"], dev, cfg, model)}
+    torch.save({"start": gang["start"], "masters": gang["masters"],
+                "coords": mesh.coords},
+               os.path.join(out_dir, f"masters{rank}.pt"))
+    del gang
+    dist.barrier()
+    dist.destroy_process_group()
+    if rank == 0:
+        torch.cuda.empty_cache()
+        single = (Axis.single("pipe"), Axis.single("model"),
+                  Axis.single("data"))
+        ref = _tp_run(dev, cfg, *single)
+        floor = _tp_run(dev, cfg, *single, plain=True)
+        out["one_rank"] = {"losses": ref["losses"], "times": ref["times"],
+                           "floor_losses": floor["losses"]}
+        out["vs_one_rank"] = _tp_compare(out_dir, cfg, ref, floor)
+    return out
+
+
+def _tp_shard_of(tree: dict, cfg: dict, p: int, m: int) -> dict:
+    """Rank (p, m)'s flat shard of a one-rank tree (its stage's blocks,
+    its model shard)."""
+    from apex_tpu_torch.weights import tp_shard_params
+
+    b = cfg["blocks"]
+    stage = {f"{int(k.split('.', 1)[0]) - p * b}.{k.split('.', 1)[1]}": v
+             for k, v in tree.items()
+             if p * b <= int(k.split(".", 1)[0]) < (p + 1) * b}
+    return tp_shard_params(stage, m, cfg["model"])
+
+
+def _tp_compare(out_dir: str, cfg: dict, ref: dict, floor: dict) -> dict:
+    """Every rank's final masters against its shard of the one-rank run's
+    (and the floor's against the one-rank run's)."""
+    got, want, start = [], [], []
+    for r in range(cfg["pipe"] * cfg["model"]):
+        rec = torch.load(os.path.join(out_dir, f"masters{r}.pt"))
+        p, m = rec["coords"]["pipe"], rec["coords"]["model"]
+        w = _tp_shard_of(ref["masters"], cfg, p, m)
+        got.append(_masters_flat(rec["masters"]))
+        want.append(_masters_flat({k: w[k] for k in rec["masters"]}))
+        start.append(_masters_flat(rec["start"]))
+    got, want, start = (torch.cat(t) for t in (got, want, start))
+    fl = _movement(_masters_flat(floor["masters"]),
+                   _masters_flat(ref["masters"]),
+                   _masters_flat(ref["start"]))
+    rec = {"movement_rel_l2": _movement(got, want, start),
+           "floor_movement_rel_l2": fl,
+           "floor_loss_rel_err": [abs(a - b) / abs(b) for a, b in
+                                  zip(floor["losses"], ref["losses"])],
+           "tol": SP_TRAIN_TOL}
+    rec["ok"] = rec["movement_rel_l2"] <= max(0.05, 2 * fl)
+    return rec
+
+
+def sp_worker(out_dir: str) -> int:
+    """One rank of ``long_context_gang`` or ``tp_pipeline_gang``
+    (``chip_smoke.py --sp-worker DIR``): gloo on CUDA tensors, every rank
+    on the one card (the device and the sizes in DIR/config.json); writes
+    DIR/rank<r>.json."""
+    fp32_precision()
+    with open(os.path.join(out_dir, "config.json")) as fh:
+        conf = json.load(fh)
+    dev = torch.device(conf["device"])
+    init_distributed("gloo", init_method=f"file://{out_dir}/rendezvous",
+                     timeout_s=SP_TIMEOUT_S)
+    rank = dist.get_rank()
+    try:
+        work = _lc_worker if conf["kind"] == "long_context" else _tp_worker
+        out = work(dev, out_dir, rank, conf["cfg"])
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as fh:
+        json.dump(out, fh)
+    return 0
+
+
+def _sp_gang(dev, kind: str, cfg: dict, worker_argv=None):
+    """``SP_GANG`` ranks of ``sp_worker`` on the card: the ranks' records
+    and the gang's wall."""
+    out_dir = tempfile.mkdtemp(prefix=f"apex_{kind}_")
+    try:
+        with open(os.path.join(out_dir, "config.json"), "w") as fh:
+            json.dump({"device": str(dev), "kind": kind, "cfg": cfg}, fh)
+        argv = (worker_argv or [os.path.abspath(__file__), "--sp-worker"])
+        t0 = time.perf_counter()
+        launch([*argv, out_dir], SP_GANG, timeout_s=SP_TIMEOUT_S,
+               echo_stderr=False, check=True)
+        wall = time.perf_counter() - t0
+        ranks = []
+        for r in range(SP_GANG):
+            with open(os.path.join(out_dir, f"rank{r}.json")) as fh:
+                ranks.append(json.load(fh))
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    return ranks, wall
+
+
+def _dead_rank() -> dict:
+    """A gang whose rank 2 raises after the mesh is made while its seq
+    partner waits in a ring shift: the launcher must reap the gang and
+    name rank 2."""
+    code = ("import os, sys, torch\n"
+            f"sys.path.insert(0, {os.path.dirname(os.path.abspath(__file__))!r})\n"
+            "from apex_tpu_torch.parallel import (init_distributed, "
+            "make_mesh, ring_shift)\n"
+            "init_distributed('gloo', timeout_s=60)\n"
+            "seq = make_mesh([('data', 2), ('seq', 2)])['seq']\n"
+            "if os.environ['RANK'] == '2':\n"
+            "    raise RuntimeError('planted: rank 2 died')\n"
+            "ring_shift(torch.ones(4), seq)\n")
+    try:
+        launch(["-c", code], SP_GANG, timeout_s=90, echo_stderr=False,
+               check=True)
+        return {"reaped": False}
+    except MultiprocError as err:
+        return {"reaped": True, "guilty_ranks": err.guilty_ranks(),
+                "stderr_tail_names_it": "planted: rank 2 died" in str(err)}
+
+
+def _rank_times(ranks) -> list:
+    return [{"rank": rk["rank"], "coords": rk["coords"],
+             "step_wall_ms": [t["wall_ms"] for t in rk["times"]],
+             "profiled_step_device_busy_share":
+                 rk["times"][-1].get("device_busy_share")}
+            for rk in ranks]
+
+
+def phase_long_context_gang(dev, cfg=None, worker_argv=None) -> dict:
+    """Four gloo ranks on the one card, a (data 2, seq 2) mesh: ring and
+    Ulysses attention at the model's attention shape against the
+    unsharded kernels (:func:`_sp_attention`), then examples/
+    gpt_long_context at GPT-2 small's width (:data:`LC`) for two steps,
+    against the same model on one rank over the whole sequence and batch
+    with the same weights and dropout seeds (:func:`_lc_compare`), every
+    flash and LayerNorm launch and every collective counted exactly, the
+    first layer with the kernels against its plain versions; planted: a
+    ring block with a wrong column offset, one with the causal mask off
+    the diagonal, a rank that dies."""
+    cfg = dict(LC if cfg is None else cfg)
+    ranks, wall = _sp_gang(dev, "long_context", cfg, worker_argv)
+    dead = _dead_rank()
+    layers, m, steps = cfg["layers"], cfg["m"], cfg["steps"]
+    n = cfg["seq"]
+    bad = []
+    for rk in ranks:
+        r = rk["coords"]["seq"]
+        mbs = m * steps
+        # dots_saveable runs each block's forward again in the backward
+        want = {"flash_attention_fwd": 2 * (r + 1) * layers * mbs,
+                "flash_attention_bwd": (r + 1) * layers * mbs,
+                "layer_norm": 4 * layers * mbs,
+                "layer_norm_bwd": 2 * layers * mbs}
+        ring = {"fwd": 2 * (n - 1), "bwd": 2 * (n - 1) + 2 * n}
+        # under gloo the ring shifts of CUDA tensors go through host memory
+        host = "[host]" if dev.type == "cuda" else ""
+        wc = {f"ring{host}": layers * mbs * (2 * ring["fwd"] + ring["bwd"]),
+              "loss": 3 * mbs, "seq_presum": steps, "zero_flag": steps,
+              "zero_grads": steps, "zero_params": steps}
+        att = rk["attention"]
+        att_want = {"flash_attention_fwd": r + 1}
+        if rk["launches"] != want or rk["collectives"] != wc                 or att["ring_fwd_launches"] != att_want                 or att["ring_fwd_bwd_launches"] != {
+                    "flash_attention_fwd": r + 1,
+                    "flash_attention_bwd": r + 1}:
+            bad.append({"rank": rk["rank"], "launches": rk["launches"],
+                        "want": want, "collectives": rk["collectives"],
+                        "want_collectives": wc})
+    r0 = ranks[0]
+    rec = {"phase": "long_context_gang", "card": nvidia_smi_line(),
+           "world_size": SP_GANG,
+           "backend": "gloo (CUDA tensors, every rank on one card)",
+           "mesh": {"data": cfg["data"], "seq": cfg["seq"]},
+           "model": f"{layers} GPTLayers, hidden {cfg['hidden']}, "
+                    f"{cfg['heads']} heads, ring attention over seq, O2, "
+                    f"attention dropout {cfg['rate']}, {cfg['remat']}, "
+                    f"M = {m}, DistributedFusedAdam over data",
+           "global_sequence": cfg["seq"] * cfg["s_local"],
+           "batch": cfg["data"] * cfg["b_local"], "steps": steps,
+           "gang_s": wall, "tol": SP_TOL,
+           "attention": [rk["attention"] for rk in ranks],
+           "layer_vs_plain": [rk["layer_vs_plain"] for rk in ranks],
+           "launches_by_rank": [rk["launches"] for rk in ranks],
+           "collectives_by_rank": [rk["collectives"] for rk in ranks],
+           "count_mismatches": bad,
+           "rank_times": _rank_times(ranks),
+           "times_note": "gloo over the host between four processes "
+                         "that share one card: not NVLink, not a "
+                         "multi-card measure",
+           "masters_identical_across_ranks":
+               len({rk["masters_sha256"] for rk in ranks}) == 1,
+           "one_rank": r0["one_rank"], "vs_one_rank": r0["vs_one_rank"],
+           "planted_dead_rank": dead}
+    emit(rec)
+    check(all(rk["attention"]["ok"] for rk in ranks),
+          f"long_context_gang: sharded attention: {rec['attention']}")
+    check(all(rk["layer_vs_plain"]["ok"] for rk in ranks),
+          f"long_context_gang: kernels vs plain: {rec['layer_vs_plain']}")
+    check(not bad, f"long_context_gang: counts: {bad}")
+    check(rec["masters_identical_across_ranks"],
+          "long_context_gang: the ranks' gathered masters differ")
+    check(r0["vs_one_rank"]["ok"],
+          f"long_context_gang: not the one-rank run: {r0['vs_one_rank']}")
+    check(dead == {"reaped": True, "guilty_ranks": [2],
+                   "stderr_tail_names_it": True},
+          f"long_context_gang: a dead rank was not surfaced: {dead}")
+    return {"launches": r0["launches"],
+            "launches_by_rank": rec["launches_by_rank"]}
+
+
+def phase_tp_pipeline_gang(dev, cfg=None, worker_argv=None) -> dict:
+    """Four gloo ranks on the one card, a (pipe 2, model 2) mesh:
+    examples/transformer_parallel at GPT-2 small's width (:data:`TPP`),
+    12 blocks as two stages of 6, two O2 steps, against the unsharded
+    model on one rank with the merged weights: the losses within 1e-3
+    relative a step, every rank's masters' movement within
+    :data:`SP_TRAIN_TOL`; the launches (LayerNorm and flash forward and
+    backward on the local heads, every tick of the schedule) and the
+    collectives counted exactly; planted: a row-parallel backward without
+    the cotangent's sum."""
+    cfg = dict(TPP if cfg is None else cfg)
+    ranks, wall = _sp_gang(dev, "tp_pipeline", cfg, worker_argv)
+    ticks = cfg["m"] + cfg["pipe"] - 1
+    blocks, steps = cfg["blocks"], cfg["steps"]
+    want = {"layer_norm": 2 * blocks * ticks * steps,
+            "layer_norm_bwd": 2 * blocks * ticks * steps,
+            "flash_attention_fwd": blocks * ticks * steps,
+            "flash_attention_bwd": blocks * ticks * steps}
+    # a block: one psum each way after attention and after the MLP; the
+    # pipeline: m + n - 2 shifts each way, one psum each way; the step's
+    # model-replicated gradients in one flat all-reduce
+    host = "[host]" if dev.type == "cuda" else ""
+    wc = {"tp_psum": 4 * blocks * ticks * steps,
+          f"pipe_shift{host}": 2 * (ticks - 1) * steps,
+          "pipe_psum": 2 * steps, "tp_sync": steps}
+    bad = [{"rank": rk["rank"], "launches": rk["launches"],
+            "collectives": rk["collectives"]}
+           for rk in ranks if rk["launches"] != want
+           or rk["collectives"] != wc]
+    r0 = ranks[0]
+    losses = [rk["losses"] for rk in ranks]
+    loss_err = [abs(a - b) / abs(b) for a, b in
+                zip(r0["losses"], r0["one_rank"]["losses"])]
+    fault = [rk["planted_row_no_sum"] for rk in ranks]
+    rec = {"phase": "tp_pipeline_gang", "card": nvidia_smi_line(),
+           "world_size": SP_GANG,
+           "backend": "gloo (CUDA tensors, every rank on one card)",
+           "mesh": {"pipe": cfg["pipe"], "model": cfg["model"]},
+           "model": f"{cfg['pipe'] * blocks} transformer_parallel Stage "
+                    f"blocks (d {cfg['d_model']}, {cfg['heads']} heads of "
+                    f"{cfg['head_dim']}, MLP {cfg['d_ff']}) as "
+                    f"{cfg['pipe']} stages, O2, fused_adam",
+           "sequence": cfg["seq"], "microbatches": cfg["m"],
+           "microbatch": cfg["mb"], "steps": steps, "gang_s": wall,
+           "losses_by_rank": losses, "one_rank": r0["one_rank"],
+           "loss_rel_err": loss_err, "vs_one_rank": r0["vs_one_rank"],
+           "launches_by_rank": [rk["launches"] for rk in ranks],
+           "want_launches": want, "collectives_by_rank":
+               [rk["collectives"] for rk in ranks],
+           "want_collectives": wc, "count_mismatches": bad,
+           "rank_times": _rank_times(ranks),
+           "times_note": "gloo over the host between four processes "
+                         "that share one card: not NVLink, not a "
+                         "multi-card measure",
+           "planted_row_no_sum": fault}
+    emit(rec)
+    check(all(lo == losses[0] for lo in losses),
+          f"tp_pipeline_gang: the ranks' losses differ: {losses}")
+    check(all(e <= 1e-3 for e in loss_err),
+          f"tp_pipeline_gang: losses: {loss_err}")
+    check(r0["vs_one_rank"]["ok"],
+          f"tp_pipeline_gang: not the one-rank run: {r0['vs_one_rank']}")
+    check(not bad, f"tp_pipeline_gang: counts: {bad}")
+    check(all(f["wi_grad_rel_change"] > 0.1 for f in fault),
+          f"tp_pipeline_gang: the planted row backward passes: {fault}")
+    return {"launches": r0["launches"],
+            "launches_by_rank": rec["launches_by_rank"]}
+
+
+def phase_sp_world1(dev, cfg=None) -> dict:
+    """NCCL at world 1: ring and Ulysses attention on a mesh of one rank
+    bit for bit ``flash_attention``, forward and gradients, at the long
+    context's attention shape; one ZeRO and one FSDP boundary of the
+    long-context recipe (GPT-2 small width, 1024 tokens) against
+    ``amp_microbatch_step(fused_adam)`` within a measured fp32 bound (the
+    flat update's order of operations differs); the collectives counted
+    exactly."""
+    from apex_tpu_torch.contrib.optimizers import DistributedFusedAdam
+    from apex_tpu_torch.examples import gpt_long_context as lc
+    from apex_tpu_torch.parallel import (make_mesh, ring_attention,
+                                         sync_replicated_grads,
+                                         ulysses_attention)
+    from apex_tpu_torch.train import (fsdp_init, fsdp_microbatch_step,
+                                      fsdp_unflatten_params)
+
+    cfg = dict(LC if cfg is None else cfg)
+    init_distributed("nccl", init_method=f"tcp://127.0.0.1:{free_port()}",
+                     rank=0, world_size=1)
+    try:
+        mesh = make_mesh([("data", 1), ("seq", 1)])
+        data, seq = mesh["data"], mesh["seq"]
+        h, d, rate = cfg["heads"], cfg["hidden"] // cfg["heads"], cfg["rate"]
+        s = cfg["s_local"]
+        gen = torch.Generator(device=dev).manual_seed(70)
+        q, k, v, do = (torch.randn(1, h, s, d, generator=gen, device=dev,
+                                   dtype=torch.bfloat16) for _ in range(4))
+        seed = torch.tensor(123, dtype=torch.int32, device=dev)
+        runs, counts = {}, {}
+        for name, fn in (
+                ("flash", lambda a, b, c: flash_attention(
+                    a, b, c, causal=True, dropout_rate=rate,
+                    dropout_seed=seed)),
+                ("ring", lambda a, b, c: ring_attention(
+                    a, b, c, seq, causal=True, dropout_rate=rate,
+                    dropout_seed=seed)),
+                ("ulysses", lambda a, b, c: ulysses_attention(
+                    a, b, c, seq, causal=True, dropout_rate=rate,
+                    dropout_seed=seed))):
+            reset_collective_counts()
+            runs[name] = _grads_of(fn, q, k, v, cot=do)
+            counts[name] = collective_counts()
+        bitwise = {n: all(_bitwise(a, b) for a, b in zip(runs[n],
+                                                         runs["flash"]))
+                   for n in ("ring", "ulysses")}
+        # one boundary of each policy from the same weights and seeds
+        mcfg = _lc_cfg(cfg)
+        x, y = lc.synthetic_data(mcfg, 1, s)
+        window = (x.expand(cfg["m"], *x.shape).to(dev),
+                  y.expand(cfg["m"], *y.shape).to(dev))
+        res, bcounts = {}, {}
+        for policy in ("amp", "zero", "fsdp"):
+            layers = lc.make_layers(mcfg, SP_WORLD1_LAYERS, device=dev)
+            gen = torch.Generator(device=dev).manual_seed(1)
+            if policy == "fsdp":
+                amp_ = amp.initialize("O2")
+                grad_fn = lc.make_grad_fn(layers, amp_, seq, data,
+                                          remat_policy=cfg["remat"],
+                                          generator=gen)
+                masters = {n: p.detach().clone()
+                           for n, p in layers.named_parameters()}
+                opt = DistributedFusedAdam(data, lr=lc.LR)
+                spec = opt.make_spec(masters)
+                step = fsdp_microbatch_step(
+                    grad_fn, opt, amp_, spec, microbatches=cfg["m"],
+                    grad_presum=lambda g: sync_replicated_grads(
+                        g, seq, tag="seq_presum"), model=layers)
+                carry = fsdp_init(opt, amp_, masters, spec)
+            else:
+                step, carry, _ = lc.build(
+                    layers, seq, data, zero=policy == "zero",
+                    microbatches=cfg["m"], remat_policy=cfg["remat"],
+                    generator=gen)
+            start = _masters_flat(carry[0] if policy != "fsdp" else masters)
+            reset_collective_counts()
+            carry, _ = build_opt_step(step)(carry, window)
+            bcounts[policy] = collective_counts()
+            after = (fsdp_unflatten_params(carry[0], spec, data)
+                     if policy == "fsdp" else carry[0])
+            res[policy] = (start, _masters_flat(after))
+            del layers, carry
+        amp_start, amp_after = res["amp"]
+        boundary = {p: {"movement_rel_l2": _movement(res[p][1], amp_after,
+                                                     amp_start),
+                        "max_abs_diff": float((res[p][1] - amp_after)
+                                              .abs().max()),
+                        "bitwise": bool(torch.equal(res[p][1], amp_after))}
+                    for p in ("zero", "fsdp")}
+    finally:
+        dist.destroy_process_group()
+    mbs = cfg["m"]
+    want = {"ring": {}, "ulysses": {"ulysses": 8}, "flash": {},
+            "zero": {"loss": 3 * mbs, "seq_presum": 1, "zero_flag": 1,
+                     "zero_grads": 1, "zero_params": 1},
+            "fsdp": {"loss": 3 * mbs, "seq_presum": 1, "fsdp_params": 1,
+                     "zero_flag": 2, "zero_grads": 1},
+            "amp": {"loss": 3 * mbs, "seq_presum": 1}}
+    got = {**counts, **bcounts}
+    rec = {"phase": "sp_world1", "backend": "nccl, world 1",
+           "attention": f"batch 1, {h} heads x {d}, {s} positions, bf16, "
+                        f"causal, dropout {rate}",
+           "bitwise_flash_attention": bitwise,
+           "boundary_vs_amp_fused_adam": boundary,
+           "boundary_tol": "movement within 1e-5 relative L2 of "
+                           "amp_microbatch_step(fused_adam)'s (fp32: "
+                           "sqrt(v / bc2) against sqrt(v) / sqrt(bc2), "
+                           "p - lr u against p + (-lr u))",
+           "collectives": got, "want_collectives": want}
+    emit(rec)
+    check(all(bitwise.values()),
+          f"sp_world1: not bit for bit flash_attention: {bitwise}")
+    check(all(b["movement_rel_l2"] <= 1e-5 for b in boundary.values()),
+          f"sp_world1: a sharded boundary is off: {boundary}")
+    check(got == want, f"sp_world1: collectives {got} != {want}")
+    return rec
+
+
 class _Tee:
     """stdout that also writes to a log file."""
 
@@ -6604,9 +7466,13 @@ def main(argv=None) -> int:
                     "file (the output can be longer than a terminal keeps)")
     ap.add_argument("--gloo-worker", metavar="DIR",
                     help=argparse.SUPPRESS)  # a rank of ddp_gloo_card
+    ap.add_argument("--sp-worker", metavar="DIR",
+                    help=argparse.SUPPRESS)  # a rank of the scale-out gangs
     args = ap.parse_args(argv)
     if args.gloo_worker is not None:
         return gloo_worker(args.gloo_worker)
+    if args.sp_worker is not None:
+        return sp_worker(args.sp_worker)
     if args.log is None:
         return _run()
     os.makedirs(os.path.dirname(os.path.abspath(args.log)), exist_ok=True)
@@ -6729,6 +7595,13 @@ def _run() -> int:
     phase_dcgan(dev)
     xm_launches = phase_library_modules(dev)
     phase_rnn(dev)
+    torch.cuda.empty_cache()
+    t_sp = time.perf_counter()
+    phase_sp_world1(dev)
+    lc_path = phase_long_context_gang(dev)
+    tp_path = phase_tp_pipeline_gang(dev)
+    emit({"phase": "scale_out_time", "seconds": time.perf_counter() - t_sp,
+          "phases": ["sp_world1", "long_context_gang", "tp_pipeline_gang"]})
 
     # the summary rows: the serving kernels at the engine's decode-step
     # shape with the engine run's launches, the GPT training kernels at
@@ -7015,6 +7888,23 @@ def _run() -> int:
             counts, what = paths[p]
             by_name[name][p] = {"launches": counts[counter_of[name]],
                                 "launches_of": f"{counter_of[name]}, {what}"}
+    # scale-out: rank 0's launches in the gangs' steps, beside every rank's
+    for key, path, what in (
+            ("long_context_path", lc_path, "two O2 steps of "
+             "examples/gpt_long_context, 12 GPTLayers at GPT-2 small's "
+             "width, ring attention over seq 2, S 4096, M = 2, "
+             "dots_saveable, ZeRO over data 2 (long_context_gang)"),
+            ("tp_path", tp_path, "two O2 steps of "
+             "examples/transformer_parallel, 12 blocks at GPT-2 small's "
+             "width as 2 pipeline stages x 2 tensor-parallel shards, "
+             "S 1024, M = 4 (tp_pipeline_gang)")):
+        for name in ("layer_norm", "layer_norm_bwd", "flash_attention_fwd",
+                     "flash_attention_bwd"):
+            by_name[name][key] = {
+                "launches": path["launches"].get(name, 0),
+                "launches_by_rank": [c.get(name, 0)
+                                     for c in path["launches_by_rank"]],
+                "launches_of": f"{name} on rank 0 of 4, {what}"}
     for kind in ("fwd", "bwd"):
         by_name[f"flash_attention_{kind}_bias"]["encdec_path"].update(
             {k: ed_cases[kind][k] for k in (
@@ -7025,7 +7915,8 @@ def _run() -> int:
                   for p in ("train_path", "bert_path", "rn50_path",
                             "ddp_path", "medium_path", "spec_path_d3", "spec_path_d7",
                             "spec_tree_path_w2d3", "spec_tree_path_w3d3",
-                            "o1_path", "stash_path", *paths)
+                            "o1_path", "stash_path", "long_context_path",
+                            "tp_path", *paths)
                   if p in r),
           f"a kernel never launched on its path: {rows}")
     print(smi, flush=True)
