@@ -27,6 +27,16 @@ Crash safety, as in the JAX package:
 Resuming an O2 run: the model's half copy of the masters is not saved;
 call :meth:`apex_tpu_torch.amp.AmpOptimizer.copy_to_model` after the
 restore and before the first step.
+
+Sharded state: ``process_local=True`` keeps this rank's state in a
+directory of its own, ``path/process_<rank>/<step>``
+(:func:`process_dir`), since no rank holds a sharded carry whole (JAX's
+``process_local`` scopes orbax to one process instead; the driver and
+:mod:`apex_tpu_torch.train.accum`'s train-state checkpoints both use this
+layout).  ``sharding_outcome`` commits the rules engine's record of how
+the state was sharded (:func:`apex_tpu_torch.sharding.rules_outcome`) as
+the step's :data:`SHARDING_FILE` sidecar, read back by
+:func:`read_sharding_outcome`.
 """
 from __future__ import annotations
 
@@ -39,12 +49,14 @@ from typing import Any, Dict, List, Optional, Tuple
 import torch
 
 __all__ = [
-    "CHECKSUM_FILE", "CheckpointIntegrityError", "latest_step",
+    "CHECKSUM_FILE", "CheckpointIntegrityError", "SHARDING_FILE",
+    "latest_step", "process_dir", "read_sharding_outcome",
     "restore_checkpoint", "restore_or_init", "save_checkpoint",
     "state_digest", "verified_latest_step",
 ]
 
 CHECKSUM_FILE = "apex_tpu.checksum.json"
+SHARDING_FILE = "apex_tpu.sharding.json"
 STATE_FILE = "state.pt"
 _CHECKSUM_SCHEMA = "apex_tpu_torch.checkpoint.checksum.v1"
 _TMP = ".tmp-"
@@ -57,6 +69,20 @@ class CheckpointIntegrityError(RuntimeError):
 
 def _abspath(path: str) -> str:
     return os.path.abspath(os.path.expanduser(str(path)))
+
+
+def process_dir(path: str, rank: Optional[int] = None) -> str:
+    """``path/process_<rank>``: a rank's own checkpoint directory (rank
+    None: this process's rank in the default process group)."""
+    if rank is None:
+        import torch.distributed as dist
+
+        rank = dist.get_rank() if dist.is_initialized() else 0
+    return os.path.join(_abspath(path), f"process_{int(rank)}")
+
+
+def _root(path: str, process_local: bool) -> str:
+    return process_dir(path) if process_local else _abspath(path)
 
 
 def _flatten(tree: Any, prefix: str = "") -> List[Tuple[str, Any]]:
@@ -154,14 +180,18 @@ def _read_checksum(path: str, step: int) -> Optional[dict]:
 
 
 def save_checkpoint(path: str, state: Any, step: int, *, keep: int = 3,
-                    overwrite: bool = True, checksum: bool = True) -> str:
+                    overwrite: bool = True, checksum: bool = True,
+                    process_local: bool = False,
+                    sharding_outcome: Optional[dict] = None) -> str:
     """Write ``state`` under ``path/<step>`` and return that directory.
 
     The newest ``keep`` steps are kept (at least 2), pruned only after
     this one commits.  ``overwrite=False`` refuses to replace an existing
     step.  With ``checksum``, the digest sidecar is committed into the
-    step."""
-    path = _abspath(path)
+    step.  ``process_local`` writes under this rank's own directory
+    (:func:`process_dir`); ``sharding_outcome`` is committed as the
+    step's :data:`SHARDING_FILE` sidecar."""
+    path = _root(path, process_local)
     keep = max(2, int(keep))
     step = int(step)
     final = os.path.join(path, str(step))
@@ -196,15 +226,39 @@ def save_checkpoint(path: str, state: Any, step: int, *, keep: int = 3,
             "schema": _CHECKSUM_SCHEMA, "step": step, "leaves": len(pairs),
             "digest": _digest((p, isinstance(x, torch.Generator), flat[p])
                               for p, x in pairs)})
+    if sharding_outcome is not None:
+        _write_json(os.path.join(final, SHARDING_FILE), sharding_outcome)
     for old_step in _steps(path)[keep:]:
         shutil.rmtree(os.path.join(path, str(old_step)), ignore_errors=True)
     return final
 
 
-def latest_step(path: str) -> Optional[int]:
-    """The newest committed step under ``path``, or None."""
-    steps = _steps(_abspath(path))
+def latest_step(path: str, process_local: bool = False) -> Optional[int]:
+    """The newest committed step under ``path`` (this rank's directory
+    with ``process_local``), or None."""
+    steps = _steps(_root(path, process_local))
     return steps[0] if steps else None
+
+
+def read_sharding_outcome(path: str, step: Optional[int] = None,
+                          process_local: bool = False,
+                          rank: Optional[int] = None) -> Optional[dict]:
+    """The sharding outcome a step was saved with, or None (no sidecar,
+    or a torn one: the restore then takes the conservative path).
+    ``step`` None reads the newest step's; ``process_local`` reads from
+    this rank's directory, or ``rank``'s."""
+    root = (process_dir(path, rank) if process_local or rank is not None
+            else _abspath(path))
+    if step is None:
+        steps = _steps(root)
+        if not steps:
+            return None
+        step = steps[0]
+    try:
+        with open(os.path.join(root, str(step), SHARDING_FILE)) as f:
+            return json.load(f)
+    except (OSError, json.JSONDecodeError):
+        return None
 
 
 def verified_latest_step(path: str) -> Optional[int]:
@@ -293,7 +347,8 @@ def _rebuild(tree: Any, flat: Dict[str, torch.Tensor], prefix: str = ""):
 
 
 def restore_checkpoint(path: str, target: Any, step: Optional[int] = None,
-                       *, verify: bool = True) -> Tuple[Any, int]:
+                       *, verify: bool = True,
+                       process_local: bool = False) -> Tuple[Any, int]:
     """Restore into the structure of ``target`` (a like-built state, the
     reference's "amp.initialize first, then load_state_dict"); returns
     ``(state, step)``.
@@ -303,8 +358,9 @@ def restore_checkpoint(path: str, target: Any, step: Optional[int] = None,
     With ``verify``, an explicit ``step`` that fails its checksum (or
     cannot be read) raises :class:`CheckpointIntegrityError`;
     ``step=None`` walks newest first past corrupted steps, and uses a
-    step without a sidecar only when no step verifies."""
-    path = _abspath(path)
+    step without a sidecar only when no step verifies.  ``process_local``
+    reads this rank's own directory."""
+    path = _root(path, process_local)
     pairs = _flatten(target)
     if step is not None:
         flat = _load(path, step)

@@ -40,7 +40,15 @@ head and dtype discipline:
   methods take ``n_layers`` (the shallow-exit draft of speculative
   decoding) and the block methods verify a current token plus its
   drafts in one forward: a chain, or W branches of a tree under a
-  branch mask.
+  branch mask;
+- tensor-parallel serving (``GPTConfig.decode_tp_axis``, an
+  :class:`~apex_tpu_torch.parallel.mesh.Axis`): the serving branch keeps
+  the replicated qkv product, attends only this rank's head group
+  ``h0 = index * H / tp`` against its head shard of the cache, writes
+  the group's output at ``h0 * head_dim`` into a zero (B, T, h) tensor
+  and sums it over the axis before ``proj``: one counted all-reduce a
+  layer (tag ``tp_heads``), so every rank carries the same residual
+  stream.
 
 Where the JAX serving methods return updated (donated) pools, these write
 the new tokens' K/V into the pool tensors IN PLACE and return the logits.
@@ -51,7 +59,7 @@ dropout mask, which is the JAX package's counter hash.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional
+from typing import Any, Dict, Optional
 
 import torch
 import torch.nn.functional as F
@@ -63,6 +71,7 @@ from apex_tpu_torch.amp.layers import Dense
 from apex_tpu_torch.normalization import FusedLayerNorm
 from apex_tpu_torch.ops import attention as _attn
 from apex_tpu_torch.ops.softmax_xentropy import softmax_cross_entropy
+from apex_tpu_torch.parallel.mesh import psum
 from apex_tpu_torch.remat import checkpoint_policy, remat_call
 
 __all__ = ["GPTConfig", "GPTLayer", "GPTLM", "init_params", "tree_layout"]
@@ -89,6 +98,9 @@ class GPTConfig:
     dq_acc: Optional[bool] = None
     # False: an untied fp32 output head (``head``) instead of wte^T
     tie_word_embeddings: bool = True
+    # serving: the parallel.mesh.Axis the decode path's heads and KV cache
+    # are sharded over (None: one rank); set by GPTDecoder(mesh=)
+    decode_tp_axis: Any = None
 
     def __post_init__(self):
         checkpoint_policy(self.remat_policy)  # an unknown name raises
@@ -100,6 +112,14 @@ class GPTConfig:
     @property
     def head_dim(self) -> int:
         return self.hidden_size // self.num_heads
+
+    @property
+    def local_heads(self) -> int:
+        """The heads a rank serves: ``num_heads / tp`` over
+        ``decode_tp_axis``, else all of them."""
+        if self.decode_tp_axis is None:
+            return self.num_heads
+        return self.num_heads // self.decode_tp_axis.size
 
     @staticmethod
     def small(**kw) -> "GPTConfig":
@@ -126,6 +146,10 @@ class GPTLayer(nn.Module):
     ``parallel.ulysses_attention``) over sequence shards.  It owns its
     kernel options: the config's ``probs_bf16`` and ``dq_acc`` apply to
     the built-in attention only."""
+
+    #: checks only: head groups to shift where a rank writes its block
+    #: before the tensor-parallel sum (a planted fault; 0 in use)
+    _tp_fault_shift = 0
 
     def __init__(self, cfg: GPTConfig, attention_fn=None):
         super().__init__()
@@ -201,6 +225,10 @@ class GPTLayer(nn.Module):
         pools (scales given) they are quantized here and returned as
         ``(int8, scale)`` pairs, and the in-block keys the new tokens
         attend to are the round-tripped values every later read sees.
+
+        Over ``cfg.decode_tp_axis`` the caches and pools hold this rank's
+        ``H / tp`` heads, k/v are those heads' projections, and the head
+        groups are reassembled by one sum over the axis before ``proj``.
         """
         cfg = self.cfg
         b, s, h = x.shape
@@ -209,6 +237,12 @@ class GPTLayer(nn.Module):
         q, k, v = self.qkv(y).split(h, dim=-1)
         split = lambda t: t.reshape(b, s, nh, d).transpose(1, 2)  # noqa: E731
         q, k, v = split(q), split(k), split(v)  # (B, nh, T, d)
+        tp = cfg.decode_tp_axis
+        if tp is not None:
+            # the local head group; the qkv product stays replicated
+            nh_loc = cfg.local_heads
+            h0 = tp.index * nh_loc
+            q, k, v = (t[:, h0:h0 + nh_loc] for t in (q, k, v))
         quant = pool_k_scale is not None
         if quant:
             k, k_s = _attn.quantize_kv(k)
@@ -231,7 +265,15 @@ class GPTLayer(nn.Module):
                 q, k_att, v_att, positions=positions, cache_k=cache_k,
                 cache_v=cache_v, cache_lengths=cache_lengths,
                 block_mask=block_mask)
-        attn = attn.transpose(1, 2).reshape(b, s, h)
+        attn = attn.transpose(1, 2).reshape(b, s, -1)
+        if tp is not None:
+            # reassemble the head axis: the local block at h0 * d of a
+            # zero (B, T, h) tensor, summed over the axis
+            at = ((h0 + self._tp_fault_shift * nh_loc) % nh) * d
+            full = torch.zeros((b, s, h), dtype=attn.dtype,
+                               device=attn.device)
+            full[..., at:at + nh_loc * d] = attn
+            attn = psum(full, tp, tag="tp_heads")
         x = x + self.proj(attn).to(x.dtype)
         y = self.ln2(x.float()).to(dt)
         y = self.ffn_out(F.gelu(self.ffn_in(y), approximate="tanh"))

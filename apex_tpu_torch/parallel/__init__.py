@@ -6,10 +6,9 @@ parallelism (``DistributedDataParallel``, ``Reducer``, ``SyncBatchNorm``,
 + ``new_groups``, ``LARC``); meshes of several axes (``make_mesh``) with
 their collectives; sequence parallelism (``ring_attention``,
 ``ulysses_attention``); tensor parallelism (``tensor_parallel``); and the
-GPipe pipeline (``pipeline_apply``).  A mesh axis is a process group here
-and a JAX collective one call on it; each module's docstring maps the
-JAX names to the port's.  Not ported yet (ROADMAP item 6, part 2): the
-expert-parallel ``moe``.
+GPipe pipeline (``pipeline_apply``); and expert parallelism (``moe``).  A
+mesh axis is a process group here and a JAX collective one call on it;
+each module's docstring maps the JAX names to the port's.
 """
 from apex_tpu_torch.optimizers.larc import LARC, larc  # noqa: F401
 from apex_tpu_torch.parallel.distributed import (  # noqa: F401
@@ -31,9 +30,11 @@ from apex_tpu_torch.parallel.mesh import (  # noqa: F401
     axis_size,
     collective_counts,
     data_parallel_group,
+    group_axis,
     grouped_all_reduce,
     make_mesh,
     new_groups,
+    pmax,
     psum,
     reduce_scatter,
     replicate,
@@ -42,6 +43,11 @@ from apex_tpu_torch.parallel.mesh import (  # noqa: F401
     shard_batch,
     syncbn_groups,
     world_size,
+)
+from apex_tpu_torch.parallel.moe import (  # noqa: F401
+    MoEMLP,
+    moe_mlp_ref,
+    top_k_routing,
 )
 from apex_tpu_torch.parallel.multiproc import (  # noqa: F401
     MultiprocError,
@@ -78,18 +84,21 @@ from apex_tpu_torch.parallel.tensor_parallel import (  # noqa: F401
 from apex_tpu_torch.parallel.ulysses import ulysses_attention  # noqa: F401
 
 __all__ = ["Axis", "ColumnParallelDense", "DistributedDataParallel", "LARC",
-           "Mesh", "MultiprocError", "P", "Reducer", "RowParallelDense",
+           "Mesh", "MoEMLP", "MultiprocError", "P", "Reducer",
+           "RowParallelDense",
            "Subgroups", "SyncBatchNorm", "TEARDOWN_RC",
            "TensorParallelMLP", "TensorParallelSelfAttention",
            "WorkerResult", "all_gather", "all_reduce", "all_to_all",
            "axis_index", "axis_size", "collective_counts",
            "column_parallel_dense", "convert_syncbn_model",
            "data_parallel_group", "data_parallel_step", "flatten_tree",
-           "grouped_all_reduce", "init_distributed", "larc", "launch",
-           "make_mesh", "new_groups", "pipeline_apply", "psum",
+           "group_axis", "grouped_all_reduce", "init_distributed", "larc",
+           "launch", "make_mesh", "moe_mlp_ref", "new_groups",
+           "pipeline_apply", "pmax", "psum",
            "reduce_scatter", "replicate", "replicated_loss",
            "reset_collective_counts", "ring_attention", "ring_attention_fwd",
            "ring_attention_ref", "ring_shift", "row_parallel_dense",
            "shard_batch", "split_column", "split_row", "stack_stage_params",
-           "sync_replicated_grads", "syncbn_groups", "ulysses_attention",
+           "sync_replicated_grads", "syncbn_groups", "top_k_routing",
+           "ulysses_attention",
            "unflatten_tree", "world_size"]

@@ -21,6 +21,7 @@ JAX package                        port
   a group mask under shard_map)      subgroup all-reduce
 ``lax.psum``                       :func:`all_reduce` (in place), or
                                      :func:`psum` (differentiable)
+``lax.pmax``                       :func:`pmax` (no gradient)
 ``lax.all_gather(tiled=True)``     :func:`all_gather`
 ``lax.psum_scatter(tiled=True)``   :func:`reduce_scatter`
 ``lax.ppermute`` by +-1            :func:`ring_shift`
@@ -43,18 +44,19 @@ reverse shift and an all-to-all's the reverse all-to-all.  Each
 backward's collective is counted like a forward's.
 
 Backends.  NCCL takes every collective here on CUDA tensors; gloo takes
-all of them on CPU tensors.  On CUDA tensors gloo takes the collectives
-of :data:`GLOO_CUDA` and not the point-to-point pair a ring shift is made
-of (``apex_tpu_torch/tools/gloo_cuda_probe.py`` measures this on a
-card: torch 2.11's gloo gives the right values for ``all_reduce``,
-``broadcast``, ``all_gather(_into_tensor)``, ``reduce_scatter_tensor`` and
-``all_to_all_single`` on CUDA tensors, and its ``isend``/``irecv`` pair
-fails).  So under gloo a CUDA tensor's ring shift goes through host
-memory: the tensor is copied to the CPU, the shift runs there and the
-result is copied back.  The backend, the device and the op choose that
-branch, never a caught failure; it is counted under ``<tag>[host]`` and
-is never taken under NCCL.  A collective that a backend does not take
-raises.
+all of them on CPU tensors.  On CUDA tensors gloo takes the (collective,
+dtype) pairs of :data:`GLOO_CUDA` and not the point-to-point pair a ring
+shift is made of (``apex_tpu_torch/tools/gloo_cuda_probe.py`` measures
+this on a card: torch 2.11's gloo gives the right values for the SUM
+``all_reduce`` and ``reduce_scatter_tensor`` in fp32, bf16 and int8, the
+fp32 MAX ``all_reduce``, ``all_gather(_into_tensor)`` in fp32, bf16 and
+int8, ``all_to_all_single`` in fp32 and bf16 and fp32 ``broadcast``, and
+its ``isend``/``irecv`` pair fails).  So under gloo a CUDA tensor's
+collective outside that table goes through host memory: the tensor is
+copied to the CPU, the collective runs there and the result is copied
+back.  The backend, the device, the op and the dtype choose that branch,
+never a caught failure; it is counted under ``<tag>[host]`` and is never
+taken under NCCL.  A collective that a backend does not take raises.
 """
 from __future__ import annotations
 
@@ -71,14 +73,19 @@ from apex_tpu_torch.multi_tensor import tree_map
 __all__ = ["Axis", "GLOO_CUDA", "Mesh", "P", "Subgroups", "all_gather",
            "all_reduce", "all_to_all", "axis_index", "axis_size",
            "collective_counts", "data_parallel_group", "grouped_all_reduce",
-           "make_mesh", "new_groups", "psum", "reduce_scatter", "replicate",
+           "group_axis", "make_mesh", "new_groups", "pmax", "psum",
+           "reduce_scatter", "replicate",
            "reset_collective_counts", "ring_shift", "shard_batch",
            "syncbn_groups", "world_size"]
 
-#: the collectives gloo takes on CUDA tensors (tools/gloo_cuda_probe.py);
-#: any other goes through host memory under gloo (the module docstring)
-GLOO_CUDA = frozenset({"all_reduce", "broadcast", "all_gather",
-                       "reduce_scatter", "all_to_all"})
+#: the (collective, dtype) pairs gloo takes on CUDA tensors, as
+#: tools/gloo_cuda_probe.py measured them on an H100 (torch 2.11); any
+#: other goes through host memory under gloo (the module docstring)
+GLOO_CUDA = frozenset(
+    [(op, dt) for op in ("all_reduce", "reduce_scatter", "all_gather")
+     for dt in (torch.float32, torch.bfloat16, torch.int8)]
+    + [("all_to_all", torch.float32), ("all_to_all", torch.bfloat16),
+       ("all_reduce_max", torch.float32), ("broadcast", torch.float32)])
 
 _COUNTS: Dict[str, int] = collections.Counter()
 
@@ -274,6 +281,15 @@ class Mesh:
         return {a.name: a.index for a in self.axes}
 
 
+def group_axis(group=None, name: str = "data") -> Axis:
+    """The :class:`Axis` of a process group (None: the default group), for
+    the axis-based collectives over a group-based policy such as
+    ``DistributedDataParallel(group=)``."""
+    _require_init()
+    g = dist.group.WORLD if group is None else group
+    return Axis(name, tuple(dist.get_process_group_ranks(g)), g)
+
+
 def make_mesh(axes: Sequence[Tuple[str, int]]) -> Mesh:
     """A :class:`Mesh` from ordered ``(axis_name, size)`` pairs over the
     initialised world, e.g. ``make_mesh([("data", 2), ("seq", 2)])``; the
@@ -334,8 +350,9 @@ _REDUCE_SCATTER = getattr(dist, "reduce_scatter_single",
 
 def _staged(x: torch.Tensor, axis: Axis, op: str) -> bool:
     """Whether this collective goes through host memory: a CUDA tensor
-    under gloo, for an op gloo does not take on CUDA tensors."""
-    return (x.is_cuda and op not in GLOO_CUDA
+    under gloo, for an (op, dtype) pair gloo does not take on CUDA
+    tensors."""
+    return (x.is_cuda and (op, x.dtype) not in GLOO_CUDA
             and dist.get_backend(axis.group) == "gloo")
 
 
@@ -407,12 +424,14 @@ def _all_to_all(x, axis, split_dim, concat_dim, tag):
     return torch.cat(out.unbind(0), dim=concat_dim)
 
 
-def _psum(x, axis, tag):
+def _psum(x, axis, tag, op="all_reduce"):
+    red = dist.ReduceOp.MAX if op == "all_reduce_max" else dist.ReduceOp.SUM
+
     def go(t):
         t = t.clone()
-        dist.all_reduce(t, op=dist.ReduceOp.SUM, group=axis.group)
+        dist.all_reduce(t, op=red, group=axis.group)
         return t
-    return _run(x, axis, "all_reduce", tag, go)
+    return _run(x, axis, op, tag, go)
 
 
 class _Collective(torch.autograd.Function):
@@ -467,6 +486,17 @@ def psum(x: torch.Tensor, axis: Axis, *,
     """SUM over the axis, out of place (``lax.psum``); the backward sums
     the cotangent over the axis too."""
     return _collective("psum", x, axis, (), tag)
+
+
+def pmax(x: torch.Tensor, axis: Axis, *, tag: str = "pmax") -> torch.Tensor:
+    """MAX over the axis, out of place (``lax.pmax``); not
+    differentiable: the codecs take it of a detached scale."""
+    if axis.group is None:
+        if axis.size != 1:
+            raise ValueError(f"axis {axis.name!r} of size {axis.size} has "
+                             f"no process group")
+        return x
+    return _psum(x.detach(), axis, tag, op="all_reduce_max")
 
 
 def all_gather(x: torch.Tensor, axis: Axis, dim: int = 0, *,

@@ -1,5 +1,6 @@
 """Serving of the port: contiguous and paged KV caches, the decoder with
-chain and tree self-speculative decoding, the continuous-batching engine."""
+chain and tree self-speculative decoding, the continuous-batching engine,
+and tensor-parallel serving over a head-sharded cache."""
 from apex_tpu_torch.serve.decode import (  # noqa: F401
     DEFAULT_SPEC_HIST,
     DEFAULT_TOKENS_PER_DISPATCH,
@@ -11,6 +12,11 @@ from apex_tpu_torch.serve.decode import (  # noqa: F401
     sample_tokens,
 )
 from apex_tpu_torch.serve.engine import Request, ServeEngine  # noqa: F401
+from apex_tpu_torch.serve.sharding import (  # noqa: F401
+    cache_pspec,
+    paged_cache_pspec,
+    serve_mesh,
+)
 from apex_tpu_torch.serve.kv_cache import (  # noqa: F401
     TRASH_PAGE,
     KVCache,
@@ -37,10 +43,13 @@ __all__ = [
     "TRASH_PAGE",
     "auto_page_len",
     "cache_bytes_per_slot",
+    "cache_pspec",
     "init_cache",
     "init_paged_cache",
+    "paged_cache_pspec",
     "propose_ngram",
     "propose_ngram_tree",
     "reference_generate",
     "sample_tokens",
+    "serve_mesh",
 ]

@@ -1,8 +1,7 @@
 """Prefill and K-token decode windows over the contiguous cache and the
 page pool, with chain and tree self-speculative decoding.
 
-Counterpart of ``apex_tpu/serve/decode.py`` without its tensor-parallel
-mesh:
+Counterpart of ``apex_tpu/serve/decode.py``:
 
 - :class:`SamplingParams`, :func:`sample_tokens` and the filtered
   sampling epilogue (greedy, temperature, top-k, top-p, min-p), drawing
@@ -16,6 +15,20 @@ mesh:
   speculative windows ``spec_decode_window``,
   ``paged_spec_decode_window`` and ``paged_tree_spec_decode_window``;
 - :func:`reference_generate`, the per-token full-recompute oracle.
+
+Tensor-parallel serving (``GPTDecoder(mesh=serve_mesh(tp))``): JAX wraps
+every decode program in ``shard_map``; the port runs SPMD instead.  Every
+rank of the ``model`` axis builds the same decoder with the same
+(replicated) weights and runs the same programs on the same arguments;
+its caches hold its ``num_heads / tp`` heads, and each layer reassembles
+the heads with one counted all-reduce (``models.gpt``).  The programs
+below run unchanged on the head shard: the contiguous prefill and
+window, the paged prefill chunk and window, the chain windows with
+either proposer, the tree window (``_tree_compact`` moves only this
+rank's heads) and ``copy_pages``.  Every host decision and every
+sampling draw must then agree across the ranks, which
+``serve.ServeEngine`` gets by running the same request stream with the
+same seed on each.
 
 Speculative decoding (``spec_tokens`` D > 0): each window step proposes
 D draft tokens (the n-gram proposer over the per-slot token history, or
@@ -296,6 +309,10 @@ class GPTDecoder:
         on and the n-gram proposer, and only the paged engine runs it.
       device: where the model and the cache live; None is the CUDA
         device, and raises when there is none.
+      mesh: a :class:`~apex_tpu_torch.parallel.mesh.Mesh` (``serve.
+        serve_mesh(tp)``) whose ``tp_axis`` shards the heads and the
+        cache; ``num_heads`` must divide by its size.  None: one rank.
+      tp_axis: the mesh axis of the heads.
     """
 
     def __init__(
@@ -315,10 +332,21 @@ class GPTDecoder:
         spec_exit_layers: Optional[int] = None,
         spec_tree: int = 0,
         device: Optional[Union[str, torch.device]] = None,
+        mesh=None,
+        tp_axis: str = "model",
     ):
         self.device = resolve_device(device)
         if compute_dtype is not None:
             cfg = dataclasses.replace(cfg, compute_dtype=compute_dtype)
+        self.mesh = mesh
+        self.tp_axis = tp_axis if mesh is not None else None
+        if mesh is not None:
+            axis = mesh[tp_axis]
+            if cfg.num_heads % axis.size:
+                raise ValueError(
+                    f"num_heads {cfg.num_heads} not divisible by the "
+                    f"{tp_axis!r} axis size {axis.size}")
+            cfg = dataclasses.replace(cfg, decode_tp_axis=axis)
         self.cfg = cfg
         if int(tokens_per_dispatch) < 1:
             raise ValueError("tokens_per_dispatch must be >= 1")
@@ -360,6 +388,12 @@ class GPTDecoder:
         self.model.requires_grad_(False)
         self.model.eval()
         self.model.cast_for_serving()
+
+    @property
+    def tp_degree(self) -> int:
+        """Ranks the heads are sharded over (1 without a mesh)."""
+        axis = self.cfg.decode_tp_axis
+        return 1 if axis is None else axis.size
 
     # -- speculative geometry -------------------------------------------
 

@@ -26,8 +26,18 @@ counts the steps a branch other than 0 won.  ``spec_autotune`` walks the
 draft depth between 1 and ``spec_tokens`` from the accepted counts of
 the last :data:`ServeEngine.AUTOTUNE_PERIOD` verify steps.
 
-Not ported yet: tensor-parallel serving, handoff and weight swaps, and
-the obs, SLO, flight-recorder and fault-injection planes.
+Tensor-parallel serving: over a decoder built with a mesh
+(``GPTDecoder(mesh=serve_mesh(tp))``), every rank of the axis runs its
+own engine over the same request stream, with the same seed.  Each rank
+holds its head shard of the pool and makes every host decision itself
+(admission, chunking, the prefix registry, copy-on-write, preemption,
+the sampling generator's draws); they agree because their inputs do,
+and a token that differed between ranks would desynchronise the gang.
+``stats()["tensor_parallel"]`` reports the degree and the head
+all-reduces of the last window and in all.
+
+Not ported yet: handoff and weight swaps, and the obs, SLO,
+flight-recorder and fault-injection planes.
 """
 from __future__ import annotations
 
@@ -39,6 +49,7 @@ import numpy as np
 import torch
 
 from apex_tpu_torch.ops import launch_counts
+from apex_tpu_torch.parallel.mesh import collective_counts
 from apex_tpu_torch.serve.decode import GPTDecoder, SamplingParams, sample_tokens
 from apex_tpu_torch.serve.kv_cache import PagePool, SlotAllocator, auto_page_len
 
@@ -179,6 +190,9 @@ class ServeEngine:
         self.preemptions = 0
         self.prompt_tokens = 0
         self.peak_live_tokens = 0
+        # tensor parallelism: head all-reduces of the last window, in all
+        self.tp_window_collectives = 0
+        self.tp_collectives = 0
 
     # -- request intake -------------------------------------------------
 
@@ -468,6 +482,7 @@ class ServeEngine:
         active = np.zeros((self.cache.slots,), bool)
         active[list(self._active)] = True
         samp = self._samp_params()
+        tp0 = collective_counts().get("tp_heads", 0)
         if self._spec:
             draft = self._dispatch_draft()
             if self._tree:
@@ -490,6 +505,10 @@ class ServeEngine:
             buf = self.decoder.decode_window(
                 self.cache, self._last_token, active, self._gen, samp=samp)
         self.decode_dispatches += 1
+        if self.decoder.tp_degree > 1:
+            self.tp_window_collectives = (
+                collective_counts().get("tp_heads", 0) - tp0)
+            self.tp_collectives += self.tp_window_collectives
         # (K, slots), or (steps, slots, 2 + draft) under speculation (3 +
         # draft for a tree): the one host sync of the window
         buf = buf.cpu().numpy()
@@ -589,6 +608,12 @@ class ServeEngine:
             "slots": self.cache.slots,
             "kernel_launches": launch_counts(),
         }
+        if self.decoder.tp_degree > 1:
+            s["tensor_parallel"] = {
+                "degree": self.decoder.tp_degree,
+                "axis": self.decoder.tp_axis,
+                "all_reduces_last_window": self.tp_window_collectives,
+                "all_reduces_windows": self.tp_collectives}
         if self._spec:
             s["spec"] = {
                 "draft_tokens": self.spec_draft_tokens,

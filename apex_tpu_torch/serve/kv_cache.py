@@ -15,7 +15,10 @@ writes land in a sink.
 Where the JAX caches are immutable pytrees donated through each
 dispatch, :class:`KVCache` and :class:`PagedKVCache` hold device tensors
 that the prefill, decode and copy programs update IN PLACE.  Int8 pools carry per-token
-fp32 scales (``k_scale``/``v_scale``) beside the pages.  The allocator
+fp32 scales (``k_scale``/``v_scale``) beside the pages.  Under
+tensor-parallel serving (``cfg.decode_tp_axis``) each rank's caches hold
+its ``num_heads / tp`` heads (``GPTConfig.local_heads``): the head axis,
+dim 2, sharded as ``serve.sharding.cache_pspec`` says.  The allocator
 classes are host code with no framework in them; the port keeps its
 own copy rather than importing the JAX package.
 """
@@ -85,7 +88,7 @@ def cache_bytes_per_slot(cfg, max_len: int,
     """Shape-only K+V bytes a slot of :class:`KVCache` pins (``dtype``
     None: the config's compute dtype); no tensor is made."""
     d = cfg.hidden_size // cfg.num_heads
-    per = cfg.num_layers * cfg.num_heads * max_len * d
+    per = cfg.num_layers * cfg.local_heads * max_len * d
     return 2 * per * (dtype or cfg.compute_dtype).itemsize
 
 
@@ -109,7 +112,7 @@ def init_cache(
                          "init_paged_cache, or keep the contiguous cache at "
                          "bf16/fp32")
     dev = resolve_device(device)
-    shape = (slots, cfg.num_layers, cfg.num_heads, max_len,
+    shape = (slots, cfg.num_layers, cfg.local_heads, max_len,
              cfg.hidden_size // cfg.num_heads)
     return KVCache(
         k=torch.zeros(shape, dtype=dtype, device=dev),
@@ -191,7 +194,7 @@ def init_paged_cache(
         raise ValueError("page_len must be >= 1")
     dev = resolve_device(device)
     dtype = cfg.compute_dtype if dtype is None else dtype
-    shape = (num_pages, cfg.num_layers, cfg.num_heads, page_len,
+    shape = (num_pages, cfg.num_layers, cfg.local_heads, page_len,
              cfg.hidden_size // cfg.num_heads)
     quant = dtype == torch.int8
     return PagedKVCache(

@@ -44,10 +44,25 @@ through one scalar all-reduce, and one scale update a boundary):
 
 :func:`zero_state_spec`, :func:`fsdp_param_spec` and
 :func:`fsdp_state_spec` mark which carry leaves are rank-local shards
-(``P(axis_name)``) for the driver's ``carry_spec``.  Not ported yet
-(ROADMAP item 6, part 2): compressed boundary collectives
-(``train/compress.py``; ``compress=`` raises ``NotImplementedError``) and
-Adasum (:func:`adasum_microbatch_step` raises).
+(``P(axis_name)``) for the driver's ``carry_spec``, derived from
+:func:`apex_tpu_torch.sharding.train_state_rules`.
+
+``compress=`` (:mod:`apex_tpu_torch.train.compress`) wraps the boundary
+collective of the three policies in the bf16 or int8 codec; int8 carries
+its error-feedback residual as ``carry[2]`` (an ``EfState`` holding this
+rank's row), kept unchanged on a boundary that overflows.  ``compress=
+None`` builds exactly the uncompressed step.  :func:`adasum_microbatch_step`
+is the fourth policy: one flat all-gather a boundary and Adasum's
+butterfly computed locally on every rank.
+
+The canonical train state (:func:`train_state_canonical`,
+:func:`carry_from_canonical`, :func:`save_train_state`,
+:func:`restore_train_state`): the full parameters, moments, step and
+scalers of a ZeRO or FSDP carry, from which either mode is rebuilt on a
+mesh of another size.  No rank holds the whole state, so the canonical
+form is all-gathered over the axis, or read from every source rank's
+checkpoint directory when a restore's saved world differs from the
+live one.
 """
 from __future__ import annotations
 
@@ -58,14 +73,21 @@ import torch
 from apex_tpu_torch import multi_tensor
 from apex_tpu_torch.amp.scaler import apply_if_finite
 from apex_tpu_torch.parallel.distributed import flatten_tree, unflatten_tree
-from apex_tpu_torch.parallel.mesh import P, all_gather, psum
+from apex_tpu_torch.parallel.mesh import P, all_gather, group_axis, psum
+from apex_tpu_torch.train.compress import (EfState, adasum_combine,
+                                           compress_allreduce,
+                                           compress_reduce_scatter,
+                                           compression_default)
 
 __all__ = ["ACCUM_DTYPES", "FsdpAmpState", "FsdpOptState",
-           "MicrobatchedStep", "ZeroAmpState", "adasum_microbatch_step",
-           "amp_microbatch_step", "build_opt_step", "fsdp_init",
-           "fsdp_microbatch_step", "fsdp_param_spec", "fsdp_state_spec",
-           "fsdp_unflatten_params", "zero_init", "zero_microbatch_step",
-           "zero_state_spec"]
+           "MicrobatchedStep", "REDUCTION_MODES", "ZeroAmpState",
+           "adasum_microbatch_step", "adasum_state_spec",
+           "amp_microbatch_step", "build_opt_step", "carry_from_canonical",
+           "fsdp_init", "fsdp_microbatch_step", "fsdp_param_spec",
+           "fsdp_state_spec", "fsdp_unflatten_params",
+           "reduction_carry_template", "restore_train_state",
+           "save_train_state", "train_state_canonical", "zero_init",
+           "zero_microbatch_step", "zero_state_spec"]
 
 ACCUM_DTYPES = ("float32", "bf16_compensated")
 
@@ -93,6 +115,8 @@ class MicrobatchedStep(NamedTuple):
     microbatches: int
     accum_dtype: str = "float32"
     prepare_fn: Optional[Callable[[Any], Any]] = None
+    #: the boundary's compression policy (introspection only)
+    compress: Optional[Any] = None
 
 
 def _accum_validate(accum_dtype: str) -> None:
@@ -211,45 +235,120 @@ def amp_microbatch_step(grad_fn: GradFn, opt, *, microbatches: int = 1,
     tree flattened into one fp32 buffer (``flatten_tree``), one
     ``ddp.allreduce`` of it, unflattened.  ``grad_presum(acc)`` runs on
     the accumulated gradient before the division by M (in JAX a partial
-    reduction over another mesh axis).  ``compress`` (ROADMAP item 6,
-    ``train/compress.py``) raises ``NotImplementedError``."""
-    _no_compress("amp_microbatch_step", compress)
+    reduction over another mesh axis).
+
+    ``compress`` (``"bf16"``, ``"int8"`` or a ``CompressionSpec``; needs
+    ``ddp``, and not over grouped DDP) wraps that all-reduce in the
+    codec, with DDP's scaling (the predivide, the SUM, the division by
+    world over the predivide); int8 carries its residual as ``carry[2]``
+    (``EfState``, this rank's (1, L) row), not updated on a boundary that
+    overflows.  ``compress=None`` is exactly the uncompressed step."""
     m = int(microbatches)
     _accum_validate(accum_dtype)
+    comp = compression_default(compress)
+    if comp.enabled and ddp is None:
+        raise ValueError(
+            "gradient compression compresses the boundary DDP collective: "
+            "pass ddp= (there is nothing to compress on one rank)")
+    if comp.enabled and ddp.groups is not None:
+        raise NotImplementedError(
+            "gradient compression over grouped (hierarchical) DDP groups is "
+            "not supported")
+    axis = group_axis(ddp.group) if comp.enabled else None
 
     def update_fn(carry, acc):
         masters, state = carry[0], carry[1]
         if grad_presum is not None:
             acc = grad_presum(acc)
         grads = {n: a / m for n, a in acc.items()}
+        new_res = None
         if ddp is not None:
             # one collective a boundary: the flat buffer (the reference's
             # flat bucket); the grads are fp32 already, so the flatten is
             # exact
             flat, spec = flatten_tree(grads)
-            grads = unflatten_tree(ddp.allreduce(flat), spec)
+            if comp.enabled:
+                pre = ddp.gradient_predivide_factor
+                x = flat / pre if pre != 1.0 else flat
+                res = carry[2].ef_residual[0] if comp.error_feedback else None
+                summed, new_res = compress_allreduce(x, axis, comp, res,
+                                                     tag="ddp")
+                if ddp.gradient_average:
+                    summed = summed / (axis.size / pre)
+                grads = unflatten_tree(summed, spec)
+            else:
+                grads = unflatten_tree(ddp.allreduce(flat), spec)
+        masters, state, stats = opt.step(grads, state, masters,
+                                         loss_id=loss_id, model=model)
+        metrics = {"scale": stats.loss_scale,
+                   "skipped": stats.found_inf.float()}
+        return ((masters, state) + _ef_extras(comp, carry, new_res,
+                                              stats.found_inf), metrics)
+
+    return MicrobatchedStep(grad_fn, update_fn, m, accum_dtype,
+                            compress=comp)
+
+
+def _ef_extras(comp, carry, new_res, found_inf) -> tuple:
+    """The carry's items past the head: the new int8 residual (the old
+    one kept on an overflowed boundary, or the poisoned error would
+    replay forever) and the rest untouched."""
+    if not comp.error_feedback:
+        return tuple(carry[2:])
+    old = carry[2].ef_residual[0]
+    new_res = torch.where(found_inf, old, new_res)
+    return (EfState(new_res[None]),) + tuple(carry[3:])
+
+
+def adasum_state_spec(axis_name: str = "data") -> P:
+    """The Adasum carry's spec: replicated, as the mean policy's (the
+    combined gradient is the same on every rank)."""
+    from apex_tpu_torch.sharding import train_state_rules
+
+    return train_state_rules(axis_name).match(_Leaf())
+
+
+def adasum_microbatch_step(grad_fn: GradFn, opt, *, microbatches: int = 1,
+                           axis=None, loss_id: int = 0,
+                           accum_dtype: str = "float32",
+                           grad_presum: Optional[Callable[[Grads], Grads]] = None,
+                           model: Optional[torch.nn.Module] = None,
+                           compress=None) -> MicrobatchedStep:
+    """The Adasum accumulation step (arxiv 2006.02924): the ranks'
+    microbatch-mean gradients combine pairwise by orthogonal projection
+    instead of averaging.  One flat all-gather over ``axis`` (an
+    :class:`~apex_tpu_torch.parallel.mesh.Axis`; None: the default
+    process group) a boundary, then the log2(world) butterfly computed
+    locally and identically on every rank, so the overflow gate inside
+    ``opt.step`` agrees everywhere with no flag all-reduce.  The world
+    must be a power of two.  The carry and overflow contract are
+    :func:`amp_microbatch_step`'s.  ``compress`` must stay None: Adasum's
+    coefficients need full-precision operands."""
+    comp = compression_default(compress)
+    if comp.enabled:
+        raise NotImplementedError(
+            "adasum combines full-precision gradients; compression composes "
+            "with the mean/zero/fsdp policies instead")
+    m = int(microbatches)
+    _accum_validate(accum_dtype)
+
+    def update_fn(carry, acc):
+        masters, state = carry[0], carry[1]
+        ax = group_axis() if axis is None else axis
+        if grad_presum is not None:
+            acc = grad_presum(acc)
+        grads = {n: a / m for n, a in acc.items()}
+        flat, spec = flatten_tree(grads)
+        gathered = all_gather(flat[None], ax, 0, tag="adasum")  # (world, L)
+        grads = unflatten_tree(adasum_combine(gathered), spec)
         masters, state, stats = opt.step(grads, state, masters,
                                          loss_id=loss_id, model=model)
         metrics = {"scale": stats.loss_scale,
                    "skipped": stats.found_inf.float()}
         return (masters, state) + tuple(carry[2:]), metrics
 
-    return MicrobatchedStep(grad_fn, update_fn, m, accum_dtype)
-
-
-def _no_compress(where: str, compress) -> None:
-    if compress is not None:
-        raise NotImplementedError(
-            f"{where}: compress= (the compressed boundary collective of "
-            f"train/compress.py) is not ported yet: ROADMAP item 6, part 2")
-
-
-def adasum_microbatch_step(*args, **kwargs):
-    """Adasum's boundary combine (``train/compress.py``) is not ported
-    yet: raises ``NotImplementedError`` (ROADMAP item 6, part 2)."""
-    raise NotImplementedError(
-        "adasum_microbatch_step: the Adasum combine of train/compress.py is "
-        "not ported yet: ROADMAP item 6, part 2")
+    return MicrobatchedStep(grad_fn, update_fn, m, accum_dtype,
+                            compress=comp)
 
 
 # -- ZeRO: the sharded optimizer state --------------------------------------
@@ -265,15 +364,22 @@ class ZeroAmpState(NamedTuple):
     scaler: Tuple
 
 
+class _Leaf:
+    """Shapeless placeholder of a spec template: the rules match it by
+    path alone."""
+
+
 def zero_state_spec(axis_name: str = "data") -> ZeroAmpState:
     """The :class:`ZeroAmpState`'s spec tree for the driver's
     ``carry_spec``: the flat shards ride ``axis_name``, the step and the
-    scalers are replicated."""
+    scalers are replicated (from
+    :func:`apex_tpu_torch.sharding.train_state_rules`)."""
     from apex_tpu_torch.contrib.optimizers.distributed_fused import (
         ShardedOptState)
+    from apex_tpu_torch.sharding import train_state_rules
 
-    ax = P(axis_name)
-    return ZeroAmpState(ShardedOptState(P(), ax, ax, ax), P())
+    return train_state_rules(axis_name).match(ZeroAmpState(
+        ShardedOptState(_Leaf(), _Leaf(), _Leaf(), _Leaf()), _Leaf()))
 
 
 def zero_init(zero_opt, amp_, params: Grads, spec) -> ZeroAmpState:
@@ -322,10 +428,19 @@ def zero_microbatch_step(grad_fn: GradFn, zero_opt, amp_, spec, *,
     the state keep their values and the scale backs off once.  With
     ``model``, the new masters are copied into it.  ``grad_presum`` runs
     on the accumulated gradient first (the long-context recipe's
-    sequence-axis sum)."""
-    _no_compress("zero_microbatch_step", compress)
+    sequence-axis sum).
+
+    ``compress`` wraps the reduce-scatter in the bf16 or int8 codec (the
+    parameters' all-gather stays fp32); int8's residual covers the padded
+    flat gradient (``spec.padded`` long) and rides as ``carry[2]``.  The
+    codec path runs Adam's shard update, so it takes
+    ``DistributedFusedAdam`` only (LAMB's norms need the reduce-scatter
+    that ``DistributedFusedLAMB.step`` makes itself)."""
     m = int(microbatches)
     _accum_validate(accum_dtype)
+    comp = compression_default(compress)
+    if comp.enabled:
+        _adam_only(zero_opt, "zero_microbatch_step(compress=)")
 
     def update_fn(carry, acc):
         params, state = carry[0], carry[1]
@@ -334,8 +449,17 @@ def zero_microbatch_step(grad_fn: GradFn, zero_opt, amp_, spec, *,
         inv = 1.0 / (state.scaler[loss_id].loss_scale * m)
         found_inf = _boundary_inf(acc, inv, zero_opt.axis)
         master_grads = {k: a * inv for k, a in acc.items()}
-        new_params, new_opt = zero_opt.step(master_grads, state.opt_state,
-                                            spec)
+        new_res = None
+        if comp.enabled:
+            res = carry[2].ef_residual[0] if comp.error_feedback else None
+            g_shard, new_res = _compressed_reduce_scatter(
+                zero_opt, master_grads, spec, comp, res)
+            new_opt = zero_opt._shard_update(g_shard, state.opt_state,
+                                             zero_opt.lr)
+            new_params = zero_opt._gather(new_opt.master_shard, spec)
+        else:
+            new_params, new_opt = zero_opt.step(master_grads,
+                                                state.opt_state, spec)
         found_inf = torch.logical_or(
             found_inf, torch.logical_not(multi_tensor.tree_finite(new_params)))
         new_params = apply_if_finite(found_inf, new_params, params)
@@ -346,9 +470,27 @@ def zero_microbatch_step(grad_fn: GradFn, zero_opt, amp_, spec, *,
             AmpOptimizer.copy_to_model(model, new_params)
         metrics = {"scale": new_s.loss_scale, "skipped": found_inf.float()}
         return ((new_params, ZeroAmpState(new_opt, scalers))
-                + tuple(carry[2:]), metrics)
+                + _ef_extras(comp, carry, new_res, found_inf), metrics)
 
-    return MicrobatchedStep(grad_fn, update_fn, m, accum_dtype)
+    return MicrobatchedStep(grad_fn, update_fn, m, accum_dtype,
+                            compress=comp)
+
+
+def _compressed_reduce_scatter(opt, master_grads, spec, comp, res):
+    """The sharded optimizer's gradient reduce-scatter with the codec
+    spliced in: the predivide, the compressed SUM, the division by world
+    over the predivide."""
+    from apex_tpu_torch.contrib.optimizers.distributed_fused import _flatten
+
+    flat_g = _flatten(master_grads, spec)
+    pre = opt.gradient_predivide_factor
+    if pre != 1.0:
+        flat_g = flat_g / pre
+    g_shard, new_res = compress_reduce_scatter(flat_g, opt.axis, comp, res,
+                                               tag="zero_grads")
+    if opt.gradient_average:
+        g_shard = g_shard / (opt.axis.size / pre)
+    return g_shard, new_res
 
 
 # -- FSDP: the parameters sharded too ------------------------------------------
@@ -378,9 +520,12 @@ def fsdp_param_spec(axis_name: str = "data") -> P:
 
 def fsdp_state_spec(axis_name: str = "data") -> FsdpAmpState:
     """The :class:`FsdpAmpState`'s spec tree: moment shards on
-    ``axis_name``, the step and the scalers replicated."""
-    ax = P(axis_name)
-    return FsdpAmpState(FsdpOptState(P(), ax, ax), P())
+    ``axis_name``, the step and the scalers replicated (from
+    ``train_state_rules``)."""
+    from apex_tpu_torch.sharding import train_state_rules
+
+    return train_state_rules(axis_name).match(FsdpAmpState(
+        FsdpOptState(_Leaf(), _Leaf(), _Leaf()), _Leaf()))
 
 
 def _adam_only(opt, where: str) -> None:
@@ -430,9 +575,12 @@ def fsdp_microbatch_step(grad_fn: GradFn, fsdp_opt, amp_, spec, *,
     gathered parameters are copied into it before the passes.  The AMP
     gate is the ZeRO one, and an overflow in the reduce-scattered shard
     (finite locals, an overflowing sum) is agreed by a second scalar
-    all-reduce, since the shards differ from rank to rank."""
+    all-reduce, since the shards differ from rank to rank.  ``compress``
+    wraps the reduce-scatter as :func:`zero_microbatch_step` does (the
+    parameters' all-gather stays fp32: compressed weights would fork the
+    replicas), int8's residual as ``carry[2]``."""
     _adam_only(fsdp_opt, "fsdp_microbatch_step")
-    _no_compress("fsdp_microbatch_step", compress)
+    comp = compression_default(compress)
     from apex_tpu_torch.contrib.optimizers.distributed_fused import (
         ShardedOptState)
 
@@ -453,8 +601,14 @@ def fsdp_microbatch_step(grad_fn: GradFn, fsdp_opt, amp_, spec, *,
             acc = grad_presum(acc)
         inv = 1.0 / (state.scaler[loss_id].loss_scale * m)
         found_inf = _boundary_inf(acc, inv, axis)
-        g_shard = fsdp_opt._reduce_scatter({k: a * inv
-                                            for k, a in acc.items()}, spec)
+        master_grads = {k: a * inv for k, a in acc.items()}
+        new_res = None
+        if comp.enabled:
+            res = carry[2].ef_residual[0] if comp.error_feedback else None
+            g_shard, new_res = _compressed_reduce_scatter(
+                fsdp_opt, master_grads, spec, comp, res)
+        else:
+            g_shard = fsdp_opt._reduce_scatter(master_grads, spec)
         o = state.opt_state
         new = fsdp_opt._shard_update(
             g_shard, ShardedOptState(o.step, shard, o.m_shard, o.v_shard),
@@ -468,7 +622,179 @@ def fsdp_microbatch_step(grad_fn: GradFn, fsdp_opt, amp_, spec, *,
         new_s, scalers = _scalers(amp_, state, loss_id, found_inf)
         metrics = {"scale": new_s.loss_scale, "skipped": found_inf.float()}
         return ((new_shard, FsdpAmpState(new_opt, scalers))
-                + tuple(carry[2:]), metrics)
+                + _ef_extras(comp, carry, new_res, found_inf), metrics)
 
     return MicrobatchedStep(grad_fn, update_fn, m, accum_dtype,
-                            prepare_fn=prepare_fn)
+                            prepare_fn=prepare_fn, compress=comp)
+
+
+# -- the canonical train state: ZeRO and FSDP across meshes --------------------
+#
+# A ZeRO carry saved by four ranks restores as FSDP on two, and the other
+# way round, through the canonical form: the full parameters and moments
+# as dicts in the parameters' order, the step and the scalers.  The flat
+# layouts differ with the world (the padding) and the two modes keep
+# different trees, so every reshard goes through it.  No rank holds a
+# sharded carry whole: the canonical form is all-gathered over the axis
+# from live carries, or read from every source rank's directory.
+
+REDUCTION_MODES = ("zero", "fsdp")
+
+
+def _mode(mode: str) -> str:
+    if mode not in REDUCTION_MODES:
+        raise ValueError(f"mode must be one of {REDUCTION_MODES}, got "
+                         f"{mode!r}")
+    return mode
+
+
+def reduction_carry_template(mode: str, params: Grads, world: int, amp_, *,
+                             device=None):
+    """A rank's ``(params | shard, state)`` carry template for ``mode``
+    on a ``world``-way axis: zeros of this layout's shard length
+    (``padded / world``) and fresh scaler states on ``device`` (None:
+    the parameters'); what a restore reads a saved rank's directory
+    into."""
+    from apex_tpu_torch.contrib.optimizers.distributed_fused import (
+        ShardedOptState, _make_spec)
+
+    _mode(mode)
+    dev = next(iter(params.values())).device if device is None else device
+    n = _make_spec(params, world).padded // int(world)
+    flat = lambda: torch.zeros((n,), dtype=torch.float32,  # noqa: E731
+                               device=dev)
+    step = torch.zeros((), dtype=torch.int32, device=dev)
+    scaler = amp_.init_state(dev)
+    if mode == "zero":
+        return ({k: torch.zeros_like(v, device=dev)
+                 for k, v in params.items()},
+                ZeroAmpState(ShardedOptState(step, flat(), flat(), flat()),
+                             scaler))
+    return flat(), FsdpAmpState(FsdpOptState(step, flat(), flat()), scaler)
+
+
+def _flats(carry, mode: str):
+    """(master, m, v) flat shards, the step and the scalers of a
+    carry."""
+    st = carry[1].opt_state
+    master = carry[0] if mode == "fsdp" else st.master_shard
+    return (master, st.m_shard, st.v_shard), st.step, carry[1].scaler
+
+
+def train_state_canonical(carry, params_template: Grads, world: int, *,
+                          mode: str, axis=None) -> Dict[str, Any]:
+    """A ZeRO or FSDP carry in its canonical full form: ``{"params",
+    "m", "v", "step", "scaler"}``, the params and moments as dicts in
+    ``params_template``'s order and dtypes (the moments fp32).
+    ``carry`` is this rank's carry, its shards all-gathered over
+    ``axis`` (tagged ``canonical``); or a list of every rank's carries in
+    axis order (read from their directories), concatenated."""
+    from apex_tpu_torch.contrib.optimizers.distributed_fused import (
+        _make_spec, _unflatten)
+
+    _mode(mode)
+    spec = _make_spec(params_template, world)
+    if isinstance(carry, list):
+        if len(carry) != world:
+            raise ValueError(f"{len(carry)} source carries for a "
+                             f"{world}-way layout")
+        parts = [_flats(c, mode) for c in carry]
+        flats = [torch.cat([p[0][i] for p in parts]) for i in range(3)]
+        step, scaler = parts[0][1], parts[0][2]
+    else:
+        shards, step, scaler = _flats(carry, mode)
+        flats = [all_gather(s, axis, 0, tag="canonical") for s in shards]
+    if flats[0].shape != (spec.padded,):
+        raise ValueError(
+            f"flat master length {tuple(flats[0].shape)} does not match the "
+            f"{world}-way layout ({spec.padded},): wrong world size for "
+            f"this carry")
+    moments = spec._replace(dtypes=(torch.float32,) * len(spec.names))
+    return {"params": _unflatten(flats[0], spec),
+            "m": _unflatten(flats[1], moments),
+            "v": _unflatten(flats[2], moments),
+            "step": step, "scaler": scaler}
+
+
+def carry_from_canonical(canon: Dict[str, Any], *, mode: str, opt):
+    """This rank's ``(params | shard, state)`` carry under ``mode`` on
+    ``opt.axis`` (a ``DistributedFusedAdam`` or ``LAMB``), from the
+    canonical form: the flat layout recomputed for this axis's world,
+    this rank's block of each flat buffer, everything else copied."""
+    from apex_tpu_torch.contrib.optimizers.distributed_fused import (
+        ShardedOptState, _flatten, _make_spec)
+
+    _mode(mode)
+    spec = _make_spec(canon["params"], opt.axis.size)
+    p, m, v = (opt._shard(_flatten(canon[k], spec), spec).clone()
+               for k in ("params", "m", "v"))
+    step = canon["step"].clone()
+    scaler = tuple(type(s)(*(t.clone() for t in s)) for s in canon["scaler"])
+    if mode == "zero":
+        params = {k: t.clone() for k, t in canon["params"].items()}
+        return params, ZeroAmpState(ShardedOptState(step, p, m, v), scaler)
+    return p, FsdpAmpState(FsdpOptState(step, m, v), scaler)
+
+
+def save_train_state(path: str, carry, step: int, *, mode: str, mesh,
+                     table=None, axis_name: str = "data", **kw) -> str:
+    """Checkpoint this rank's ZeRO or FSDP carry under its own directory
+    (``checkpoint.save_checkpoint(process_local=True)``), with the rules
+    outcome (the table's fingerprint, the mesh, the mode) as the step's
+    sharding sidecar; every rank of the mesh calls it."""
+    from apex_tpu_torch import checkpoint
+    from apex_tpu_torch import sharding as shd
+
+    table = table or shd.train_state_rules(axis_name)
+    outcome = shd.rules_outcome(table, carry, mesh, mode=_mode(mode))
+    return checkpoint.save_checkpoint(path, carry, step, process_local=True,
+                                      sharding_outcome=outcome, **kw)
+
+
+def _source_rank(saved_mesh: Dict[str, int], axis_name: str, j: int) -> int:
+    """The rank at index ``j`` of ``axis_name`` and 0 on every other axis
+    of a saved mesh (row-major, as ``make_mesh`` lays ranks out)."""
+    rank = 0
+    for name, size in saved_mesh.items():
+        rank = rank * int(size) + (j if name == axis_name else 0)
+    return rank
+
+
+def restore_train_state(path: str, params: Grads, *, opt, amp_, mode: str,
+                        mesh, step: Optional[int] = None):
+    """Restore a ZeRO or FSDP carry saved by :func:`save_train_state` as
+    ``mode`` on ``opt.axis`` of ``mesh``; returns ``(carry, step)``.
+
+    The sidecar (rank 0's) gives the saved mode and mesh.  Every source
+    rank's directory along the axis is read (its carry template
+    from :func:`reduction_carry_template`), the canonical form is
+    concatenated from them, and this rank's carry is rebuilt under
+    ``mode`` (:func:`carry_from_canonical`): the parameters bit for bit
+    the gather of the source.  The same mode on the same mesh restores
+    each rank's own directory.  A checkpoint without a sidecar is taken
+    to match the live layout.  ``params`` is the parameter dict
+    template (names, shapes, dtypes, device)."""
+    from apex_tpu_torch import checkpoint
+    from apex_tpu_torch.sharding import mesh_axes
+
+    ax = opt.axis
+    live = mesh_axes(mesh)
+    saved = checkpoint.read_sharding_outcome(path, step, rank=0) or {}
+    src_mode = saved.get("mode", mode)
+    src_mesh = saved.get("mesh") or live
+    src_world = int(src_mesh.get(ax.name, ax.size))
+    if src_mode == mode and src_mesh == live:
+        template = reduction_carry_template(mode, params, world, amp_)
+        return checkpoint.restore_checkpoint(path, template, step,
+                                             process_local=True)
+    dev = next(iter(params.values())).device
+    carries, got = [], None
+    for j in range(src_world):
+        template = reduction_carry_template(src_mode, params, src_world,
+                                            amp_, device=dev)
+        c, got = checkpoint.restore_checkpoint(
+            checkpoint.process_dir(path, _source_rank(src_mesh, ax.name, j)),
+            template, step)
+        carries.append(c)
+    canon = train_state_canonical(carries, params, src_world, mode=src_mode)
+    return carry_from_canonical(canon, mode=mode, opt=opt), got

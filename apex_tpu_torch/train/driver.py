@@ -39,26 +39,25 @@ per-step batch; default ``P(axis_name)``, the leading dimension split
 over ``axis_name``).  ``carry_spec`` (a tree of ``P``, a prefix of the
 carry; default all replicated) marks the carry leaves that are
 rank-local shards, as ZeRO's and FSDP's state are
-(``accum.zero_state_spec``, ``fsdp_param_spec``, ``fsdp_state_spec``):
-:meth:`FusedTrainDriver.save` and :meth:`~FusedTrainDriver.restore`
-then keep each rank's carry in a directory of its own
-(``<path>/process_<rank>``), since no rank holds the whole state.  The
+(``accum.zero_state_spec``, ``fsdp_param_spec``, ``fsdp_state_spec``),
+or a :class:`~apex_tpu_torch.sharding.RulesTable`
+(``sharding.train_state_rules``), matched over the carry it is given
+(``sharding.carry_spec_from_rules``): :meth:`FusedTrainDriver.save` and
+:meth:`~FusedTrainDriver.restore` then keep each rank's carry in a
+directory of its own (``checkpoint.save_checkpoint(process_local=True)``:
+``<path>/process_<rank>``), since no rank holds the whole state.  The
 metrics are the step's own on each rank (the steps of this package
-return the same loss, scale and skip flag on every rank).  A rules table
-(``sharding/rules.py``) as ``carry_spec`` is not ported yet (ROADMAP
-item 6, part 2), nor are CUDA graphs around the window and the obs spans
-and flight-recorder events around save and restore.
+return the same loss, scale and skip flag on every rank).  Not ported
+yet: CUDA graphs around the window, and the obs spans and
+flight-recorder events around save and restore.
 """
 from __future__ import annotations
 
 import dataclasses
-import os
 from typing import (Any, Callable, Dict, Iterable, Mapping, NamedTuple,
                     Optional, Sequence, Tuple)
 
 import torch
-
-import torch.distributed as dist
 
 from apex_tpu_torch import checkpoint
 from apex_tpu_torch.parallel.mesh import Mesh, P
@@ -143,8 +142,8 @@ class FusedTrainDriver:
       per_step: names also returned as (K,) traces.
       mesh / axis_name / batch_spec / carry_spec: the mesh mode (see the
         module docstring): ``batch_spec`` splits each rank's block out of
-        the global batch, ``carry_spec`` marks the rank-local carry
-        leaves.
+        the global batch, ``carry_spec`` (a tree of ``P`` or a
+        ``RulesTable``) marks the rank-local carry leaves.
     """
 
     # Callable[(carry, batch) -> (carry, metrics)] | MicrobatchedStep
@@ -158,7 +157,7 @@ class FusedTrainDriver:
     carry_spec: Any = None
 
     def __post_init__(self):
-        _check_spec(self.carry_spec, "carry_spec")
+        _check_spec(self.carry_spec, "carry_spec", rules_ok=True)
         _check_spec(self.batch_spec, "batch_spec")
         if self.mesh is None and (self.batch_spec is not None
                                   or self.carry_spec is not None):
@@ -275,21 +274,24 @@ class FusedTrainDriver:
 
     # -- checkpointing (window-boundary resume) -------------------------
 
-    def _ckpt_path(self, path: str) -> str:
-        """Each rank's own directory when the carry has rank-local
-        leaves, else ``path``."""
-        if _sharded(self.carry_spec):
-            return os.path.join(path, f"process_{dist.get_rank()}")
-        return path
+    def carry_spec_for(self, carry: Any) -> Any:
+        """The tree of ``P`` of ``carry``: ``carry_spec`` itself, or a
+        rules table matched over the carry."""
+        from apex_tpu_torch.sharding import RulesTable, carry_spec_from_rules
+
+        if isinstance(self.carry_spec, RulesTable):
+            return carry_spec_from_rules(self.carry_spec, carry, self.mesh)
+        return self.carry_spec
 
     def save(self, path: str, carry: Any, step: int, **kw) -> str:
         """Save the carry at a window boundary under ``path/<step>``
-        (``path/process_<rank>/<step>`` when ``carry_spec`` marks
-        rank-local leaves) through
-        :func:`apex_tpu_torch.checkpoint.save_checkpoint`, whose keyword
-        arguments ``kw`` takes; returns the step's directory."""
-        return checkpoint.save_checkpoint(self._ckpt_path(path), carry, step,
-                                          **kw)
+        (``path/process_<rank>/<step>`` when the carry has rank-local
+        leaves) through :func:`apex_tpu_torch.checkpoint.save_checkpoint`,
+        whose keyword arguments ``kw`` takes; returns the step's
+        directory."""
+        return checkpoint.save_checkpoint(
+            path, carry, step,
+            process_local=_sharded(self.carry_spec_for(carry)), **kw)
 
     def restore(self, path: str, carry_template: Any,
                 step: Optional[int] = None) -> Tuple[Any, int]:
@@ -297,8 +299,9 @@ class FusedTrainDriver:
         structure and devices; returns ``(carry, step)``.  Under O2, call
         ``AmpOptimizer.copy_to_model(model, masters)`` before the first
         step of the resumed run."""
-        return checkpoint.restore_checkpoint(self._ckpt_path(path),
-                                             carry_template, step)
+        return checkpoint.restore_checkpoint(
+            path, carry_template, step,
+            process_local=_sharded(self.carry_spec_for(carry_template)))
 
 
 def _is_spec_tree(spec: Any) -> bool:
@@ -311,17 +314,17 @@ def _is_spec_tree(spec: Any) -> bool:
     return False
 
 
-def _check_spec(spec: Any, what: str) -> None:
-    """A tree of ``P`` (None: replicated) passes; a rules table raises
-    ``NotImplementedError``, anything else ``TypeError``."""
-    if _is_spec_tree(spec):
+def _check_spec(spec: Any, what: str, rules_ok: bool = False) -> None:
+    """A tree of ``P`` (None: replicated) passes, and with ``rules_ok`` a
+    :class:`~apex_tpu_torch.sharding.RulesTable`; anything else raises
+    ``TypeError``."""
+    from apex_tpu_torch.sharding import RulesTable
+
+    if _is_spec_tree(spec) or (rules_ok and isinstance(spec, RulesTable)):
         return
-    if type(spec).__name__ == "RulesTable":
-        raise NotImplementedError(
-            f"{what}: a RulesTable (sharding/rules.py) is not ported yet: "
-            f"ROADMAP item 6, part 2; pass a tree of P")
     raise TypeError(f"{what} must be a tree of P (tuples, lists, dicts, "
-                    f"NamedTuples), got {type(spec).__name__}")
+                    f"NamedTuples){' or a RulesTable' if rules_ok else ''}, "
+                    f"got {type(spec).__name__}")
 
 
 def _sharded(spec: Any) -> bool:

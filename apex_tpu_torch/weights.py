@@ -24,7 +24,12 @@ pipeline parallelism, :func:`from_jax_tp_params` gives a rank its local
 shards of a JAX ``Stage`` tree (the partition-major fused QKV included;
 a stage of a stacked tree), :func:`tp_shard_params` the same from the
 port's own full weights, and :func:`qkv_partition_major` /
-:func:`qkv_natural` convert the fused QKV's column order.
+:func:`qkv_natural` convert the fused QKV's column order.  For expert
+parallelism, :func:`from_jax_moe_params` gives a rank its block of a JAX
+``MoEMLP``'s experts and the replicated router, and
+:func:`from_jax_ef_state` a rank its row of the int8 error-feedback
+residual.  Tensor-parallel serving needs no converter: its weights are
+replicated, as in JAX.
 """
 from __future__ import annotations
 
@@ -39,7 +44,8 @@ from apex_tpu_torch.optimizers import (FusedAdamState, FusedLAMBState,
                                        FusedSGDState)
 
 __all__ = ["from_jax_bert_params", "from_jax_dcgan_params",
-           "from_jax_opt_state", "from_jax_params", "from_jax_resnet_params",
+           "from_jax_ef_state", "from_jax_moe_params", "from_jax_opt_state",
+           "from_jax_params", "from_jax_resnet_params",
            "from_jax_rnn_params", "from_jax_tp_params", "jax_leaf_order",
            "qkv_natural", "qkv_partition_major", "tp_shard_params",
            "to_jax_bert_params"]
@@ -494,3 +500,38 @@ def from_jax_tp_params(tree: Mapping[str, Any], rank: int, n: int, *,
                 name = f"{base}.{leaf}"
                 out[name] = _tp_split(name, t, rank, n)
     return out
+
+
+# -- expert-parallel MoE and the error-feedback residual ------------------------
+
+
+def from_jax_moe_params(params: Mapping[str, Any], *, rank: int = 0,
+                        world: int = 1) -> Dict[str, torch.Tensor]:
+    """A JAX ``MoEMLP`` params tree (``router`` (d, E), ``wi`` and ``wo``
+    with the experts of every device on their leading axis, as
+    ``shard_map`` returns them over ``P("expert")``) -> rank ``rank`` of
+    ``world``'s state dict of :class:`apex_tpu_torch.parallel.MoEMLP`:
+    its block of ``E / world`` experts and the replicated router (fp32,
+    CPU)."""
+    _check_keys(params, ("router", "wi", "wo"), "MoEMLP")
+    wi, wo = np.asarray(params["wi"]), np.asarray(params["wo"])
+    if wi.shape[0] % world:
+        raise ValueError(f"{wi.shape[0]} experts do not divide into {world} "
+                         f"ranks")
+    n = wi.shape[0] // world
+    take = lambda a: _t(a[rank * n:(rank + 1) * n])  # noqa: E731
+    return {"router": _t(params["router"]), "wi": take(wi), "wo": take(wo)}
+
+
+def from_jax_ef_state(state: Any, *, rank: Optional[int] = None,
+                      device=None):
+    """A JAX ``EfState`` (the (world, L) error-feedback residual) ->
+    the port's :class:`~apex_tpu_torch.train.compress.EfState` on
+    ``device`` (None: the CUDA device): rank ``rank``'s (1, L) row, as
+    its carry holds it, or every row with ``rank`` None."""
+    from apex_tpu_torch.train.compress import EfState
+
+    res = np.asarray(state.ef_residual, np.float32)
+    if rank is not None:
+        res = res[rank:rank + 1]
+    return EfState(torch.from_numpy(res.copy()).to(resolve_device(device)))

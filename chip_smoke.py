@@ -242,7 +242,27 @@ line) on any failed check:
     at GPT-2 small's width, 12 blocks as two stages of 6, S 1024, M = 4
     of 2, two O2 steps against the unsharded model on one rank with the
     merged weights; exact launches and collectives; planted: a
-    row-parallel backward without its cotangent sum).
+    row-parallel backward without its cotangent sum);
+18. scale-out, part 2: ``scale_out2_world1`` (NCCL at world 1: a
+    tensor-parallel decoder at tp = 1 with the plain decoder's tokens and
+    logits bit for bit; ``compress=None`` and Adasum bit for bit the plain
+    step; the bf16 and int8 codecs on a GPT-2-small-sized flat gradient
+    bit for bit the CPU's; ``MoEMLP`` at n = 1 against ``moe_mlp_ref``;
+    exact collectives), the paged kernel at a rank's 3 heads against its
+    plain version and bit for bit the 12-head call's slice, and one gang
+    of four gloo processes on the card: ``tp_serve_gang`` (GPT-2 small
+    over a (model 4) mesh, 3 heads a rank, the engine phase's mix with
+    the one-rank engine's tokens and every logits tensor bit for bit, the
+    fp32 mix with ``reference_generate``'s tokens, the chain, tree and
+    int8 mixes with the one-rank engines', a quarter of the pool bytes,
+    the one-rank launches, 12 head all-reduces a forward; planted: a
+    head block at the wrong offset, a dead rank) and ``moe_compress_gang``
+    (Switch-Base-8's FFN over expert 4 against the same layer at n = 1;
+    bf16 and int8 DDP, int8 ZeRO, bf16 FSDP and Adasum over data 4 at
+    GPT-2 small's width, 2 layers, against the same policies on the CPU
+    from the same state and gradients, exact collectives, the int8
+    residual kept at a planted overflow; a ZeRO carry of data 4 restored
+    as FSDP on (data 2, model 2) with the parameters bit for bit).
 
 Then the ``nvidia-smi`` line, the ``{"kernels": [...]}`` summary and, as
 the last line, ``{"ok": true, "device": {...}}``.  Without a CUDA
@@ -7104,8 +7124,9 @@ def _tp_compare(out_dir: str, cfg: dict, ref: dict, floor: dict) -> dict:
 
 
 def sp_worker(out_dir: str) -> int:
-    """One rank of ``long_context_gang`` or ``tp_pipeline_gang``
-    (``chip_smoke.py --sp-worker DIR``): gloo on CUDA tensors, every rank
+    """One rank of ``long_context_gang``, ``tp_pipeline_gang`` or the
+    scale-out part 2 gang (``chip_smoke.py --sp-worker DIR``): gloo on
+    CUDA tensors, every rank
     on the one card (the device and the sizes in DIR/config.json); writes
     DIR/rank<r>.json."""
     fp32_precision()
@@ -7116,7 +7137,8 @@ def sp_worker(out_dir: str) -> int:
                      timeout_s=SP_TIMEOUT_S)
     rank = dist.get_rank()
     try:
-        work = _lc_worker if conf["kind"] == "long_context" else _tp_worker
+        work = {"long_context": _lc_worker, "tp_pipeline": _tp_worker,
+                "scale_out2": _so2_worker}[conf["kind"]]
         out = work(dev, out_dir, rank, conf["cfg"])
     finally:
         if dist.is_initialized():
@@ -7444,6 +7466,755 @@ def phase_sp_world1(dev, cfg=None) -> dict:
     return rec
 
 
+# -- phase 18: scale-out, part 2 (TP serving, MoE, compression, restore) -----
+
+#: the four-request mix of the spec and int8 checks: prompts of 64-256
+#: tokens, 16 new tokens each
+SO2_MIX4 = dict(seed=8, n=4, lo=64, hi=256, new=16)
+#: the fp32 check: four prompts of 24-40 tokens, 16 new tokens each
+SO2_FP32 = dict(seed=9, n=4, lo=24, hi=40, new=16)
+#: Switch-Base-8's FFN (Fedus et al. 2021): d_model 768, d_ff 3072, 8
+#: experts, 2 a rank over expert 4; top-2, capacity factor 2.0, 4096
+#: tokens a rank, bf16 compute
+SO2_MOE = dict(d=768, d_ff=3072, experts=8, k=2, cf=2.0, tokens=4096)
+#: the compression gang: GPT-2 small's width with the depth cut to 2
+#: layers (the vocabulary kept), fp32, 1 x 1024 tokens a rank, 2 steps
+SO2_COMPRESS = dict(layers=2, s=1024, steps=2)
+#: (policy, compression) pairs the compression gang runs
+SO2_POLICIES = (("ddp", "bf16"), ("ddp", "int8"), ("zero", "int8"),
+                ("fsdp", "bf16"), ("adasum", None))
+SO2_TP = 4
+SO2_TOL = ("card vs CPU from the same state and gradients: the masters' "
+           "movement within 1e-3 relative L2 (int8: the payload is "
+           "exact), 2e-2 for bf16 (a bf16 SUM in gloo's order); MoE "
+           "against the same layer at n = 1: outputs and the input's "
+           "gradient within 1e-2 of max, the weights' gradients within "
+           "1e-2 relative L2 (bf16 products of another batch)")
+
+
+def _so2_prompts(spec: dict) -> list:
+    rng = torch.Generator().manual_seed(spec["seed"])
+    lens = torch.randint(spec["lo"], spec["hi"] + 1, (spec["n"],),
+                         generator=rng).tolist()
+    return [torch.randint(0, 50257, (n,), generator=rng).tolist()
+            for n in lens]
+
+
+class _LogitsTap:
+    """Digest of every fp32 logits row a decoder's model returns for real
+    tokens (sha256 over the bytes, in call order): every row of a
+    prefill chunk, and the rows of the engine's active slots of a decode
+    step (a free slot decodes garbage from the trash page, whose
+    duplicate writes land in no fixed order); and the first ``keep``
+    decode steps' active rows.  One host copy a forward."""
+
+    def __init__(self, model, keep: int = 8):
+        self.digest, self.first, self.keep = hashlib.sha256(), [], keep
+        self.engine = None  # set before the first decode window
+        for name in ("paged_prefill_chunk", "paged_decode_step"):
+            setattr(model, name, self._wrap(getattr(model, name),
+                                            name == "paged_decode_step"))
+
+    def _wrap(self, fn, decode: bool):
+        def go(*a, **kw):
+            out = fn(*a, **kw)
+            host = out.float().cpu()
+            if decode:
+                host = host[sorted(self.engine._active)]
+                if len(self.first) < self.keep:
+                    self.first.append(host)
+            self.digest.update(host.numpy().tobytes())
+            return out
+        return go
+
+
+def _so2_engine(dec, paged: bool = True, slots: int = 8, chunk: int = 128):
+    return ServeEngine(dec, slots=slots, max_len=1024, page_len=16,
+                       prefill_chunk=chunk, seed=0, paged=paged)
+
+
+def _so2_run(eng, prompts, new: int) -> list:
+    uids = [eng.submit(p, max_new_tokens=new) for p in prompts]
+    out = eng.run()
+    return [out[u] for u in uids]
+
+
+def _so2_serve_runs(dev, params, mesh=None) -> dict:
+    """The serving runs of the TP gang, on one rank (``mesh`` None) or on
+    this rank's head shard: the engine mix with the logits tap, the fp32
+    mix, two requests of the four-request mix (the planted fault's
+    control), and the chain, tree and int8 four-request mixes."""
+    cfg = GPTConfig.small()
+    bf = dict(compute_dtype=torch.bfloat16, cache_dtype=torch.bfloat16,
+              tokens_per_dispatch=8, device=dev, mesh=mesh)
+    out = {}
+    dec = GPTDecoder(cfg, params, **bf)
+    tap = _LogitsTap(dec.model)
+    eng = tap.engine = _so2_engine(dec)
+    reset_collective_counts()
+    lens, got, wall, launches = _run_engine_mix(eng, cfg.vocab_size)
+    st = eng.stats()
+    out["engine"] = {
+        "tokens": got, "wall_s": wall, "launches": launches,
+        "collectives": collective_counts(),
+        "logits_sha256": tap.digest.hexdigest(), "first_window": tap.first,
+        "prefill_dispatches": st["prefill_dispatches"],
+        "decode_dispatches": st["decode_dispatches"],
+        "tensor_parallel": st.get("tensor_parallel"),
+        "bytes_per_page": eng.cache.bytes_per_page}
+    del eng, tap
+    dec32 = GPTDecoder(cfg, params, compute_dtype=torch.float32,
+                       cache_dtype=torch.float32, tokens_per_dispatch=8,
+                       device=dev, mesh=mesh)
+    out["fp32"] = _so2_run(_so2_engine(dec32, slots=4, chunk=64),
+                           _so2_prompts(SO2_FP32), SO2_FP32["new"])
+    del dec32
+    mix = _so2_prompts(SO2_MIX4)
+    # the planted misplaced head block's control: two requests, 8 tokens
+    out["short"] = _so2_run(_so2_engine(GPTDecoder(cfg, params, **bf),
+                                        slots=4), mix[:2], 8)
+    for name, kw in (("chain", {"spec_tokens": 3}),
+                     ("tree", {"spec_tokens": 3, "spec_tree": 2}),
+                     ("int8", {"kv_int8": True})):
+        d = GPTDecoder(cfg, params, **bf, **kw)
+        out[name] = _so2_run(_so2_engine(d, slots=4), mix, SO2_MIX4["new"])
+    return out
+
+
+def _so2_moe(dev, rank: int) -> dict:
+    """MoE over expert 4 at Switch-Base-8's widths against the same layer
+    at n = 1 on this rank's tokens with every expert."""
+    from apex_tpu_torch.parallel import MoEMLP, make_mesh, psum, top_k_routing
+
+    c = SO2_MOE
+    ax = make_mesh([("expert", SO2_TP)])["expert"]
+    full = MoEMLP(c["experts"], c["d"], c["d_ff"], None,
+                  generator=torch.Generator().manual_seed(90)).state_dict()
+    e_loc = c["experts"] // ax.size
+    blk = slice(ax.index * e_loc, (ax.index + 1) * e_loc)
+    mods = {}
+    for name, axis, sd in (
+            ("ep", ax, {"router": full["router"], "wi": full["wi"][blk],
+                        "wo": full["wo"][blk]}),
+            ("one", None, full)):
+        m = MoEMLP(c["experts"], c["d"], c["d_ff"], axis, k=c["k"],
+                   capacity_factor=c["cf"], compute_dtype=torch.bfloat16,
+                   device=dev)
+        m.load_state_dict(sd)
+        mods[name] = m
+    gen = torch.Generator(device=dev).manual_seed(91 + rank)
+    x = torch.randn(c["tokens"], c["d"], device=dev, generator=gen).to(
+        torch.bfloat16)
+    cot = torch.randn(c["tokens"], c["d"], device=dev, generator=gen)
+    res = {}
+    for name, m in mods.items():
+        xi = x.clone().requires_grad_()
+        reset_collective_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        y, aux = m(xi)
+        fwd = collective_counts()
+        ((y.float() * cot).sum() + aux).backward()
+        torch.cuda.synchronize()
+        res[name] = {"y": y.detach().float(), "aux": float(aux),
+                     "dx": xi.grad.float(), "fwd": fwd,
+                     "counts": collective_counts(),
+                     "wall_ms": (time.perf_counter() - t0) * 1e3,
+                     "grads": {k: p.grad.float()
+                               for k, p in m.named_parameters()}}
+    ep, one = res["ep"], res["one"]
+    # the one-rank expert gradients summed over every rank's tokens: the
+    # expert-parallel layer's local experts see all of them
+    tot = {k: psum(one["grads"][k], ax, tag="check_sum")[blk]
+           for k in ("wi", "wo")}
+    cap = mods["ep"].capacity(c["tokens"])
+    logits = x.float() @ mods["ep"].router.float()
+    d_ep = top_k_routing(logits, c["k"], cap)
+    d_one = top_k_routing(x.float() @ mods["one"].router.float(), c["k"],
+                          cap)
+
+    def rel_max(a, b):
+        return ((a - b).abs().max() / b.abs().max()).item()
+
+    def rel_l2(a, b):
+        return (torch.linalg.vector_norm(a - b)
+                / torch.linalg.vector_norm(b)).item()
+
+    rec = {"capacity": cap,
+           "dispatch_exact": torch.equal(d_ep[0], d_one[0]),
+           "combine_exact": torch.equal(d_ep[1], d_one[1]),
+           "kept_tokens_share": float(d_ep[0].sum() / (c["k"] * c["tokens"])),
+           "y_rel_max": rel_max(ep["y"], one["y"]),
+           "aux_diff": abs(ep["aux"] - one["aux"]),
+           "dx_rel_max": rel_max(ep["dx"], one["dx"]),
+           "router_grad_rel_l2": rel_l2(ep["grads"]["router"],
+                                        one["grads"]["router"]),
+           "wi_grad_rel_l2": rel_l2(ep["grads"]["wi"], tot["wi"]),
+           "wo_grad_rel_l2": rel_l2(ep["grads"]["wo"], tot["wo"]),
+           "fwd_collectives": ep["fwd"], "collectives": ep["counts"],
+           "ep_wall_ms": ep["wall_ms"], "one_rank_wall_ms": one["wall_ms"]}
+    rec["ok"] = (rec["dispatch_exact"] and rec["combine_exact"]
+                 and rec["y_rel_max"] <= 1e-2 and rec["dx_rel_max"] <= 1e-2
+                 and rec["aux_diff"] <= 1e-6
+                 and max(rec["router_grad_rel_l2"], rec["wi_grad_rel_l2"],
+                         rec["wo_grad_rel_l2"]) <= 1e-2)
+    return rec
+
+
+def _so2_policy(name: str, comp, axis, model, params, data, *, dev,
+                replay=None, plant=None, record=None):
+    """Two steps (one window each) of a boundary policy on ``dev`` over
+    ``axis``: the masters, the flags and scales, the residuals after each
+    step, the collectives; the gradients either computed by ``model`` on
+    this rank's ``data`` (and appended to ``record``) or replayed."""
+    from apex_tpu_torch.contrib.optimizers import DistributedFusedAdam
+    from apex_tpu_torch.train import (adasum_microbatch_step, ef_init,
+                                      fsdp_init, fsdp_microbatch_step,
+                                      fsdp_unflatten_params, zero_init,
+                                      zero_microbatch_step)
+
+    amp_ = amp.initialize("O2")
+    p0 = {k: v.detach().to(dev, copy=True) for k, v in params.items()}
+    step_no = [0]
+
+    def grad_fn(carry, mb):
+        i = step_no[0]
+        if replay is not None:
+            grads = {k: v.to(dev) for k, v in replay[i].items()}
+        else:
+            ps = {k: v.detach().requires_grad_() for k, v in carry[0].items()}
+            _, loss = torch.func.functional_call(model, ps, data)
+            grads = dict(zip(ps, torch.autograd.grad(
+                amp_.scale_loss(loss, carry[1].scaler[0]), list(ps.values()))))
+            if record is not None:
+                record.append({k: g.detach().cpu() for k, g in grads.items()})
+        if plant is not None and i == plant:
+            grads["wpe.weight"] = grads["wpe.weight"].clone()
+            grads["wpe.weight"].view(-1)[0] = float("inf")
+        step_no[0] += 1
+        return grads, {}
+
+    length = sum(v.numel() for v in p0.values())
+    if name in ("ddp", "adasum"):
+        opt = amp.AmpOptimizer(fused_adam(1e-3), amp_)
+        step = (adasum_microbatch_step(grad_fn, opt, axis=axis)
+                if name == "adasum" else
+                amp_microbatch_step(grad_fn, opt,
+                                    ddp=DistributedDataParallel(),
+                                    compress=comp))
+        carry = (p0, opt.init(p0))
+    else:
+        zopt = DistributedFusedAdam(axis, lr=1e-3)
+        spec = zopt.make_spec(p0)
+        length = spec.padded
+        if name == "zero":
+            step = zero_microbatch_step(grad_fn, zopt, amp_, spec,
+                                        compress=comp)
+            carry = (p0, zero_init(zopt, amp_, p0, spec))
+        else:
+            step = fsdp_microbatch_step(grad_fn, zopt, amp_, spec,
+                                        compress=comp)
+            carry = fsdp_init(zopt, amp_, p0, spec)
+    if comp == "int8":
+        carry = carry + (ef_init(length, device=dev),)
+    run = build_opt_step(step)
+    out = {"skipped": [], "scale": [], "res": [], "collectives": []}
+    for _ in range(SO2_COMPRESS["steps"]):
+        reset_collective_counts()
+        carry, m = run(carry, None)
+        out["collectives"].append(collective_counts())
+        out["skipped"].append(float(m["skipped"]))
+        out["scale"].append(float(m["scale"]))
+        if comp == "int8":
+            out["res"].append(carry[2].ef_residual.detach().clone())
+    if name == "fsdp":
+        masters = fsdp_unflatten_params(carry[0], spec, axis)
+    else:
+        masters = carry[0]
+    out["masters"] = torch.cat([masters[k].detach().float().reshape(-1)
+                                for k in params]).cpu()
+    out["carry"] = carry if name == "zero" else None
+    return out
+
+
+def _so2_compress(dev, rank: int, out_dir: str) -> dict:
+    """Compression, Adasum and the cross-mesh restore over data 4."""
+    from apex_tpu_torch.contrib.optimizers import DistributedFusedAdam
+    from apex_tpu_torch.parallel import make_mesh
+    from apex_tpu_torch.train import (fsdp_unflatten_params,
+                                      restore_train_state, save_train_state)
+
+    c = SO2_COMPRESS
+    mesh = make_mesh([("data", SO2_TP)])
+    axis = mesh["data"]
+    cfg = GPTConfig(num_layers=c["layers"], compute_dtype=torch.float32,
+                    dropout_rate=0.0, attn_dropout_rate=0.0)
+    params = init_params(cfg, torch.Generator().manual_seed(0))
+    with torch.device(dev):
+        model = GPTLM(cfg)
+    model.requires_grad_(False)
+    gen = torch.Generator().manual_seed(40 + rank)
+    ids = torch.randint(0, 50257, (1, c["s"] + 1), generator=gen)
+    data = (ids[:, :-1].to(dev), ids[:, 1:].to(dev))
+    out = {}
+    for name, comp in SO2_POLICIES:
+        plant = 1 if comp == "int8" and rank == 1 else None
+        rec = []
+        t0 = time.perf_counter()
+        card = _so2_policy(name, comp, axis, model, params, data, dev=dev,
+                           plant=plant, record=rec)
+        wall = time.perf_counter() - t0
+        cpu = _so2_policy(name, comp, axis, None, params, None,
+                          dev=torch.device("cpu"), replay=rec, plant=plant)
+        base = torch.cat([params[k].reshape(-1) for k in params])
+        d_card, d_cpu = card["masters"] - base, cpu["masters"] - base
+        r = {"movement_rel_l2": float(torch.linalg.vector_norm(d_card - d_cpu)
+                                      / torch.linalg.vector_norm(d_cpu)),
+             "skipped": card["skipped"], "cpu_skipped": cpu["skipped"],
+             "scale": card["scale"], "cpu_scale": cpu["scale"],
+             "collectives": card["collectives"],
+             "cpu_collectives": cpu["collectives"], "wall_s": wall}
+        if comp == "int8":
+            r["residual_kept_at_skip"] = bool(torch.equal(card["res"][0],
+                                                          card["res"][1]))
+        out[f"{name}_{comp or 'full'}"] = r
+        if name == "zero":
+            zero_carry = card["carry"][:2]
+        del card, cpu, rec
+    # the restore: this ZeRO carry saved over data 4, restored as FSDP on a
+    # (data 2, model 2) mesh
+    path = os.path.join(out_dir, "train_state")
+    save_train_state(path, zero_carry, 2, mode="zero", mesh=mesh)
+    dist.barrier()
+    mesh22 = make_mesh([("data", 2), ("model", 2)])
+    fopt = DistributedFusedAdam(mesh22["data"], lr=1e-3)
+    t0 = time.perf_counter()
+    fcarry, at = restore_train_state(path, params, opt=fopt,
+                                     amp_=amp.initialize("O2"), mode="fsdp",
+                                     mesh=mesh22)
+    got = fsdp_unflatten_params(fcarry[0], fopt.make_spec(params),
+                                mesh22["data"])
+    side = checkpoint.read_sharding_outcome(path, rank=0)
+    out["restore"] = {
+        "step": at, "restore_s": time.perf_counter() - t0,
+        "params_bit_for_bit": all(torch.equal(got[k].cpu(),
+                                              zero_carry[0][k].cpu())
+                                  for k in params),
+        "sidecar_mode": side.get("mode"), "sidecar_mesh": side.get("mesh")}
+    dist.barrier()
+    return out
+
+
+def _so2_fault_offset(dev, params, mesh, rank: int) -> list:
+    """Rank 0 writes its head block one group along: every rank's tokens
+    of the first two requests of the four-request mix."""
+    from apex_tpu_torch.models.gpt import GPTLayer
+
+    GPTLayer._tp_fault_shift = 1 if rank == 0 else 0
+    try:
+        dec = GPTDecoder(GPTConfig.small(), params,
+                         compute_dtype=torch.bfloat16,
+                         cache_dtype=torch.bfloat16, tokens_per_dispatch=8,
+                         device=dev, mesh=mesh)
+        return _so2_run(_so2_engine(dec, slots=4), _so2_prompts(SO2_MIX4)[:2],
+                        8)
+    finally:
+        GPTLayer._tp_fault_shift = 0
+
+
+def _so2_worker(dev, out_dir: str, rank: int, cfg: dict) -> dict:
+    """One rank of the scale-out part 2 gang: TP serving over model 4,
+    then MoE over expert 4, then compression, Adasum and the restore over
+    data 4; the first window's logits to DIR for rank 0's bound."""
+    from apex_tpu_torch.serve import serve_mesh
+
+    torch.set_num_threads(2)
+    params = init_params(GPTConfig.small(), torch.Generator().manual_seed(0))
+    mesh = serve_mesh(SO2_TP)
+    t0 = time.perf_counter()
+    serve = _so2_serve_runs(dev, params, mesh)
+    fault = _so2_fault_offset(dev, params, mesh, rank)
+    prof = _profile_window(GPTDecoder(
+        GPTConfig.small(), params, compute_dtype=torch.bfloat16,
+        cache_dtype=torch.bfloat16, tokens_per_dispatch=8, device=dev,
+        mesh=mesh), steps=8)
+    torch.save(serve["engine"].pop("first_window"),
+               os.path.join(out_dir, f"window{rank}.pt"))
+    dist.barrier()
+    serve_s = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    moe = _so2_moe(dev, rank)
+    torch.cuda.empty_cache()
+    comp = _so2_compress(dev, rank, out_dir)
+    dist.barrier()
+    return {"rank": rank, "serve": serve, "fault_offset_tokens": fault,
+            "profile": {k: prof[k] for k in (
+                "wall_ms", "unprofiled_wall_ms", "device_busy_ms",
+                "device_busy_share", "launches")},
+            "serve_s": serve_s, "moe": moe, "compress": comp,
+            "moe_compress_s": time.perf_counter() - t1}
+
+
+def _dead_tp_rank() -> dict:
+    """A gang whose rank 2 raises after the serve mesh is made while the
+    others wait in a head all-reduce: the launcher must reap the gang and
+    name rank 2."""
+    code = ("import os, sys, torch\n"
+            f"sys.path.insert(0, {os.path.dirname(os.path.abspath(__file__))!r})\n"
+            "from apex_tpu_torch.parallel import init_distributed, psum\n"
+            "from apex_tpu_torch.serve import serve_mesh\n"
+            "init_distributed('gloo', timeout_s=60)\n"
+            "model = serve_mesh(4)['model']\n"
+            "if os.environ['RANK'] == '2':\n"
+            "    raise RuntimeError('planted: rank 2 died')\n"
+            "psum(torch.ones(4), model, tag='tp_heads')\n")
+    try:
+        launch(["-c", code], SO2_TP, timeout_s=90, echo_stderr=False,
+               check=True)
+        return {"reaped": False}
+    except MultiprocError as err:
+        return {"reaped": True, "guilty_ranks": err.guilty_ranks(),
+                "stderr_tail_names_it": "planted: rank 2 died" in str(err)}
+
+
+def _paged_h3(dev) -> dict:
+    """The paged kernel at a rank's 3 heads: the T = 1 decode and T = 128
+    prefill-chunk bf16 problems of :func:`paged_problems` cut to heads
+    3-5, against the plain version, and bit for bit heads 3-5 of the
+    12-head call (the kernel's split choice does not depend on H)."""
+    gen = torch.Generator(device=dev).manual_seed(2)
+    cases = []
+    for t in (1, 8, 128):
+        p = _paged_problem(dev, gen, t, torch.bfloat16, False)
+        sl = slice(3, 6)
+        cut = {k: (v[:, :, sl] if k in ("pool_k", "pool_v") else
+                   v[:, sl] if k in ("q", "k_new", "v_new") else v)
+               for k, v in p.items()}
+        kw = {k: v for k, v in p.items() if k not in ("q", "k_new", "v_new")}
+        kw3 = {k: (v.contiguous() if torch.is_tensor(v) else v)
+               for k, v in cut.items()
+               if k not in ("q", "k_new", "v_new")}
+        q3, k3, v3 = (cut[k].contiguous() for k in ("q", "k_new", "v_new"))
+        full = paged_fused_attention(p["q"], p["k_new"], p["v_new"], **kw)
+        got = paged_fused_attention(q3, k3, v3, **kw3)
+        want = paged_cached_attention(q3, k3, v3, **kw3)
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs().max().item()
+        check(_paged_close(got, want),
+              f"paged attention H=3 T={t}: max abs err {err}")
+        kern = timings(lambda: paged_fused_attention(q3, k3, v3, **kw3))
+        plain = timings(lambda: paged_cached_attention(q3, k3, v3, **kw3),
+                        iters=20)
+        lib = timings(_sdpa_yardstick(dict(cut, **kw3, q=q3, k_new=k3,
+                                           v_new=v3)), iters=20)
+        bound, by = _paged_bound(dict(cut, **kw3, q=q3, k_new=k3, v_new=v3))
+        case = {"case": f"T={t} pool=bfloat16 H=3 (a rank of 4)",
+                "B": q3.shape[0], "H": 3, "T": t, "D": q3.shape[3],
+                "max_abs_err": err, "tol": "2 bf16 ulps + 1e-5, and 2e-2",
+                "equals_12_head_slice": torch.equal(got, full[:, sl]),
+                **_merge(kern, plain, lib), "bound_ms": bound,
+                "bound_by": by}
+        emit({"phase": "kernel", "kernel": "paged_fused_attention", **case})
+        cases.append(case)
+        del p, cut, kw, kw3
+    return cases
+
+
+def phase_scale_out2_world1(dev) -> dict:
+    """NCCL at world 1: a TP decoder at tp = 1 (tokens and logits bit for
+    bit the plain decoder's); ``compress=None`` bit for bit the
+    uncompressed step; the bf16 and int8 codecs on a GPT-2-small-sized
+    flat gradient bit for bit the CPU's; Adasum at world 1 bit for bit
+    ``amp_microbatch_step``; ``MoEMLP`` at n = 1 against ``moe_mlp_ref``
+    with ample capacity; exact collective counts."""
+    from apex_tpu_torch.parallel import (Axis, MoEMLP, make_mesh,
+                                         moe_mlp_ref)
+    from apex_tpu_torch.serve import serve_mesh
+    from apex_tpu_torch.train import (adasum_microbatch_step,
+                                      compress_allreduce,
+                                      compression_default, ef_init)
+
+    init_distributed("nccl", init_method=f"tcp://127.0.0.1:{free_port()}",
+                     rank=0, world_size=1)
+    rec = {"phase": "scale_out2_world1", "card": nvidia_smi_line()}
+    try:
+        params = init_params(GPTConfig.small(),
+                             torch.Generator().manual_seed(0))
+        prompts = _so2_prompts(SO2_MIX4)
+        toks, digests = {}, {}
+        for name, mesh in (("plain", None), ("tp1", serve_mesh(1))):
+            dec = GPTDecoder(GPTConfig.small(), params,
+                             compute_dtype=torch.bfloat16,
+                             cache_dtype=torch.bfloat16,
+                             tokens_per_dispatch=8, device=dev, mesh=mesh)
+            tap = _LogitsTap(dec.model, keep=0)
+            eng = tap.engine = _so2_engine(dec, slots=4)
+            reset_collective_counts()
+            toks[name] = _so2_run(eng, prompts, 16)
+            digests[name] = tap.digest.hexdigest()
+            st = eng.stats()
+            forwards = (st["prefill_dispatches"]
+                        + 8 * st["decode_dispatches"])
+            counts = collective_counts()
+            del dec, eng, tap
+        rec["tp1"] = {"tokens_equal": toks["plain"] == toks["tp1"],
+                      "logits_bit_for_bit": digests["plain"] == digests["tp1"],
+                      "collectives": counts,
+                      "want_collectives": {"tp_heads": 12 * forwards}}
+        # the codecs on a GPT-2-small-sized flat gradient: card vs CPU
+        data = make_mesh([("data", 1)])["data"]
+        n = sum(v.numel() for v in params.values())
+        gen = torch.Generator().manual_seed(50)
+        flat = torch.randn(n, generator=gen) * 1e-2
+        res = torch.randn(n, generator=gen) * 1e-4
+        codec = {}
+        for mode in ("bf16", "int8"):
+            spec = compression_default(mode)
+            r_card = res.to(dev) if mode == "int8" else None
+            r_cpu = res if mode == "int8" else None
+            reset_collective_counts()
+            s_card, nr_card = compress_allreduce(flat.to(dev), data, spec,
+                                                 r_card, tag="ddp")
+            counts = collective_counts()
+            s_cpu, nr_cpu = compress_allreduce(flat, Axis.single("data"),
+                                               spec, r_cpu, tag="ddp")
+            codec[mode] = {
+                "sum_bit_for_bit": torch.equal(s_card.cpu(), s_cpu),
+                "residual_bit_for_bit": (nr_card is None or torch.equal(
+                    nr_card.cpu(), nr_cpu)),
+                "collectives": counts}
+        rec["codecs"] = codec
+        # compress=None and Adasum at world 1 against the plain step, on
+        # GPT-2 small's parameters with seeded scaled gradients
+        amp_ = amp.initialize("O2")
+        grads = {k: torch.randn(v.shape, generator=gen).to(dev) * 64.0
+                 for k, v in params.items()}
+
+        def grad_fn(carry, mb):
+            return grads, {}
+
+        steps = {}
+        for name in ("plain", "none", "adasum"):
+            opt = amp.AmpOptimizer(fused_adam(1e-3), amp_)
+            p0 = {k: v.to(dev) for k, v in params.items()}
+            if name == "adasum":
+                st = adasum_microbatch_step(grad_fn, opt, axis=data)
+            elif name == "none":
+                st = amp_microbatch_step(grad_fn, opt, compress=None)
+            else:
+                st = amp_microbatch_step(grad_fn, opt)
+            reset_collective_counts()
+            carry, _ = build_opt_step(st)((p0, opt.init(p0)), None)
+            steps[name] = (carry[0], collective_counts())
+            del carry, p0
+        same = {name: all(torch.equal(steps[name][0][k],
+                                      steps["plain"][0][k]) for k in params)
+                for name in ("none", "adasum")}
+        rec["compress_none_bit_for_bit"] = same["none"]
+        rec["adasum_bit_for_bit"] = same["adasum"]
+        rec["adasum_collectives"] = steps["adasum"][1]
+        del steps, grads
+        # MoE at n = 1 against the dense reference, capacity ample (cf =
+        # E / k: every expert takes every token)
+        c = SO2_MOE
+        m = MoEMLP(c["experts"], c["d"], c["d_ff"], None, k=c["k"],
+                   capacity_factor=c["experts"] / c["k"],
+                   generator=torch.Generator().manual_seed(90), device=dev)
+        x = torch.randn(c["tokens"], c["d"], generator=gen).to(dev)
+        with torch.no_grad():
+            y, _ = m(x)
+            want = moe_mlp_ref(x, dict(m.named_parameters()), c["experts"],
+                               c["k"])
+        rec["moe_n1_vs_ref_rel_max"] = ((y - want).abs().max()
+                                        / want.abs().max()).item()
+    finally:
+        dist.destroy_process_group()
+    emit(rec)
+    check(rec["tp1"]["tokens_equal"] and rec["tp1"]["logits_bit_for_bit"]
+          and rec["tp1"]["collectives"] == rec["tp1"]["want_collectives"],
+          f"scale_out2_world1: tp=1 is not the plain decoder: {rec['tp1']}")
+    check(all(v["sum_bit_for_bit"] and v["residual_bit_for_bit"]
+              for v in rec["codecs"].values()),
+          f"scale_out2_world1: codecs card vs CPU: {rec['codecs']}")
+    check(rec["codecs"]["bf16"]["collectives"] == {"ddp": 1}
+          and rec["codecs"]["int8"]["collectives"] == {"ddp": 1, "pmax": 1},
+          f"scale_out2_world1: codec collectives: {rec['codecs']}")
+    check(rec["compress_none_bit_for_bit"] and rec["adasum_bit_for_bit"],
+          "scale_out2_world1: compress=None or Adasum is not the plain step")
+    check(rec["adasum_collectives"] == {"adasum": 1},
+          f"scale_out2_world1: Adasum collectives "
+          f"{rec['adasum_collectives']}")
+    check(rec["moe_n1_vs_ref_rel_max"] <= 1e-5,
+          f"scale_out2_world1: MoE n = 1 vs moe_mlp_ref: "
+          f"{rec['moe_n1_vs_ref_rel_max']}")
+    return rec
+
+
+def phase_scale_out2_gangs(dev, worker_argv=None) -> dict:
+    """The one-rank references, then one gang of four gloo ranks on the
+    card (``--sp-worker``, kind ``scale_out2``): ``tp_serve_gang`` (GPT-2
+    small over a (model 4) mesh, 3 heads a rank: the engine mix's tokens
+    and every logits tensor bit for bit the one-rank engine's, the fp32
+    mix equal to ``reference_generate``, the chain, tree and int8 mixes
+    equal to the one-rank engines', a quarter of the pool bytes, the
+    launches equal to the one-rank run's, 12 head all-reduces a forward;
+    planted: a rank's block at the wrong offset, a dead rank; the paged
+    kernel at H = 3) and ``moe_compress_gang`` (MoE over expert 4,
+    compression and Adasum over data 4 against the CPU, the ZeRO carry
+    of data 4 restored as FSDP on (data 2, model 2))."""
+    params = init_params(GPTConfig.small(), torch.Generator().manual_seed(0))
+    t_ref = time.perf_counter()
+    ref = _so2_serve_runs(dev, params)
+    cfg32 = dataclasses.replace(GPTConfig.small(),
+                                compute_dtype=torch.float32)
+    ref["reference_generate"] = [
+        reference_generate(cfg32, params, p, SO2_FP32["new"], device=dev)
+        for p in _so2_prompts(SO2_FP32)]
+    one_window = ref["engine"].pop("first_window")
+    ref_s = time.perf_counter() - t_ref
+    torch.cuda.empty_cache()
+    h3 = _paged_h3(dev)
+    out_dir = tempfile.mkdtemp(prefix="apex_scale_out2_")
+    try:
+        with open(os.path.join(out_dir, "config.json"), "w") as fh:
+            json.dump({"device": str(dev), "kind": "scale_out2", "cfg": {}},
+                      fh)
+        argv = (worker_argv or [os.path.abspath(__file__), "--sp-worker"])
+        t0 = time.perf_counter()
+        launch([*argv, out_dir], SO2_TP, timeout_s=SP_TIMEOUT_S,
+               echo_stderr=False, check=True)
+        wall = time.perf_counter() - t0
+        ranks = []
+        for r in range(SO2_TP):
+            with open(os.path.join(out_dir, f"rank{r}.json")) as fh:
+                ranks.append(json.load(fh))
+        windows = [torch.load(os.path.join(out_dir, f"window{r}.pt"))
+                   for r in range(SO2_TP)]
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    dead = _dead_tp_rank()
+    e1 = ref["engine"]
+    layers, k = 12, 8
+    serve = []
+    for rk, win in zip(ranks, windows):
+        s, e = rk["serve"], rk["serve"]["engine"]
+        forwards = e["prefill_dispatches"] + k * e["decode_dispatches"]
+        win_err = max((a - b).abs().max().item()
+                      for a, b in zip(win, one_window))
+        serve.append({
+            "rank": rk["rank"],
+            "tokens_equal_one_rank": e["tokens"] == e1["tokens"],
+            "logits_bit_for_bit": e["logits_sha256"] == e1["logits_sha256"],
+            "first_window_max_abs_err": win_err,
+            "fp32_equal_reference_generate":
+                s["fp32"] == ref["reference_generate"],
+            "chain_equal": s["chain"] == ref["chain"],
+            "tree_equal": s["tree"] == ref["tree"],
+            "int8_equal": s["int8"] == ref["int8"],
+            "pool_bytes_quarter": e["bytes_per_page"] * SO2_TP
+                == e1["bytes_per_page"],
+            "launches_equal_one_rank": e["launches"] == e1["launches"],
+            "head_all_reduces": e["collectives"],
+            "head_all_reduces_want": {"tp_heads": layers * forwards},
+            "window_all_reduces":
+                e["tensor_parallel"]["all_reduces_last_window"],
+            "short_equal": s["short"] == ref["short"],
+            "fault_offset_caught": rk["fault_offset_tokens"]
+                != ref["short"],
+            "engine_wall_s": e["wall_s"], "profile": rk["profile"]})
+    rec = {"phase": "tp_serve_gang", "card": nvidia_smi_line(),
+           "world_size": SO2_TP,
+           "backend": "gloo (CUDA tensors, every rank on one card)",
+           "mesh": {"model": SO2_TP},
+           "model": "GPT-2 small, random weights (seed 0), bf16 compute and "
+                    "pages, 3 heads a rank",
+           "traffic": "the engine phase's mix: 16 requests, 64-768-token "
+                      "prompts, 64 new tokens, two sharing a 256-token "
+                      "prefix, 8 slots, page_len 16, chunks of 128, K = 8",
+           "one_rank_launches": e1["launches"],
+           "one_rank_engine_wall_s": e1["wall_s"], "references_s": ref_s,
+           "paged_h3": h3, "ranks": serve, "gang_s": wall,
+           "planted_dead_rank": dead,
+           "times_note": "gloo over the host between four processes that "
+                         "share one card (the engine wall with one host copy "
+                         "of the logits a forward): not NVLink, not a "
+                         "multi-card measure"}
+    moe = [rk["moe"] for rk in ranks]
+    comp = [rk["compress"] for rk in ranks]
+    want_counts = {
+        "ddp_bf16": {"ddp": 1}, "ddp_int8": {"ddp": 1, "pmax": 1},
+        "zero_int8": {"zero_flag": 1, "zero_grads": 1, "zero_params": 1,
+                      "pmax": 1},
+        "fsdp_bf16": {"fsdp_params": 1, "zero_flag": 2, "zero_grads": 1},
+        "adasum_full": {"adasum": 1}}
+    rec2 = {"phase": "moe_compress_gang", "card": nvidia_smi_line(),
+            "world_size": SO2_TP,
+            "backend": "gloo (CUDA tensors, every rank on one card)",
+            "moe": {"mesh": {"expert": SO2_TP},
+                    "config": "Switch-Base-8 FFN (Fedus et al. 2021): d_model "
+                              "768, d_ff 3072, 8 experts (2 a rank), top-2, "
+                              "capacity factor 2.0, 4096 tokens a rank, bf16",
+                    "ranks": moe},
+            "compress": {"mesh": {"data": SO2_TP},
+                         "model": "GPT-2 small width, 2 layers, vocabulary "
+                                  "50304, fp32, 1 x 1024 tokens a rank, 2 "
+                                  "steps, an inf in step 2 on rank 1 (int8)",
+                         "want_collectives_a_step": want_counts,
+                         "ranks": comp},
+            "tol": SO2_TOL,
+            "moe_compress_s": [rk["moe_compress_s"] for rk in ranks],
+            "serve_s": [rk["serve_s"] for rk in ranks]}
+    emit(rec)
+    emit(rec2)
+    for s in serve:
+        check(s["tokens_equal_one_rank"] and s["fp32_equal_reference_generate"]
+              and s["chain_equal"] and s["tree_equal"] and s["int8_equal"]
+              and s["short_equal"],
+              f"tp_serve_gang: tokens differ from one rank's: {s}")
+        check(s["logits_bit_for_bit"],
+              f"tp_serve_gang: logits not bit for bit one rank's: {s}")
+        check(s["pool_bytes_quarter"] and s["launches_equal_one_rank"],
+              f"tp_serve_gang: pool bytes or launches: {s}")
+        check(s["head_all_reduces"] == s["head_all_reduces_want"]
+              and s["window_all_reduces"] == layers * k,
+              f"tp_serve_gang: head all-reduces: {s}")
+        check(s["fault_offset_caught"],
+              "tp_serve_gang: a misplaced head block passed the token gate")
+    check(all(c["equals_12_head_slice"] for c in h3),
+          f"tp_serve_gang: the H=3 paged kernel is not the 12-head slice")
+    check(dead == {"reaped": True, "guilty_ranks": [2],
+                   "stderr_tail_names_it": True},
+          f"tp_serve_gang: a dead rank was not surfaced: {dead}")
+    for m in moe:
+        check(m["ok"], f"moe_compress_gang: MoE: {m}")
+        check(m["fwd_collectives"] == {"moe_dispatch": 1, "moe_combine": 1}
+              and m["collectives"] == {"moe_dispatch": 2, "moe_combine": 2},
+              f"moe_compress_gang: MoE all-to-alls: {m}")
+    for cr in comp:
+        for key, want in want_counts.items():
+            r = cr[key]
+            tol = 2e-2 if key.endswith("bf16") else 1e-3
+            check(r["movement_rel_l2"] <= tol,
+                  f"moe_compress_gang: {key} card vs CPU: {r}")
+            check(r["skipped"] == r["cpu_skipped"]
+                  and r["scale"] == r["cpu_scale"],
+                  f"moe_compress_gang: {key} flags: {r}")
+            check(all(c == want for c in r["collectives"]),
+                  f"moe_compress_gang: {key} collectives: {r}")
+            if key.endswith("int8"):
+                check(r["skipped"] == [0.0, 1.0]
+                      and r["residual_kept_at_skip"],
+                      f"moe_compress_gang: {key} planted overflow: {r}")
+        rs = cr["restore"]
+        check(rs["params_bit_for_bit"] and rs["sidecar_mode"] == "zero"
+              and rs["sidecar_mesh"] == {"data": SO2_TP} and rs["step"] == 2,
+              f"moe_compress_gang: restore: {rs}")
+    return {"launches": ranks[0]["serve"]["engine"]["launches"],
+            "launches_by_rank": [rk["serve"]["engine"]["launches"]
+                                 for rk in ranks]}
+
+
 class _Tee:
     """stdout that also writes to a log file."""
 
@@ -7602,6 +8373,14 @@ def _run() -> int:
     tp_path = phase_tp_pipeline_gang(dev)
     emit({"phase": "scale_out_time", "seconds": time.perf_counter() - t_sp,
           "phases": ["sp_world1", "long_context_gang", "tp_pipeline_gang"]})
+    torch.cuda.empty_cache()
+    t_so2 = time.perf_counter()
+    phase_scale_out2_world1(dev)
+    tps_path = phase_scale_out2_gangs(dev)
+    emit({"phase": "scale_out2_time",
+          "seconds": time.perf_counter() - t_so2,
+          "phases": ["scale_out2_world1", "tp_serve_gang",
+                     "moe_compress_gang"]})
 
     # the summary rows: the serving kernels at the engine's decode-step
     # shape with the engine run's launches, the GPT training kernels at
@@ -7905,6 +8684,14 @@ def _run() -> int:
                 "launches_by_rank": [c.get(name, 0)
                                      for c in path["launches_by_rank"]],
                 "launches_of": f"{name} on rank 0 of 4, {what}"}
+    for name in ("layer_norm", "paged_fused_attention"):
+        by_name[name]["tp_serve_path"] = {
+            "launches": tps_path["launches"].get(name, 0),
+            "launches_by_rank": [c.get(name, 0)
+                                 for c in tps_path["launches_by_rank"]],
+            "launches_of": f"{name} on rank 0 of 4, the engine mix on GPT-2 "
+                           f"small over a (model 4) mesh, 3 heads a rank "
+                           f"(tp_serve_gang)"}
     for kind in ("fwd", "bwd"):
         by_name[f"flash_attention_{kind}_bias"]["encdec_path"].update(
             {k: ed_cases[kind][k] for k in (
@@ -7916,7 +8703,7 @@ def _run() -> int:
                             "ddp_path", "medium_path", "spec_path_d3", "spec_path_d7",
                             "spec_tree_path_w2d3", "spec_tree_path_w3d3",
                             "o1_path", "stash_path", "long_context_path",
-                            "tp_path", *paths)
+                            "tp_path", "tp_serve_path", *paths)
                   if p in r),
           f"a kernel never launched on its path: {rows}")
     print(smi, flush=True)

@@ -206,8 +206,9 @@ def test_rejections():
                                         lambda c, a: (c, {}),
                                         microbatches=0))
     # ddp= and grad_presum= are ported (tests/test_torch_ddp.py); the
-    # compressed boundary collective is not
-    with pytest.raises(NotImplementedError, match="ROADMAP item 6"):
+    # compressed boundary collective compresses DDP's all-reduce, so it
+    # needs ddp= (tests/test_torch_compress.py)
+    with pytest.raises(ValueError, match="pass ddp="):
         amp_microbatch_step(grad_fn, opt, microbatches=2, compress="bf16")
 
 

@@ -433,8 +433,12 @@ def _port_step_fn():
 
 
 def test_compress_and_adasum_raise_naming_item_6():
+    """Item 6 part 2 is ported: compress= builds on every policy; what
+    still raises is compression with Adasum (full-precision operands) and
+    with LAMB on the ZeRO codec path (LAMB's norms need its own step)."""
     from apex_tpu_torch import amp
-    from apex_tpu_torch.contrib.optimizers import DistributedFusedAdam
+    from apex_tpu_torch.contrib.optimizers import (DistributedFusedAdam,
+                                                   DistributedFusedLAMB)
     from apex_tpu_torch.parallel import Axis
     from apex_tpu_torch.train import (adasum_microbatch_step,
                                       fsdp_microbatch_step,
@@ -443,10 +447,14 @@ def test_compress_and_adasum_raise_naming_item_6():
     spec = opt.make_spec({"a": torch.zeros(3)})
     amp_ = amp.initialize("O2")
     for fn in (zero_microbatch_step, fsdp_microbatch_step):
-        with pytest.raises(NotImplementedError, match="ROADMAP item 6"):
-            fn(_port_step_fn(), opt, amp_, spec, compress="bf16")
-    with pytest.raises(NotImplementedError, match="ROADMAP item 6"):
-        adasum_microbatch_step(_port_step_fn(), opt)
+        step = fn(_port_step_fn(), opt, amp_, spec, compress="bf16")
+        assert step.compress.mode == "bf16"
+    with pytest.raises(NotImplementedError, match="full-precision"):
+        adasum_microbatch_step(_port_step_fn(), opt, compress="int8")
+    lamb = DistributedFusedLAMB(Axis.single("data"))
+    with pytest.raises(NotImplementedError, match="DistributedFusedAdam"):
+        zero_microbatch_step(_port_step_fn(), lamb, amp_, spec,
+                             compress="int8")
 
 
 def test_fsdp_refuses_lamb():
@@ -462,13 +470,21 @@ def test_fsdp_refuses_lamb():
 
 
 def test_rules_table_carry_spec_raises_naming_item_6():
-    from apex_tpu.sharding import train_state_rules
-    from apex_tpu_torch.parallel import Mesh
+    """The port's RulesTable is a carry_spec now (matched over the carry
+    it is given); a JAX table is no tree of P and raises."""
+    from apex_tpu.sharding import train_state_rules as jax_rules
+    from apex_tpu_torch.parallel import P, Mesh
+    from apex_tpu_torch.sharding import train_state_rules
     from apex_tpu_torch.train import FusedTrainDriver
     mesh = Mesh(("data",), (1,), ())
-    with pytest.raises(NotImplementedError, match="ROADMAP item 6"):
+    driver = FusedTrainDriver(_port_step_fn(), mesh=mesh,
+                              carry_spec=train_state_rules("data"))
+    carry = ({"a": torch.zeros(3)}, {"master_shard": torch.zeros(4)})
+    assert driver.carry_spec_for(carry) == ({"a": P()},
+                                            {"master_shard": P("data")})
+    with pytest.raises(TypeError, match="tree of P"):
         FusedTrainDriver(_port_step_fn(), mesh=mesh,
-                         carry_spec=train_state_rules("data"))
+                         carry_spec=jax_rules("data"))
     with pytest.raises(TypeError, match="tree of P"):
         FusedTrainDriver(_port_step_fn(), mesh=mesh, carry_spec="data")
     with pytest.raises(ValueError, match="need a mesh"):
