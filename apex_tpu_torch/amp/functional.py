@@ -357,7 +357,8 @@ def conv_transpose_nhwc(x: torch.Tensor, kernel: torch.Tensor,
     padded by k - 1 - p at both edges plus ``output_padding`` at the high
     one; so the kernel goes in flipped, as (I, O, KH, KW), with p = k - 1
     - lo and output_padding = hi - lo where torch takes them (p >= 0, 0
-    <= hi - lo < stride), else the full transposed convolution (p = 0) is
+    <= hi - lo < min(stride, k)), else the full transposed convolution (p
+    = 0) is
     cropped or zero-padded to (lo, hi) by ``F.pad``."""
     dt = torch.promote_types(x.dtype, kernel.dtype)
     x, kernel = x.to(dt), kernel.to(dt)
@@ -372,7 +373,10 @@ def conv_transpose_nhwc(x: torch.Tensor, kernel: torch.Tensor,
                              f"got {padding!r}")
     w = kernel.permute(2, 3, 0, 1).flip(2, 3)
     xc = x.permute(0, 3, 1, 2)  # an NCHW view of NHWC memory
-    if all(0 <= hi - lo < s and lo <= k - 1
+    # an output_padding of at least the kernel size (a 1x1 kernel at
+    # stride 2, "VALID") corrupts the heap in the CPU backward of a
+    # channels-last input (torch 2.13), so that case is padded by F.pad
+    if all(0 <= hi - lo < min(s, k) and lo <= k - 1
            for (lo, hi), k, s in zip(pads, ks, strides)):
         y = torch_F.conv_transpose2d(
             xc, w, stride=tuple(strides),

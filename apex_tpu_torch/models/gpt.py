@@ -147,10 +147,6 @@ class GPTLayer(nn.Module):
     kernel options: the config's ``probs_bf16`` and ``dq_acc`` apply to
     the built-in attention only."""
 
-    #: checks only: head groups to shift where a rank writes its block
-    #: before the tensor-parallel sum (a planted fault; 0 in use)
-    _tp_fault_shift = 0
-
     def __init__(self, cfg: GPTConfig, attention_fn=None):
         super().__init__()
         h, dt = cfg.hidden_size, cfg.compute_dtype
@@ -269,10 +265,9 @@ class GPTLayer(nn.Module):
         if tp is not None:
             # reassemble the head axis: the local block at h0 * d of a
             # zero (B, T, h) tensor, summed over the axis
-            at = ((h0 + self._tp_fault_shift * nh_loc) % nh) * d
             full = torch.zeros((b, s, h), dtype=attn.dtype,
                                device=attn.device)
-            full[..., at:at + nh_loc * d] = attn
+            full[..., h0 * d:(h0 + nh_loc) * d] = attn
             attn = psum(full, tp, tag="tp_heads")
         x = x + self.proj(attn).to(x.dtype)
         y = self.ln2(x.float()).to(dt)

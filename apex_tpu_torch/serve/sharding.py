@@ -20,6 +20,7 @@ JAX package's do; they derive from
 from __future__ import annotations
 
 from apex_tpu_torch.serve.kv_cache import KVCache, PagedKVCache
+from apex_tpu_torch.sharding.rules import _Leaf
 
 __all__ = ["cache_pspec", "paged_cache_pspec", "serve_mesh"]
 
@@ -30,10 +31,6 @@ def serve_mesh(tp: int, axis_name: str = "model"):
     from apex_tpu_torch.parallel.mesh import make_mesh
 
     return make_mesh([(axis_name, int(tp))])
-
-
-class _Leaf:
-    """Shapeless template placeholder: the rules match it by path."""
 
 
 def cache_pspec(axis_name: str = "model") -> KVCache:

@@ -77,6 +77,11 @@ def _spec_from_json(dims: list) -> P:
     return P(*[tuple(e) if isinstance(e, list) else e for e in dims])
 
 
+class _Leaf:
+    """Shapeless placeholder of a spec template: the rules match it by
+    path alone."""
+
+
 class UnmatchedLeafError(ValueError):
     """A tree leaf no partition rule matched, under a table whose
     ``on_unmatched`` mode is ``"error"``: every offending path is named."""

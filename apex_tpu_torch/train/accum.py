@@ -304,6 +304,7 @@ def adasum_state_spec(axis_name: str = "data") -> P:
     """The Adasum carry's spec: replicated, as the mean policy's (the
     combined gradient is the same on every rank)."""
     from apex_tpu_torch.sharding import train_state_rules
+    from apex_tpu_torch.sharding.rules import _Leaf
 
     return train_state_rules(axis_name).match(_Leaf())
 
@@ -364,11 +365,6 @@ class ZeroAmpState(NamedTuple):
     scaler: Tuple
 
 
-class _Leaf:
-    """Shapeless placeholder of a spec template: the rules match it by
-    path alone."""
-
-
 def zero_state_spec(axis_name: str = "data") -> ZeroAmpState:
     """The :class:`ZeroAmpState`'s spec tree for the driver's
     ``carry_spec``: the flat shards ride ``axis_name``, the step and the
@@ -377,6 +373,7 @@ def zero_state_spec(axis_name: str = "data") -> ZeroAmpState:
     from apex_tpu_torch.contrib.optimizers.distributed_fused import (
         ShardedOptState)
     from apex_tpu_torch.sharding import train_state_rules
+    from apex_tpu_torch.sharding.rules import _Leaf
 
     return train_state_rules(axis_name).match(ZeroAmpState(
         ShardedOptState(_Leaf(), _Leaf(), _Leaf(), _Leaf()), _Leaf()))
@@ -523,6 +520,7 @@ def fsdp_state_spec(axis_name: str = "data") -> FsdpAmpState:
     ``axis_name``, the step and the scalers replicated (from
     ``train_state_rules``)."""
     from apex_tpu_torch.sharding import train_state_rules
+    from apex_tpu_torch.sharding.rules import _Leaf
 
     return train_state_rules(axis_name).match(FsdpAmpState(
         FsdpOptState(_Leaf(), _Leaf(), _Leaf()), _Leaf()))
@@ -770,9 +768,9 @@ def restore_train_state(path: str, params: Grads, *, opt, amp_, mode: str,
     from :func:`reduction_carry_template`), the canonical form is
     concatenated from them, and this rank's carry is rebuilt under
     ``mode`` (:func:`carry_from_canonical`): the parameters bit for bit
-    the gather of the source.  The same mode on the same mesh restores
-    each rank's own directory.  A checkpoint without a sidecar is taken
-    to match the live layout.  ``params`` is the parameter dict
+    the gather of the source.  Every restore takes this one path, the
+    same mode on the same mesh too.  A checkpoint without a sidecar is
+    taken to match the live layout.  ``params`` is the parameter dict
     template (names, shapes, dtypes, device)."""
     from apex_tpu_torch import checkpoint
     from apex_tpu_torch.sharding import mesh_axes
@@ -783,10 +781,6 @@ def restore_train_state(path: str, params: Grads, *, opt, amp_, mode: str,
     src_mode = saved.get("mode", mode)
     src_mesh = saved.get("mesh") or live
     src_world = int(src_mesh.get(ax.name, ax.size))
-    if src_mode == mode and src_mesh == live:
-        template = reduction_carry_template(mode, params, world, amp_)
-        return checkpoint.restore_checkpoint(path, template, step,
-                                             process_local=True)
     dev = next(iter(params.values())).device
     carries, got = [], None
     for j in range(src_world):

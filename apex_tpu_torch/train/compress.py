@@ -89,10 +89,6 @@ class EfState(NamedTuple):
     ef_residual: Any
 
 
-class _Leaf:
-    """Shapeless placeholder: the rules match it by path."""
-
-
 def ef_length(tree) -> int:
     """The flat length of a gradient dict: the residual's L for the mean
     policy (ZeRO and FSDP use their flat spec's ``padded``)."""
@@ -111,6 +107,7 @@ def ef_state_spec(axis_name: str = "data") -> EfState:
     ``axis_name`` on its leading, per-rank axis (from
     :func:`apex_tpu_torch.sharding.train_state_rules`)."""
     from apex_tpu_torch.sharding import train_state_rules
+    from apex_tpu_torch.sharding.rules import _Leaf
 
     return train_state_rules(axis_name).match(EfState(ef_residual=_Leaf()))
 

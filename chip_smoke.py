@@ -7484,9 +7484,19 @@ SO2_COMPRESS = dict(layers=2, s=1024, steps=2)
 SO2_POLICIES = (("ddp", "bf16"), ("ddp", "int8"), ("zero", "int8"),
                 ("fsdp", "bf16"), ("adasum", None))
 SO2_TP = 4
-SO2_TOL = ("card vs CPU from the same state and gradients: the masters' "
-           "movement within 1e-3 relative L2 (int8: the payload is "
-           "exact), 2e-2 for bf16 (a bf16 SUM in gloo's order); MoE "
+#: Adasum's combined gradient card vs CPU: fp32 dot products and norms
+#: over the flat gradient, summed in another order on each side
+SO2_ADASUM_TOL = 1e-5
+#: the masters' movement card vs CPU after the two Adam steps (fp32 Adam
+#: on each side; 0 to 1.3e-7 read in the chip run of the final tree)
+SO2_MOVEMENT_TOL = 1e-6
+SO2_TOL = ("card vs CPU from the same state and gradients: each boundary "
+           "exchange (the compressed SUM or this rank's reduce-scatter "
+           "block, and the int8 residual) bit for bit (gloo sums host "
+           "copies of CUDA tensors in its CPU order), Adasum's combined "
+           "gradient within 1e-5 relative L2 (fp32 dot products in "
+           "another order); the masters' movement within 1e-6 relative "
+           "L2 (fp32 Adam on each side); MoE "
            "against the same layer at n = 1: outputs and the input's "
            "gradient within 1e-2 of max, the weights' gradients within "
            "1e-2 relative L2 (bf16 products of another batch)")
@@ -7661,6 +7671,68 @@ def _so2_moe(dev, rank: int) -> dict:
     return rec
 
 
+def _bits_equal(a, b) -> bool:
+    """Two tensors equal bit for bit (NaN payloads and signed zeros too)."""
+    return (a.dtype == b.dtype and a.shape == b.shape
+            and torch.equal(a.contiguous().view(torch.uint8),
+                            b.contiguous().view(torch.uint8)))
+
+
+class _ExchangeTap:
+    """The boundary exchanges of ``train.accum`` as they return, moved to
+    the host: the compressed SUM (the all-reduce's, or this rank's
+    reduce-scatter block) and the new int8 residual, or Adasum's
+    combined gradient.  Given the card's record as ``want``, each CPU
+    exchange is compared as it comes and not kept: the SUM and the
+    residual bit for bit, Adasum's gradient by its relative L2."""
+
+    NAMES = ("compress_allreduce", "compress_reduce_scatter",
+             "adasum_combine")
+
+    def __init__(self, want=None):
+        self.want, self.got, self.diffs = want, [], []
+
+    def __enter__(self):
+        from apex_tpu_torch.train import accum
+
+        self.saved = {n: getattr(accum, n) for n in self.NAMES}
+        for n, fn in self.saved.items():
+            setattr(accum, n, self._wrap(fn))
+        return self
+
+    def __exit__(self, *exc):
+        from apex_tpu_torch.train import accum
+
+        for n, fn in self.saved.items():
+            setattr(accum, n, fn)
+
+    def _wrap(self, fn):
+        def tapped(*args, **kw):
+            out = fn(*args, **kw)
+            parts = out if isinstance(out, tuple) else (out,)
+            host = [None if t is None else t.detach().cpu() for t in parts]
+            if self.want is None:
+                self.got.append(host)
+            else:
+                self.diffs.append(self._diff(self.want[len(self.diffs)],
+                                             host))
+            return out
+        return tapped
+
+    @staticmethod
+    def _diff(card, cpu) -> dict:
+        if len(card) == 1:  # Adasum's combined gradient
+            a, b = card[0].double(), cpu[0].double()
+            return {"combined_rel_l2": float(torch.linalg.vector_norm(a - b)
+                                             / torch.linalg.vector_norm(b))}
+        return {"sum_bit_for_bit": _bits_equal(card[0], cpu[0]),
+                "residual_bit_for_bit": (None if card[1] is None
+                                         and cpu[1] is None else
+                                         card[1] is not None
+                                         and cpu[1] is not None
+                                         and _bits_equal(card[1], cpu[1]))}
+
+
 def _so2_policy(name: str, comp, axis, model, params, data, *, dev,
                 replay=None, plant=None, record=None):
     """Two steps (one window each) of a boundary policy on ``dev`` over
@@ -7737,6 +7809,30 @@ def _so2_policy(name: str, comp, axis, model, params, data, *, dev,
     return out
 
 
+def _so2_wrong_scale(axis, params, want, rec, base, d_card, *, dev,
+                     plant) -> dict:
+    """Planted: the mean int8 policy again on the card from the recorded
+    gradients with the shared scale decoded 1 % off.  The exchange gate
+    must fail; the masters' movement against the good run's shows why
+    it alone cannot see such a fault (Adam's update is about lr sign(g)
+    at first, and a uniform scale cancels in m / sqrt(v))."""
+    from apex_tpu_torch.train import compress as compress_module
+
+    decode = compress_module._decode
+    compress_module._decode = lambda q, scale, amax: decode(
+        q, scale * 1.01, amax)
+    try:
+        with _ExchangeTap(want=want) as tap:
+            bad = _so2_policy("ddp", "int8", axis, None, params, None,
+                              dev=dev, replay=rec, plant=plant)
+    finally:
+        compress_module._decode = decode
+    d_bad = bad["masters"] - base
+    return {"caught": not all(e["sum_bit_for_bit"] for e in tap.diffs),
+            "movement_rel_l2": float(torch.linalg.vector_norm(d_bad - d_card)
+                                     / torch.linalg.vector_norm(d_card))}
+
+
 def _so2_compress(dev, rank: int, out_dir: str) -> dict:
     """Compression, Adasum and the cross-mesh restore over data 4."""
     from apex_tpu_torch.contrib.optimizers import DistributedFusedAdam
@@ -7761,11 +7857,14 @@ def _so2_compress(dev, rank: int, out_dir: str) -> dict:
         plant = 1 if comp == "int8" and rank == 1 else None
         rec = []
         t0 = time.perf_counter()
-        card = _so2_policy(name, comp, axis, model, params, data, dev=dev,
-                           plant=plant, record=rec)
+        with _ExchangeTap() as tap:
+            card = _so2_policy(name, comp, axis, model, params, data,
+                               dev=dev, plant=plant, record=rec)
         wall = time.perf_counter() - t0
-        cpu = _so2_policy(name, comp, axis, None, params, None,
-                          dev=torch.device("cpu"), replay=rec, plant=plant)
+        with _ExchangeTap(want=tap.got) as ctap:
+            cpu = _so2_policy(name, comp, axis, None, params, None,
+                              dev=torch.device("cpu"), replay=rec,
+                              plant=plant)
         base = torch.cat([params[k].reshape(-1) for k in params])
         d_card, d_cpu = card["masters"] - base, cpu["masters"] - base
         r = {"movement_rel_l2": float(torch.linalg.vector_norm(d_card - d_cpu)
@@ -7773,14 +7872,19 @@ def _so2_compress(dev, rank: int, out_dir: str) -> dict:
              "skipped": card["skipped"], "cpu_skipped": cpu["skipped"],
              "scale": card["scale"], "cpu_scale": cpu["scale"],
              "collectives": card["collectives"],
-             "cpu_collectives": cpu["collectives"], "wall_s": wall}
+             "cpu_collectives": cpu["collectives"], "wall_s": wall,
+             "exchanges": ctap.diffs, "card_exchanges": len(tap.got)}
         if comp == "int8":
             r["residual_kept_at_skip"] = bool(torch.equal(card["res"][0],
                                                           card["res"][1]))
+        if (name, comp) == ("ddp", "int8"):
+            r["planted_wrong_scale"] = _so2_wrong_scale(
+                axis, params, tap.got, rec, base, d_card, dev=dev,
+                plant=plant)
         out[f"{name}_{comp or 'full'}"] = r
         if name == "zero":
             zero_carry = card["carry"][:2]
-        del card, cpu, rec
+        del card, cpu, rec, tap
     # the restore: this ZeRO carry saved over data 4, restored as FSDP on a
     # (data 2, model 2) mesh
     path = os.path.join(out_dir, "train_state")
@@ -7806,11 +7910,16 @@ def _so2_compress(dev, rank: int, out_dir: str) -> dict:
 
 
 def _so2_fault_offset(dev, params, mesh, rank: int) -> list:
-    """Rank 0 writes its head block one group along: every rank's tokens
-    of the first two requests of the four-request mix."""
-    from apex_tpu_torch.models.gpt import GPTLayer
+    """Rank 0 writes its head block one group along (its zero-padded (B,
+    T, h) block rolled by a group's width before the head sum): every
+    rank's tokens of the first two requests of the four-request mix."""
+    from apex_tpu_torch.models import gpt as gpt_module
 
-    GPTLayer._tp_fault_shift = 1 if rank == 0 else 0
+    psum = gpt_module.psum
+    group = GPTConfig.small().hidden_size // SO2_TP
+    if rank == 0:
+        gpt_module.psum = lambda x, axis, **kw: psum(
+            torch.roll(x, group, dims=-1), axis, **kw)
     try:
         dec = GPTDecoder(GPTConfig.small(), params,
                          compute_dtype=torch.bfloat16,
@@ -7819,7 +7928,7 @@ def _so2_fault_offset(dev, params, mesh, rank: int) -> list:
         return _so2_run(_so2_engine(dec, slots=4), _so2_prompts(SO2_MIX4)[:2],
                         8)
     finally:
-        GPTLayer._tp_fault_shift = 0
+        gpt_module.psum = psum
 
 
 def _so2_worker(dev, out_dir: str, rank: int, cfg: dict) -> dict:
@@ -8194,14 +8303,30 @@ def phase_scale_out2_gangs(dev, worker_argv=None) -> dict:
     for cr in comp:
         for key, want in want_counts.items():
             r = cr[key]
-            tol = 2e-2 if key.endswith("bf16") else 1e-3
-            check(r["movement_rel_l2"] <= tol,
+            ex = r["exchanges"]
+            check(len(ex) == r["card_exchanges"] == SO2_COMPRESS["steps"],
+                  f"moe_compress_gang: {key} exchanges tapped: {r}")
+            if key.startswith("adasum"):
+                good = all(e["combined_rel_l2"] <= SO2_ADASUM_TOL
+                           for e in ex)
+            else:
+                good = all(e["sum_bit_for_bit"]
+                           and e["residual_bit_for_bit"]
+                           is (True if key.endswith("int8") else None)
+                           for e in ex)
+            check(good, f"moe_compress_gang: {key} exchange card vs CPU: "
+                  f"{ex}")
+            check(r["movement_rel_l2"] <= SO2_MOVEMENT_TOL,
                   f"moe_compress_gang: {key} card vs CPU: {r}")
             check(r["skipped"] == r["cpu_skipped"]
                   and r["scale"] == r["cpu_scale"],
                   f"moe_compress_gang: {key} flags: {r}")
             check(all(c == want for c in r["collectives"]),
                   f"moe_compress_gang: {key} collectives: {r}")
+            if key == "ddp_int8":
+                check(r["planted_wrong_scale"]["caught"],
+                      f"moe_compress_gang: a 1 % wrong int8 scale passed "
+                      f"the exchange gate: {r['planted_wrong_scale']}")
             if key.endswith("int8"):
                 check(r["skipped"] == [0.0, 1.0]
                       and r["residual_kept_at_skip"],

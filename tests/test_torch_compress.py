@@ -34,7 +34,9 @@ conftest's virtual CPU devices:
 - a ZeRO carry saved by four ranks restored as FSDP on (data 2, model
   2), and an FSDP carry of that mesh restored as ZeRO on four: the
   parameters and moments bit for bit the gather of the source, the
-  sidecar equal to JAX's ``rules_outcome`` of the same carry; the rules'
+  sidecar equal to JAX's ``rules_outcome`` of the same carry; the ZeRO
+  carry restored as ZeRO on four, with its sidecar and without one, leaf
+  for leaf this rank's carry; the rules'
   ``shard_tree``/``gather_tree`` round trip and ``constrain_tree``'s
   local-shape check on that mesh;
 - ``weights.from_jax_ef_state`` gives each rank its row exactly.
@@ -239,6 +241,15 @@ def _case_restore(rank, out_dir):
                                       mode="zero", mesh=mesh4)
     canon2 = train_state_canonical(zcarry, params, W, mode="zero",
                                    axis=mesh4["data"])
+    # the same mode on the same mesh, with the sidecar and without one
+    bare = os.path.join(out_dir, "zero4_bare")
+    checkpoint.save_checkpoint(bare, carry, 2, process_local=True)
+    dist.barrier()
+    same = {}
+    for name, where in (("sidecar", zdir), ("bare", bare)):
+        c, at_same = restore_train_state(where, params, opt=zopt, amp_=amp_,
+                                         mode="zero", mesh=mesh4)
+        same[name] = (at_same, _same_leaves(c, carry))
     # shard and gather under the rules: a round trip on the 2 x 2 mesh
     table = train_state_rules("data")
     flat = {"master_shard": torch.arange(8.0), "step": torch.zeros(())}
@@ -270,7 +281,18 @@ def _case_restore(rank, out_dir):
                              torch.equal(back["master_shard"],
                                          flat["master_shard"])),
         "constrain": (checked, refused),
+        "same_layout": same,
+        "bare_outcome": checkpoint.read_sharding_outcome(bare, rank=0),
     }
+
+
+def _same_leaves(a, b) -> bool:
+    """Every leaf of two carries equal bit for bit, tensor or number."""
+    from apex_tpu_torch.sharding.rules import tree_leaves
+    la, lb = tree_leaves(a), tree_leaves(b)
+    return len(la) == len(lb) and all(
+        torch.equal(x, y) if torch.is_tensor(x) else x == y
+        for x, y in zip(la, lb))
 
 
 def _worker(out_dir: str) -> None:
@@ -600,6 +622,17 @@ def test_zero_restores_as_fsdp_and_back_bit_for_bit(both):
         assert g["shard_round_trip"] == (
             [float(x) for x in range(data_index * 4, data_index * 4 + 4)],
             True)
+
+
+def test_zero_restores_as_zero_on_the_same_mesh_bit_for_bit(both):
+    got, _ = both
+    for r in range(W):
+        g = got[r]["restore"]
+        # this rank's carry back leaf for leaf (params, the master, m and
+        # v shards, the step, the scaler), from the sidecar's layout and
+        # from a checkpoint without one (the live layout taken)
+        assert g["same_layout"] == {"sidecar": (2, True), "bare": (2, True)}
+        assert g["bare_outcome"] is None
 
 
 def test_ef_state_crosses_over_exactly():
