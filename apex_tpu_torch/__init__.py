@@ -44,7 +44,11 @@ and ``BatchNorm2d_NHWC``, ``mlp.MLP``, ``bf16_utils`` and
 ``reparameterization``; then the recurrent stacks of ``RNN`` (the LSTM,
 GRU, ReLU, Tanh and mLSTM factories, stacked and bidirectional) and 2:4
 structured sparsity (``contrib.sparsity``: the mask library, ``ASP`` and
-``sparsify``), which complete the library.
+``sparsify``), which complete the library.  The host planes start with
+``obs`` (metrics, spans, the request lifecycle, SLO tracking, the flight
+recorder and exporters) wired through ``ServeEngine`` (with SLO-aware
+admission) and ``FusedTrainDriver``, and the seeded load generator
+(``serve.loadgen``).
 Every kernel on those paths
 (LayerNorm forward and backward, paged attention, flash attention
 forward and backward with and without an additive bias and its gradient,
@@ -59,6 +63,7 @@ Entry points run on the CUDA device unless the caller passes
 ``device="cpu"``, where every kernel wrapper runs its plain PyTorch
 version instead.  This package imports neither JAX nor ``apex_tpu``.
 """
+from apex_tpu_torch import obs  # noqa: F401
 from apex_tpu_torch.amp import Conv, ConvTranspose, Dense  # noqa: F401
 from apex_tpu_torch.mlp import MLP  # noqa: F401
 from apex_tpu_torch.models import (  # noqa: F401
@@ -169,6 +174,7 @@ __all__ = [
     "init_resnet_params",
     "launch",
     "launch_counts",
+    "obs",
     "read_metrics",
     "reference_generate",
     "replicate",

@@ -12,6 +12,12 @@ a temporary file and renames it into place, so two processes building
 at once never load a half-written library.  :func:`build` starts one
 ``nvcc`` per missing library, all at once, and waits for all of them;
 a failed build raises with ``nvcc``'s output.
+
+A library built (:func:`build`) or opened (:func:`load`) is an event
+that listeners added with :func:`add_build_listener` hear, as
+``fn(kind, name)`` with ``kind`` ``"build"`` or ``"load"``: the
+tracer of :mod:`apex_tpu_torch.obs` counts them on the innermost open
+span, the port's counterpart of the XLA compiles JAX's tracer counts.
 """
 from __future__ import annotations
 
@@ -21,11 +27,13 @@ import os
 import shutil
 import subprocess
 import time
+import weakref
 from pathlib import Path
-from typing import Dict, Iterable, Tuple
+from typing import Callable, Dict, Iterable, List, Tuple
 
 __all__ = ["BUILD_DIR", "CSRC_DIR", "KERNEL_SOURCES", "NVCC_FLAGS",
-           "build", "build_log", "library_path", "load"]
+           "add_build_listener", "build", "build_log", "library_path",
+           "load", "remove_build_listener"]
 
 CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC_DIR.parent.parent / "build" / "apex_tpu_torch"
@@ -39,6 +47,33 @@ NVCC_FLAGS: Tuple[str, ...] = (
 BUILD_TIMEOUT_S = 900
 
 _loaded: Dict[str, ctypes.CDLL] = {}
+# each entry returns its listener, or None once a weakly held one is gone
+_listeners: List[Callable[[], Callable[[str, str], None]]] = []
+
+
+def add_build_listener(fn: Callable[[str, str], None]) -> None:
+    """Call ``fn(kind, name)`` after each library build (``"build"``) and
+    each first load of a library in this process (``"load"``).  A bound
+    method is held weakly, so its object can go away without removing
+    it; anything else is held until :func:`remove_build_listener`."""
+    if hasattr(fn, "__self__"):
+        _listeners.append(weakref.WeakMethod(fn))
+    else:
+        _listeners.append(lambda: fn)
+
+
+def remove_build_listener(fn: Callable[[str, str], None]) -> None:
+    """Stop calling ``fn`` (no-op when it is not listening)."""
+    _listeners[:] = [ref for ref in _listeners if ref() not in (fn, None)]
+
+
+def _notify(kind: str, name: str) -> None:
+    for ref in list(_listeners):
+        fn = ref()
+        if fn is None:
+            _listeners.remove(ref)
+        else:
+            fn(kind, name)
 
 
 def _nvcc() -> str:
@@ -94,6 +129,7 @@ def build(names: Iterable[str] = KERNEL_SOURCES) -> Dict[str, float]:
         took[name] = time.perf_counter() - t0
         if rc == 0:
             os.replace(tmp, out)
+            _notify("build", name)
         else:
             tmp.unlink(missing_ok=True)
             failures.append(f"--- nvcc {name}.cu (exit {rc}):\n"
@@ -112,6 +148,7 @@ def load(name: str) -> ctypes.CDLL:
             build([name])
         lib = ctypes.CDLL(str(path))
         _loaded[name] = lib
+        _notify("load", name)
     return lib
 
 

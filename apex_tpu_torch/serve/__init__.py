@@ -1,6 +1,7 @@
 """Serving of the port: contiguous and paged KV caches, the decoder with
-chain and tree self-speculative decoding, the continuous-batching engine,
-and tensor-parallel serving over a head-sharded cache."""
+chain and tree self-speculative decoding, the continuous-batching engine
+with its telemetry and SLO-aware admission, tensor-parallel serving over
+a head-sharded cache, and the seeded open-loop load harness."""
 from apex_tpu_torch.serve.decode import (  # noqa: F401
     DEFAULT_SPEC_HIST,
     DEFAULT_TOKENS_PER_DISPATCH,
@@ -12,6 +13,13 @@ from apex_tpu_torch.serve.decode import (  # noqa: F401
     sample_tokens,
 )
 from apex_tpu_torch.serve.engine import Request, ServeEngine  # noqa: F401
+from apex_tpu_torch.serve.loadgen import (  # noqa: F401
+    LoadGen,
+    LoadReport,
+    LoadRequest,
+    TrafficPlan,
+    VirtualClock,
+)
 from apex_tpu_torch.serve.sharding import (  # noqa: F401
     cache_pspec,
     paged_cache_pspec,
@@ -34,6 +42,9 @@ __all__ = [
     "DEFAULT_TOKENS_PER_DISPATCH",
     "GPTDecoder",
     "KVCache",
+    "LoadGen",
+    "LoadReport",
+    "LoadRequest",
     "PagePool",
     "PagedKVCache",
     "Request",
@@ -41,6 +52,8 @@ __all__ = [
     "ServeEngine",
     "SlotAllocator",
     "TRASH_PAGE",
+    "TrafficPlan",
+    "VirtualClock",
     "auto_page_len",
     "cache_bytes_per_slot",
     "cache_pspec",

@@ -1,8 +1,8 @@
 """ServeEngine — continuous batching over the paged or the contiguous KV
 cache, with chain and tree self-speculative decoding.
 
-Counterpart of ``apex_tpu/serve/engine.py``, FIFO admission only.
-Requests queue on the host; at each dispatch boundary the paged engine
+Counterpart of ``apex_tpu/serve/engine.py``.  Requests queue on the
+host; at each dispatch boundary the paged engine
 (1) admits queued requests into free slots under the page budget,
 mapping shared prompt prefixes onto the same physical pages, (2)
 advances every in-flight prefill by one bucket-padded chunk, (3) makes
@@ -36,22 +36,50 @@ and a token that differed between ranks would desynchronise the gang.
 ``stats()["tensor_parallel"]`` reports the degree and the head
 all-reduces of the last window and in all.
 
-Not ported yet: handoff and weight swaps, and the obs, SLO,
-flight-recorder and fault-injection planes.
+Observability (:mod:`apex_tpu_torch.obs`): the scheduling counters live
+in a per-engine :class:`~apex_tpu_torch.obs.MetricsRegistry`
+(``stats()`` is a snapshot over it), every phase runs inside a span of
+the engine's tracer under JAX's names (``serve/admit``,
+``serve/prefix_match``, ``serve/prefill``, ``serve/prefill_chunk``,
+``serve/cow_plan``, ``serve/cow_copy``, ``serve/decode_window``), with
+instants for retirements, preemptions, cancellations and SLO decisions
+and boundary records in the flight recorder, and each request's
+lifecycle feeds TTFT, inter-token-latency and queue-delay histograms
+from one clock read a boundary (``clock=``: the load harness injects a
+virtual clock, :mod:`apex_tpu_torch.serve.loadgen`).  All of it is host
+work: no launch, no host sync and no token changes with obs on or off
+(:func:`apex_tpu_torch.obs.set_enabled`), and with obs off ``stats()``
+still counts.
+
+SLO-aware admission (``slo_admission=True``, default off, as in JAX):
+the lifecycle feeds TTFT, ITL and queue delay to a live
+:class:`~apex_tpu_torch.obs.SloTracker`, and at each boundary the
+scheduler consults its burn alerts: priority classes order admission
+(FIFO within a class), a page-starved head may be overtaken by one of
+the next :data:`ServeEngine.OVERTAKE_SCAN` candidates while the TTFT
+budget burns, and prefill chunks yield the boundary to the decode window
+while the ITL budget burns.  Only the order changes: under greedy
+decoding every request streams the same tokens under both policies.
+
+Not ported yet: prefill-only engines, KV handoff, prefix migration,
+weight swaps and the fault injector.
 """
 from __future__ import annotations
 
 import dataclasses
+import time
 from collections import deque
 from typing import Deque, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
 
+from apex_tpu_torch import obs
 from apex_tpu_torch.ops import launch_counts
 from apex_tpu_torch.parallel.mesh import collective_counts
 from apex_tpu_torch.serve.decode import GPTDecoder, SamplingParams, sample_tokens
-from apex_tpu_torch.serve.kv_cache import PagePool, SlotAllocator, auto_page_len
+from apex_tpu_torch.serve.kv_cache import (TRASH_PAGE, PagePool, SlotAllocator,
+                                           auto_page_len)
 
 __all__ = ["Request", "ServeEngine"]
 
@@ -72,6 +100,12 @@ class Request:
     top_k: int = 0
     top_p: float = 1.0
     min_p: float = 0.0
+    # admission class: higher admits first under SLO-aware admission;
+    # ignored (pure FIFO) when the policy is off
+    priority: int = 0
+    # correlation id stamped on the request's lifecycle record,
+    # instants and flight-recorder events
+    corr: Optional[str] = None
 
 
 class ServeEngine:
@@ -100,10 +134,30 @@ class ServeEngine:
         least 0.8 (D + 1) and shallows it when it is at most max(1.25,
         0.3 (D + 1)), within [1, ``spec_tokens``]; each window runs at
         the tuner's depth.
+      registry: metrics destination (None: a fresh per-engine
+        :class:`~apex_tpu_torch.obs.MetricsRegistry`); ``stats()``
+        snapshots it.
+      tracer: span destination (None: the ambient
+        :func:`~apex_tpu_torch.obs.default_tracer`, a no-op with obs
+        off).  With a disabled tracer the engine keeps no lifecycle.
+      clock: ns-returning monotonic callable stamping every lifecycle
+        event (default ``time.perf_counter_ns``; the load harness
+        injects a :class:`~apex_tpu_torch.serve.loadgen.VirtualClock`).
+      slo_tracker: a live :class:`~apex_tpu_torch.obs.SloTracker` the
+        lifecycle feeds and SLO-aware admission consults (None with
+        ``slo_admission`` on and the tracer enabled:
+        :meth:`~apex_tpu_torch.obs.SloTracker.default_serve`).
+      slo_admission: the SLO-aware policy (see the module docstring).
+      flightrec: the boundary-event recorder (None: the ambient
+        :func:`~apex_tpu_torch.obs.default_flightrec`, a no-op with obs
+        off), stamped by its own clock, not by ``clock``.
     """
 
     #: consumed verify steps between two auto-tuner decisions
     AUTOTUNE_PERIOD = 8
+    #: queue candidates (priority-then-FIFO order) a page-starved head's
+    #: overtake scans while the TTFT budget burns
+    OVERTAKE_SCAN = 4
 
     def __init__(
         self,
@@ -117,6 +171,12 @@ class ServeEngine:
         num_pages: Optional[int] = None,
         prefill_chunk: int = 64,
         spec_autotune: bool = False,
+        registry: Optional[obs.MetricsRegistry] = None,
+        tracer: Optional[obs.Tracer] = None,
+        clock=None,
+        slo_tracker: Optional[obs.SloTracker] = None,
+        slo_admission: bool = False,
+        flightrec: Optional[obs.FlightRecorder] = None,
     ):
         self.decoder = decoder
         self.max_len = int(decoder.cfg.max_position if max_len is None
@@ -167,40 +227,118 @@ class ServeEngine:
         if self._spec:
             self._hist = np.full((slots, decoder.spec_hist), -1, np.int32)
         self._accepted_hist: Dict[int, int] = {}
-        # the tree's winning branch a consumed step, and the steps a
-        # branch other than 0 (the chain's draft) won
-        self._tree_branch_hist: Dict[int, int] = {}
-        self.tree_branch_wins = 0
         # the draft auto-tuner: its depth, the accepted counts since its
         # last decision, and (window, new depth) at each move
         self.spec_autotune = bool(spec_autotune) and self._spec
         self._auto_draft = decoder.spec_tokens if self._spec else 0
         self._auto_window: List[int] = []
         self._auto_traj: List[tuple] = []
-        self.spec_draft_tokens = 0
-        self.spec_accepted_tokens = 0
-        self.spec_rollbacks = 0
         self._gen = torch.Generator(device=decoder.device)
         self._gen.manual_seed(seed)
         self._next_uid = 0
         self.results: Dict[int, Request] = {}
-        self.prefill_dispatches = 0
-        self.decode_dispatches = 0
-        self.cow_dispatches = 0
-        self.preemptions = 0
-        self.prompt_tokens = 0
-        self.peak_live_tokens = 0
         # tensor parallelism: head all-reduces of the last window, in all
         self.tp_window_collectives = 0
         self.tp_collectives = 0
+        # the obs planes: the counters live in the registry (the old
+        # attribute names are read-only properties below)
+        self.obs_registry = (obs.MetricsRegistry() if registry is None
+                             else registry)
+        self._tracer = obs.default_tracer() if tracer is None else tracer
+        self._fr = obs.default_flightrec() if flightrec is None \
+            else flightrec
+        self._clock = time.perf_counter_ns if clock is None else clock
+        self.slo_admission = bool(slo_admission)
+        if slo_tracker is None and self.slo_admission \
+                and self._tracer.enabled:
+            slo_tracker = obs.SloTracker.default_serve(clock=self._clock)
+        self._slo = slo_tracker
+        self._lifecycle = (
+            obs.RequestLifecycle(self.obs_registry, slo=self._slo)
+            if self._tracer.enabled else obs.NULL_LIFECYCLE)
+        m = self.obs_registry
+        self._c_prefill = m.counter("serve.prefill_dispatches")
+        self._c_decode = m.counter("serve.decode_dispatches")
+        self._c_cow = m.counter("serve.cow_dispatches")
+        self._c_preempt = m.counter("serve.preemptions")
+        self._c_prompt = m.counter("serve.prompt_tokens")
+        self._c_retired = m.counter("serve.requests_finished")
+        self._c_cancelled = m.counter("serve.requests_cancelled")
+        self._g_peak_live = m.gauge("serve.peak_live_tokens")
+        # speculation: drafts proposed and accepted, verify steps that
+        # rolled a draft back, the accepted length a step; under a tree
+        # the winning branch a step and the steps a branch > 0 won
+        self._c_spec_draft = m.counter("serve.spec.draft_tokens")
+        self._c_spec_acc = m.counter("serve.spec.accepted_tokens")
+        self._c_spec_roll = m.counter("serve.spec.rollbacks")
+        self._h_spec_acc = m.histogram("serve.spec.accepted_per_step")
+        self._h_tree_branch = m.histogram("serve.spec.tree_branch")
+        self._c_tree_wins = m.counter("serve.spec.tree_branch_wins")
+        # SLO-aware admission: boundaries where prefill yielded under
+        # ITL burn, admissions that overtook a starved head under TTFT
+        # burn
+        self._c_slo_yield = m.counter("serve.slo.prefill_yields")
+        self._c_slo_overtake = m.counter("serve.slo.overtakes")
+        self._c_prefix_hits = m.counter("serve.prefix_hits")
+        self._c_prefix_hit_tok = m.counter("serve.prefix_hit_tokens")
+        # tokens materialized this boundary, flushed to the lifecycle in
+        # batches so ITL amortizes over the fetch that produced them
+        self._pending_tok: Dict[int, int] = {}
+        self._boundary_t = self._clock()
+
+    # -- accounting properties (the registry's counters) ----------------
+
+    @property
+    def prefill_dispatches(self) -> int:
+        return self._c_prefill.value
+
+    @property
+    def decode_dispatches(self) -> int:
+        return self._c_decode.value
+
+    @property
+    def cow_dispatches(self) -> int:
+        return self._c_cow.value
+
+    @property
+    def preemptions(self) -> int:
+        return self._c_preempt.value
+
+    @property
+    def prompt_tokens(self) -> int:
+        return self._c_prompt.value
+
+    @property
+    def peak_live_tokens(self) -> int:
+        return self._g_peak_live.value
+
+    @property
+    def spec_draft_tokens(self) -> int:
+        return self._c_spec_draft.value
+
+    @property
+    def spec_accepted_tokens(self) -> int:
+        return self._c_spec_acc.value
+
+    @property
+    def spec_rollbacks(self) -> int:
+        return self._c_spec_roll.value
+
+    @property
+    def tree_branch_wins(self) -> int:
+        return self._c_tree_wins.value
 
     # -- request intake -------------------------------------------------
 
     def submit(self, prompt: Sequence[int], max_new_tokens: int = 64,
                temperature: Optional[float] = None, top_k: int = 0,
-               top_p: float = 1.0, min_p: float = 0.0) -> int:
+               top_p: float = 1.0, min_p: float = 0.0, priority: int = 0,
+               corr: Optional[str] = None) -> int:
         """Queue a request; returns its uid.  Admission happens at the
-        next dispatch boundary (:meth:`step`/:meth:`run`)."""
+        next dispatch boundary (:meth:`step`/:meth:`run`).  ``priority``
+        orders admission under SLO-aware admission (higher first, FIFO
+        within a class) and is ignored under FIFO; ``corr`` is a
+        correlation id stamped on the request's telemetry."""
         prompt = [int(t) for t in prompt]
         if not prompt:
             raise ValueError("empty prompt")
@@ -216,7 +354,9 @@ class ServeEngine:
         self._next_uid += 1
         self._queue.append(Request(
             uid, prompt, int(max_new_tokens), temperature=temperature,
-            top_k=int(top_k), top_p=float(top_p), min_p=float(min_p)))
+            top_k=int(top_k), top_p=float(top_p), min_p=float(min_p),
+            priority=int(priority), corr=corr))
+        self._lifecycle.submitted(uid, self._clock(), corr=corr)
         return uid
 
     # -- per-slot sampling params ---------------------------------------
@@ -251,6 +391,44 @@ class ServeEngine:
                             min_p=np.asarray(mps, np.float32))
         return tok.cpu().tolist()
 
+    # -- lifecycle plumbing ---------------------------------------------
+
+    def _note_token(self, r: Request) -> None:
+        """Count one materialized token against the current boundary's
+        fetch (flushed in a batch, so ITL amortizes over it)."""
+        self._pending_tok[r.uid] = self._pending_tok.get(r.uid, 0) + 1
+
+    def _flush_tokens(self, uid: Optional[int] = None) -> None:
+        if uid is not None:
+            n = self._pending_tok.pop(uid, 0)
+            if n:
+                self._lifecycle.tokens(uid, n, self._boundary_t)
+            return
+        for u, n in self._pending_tok.items():
+            if n:
+                self._lifecycle.tokens(u, n, self._boundary_t)
+        self._pending_tok.clear()
+
+    @staticmethod
+    def _corr_kw(r: Request) -> Dict[str, str]:
+        """The correlation-id attr of instants and recorder events
+        (empty for requests submitted without one)."""
+        return {"corr": r.corr} if r.corr is not None else {}
+
+    def _admit_order(self) -> List[int]:
+        """Queue indices in admission order: FIFO, or priority classes
+        first (FIFO within a class) under SLO-aware admission."""
+        n = len(self._queue)
+        if not self.slo_admission:
+            return list(range(n))
+        return sorted(range(n), key=lambda i: (-self._queue[i].priority, i))
+
+    def _slo_burning(self, metric: str) -> bool:
+        """Whether ``metric``'s error budget burns now (the policy's one
+        question a boundary)."""
+        return (self.slo_admission and self._slo is not None
+                and self._slo.burning(metric, self._clock()))
+
     # -- lifecycle ------------------------------------------------------
 
     @staticmethod
@@ -277,6 +455,7 @@ class ServeEngine:
 
     def _append(self, r: Request, token: int) -> None:
         """Record one generated token; retire on EOS or budget."""
+        self._note_token(r)
         r.tokens.append(token)
         if self._spec:
             row = self._hist[r.slot]
@@ -288,16 +467,73 @@ class ServeEngine:
         else:
             self._last_token[r.slot] = token
 
-    def _finish(self, r: Request, truncated: bool = False) -> None:
+    def _release(self, r: Request) -> None:
+        """Free a request's slot (and pages) and clear its bindings."""
+        slot = r.slot
+        if self.paged:
+            self.pool.release_slot(slot)
+        self.alloc.free(slot)
+        self._active.pop(slot, None)
+        self._prefilling.pop(slot, None)
+        self._reset_samp(slot)
+        r.slot = None
+
+    def _finish(self, r: Request, truncated: bool = False,
+                abandoned: bool = False) -> None:
         r.done = True
         r.truncated = truncated
         self.results[r.uid] = r
-        if self.paged:
-            self.pool.release_slot(r.slot)
-        self.alloc.free(r.slot)
-        self._active.pop(r.slot, None)
-        self._reset_samp(r.slot)
-        r.slot = None
+        self._release(r)
+        self._flush_tokens(r.uid)
+        if abandoned:
+            self._lifecycle.abandoned(r.uid, self._clock())
+            self._c_cancelled.inc()
+        else:
+            self._lifecycle.finished(r.uid, self._boundary_t)
+            self._c_retired.inc()
+        self._tracer.instant("serve/retire", uid=r.uid,
+                             tokens=len(r.tokens), truncated=truncated,
+                             abandoned=abandoned, **self._corr_kw(r))
+        if self._fr.enabled:
+            self._fr.record("serve/retire", uid=r.uid,
+                            tokens=len(r.tokens), truncated=truncated,
+                            abandoned=abandoned, **self._corr_kw(r))
+
+    def cancel(self, uid: int) -> List[int]:
+        """Abandon a request wherever it is: a queued one leaves the
+        queue, a prefilling or active one frees its slot (and pages) at
+        this host boundary, as a retirement does.  Returns the tokens
+        generated so far; a finished request's tokens come back
+        unchanged (cancel is then a no-op)."""
+        r = self.results.get(uid)
+        if r is not None:
+            return list(r.tokens)
+        for r in list(self._active.values()):
+            if r.uid == uid:
+                self._finish(r, truncated=True, abandoned=True)
+                self._tracer.instant("serve/cancel", uid=uid, where="active")
+                return list(r.tokens)
+        queued = [q for q in self._queue if q.uid == uid]
+        prefilling = [e[0] for e in self._prefilling.values()
+                      if e[0].uid == uid]
+        if queued:
+            r, where = queued[0], "queued"
+            self._queue.remove(r)
+        elif prefilling:
+            r, where = prefilling[0], "prefilling"
+            self._release(r)
+        else:
+            raise KeyError(f"unknown request uid {uid}")
+        r.done = True
+        r.truncated = True
+        self.results[uid] = r
+        self._flush_tokens(uid)
+        self._lifecycle.abandoned(uid, self._clock())
+        self._c_cancelled.inc()
+        self._tracer.instant("serve/cancel", uid=uid, where=where)
+        if self._fr.enabled:
+            self._fr.record("serve/cancel", uid=uid, where=where)
+        return list(r.tokens)
 
     # -- contiguous admission -------------------------------------------
 
@@ -306,23 +542,37 @@ class ServeEngine:
         prompts right-padded to a power-of-two bucket."""
         batch: List[Request] = []
         while self._queue and self.alloc.n_free:
-            r = self._queue.popleft()
+            r = self._queue[self._admit_order()[0]]
+            self._queue.remove(r)
             r.slot = self.alloc.allocate()
             batch.append(r)
         if not batch:
             return
+        t_admit = self._clock()
+        for r in batch:
+            self._lifecycle.admitted(r.uid, t_admit)
         p = min(self._bucket(max(len(r.prompt) for r in batch)),
                 self.max_len)
         ids = np.zeros((len(batch), p), np.int32)
         for i, r in enumerate(batch):
             ids[i, :len(r.prompt)] = r.prompt
-        logits = self.decoder.prefill(
-            self.cache, [r.slot for r in batch], ids,
-            [len(r.prompt) for r in batch])
-        self.prefill_dispatches += 1
-        for r, first in zip(batch, self._sample_first(logits, batch)):
+        if self._fr.enabled:
+            for r in batch:
+                self._fr.record("serve/admit", uid=r.uid, slot=r.slot,
+                                **self._corr_kw(r))
+            self._fr.record("serve/prefill", requests=len(batch), bucket=p)
+        with self._tracer.span("serve/prefill", requests=len(batch),
+                               bucket=p):
+            logits = self.decoder.prefill(
+                self.cache, [r.slot for r in batch], ids,
+                [len(r.prompt) for r in batch])
+            self._c_prefill.inc()
+            first = self._sample_first(logits, batch)
+        self._boundary_t = self._clock()
+        for r, tok in zip(batch, first):
             self._activate(r, r.slot, r.prompt)
-            self._append(r, first)
+            self._append(r, tok)
+        self._flush_tokens()
 
     # -- paged scheduling -----------------------------------------------
 
@@ -338,85 +588,131 @@ class ServeEngine:
         dst = np.zeros((width,), np.int32)
         for i, (s, d) in enumerate(pairs):
             src[i], dst[i] = s, d
-        self.decoder.copy_pages(self.cache, src, dst)
-        self.cow_dispatches += 1
+        with self._tracer.span("serve/cow_copy", pages=len(pairs),
+                               bucket=width):
+            self.decoder.copy_pages(self.cache, src, dst)
+        self._c_cow.inc()
 
     def _evict(self, r: Request) -> None:
         """Preempt a request when the pool runs dry: free its pages and
         slot, and re-queue it at the front for recompute."""
-        slot = r.slot
-        self.pool.release_slot(slot)
-        self.alloc.free(slot)
-        self._active.pop(slot, None)
-        self._prefilling.pop(slot, None)
-        self._reset_samp(slot)
-        r.slot = None
-        self.preemptions += 1
+        self._release(r)
+        self._c_preempt.inc()
+        self._tracer.instant("serve/preempt", uid=r.uid,
+                             tokens=len(r.tokens))
+        if self._fr.enabled:
+            self._fr.record("serve/preempt", uid=r.uid,
+                            tokens=len(r.tokens))
         self._queue.appendleft(r)
 
     def _admit_paged(self) -> None:
-        """Admit queued requests FIFO into free slots under the page
-        budget: the head needs pages for its non-shared context plus one
-        headroom page, or everyone waits.  Shared-prefix pages are mapped
-        here; prefill starts at the first non-shared token."""
+        """Admit queued requests into free slots under the page budget:
+        the next request (FIFO, or priority-then-FIFO under SLO-aware
+        admission) needs pages for its non-shared context plus one
+        headroom page.  A page-starved head waits, except while the TTFT
+        budget burns: then the first of the next :data:`OVERTAKE_SCAN`
+        candidates that fits is admitted instead.  Shared-prefix pages
+        are mapped here; prefill starts at the first non-shared token."""
+        t_admit = self._clock()
+        ttft_burn = self._slo_burning("ttft_ms")
         while self._queue and self.alloc.n_free:
-            r = self._queue[0]
-            ctx = r.prompt + r.tokens  # re-prefill context on preemption
-            if len(ctx) >= self.max_len:
-                # a preempted request that was already at capacity
-                self._queue.popleft()
-                r.done = True
-                r.truncated = True
-                self.results[r.uid] = r
-                continue
-            pages, shared = self.pool.match_prefix(ctx)
-            pl = self.page_len
-            need = (len(ctx) + pl) // pl - len(pages) + 1
-            if self.pool.n_free < need:
+            progressed = False
+            for pos, j in enumerate(self._admit_order()):
+                r = self._queue[j]
+                ctx = r.prompt + r.tokens  # re-prefill context on preemption
+                if len(ctx) >= self.max_len:
+                    # a preempted request that was already at capacity
+                    del self._queue[j]
+                    r.done = True
+                    r.truncated = True
+                    self.results[r.uid] = r
+                    self._flush_tokens(r.uid)
+                    self._lifecycle.finished(r.uid, t_admit)
+                    self._c_retired.inc()
+                    progressed = True
+                    break  # the queue changed: recompute the order
+                with self._tracer.span("serve/prefix_match", uid=r.uid):
+                    pages, shared = self.pool.match_prefix(ctx)
+                pl = self.page_len
+                need = (len(ctx) + pl) // pl - len(pages) + 1
+                if self.pool.n_free < need:
+                    if ttft_burn and pos + 1 < self.OVERTAKE_SCAN:
+                        continue  # scan on for one that fits
+                    break
+                del self._queue[j]
+                slot = self.alloc.allocate()
+                r.slot = slot
+                self._lifecycle.admitted(r.uid, t_admit)
+                if self._fr.enabled:
+                    self._fr.record("serve/admit", uid=r.uid, slot=slot,
+                                    shared=shared, **self._corr_kw(r))
+                self.pool.share(slot, pages, shared)
+                if pages:
+                    self._c_prefix_hits.inc()
+                    self._c_prefix_hit_tok.inc(shared)
+                self._c_prompt.inc(len(ctx))
+                if pos > 0:
+                    self._c_slo_overtake.inc()
+                    self._tracer.instant("serve/slo_overtake", uid=r.uid,
+                                         skipped=pos)
+                # a fully shared context still re-runs its LAST token as
+                # a 1-token chunk: its logits seed sampling
+                self._prefilling[slot] = [r, ctx, min(shared, len(ctx) - 1)]
+                progressed = True
                 break
-            self._queue.popleft()
-            slot = self.alloc.allocate()
-            r.slot = slot
-            self.pool.share(slot, pages, shared)
-            self.prompt_tokens += len(ctx)
-            # a fully shared context still re-runs its LAST token as a
-            # 1-token chunk: its logits seed sampling
-            self._prefilling[slot] = [r, ctx, min(shared, len(ctx) - 1)]
+            if not progressed:
+                break
 
     def _prefill_chunks(self) -> None:
         """Advance every in-flight prefill by ONE chunk; a request whose
         final chunk lands samples its first token and becomes active, and
-        its prompt pages are published for prefix reuse."""
+        its prompt pages are published for prefix reuse.  Under SLO-aware
+        admission the chunks yield the boundary while the ITL budget
+        burns and decodes are active."""
         if not self._prefilling:
+            return
+        if self._active and self._slo_burning("itl_ms"):
+            self._c_slo_yield.inc()
+            self._tracer.instant("serve/slo_yield",
+                                 prefilling=len(self._prefilling))
             return
         pending = []
         pairs = []
-        for slot, entry in list(self._prefilling.items()):
-            r, ctx, base = entry
-            n = min(self.prefill_chunk, len(ctx) - base)
-            copies = self.pool.ensure_writable(slot, base, base + n)
-            if copies is None:
-                self._evict(r)
-                continue
-            pairs.extend(copies)
-            pending.append((slot, entry, n))
+        with self._tracer.span("serve/cow_plan", phase="prefill"):
+            for slot, entry in list(self._prefilling.items()):
+                r, ctx, base = entry
+                n = min(self.prefill_chunk, len(ctx) - base)
+                copies = self.pool.ensure_writable(slot, base, base + n)
+                if copies is None:
+                    self._evict(r)
+                    continue
+                pairs.extend(copies)
+                pending.append((slot, entry, n))
         self._run_copies(pairs)
         for slot, entry, n in pending:
             r, ctx, base = entry
-            ids = np.zeros((1, self._bucket(n)), np.int32)
+            width = self._bucket(n)
+            ids = np.zeros((1, width), np.int32)
             ids[0, :n] = ctx[base:base + n]
-            logits = self.decoder.prefill_chunk(
-                self.cache, self.pool.tables[slot][None],
-                np.asarray([slot], np.int32), ids,
-                np.asarray([base], np.int32), np.asarray([n], np.int32))
-            self.prefill_dispatches += 1
+            if self._fr.enabled:
+                self._fr.record("serve/prefill_chunk", uid=r.uid, base=base,
+                                n=n)
+            with self._tracer.span("serve/prefill_chunk", uid=r.uid,
+                                   bucket=width, base=base):
+                logits = self.decoder.prefill_chunk(
+                    self.cache, self.pool.tables[slot][None],
+                    np.asarray([slot], np.int32), ids,
+                    np.asarray([base], np.int32), np.asarray([n], np.int32))
+            self._c_prefill.inc()
             base += n
             if base >= len(ctx):
                 del self._prefilling[slot]
                 self.pool.register(slot, ctx)
                 first = self._sample_first(logits, [r])[0]
+                self._boundary_t = self._clock()
                 self._activate(r, slot, ctx)
                 self._append(r, first)
+                self._flush_tokens(r.uid)
             else:
                 entry[2] = base
 
@@ -453,13 +749,14 @@ class ServeEngine:
         a slot the pool cannot supply is preempted."""
         k = self.decoder.write_horizon(self._dispatch_draft())
         pairs = []
-        for slot, r in list(self._active.items()):
-            ln = int(self._slot_len[slot])
-            copies = self.pool.ensure_writable(slot, ln, ln + k)
-            if copies is None:
-                self._evict(r)
-                continue
-            pairs.extend(copies)
+        with self._tracer.span("serve/cow_plan", phase="decode"):
+            for slot, r in list(self._active.items()):
+                ln = int(self._slot_len[slot])
+                copies = self.pool.ensure_writable(slot, ln, ln + k)
+                if copies is None:
+                    self._evict(r)
+                    continue
+                pairs.extend(copies)
         self._run_copies(pairs)
 
     # -- the dispatch boundary ------------------------------------------
@@ -468,60 +765,87 @@ class ServeEngine:
         """One scheduling round: admit (and prefill chunks when paged),
         one decode window, retire.  Returns False once everything is
         drained."""
+        if self._fr.enabled:
+            self._fr.record("serve/boundary", active=len(self._active),
+                            queued=len(self._queue),
+                            prefilling=len(self._prefilling))
+        with self._tracer.span("serve/admit"):
+            if self.paged:
+                self._admit_paged()
+            else:
+                self._admit()
         if self.paged:
-            self._admit_paged()
             self._prefill_chunks()
-        else:
-            self._admit()
         if not self._active:
+            self._boundary_counters()
             return bool(self._queue or self._prefilling)
         if self.paged:
             self._prepare_decode_pages()
             if not self._active:
+                self._boundary_counters()
                 return bool(self._queue or self._prefilling)
+        k = self.decoder.tokens_per_dispatch
+        if self._fr.enabled:
+            self._fr.record("serve/decode_window", k=k,
+                            active=len(self._active))
         active = np.zeros((self.cache.slots,), bool)
         active[list(self._active)] = True
+        if self.paged:
+            # every slot decodes, and writes its K/V at its device length
+            # through its table row: a slot still prefilling (its length
+            # stale until its first chunk lands) would write garbage into
+            # pages it maps, shared prefix pages included.  Inactive rows
+            # point at the trash page for the window.
+            tables = np.where(active[:, None], self.pool.tables, TRASH_PAGE)
         samp = self._samp_params()
         tp0 = collective_counts().get("tp_heads", 0)
-        if self._spec:
-            draft = self._dispatch_draft()
-            if self._tree:
-                buf = self.decoder.paged_tree_spec_decode_window(
-                    self.cache, self.pool.tables, self._last_token, active,
-                    self._hist, self._gen, samp=samp, draft=draft)
+        with self._tracer.span("serve/decode_window", k=k,
+                               active=len(self._active)):
+            if self._spec:
+                draft = self._dispatch_draft()
+                if self._tree:
+                    buf = self.decoder.paged_tree_spec_decode_window(
+                        self.cache, tables, self._last_token,
+                        active, self._hist, self._gen, samp=samp,
+                        draft=draft)
+                elif self.paged:
+                    buf = self.decoder.paged_spec_decode_window(
+                        self.cache, tables, self._last_token,
+                        active, self._hist, self._gen, samp=samp,
+                        draft=draft)
+                else:
+                    buf = self.decoder.spec_decode_window(
+                        self.cache, self._last_token, active, self._hist,
+                        self._gen, samp=samp, draft=draft)
             elif self.paged:
-                buf = self.decoder.paged_spec_decode_window(
-                    self.cache, self.pool.tables, self._last_token, active,
-                    self._hist, self._gen, samp=samp, draft=draft)
+                buf = self.decoder.paged_decode_window(
+                    self.cache, tables, self._last_token, active,
+                    self._gen, samp=samp)
             else:
-                buf = self.decoder.spec_decode_window(
-                    self.cache, self._last_token, active, self._hist,
-                    self._gen, samp=samp, draft=draft)
-        elif self.paged:
-            buf = self.decoder.paged_decode_window(
-                self.cache, self.pool.tables, self._last_token, active,
-                self._gen, samp=samp)
-        else:
-            buf = self.decoder.decode_window(
-                self.cache, self._last_token, active, self._gen, samp=samp)
-        self.decode_dispatches += 1
+                buf = self.decoder.decode_window(
+                    self.cache, self._last_token, active, self._gen,
+                    samp=samp)
+            self._c_decode.inc()
+            # (K, slots), or (steps, slots, 2 + draft) under speculation
+            # (3 + draft for a tree): the one host sync of the window
+            buf = buf.cpu().numpy()
         if self.decoder.tp_degree > 1:
             self.tp_window_collectives = (
                 collective_counts().get("tp_heads", 0) - tp0)
             self.tp_collectives += self.tp_window_collectives
-        # (K, slots), or (steps, slots, 2 + draft) under speculation (3 +
-        # draft for a tree): the one host sync of the window
-        buf = buf.cpu().numpy()
+        self._boundary_t = self._clock()
         if self._tree:
             self._fetch_spec(buf[..., :-2], buf[..., -2], buf[..., -1])
         elif self._spec:
             self._fetch_spec(buf[..., :-1], buf[..., -1])
         else:
             self._fetch(buf)
+        self._flush_tokens()
         if self.paged:
             live = sum(int(self._slot_len[s]) for s in self._active)
             live += sum(e[2] for e in self._prefilling.values())
-            self.peak_live_tokens = max(self.peak_live_tokens, live)
+            self._g_peak_live.set_max(live)
+        self._boundary_counters()
         return bool(self._queue or self._active or self._prefilling)
 
     def _fetch(self, toks: np.ndarray) -> None:
@@ -557,17 +881,19 @@ class ServeEngine:
             count = 0
             for i in range(steps):
                 n = int(acc[i, slot])
-                self.spec_draft_tokens += d1 - 1
-                self.spec_accepted_tokens += n - 1
-                self.spec_rollbacks += int(n < d1)
+                self._c_spec_draft.inc(d1 - 1)
+                self._c_spec_acc.inc(n - 1)
+                if n < d1:
+                    self._c_spec_roll.inc()
+                self._h_spec_acc.observe(n)
                 self._accepted_hist[n] = self._accepted_hist.get(n, 0) + 1
                 if self.spec_autotune:
                     self._auto_window.append(n)
                 if branches is not None:
                     br = int(branches[i, slot])
-                    self._tree_branch_hist[br] = (
-                        self._tree_branch_hist.get(br, 0) + 1)
-                    self.tree_branch_wins += int(br > 0)
+                    self._h_tree_branch.observe(br)
+                    if br > 0:
+                        self._c_tree_wins.inc()
                 for j in range(n):
                     if base + count >= self.max_len:
                         self._finish(r, truncated=True)
@@ -583,6 +909,32 @@ class ServeEngine:
         if self.spec_autotune:
             self._autotune_update()
 
+    def _boundary_counters(self) -> None:
+        """Timestamped samples of the pool pages, active slots and queue
+        depth: the timeline of a trace."""
+        tr = self._tracer
+        if not tr.enabled:
+            return
+        tr.counter("serve/active_slots", len(self._active))
+        tr.counter("serve/queue_depth", len(self._queue))
+        if self.paged:
+            tr.counter("serve/pages_in_use", self.pool.in_use)
+
+    def progress(self) -> Dict[int, tuple]:
+        """``{uid: (tokens so far, done)}`` over queued, prefilling,
+        active and finished requests: the streaming view the load
+        harness polls at boundaries."""
+        out: Dict[int, tuple] = {}
+        for r in self._queue:
+            out[r.uid] = (list(r.tokens), False)
+        for entry in self._prefilling.values():
+            out[entry[0].uid] = (list(entry[0].tokens), False)
+        for r in self._active.values():
+            out[r.uid] = (list(r.tokens), False)
+        for uid, r in self.results.items():
+            out[uid] = (list(r.tokens), True)
+        return out
+
     def run(self, max_rounds: int = 100_000) -> Dict[int, List[int]]:
         """Drain the queue; returns ``{uid: generated tokens}``."""
         rounds = 0
@@ -594,11 +946,27 @@ class ServeEngine:
 
     # -- accounting -----------------------------------------------------
 
+    def lifecycle_summary(self) -> Dict[str, object]:
+        """The request lifecycle's goodput and abandonment summary
+        (:meth:`apex_tpu_torch.obs.RequestLifecycle.summary`; zeros with
+        obs off)."""
+        return self._lifecycle.summary()
+
+    def slo_report(self) -> Optional[obs.SloReport]:
+        """The live SLO report with the lifecycle summary attached, or
+        None without a tracker."""
+        if self._slo is None:
+            return None
+        return self._slo.report(self._clock(),
+                                lifecycle=self.lifecycle_summary())
+
     def stats(self) -> Dict[str, object]:
-        """Dispatch counters, the device token meter (one fetch), the
-        kernels' launch counts, under speculation the ``"spec"`` counters
-        and, for the paged engine, page, prefix and preemption counters
-        (for the contiguous one, the bytes a slot pins)."""
+        """A snapshot over ``obs_registry`` (which also holds the
+        lifecycle histograms): dispatch counters, the device token meter
+        (one fetch), the kernels' launch counts, under speculation the
+        ``"spec"`` counters, under SLO-aware admission the ``"slo"``
+        ledger and, for the paged engine, page, prefix and preemption
+        counters (for the contiguous one, the bytes a slot pins)."""
         s: Dict[str, object] = {
             "decoded_tokens": int(self.cache.decoded),
             "decode_dispatches": self.decode_dispatches,
@@ -634,11 +1002,18 @@ class ServeEngine:
                 s["spec"]["tree"] = {
                     "width": self.decoder.spec_tree_width,
                     "branch_wins": self.tree_branch_wins,
-                    "verify_steps": sum(self._tree_branch_hist.values()),
+                    "verify_steps": self._h_tree_branch.count,
                 }
             if self.spec_autotune:
                 s["spec"]["autotune"] = {"draft": self._auto_draft,
                                          "trajectory": list(self._auto_traj)}
+        if self.slo_admission:
+            s["slo"] = {
+                "prefill_yields": self._c_slo_yield.value,
+                "overtakes": self._c_slo_overtake.value,
+                "alerting": (self._slo.report(self._clock()).alerting()
+                             if self._slo is not None else []),
+            }
         if not self.paged:
             s["cache_bytes_per_slot"] = self.cache.bytes_per_slot
             return s
@@ -654,6 +1029,8 @@ class ServeEngine:
             "peak_pages_in_use": self.pool.peak_in_use,
             "peak_live_tokens": self.peak_live_tokens,
             "cache_bytes_per_page": self.cache.bytes_per_page,
+            "cache_bytes_in_use": in_use * self.cache.bytes_per_page,
+            # shared pages count positions twice in `live`: clamp
             "fragmentation": (
                 round(max(0.0, 1.0 - live / (in_use * self.page_len)), 4)
                 if in_use else 0.0),

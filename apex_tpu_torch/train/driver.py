@@ -47,19 +47,31 @@ or a :class:`~apex_tpu_torch.sharding.RulesTable`
 directory of its own (``checkpoint.save_checkpoint(process_local=True)``:
 ``<path>/process_<rank>``), since no rank holds the whole state.  The
 metrics are the step's own on each rank (the steps of this package
-return the same loss, scale and skip flag on every rank).  Not ported
-yet: CUDA graphs around the window, and the obs spans and
-flight-recorder events around save and restore.
+return the same loss, scale and skip flag on every rank).
+
+Telemetry (:mod:`apex_tpu_torch.obs`), as in JAX: each window runs in a
+``train/dispatch`` span of the ambient tracer (K and the microbatch
+count as attrs; a kernel library built or loaded inside it counts on
+the span), preceded by a ``train/dispatch`` flight-recorder event, and
+its host wall lands in the ambient registry (``train.dispatch_ms``,
+``train.dispatches``, ``train.steps``); :meth:`FusedTrainDriver.save`
+and :meth:`~FusedTrainDriver.restore` run in ``train/checkpoint_save``
+and ``train/checkpoint_restore`` spans with their recorder events, and
+:func:`read_metrics` lands the meters in a registry when given one.
+The window's wall is the host's: the eager loop's launches are queued,
+and no span waits for the card.  Not ported yet: CUDA graphs around
+the window.
 """
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import (Any, Callable, Dict, Iterable, Mapping, NamedTuple,
                     Optional, Sequence, Tuple)
 
 import torch
 
-from apex_tpu_torch import checkpoint
+from apex_tpu_torch import checkpoint, obs
 from apex_tpu_torch.parallel.mesh import Mesh, P
 from apex_tpu_torch.train.accum import MicrobatchedStep, _index, build_opt_step
 
@@ -78,9 +90,12 @@ class WindowResult(NamedTuple):
     per_step: Dict[str, torch.Tensor]
 
 
-def read_metrics(tree: Any) -> Any:
+def read_metrics(tree: Any, registry: Optional[obs.MetricsRegistry] = None,
+                 prefix: str = "train.") -> Any:
     """ONE device-to-host read of a dict (or :class:`WindowResult`) of
-    tensors: 0-d tensors come back as floats, others as lists."""
+    tensors: 0-d tensors come back as floats, others as lists.  With a
+    ``registry``, each float of a dict also lands in a
+    ``<prefix><name>`` histogram."""
     if isinstance(tree, WindowResult):
         return WindowResult(read_metrics(tree.metrics),
                             read_metrics(tree.per_step))
@@ -94,6 +109,10 @@ def read_metrics(tree: Any) -> Any:
         n = v.numel()
         out[k] = host[i] if v.dim() == 0 else host[i:i + n]
         i += n
+    if registry is not None:
+        for name, v in out.items():
+            if isinstance(v, float):
+                registry.histogram(prefix + name).observe(v)
     return out
 
 
@@ -178,6 +197,10 @@ class FusedTrainDriver:
         else:
             self._microbatches = 1
             self._step_fn = self.step_fn
+        # the newest window's host wall, builds and loads, and K
+        self.last_dispatch_ms: Optional[float] = None
+        self.last_dispatch_compiles = 0
+        self.last_window_k = 0
 
     @property
     def microbatches(self) -> int:
@@ -201,13 +224,34 @@ class FusedTrainDriver:
         K * M (K this window's step count, M :attr:`microbatches`), or
         None for ``steps_per_dispatch`` steps on closure-captured data."""
         if batches is None:
-            return self._window(carry, self.steps_per_dispatch, None)
+            return self._dispatch(carry, self.steps_per_dispatch, None)
         k = self._steps(batches)
         if self.mesh is not None:
             spec = (P(self.axis_name) if self.batch_spec is None
                     else self.batch_spec)
             batches = _local(batches, spec, self.mesh.coords, self.mesh)
-        return self._window(carry, k, batches)
+        return self._dispatch(carry, k, batches)
+
+    def _dispatch(self, carry, k: int, batches):
+        """One window inside its ``train/dispatch`` span, with its
+        recorder event before and its host wall in the registry."""
+        tracer = obs.default_tracer()
+        fr = obs.default_flightrec()
+        if fr.enabled:
+            fr.record("train/dispatch", k=k, microbatches=self._microbatches)
+        t0 = time.perf_counter_ns()
+        with tracer.span("train/dispatch", k=k,
+                         microbatches=self._microbatches) as sp:
+            out = self._window(carry, k, batches)
+        self.last_dispatch_ms = (time.perf_counter_ns() - t0) * 1e-6
+        self.last_dispatch_compiles = sp.compiles
+        self.last_window_k = k
+        if tracer.enabled:
+            reg = obs.default_registry()
+            reg.counter("train.dispatches").inc()
+            reg.counter("train.steps").inc(k)
+            reg.histogram("train.dispatch_ms").observe(self.last_dispatch_ms)
+        return out
 
     def _window(self, carry, k: int, batches):
         declared = dict(self.metrics or {})
@@ -266,7 +310,7 @@ class FusedTrainDriver:
             raise ValueError("run() needs windows or steps")
         while done < steps:
             k = min(self.steps_per_dispatch, steps - done)
-            carry, res = self._window(carry, k, None)
+            carry, res = self._dispatch(carry, k, None)
             done += k
             if on_window is not None:
                 on_window(done, res)
@@ -289,9 +333,13 @@ class FusedTrainDriver:
         leaves) through :func:`apex_tpu_torch.checkpoint.save_checkpoint`,
         whose keyword arguments ``kw`` takes; returns the step's
         directory."""
-        return checkpoint.save_checkpoint(
-            path, carry, step,
-            process_local=_sharded(self.carry_spec_for(carry)), **kw)
+        fr = obs.default_flightrec()
+        if fr.enabled:
+            fr.record("train/checkpoint_save", step=step)
+        with obs.default_tracer().span("train/checkpoint_save", step=step):
+            return checkpoint.save_checkpoint(
+                path, carry, step,
+                process_local=_sharded(self.carry_spec_for(carry)), **kw)
 
     def restore(self, path: str, carry_template: Any,
                 step: Optional[int] = None) -> Tuple[Any, int]:
@@ -299,9 +347,14 @@ class FusedTrainDriver:
         structure and devices; returns ``(carry, step)``.  Under O2, call
         ``AmpOptimizer.copy_to_model(model, masters)`` before the first
         step of the resumed run."""
-        return checkpoint.restore_checkpoint(
-            path, carry_template, step,
-            process_local=_sharded(self.carry_spec_for(carry_template)))
+        with obs.default_tracer().span("train/checkpoint_restore"):
+            carry, step = checkpoint.restore_checkpoint(
+                path, carry_template, step,
+                process_local=_sharded(self.carry_spec_for(carry_template)))
+        fr = obs.default_flightrec()
+        if fr.enabled:
+            fr.record("train/checkpoint_restore", step=step)
+        return carry, step
 
 
 def _is_spec_tree(spec: Any) -> bool:

@@ -262,7 +262,19 @@ line) on any failed check:
     GPT-2 small's width, 2 layers, against the same policies on the CPU
     from the same state and gradients, exact collectives, the int8
     residual kept at a planted overflow; a ZeRO carry of data 4 restored
-    as FSDP on (data 2, model 2) with the parameters bit for bit).
+    as FSDP on (data 2, model 2) with the parameters bit for bit);
+19. the obs plane: ``obs_serve`` (the engine phase's configuration
+    under a seeded 32-request ``TrafficPlan`` on the load harness's
+    virtual clock: two obs-on runs' ``LoadReport``s byte for byte, obs
+    off the same tokens and launches, a warm window the same host syncs
+    on and off with one device-to-host read, SLO-aware admission FIFO's
+    tokens with a prefill yield or an overtake, the Chrome trace and
+    the recorder's dump read back, no library built or loaded in a warm
+    span; one wall-clock run's TTFT, ITL and tokens/s) and
+    ``obs_train`` (one GPT-2 small O2 window bit for bit the obs-off
+    one in losses, scales and launches, one ``train/dispatch`` span of
+    K steps, the checkpoint spans and records in the reference's
+    order).
 
 Then the ``nvidia-smi`` line, the ``{"kernels": [...]}`` summary and, as
 the last line, ``{"ok": true, "device": {...}}``.  Without a CUDA
@@ -312,7 +324,7 @@ from apex_tpu_torch import (
     reference_generate,
     resnet50,
 )
-from apex_tpu_torch import checkpoint
+from apex_tpu_torch import checkpoint, obs
 from apex_tpu_torch.bf16_utils import BF16_Optimizer
 from apex_tpu_torch.RNN import GRU, LSTM, mLSTM
 from apex_tpu_torch.contrib.groupbn import BatchNorm2d_NHWC
@@ -395,6 +407,7 @@ from apex_tpu_torch.parallel import (
 )
 from apex_tpu_torch.parallel.multiproc import free_port
 from apex_tpu_torch.reparameterization import apply_weight_norm, compute_weights
+from apex_tpu_torch.serve import LoadGen, TrafficPlan
 from apex_tpu_torch.train import build_opt_step
 
 # published H100 SXM peaks (NVIDIA data sheet, dense, 700 W)
@@ -8340,6 +8353,385 @@ def phase_scale_out2_gangs(dev, worker_argv=None) -> dict:
                                  for rk in ranks]}
 
 
+# -- phase 19: the obs plane -------------------------------------------------
+
+#: the obs_serve phase's traffic: 32 requests, bursty arrivals (4x the base
+#: rate while on), half the prompts fronted by one of four Zipf-weighted
+#: 256-token prefixes, Pareto prompt lengths (unique 192-512 tokens,
+#: shared 256 + 64-512), outputs 16-64 tokens, 20 % at priority 1
+OBS_PLAN = dict(requests=32, rate_rps=8.0, arrival="bursty",
+                burst_factor=4.0, burst_on_s=0.4, burst_off_s=1.6,
+                vocab_size=50257, n_prefixes=4, prefix_len=256, zipf_s=1.2,
+                shared_frac=0.5, prompt_min=64, prompt_scale=64.0,
+                prompt_alpha=1.5, prompt_cap=512, output_min=16,
+                output_scale=16.0, output_alpha=1.3, output_cap=64,
+                priorities=(0, 1), priority_weights=(0.8, 0.2))
+#: virtual milliseconds a dispatch boundary costs on the harness's clock
+OBS_STEP_MS = 50.0
+#: the SLO-aware leg's stock tracker: a boundary is 50 virtual ms and a
+#: K = 8 window spreads it over 8 tokens (6.25 ms each), so both budgets
+#: burn: TTFT (every prompt takes 2-6 chunks) and ITL
+OBS_SLO = dict(ttft_p99_ms=150.0, itl_p99_ms=5.0, window_s=2.0)
+
+
+def _obs_plan():
+    return TrafficPlan.from_seed(0, **OBS_PLAN)
+
+
+def _obs_leg(dec, on: bool, slo: bool = False) -> dict:
+    """One run of the obs plan on a :class:`VirtualClock` through the
+    engine phase's configuration, with obs on or off, FIFO or SLO-aware
+    admission; the launch counts are set to 0 just before it.  Returns
+    the report, the host wall, the launches, the tracer and recorder."""
+    obs.set_enabled(on)
+    try:
+        gen = LoadGen(_obs_plan(), step_cost_ms=OBS_STEP_MS)
+        tracer = obs.Tracer()
+        fr = obs.FlightRecorder(capacity=1 << 16)
+        tracker = (obs.SloTracker.default_serve(clock=gen.clock, **OBS_SLO)
+                   if slo else None)
+        eng = ServeEngine(dec, slots=8, max_len=1024, page_len=16,
+                          prefill_chunk=128, seed=0, clock=gen.clock,
+                          tracer=tracer, flightrec=fr, slo_tracker=tracker,
+                          slo_admission=slo, registry=obs.MetricsRegistry())
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        rep = gen.run(eng)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = launch_counts()
+        tracer.close()
+    finally:
+        obs.set_enabled(True)
+    return {"report": rep, "wall_s": wall, "launches": launches,
+            "tracer": tracer, "fr": fr, "stats": eng.stats()}
+
+
+def _window_syncs(dec, on: bool) -> dict:
+    """The host syncs of one warm decode window (8 slots, 256-token
+    prompts, no prefill left), as ``torch.cuda.set_sync_debug_mode``
+    reports them: each synchronizing call by its source line, and how
+    many of them read the device to the host (a ``.cpu()``,
+    ``.item()``, ``.tolist()`` or ``.numpy()`` on that line)."""
+    import linecache
+    import warnings
+
+    obs.set_enabled(on)
+    try:
+        eng = ServeEngine(dec, slots=8, max_len=1024, page_len=16,
+                          prefill_chunk=256, seed=0,
+                          registry=obs.MetricsRegistry())
+        rng = torch.Generator().manual_seed(6)
+        for _ in range(8):
+            eng.submit(torch.randint(0, 50257, (256,),
+                                     generator=rng).tolist(),
+                       max_new_tokens=64)
+        while eng._prefilling or eng._queue or not eng._active:
+            eng.step()
+        eng.step()  # one warm window
+        torch.cuda.synchronize()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                eng.step()
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+    finally:
+        obs.set_enabled(True)
+    sites: dict = {}
+    d2h = 0
+    for w in caught:
+        if "synchroniz" not in str(w.message):
+            continue
+        site = f"{os.path.relpath(w.filename)}:{w.lineno}"
+        sites[site] = sites.get(site, 0) + 1
+        line = linecache.getline(w.filename, w.lineno)
+        d2h += any(f in line for f in (".cpu()", ".item()", ".tolist()",
+                                       ".numpy()"))
+    return {"syncs": sum(sites.values()), "device_to_host": d2h,
+            "sites": dict(sorted(sites.items()))}
+
+
+def _hist_q(reg, name: str) -> dict:
+    h = reg.get(name)
+    if h is None or not h.count:
+        return {"count": 0}
+    return {"count": h.count, "p50": h.quantile(0.5), "p99": h.quantile(0.99)}
+
+
+def _chunking(fr) -> dict:
+    """Each request's prefill chunks ``(base, n)`` and shared prefix
+    tokens at admission, from a run's recorder."""
+    out: dict = {}
+    for e in fr.events():
+        a = e.get("attrs") or {}
+        if e["kind"] == "serve/admit":
+            out.setdefault(a["uid"], {"shared": [], "chunks": []})[
+                "shared"].append(a["shared"])
+        elif e["kind"] == "serve/prefill_chunk":
+            out[a["uid"]]["chunks"].append((a["base"], a["n"]))
+    return out
+
+
+def _token_diff(got: dict, want: dict, chunk_got: dict,
+                chunk_want: dict) -> dict:
+    """The requests whose tokens differ between two runs of the plan,
+    each with its first differing position and whether its prefill
+    chunking (or shared prefix) differed between the runs."""
+    rows = []
+    for uid in sorted(want):
+        if got[uid] == want[uid]:
+            continue
+        first = next((i for i, (x, y) in enumerate(zip(got[uid], want[uid]))
+                      if x != y), min(len(got[uid]), len(want[uid])))
+        rows.append({"uid": uid, "first_differing_token": first,
+                     "chunking_differs": chunk_got[uid] != chunk_want[uid]})
+    same_chunks = sum(chunk_got[u] == chunk_want[u] for u in chunk_want)
+    return {"requests_differing": len(rows), "rows": rows,
+            "requests_with_the_same_chunking": same_chunks}
+
+
+def phase_obs_serve(dev, params, smi: str) -> dict:
+    """The obs plane through the engine phase's configuration (GPT-2
+    small bf16, bf16 pages, 8 slots, page_len 16, chunks of 128, K = 8,
+    seed 0), driven by the seeded :data:`OBS_PLAN` on the load harness's
+    virtual clock.  The SLO-aware run first (it also warms the set-up
+    up), then obs on, off, on, off: the two obs-on FIFO runs give
+    byte-identical ``LoadReport``s; the obs-off runs the same tokens per
+    uid and launch counts; a warm window the same host syncs with obs on
+    and off (after one measurement to warm the sync check up), one of
+    them a device-to-host read.  SLO-aware admission (the stock tracker
+    at :data:`OBS_SLO`) must give FIFO's tokens per uid, with at least
+    one overtake or prefill yield; the requests that differ, if any, are
+    reported with their first differing token and whether their prefill
+    chunking differed.  The Chrome trace and the recorder's dump are
+    written and read back, and no span after the first window may build
+    or load a library.  Then one run on the wall clock with the whole
+    plan submitted at once: TTFT and ITL p50/p99 and tokens/s, printed
+    beside the obs on/off walls and the card, not gated."""
+    t_phase = time.perf_counter()
+    cfg = GPTConfig.small()
+    dec = GPTDecoder(cfg, params, compute_dtype=torch.bfloat16,
+                     cache_dtype=torch.bfloat16, tokens_per_dispatch=8,
+                     device=dev)
+    slo = _obs_leg(dec, on=True, slo=True)
+    a = _obs_leg(dec, on=True)
+    off = _obs_leg(dec, on=False)
+    b = _obs_leg(dec, on=True)
+    off2 = _obs_leg(dec, on=False)
+    syncs = {"first": _window_syncs(dec, True),
+             "on": _window_syncs(dec, True), "off": _window_syncs(dec, False)}
+    rep, rep_off, rep_slo = a["report"], off["report"], slo["report"]
+    slo_diff = _token_diff(rep_slo.tokens, rep.tokens, _chunking(slo["fr"]),
+                           _chunking(a["fr"]))
+    plan = _obs_plan()
+    want_len = {r.uid: r.max_new_tokens for r in plan.requests}
+    # the trace artifacts, written and read back
+    tmp = tempfile.mkdtemp(prefix="apex_tpu_torch_obs_")
+    try:
+        chrome = json.load(open(a["tracer"].export_chrome(
+            os.path.join(tmp, "trace.chrome.json"))))
+        jsonl_events, _ = obs.read_jsonl(obs.write_jsonl(
+            a["tracer"], os.path.join(tmp, "trace.jsonl"),
+            flightrec=a["fr"]))
+        meta, fr_events = obs.read_flightrec(a["fr"].dump(
+            os.path.join(tmp, "flightrec.jsonl"), reason="obs_serve"))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    windows = [sp for sp in a["tracer"].spans
+               if sp.name == "serve/decode_window"]
+    # the spans that began after the first window ended
+    warm = [sp for sp in a["tracer"].spans
+            if sp.t0 > windows[0].t0 + windows[0].dur]
+    # the wall clock: the whole plan at once, obs on
+    eng = ServeEngine(dec, slots=8, max_len=1024, page_len=16,
+                      prefill_chunk=128, seed=0,
+                      registry=obs.MetricsRegistry())
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    for r in plan.requests:
+        eng.submit(r.prompt, max_new_tokens=r.max_new_tokens,
+                   priority=r.priority)
+    wall_out = eng.run()
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    wall_launches = launch_counts()
+    n_tok = sum(len(t) for t in wall_out.values())
+    reg = eng.obs_registry
+
+    rec = {
+        "phase": "obs_serve", "nvidia_smi": smi,
+        "model": "GPT-2 small bf16, bf16 pages, 8 slots, page_len 16, "
+                 "chunks of 128, K = 8",
+        "plan": {**plan.stats(), "seed": 0, "step_cost_ms": OBS_STEP_MS},
+        "virtual": {"rounds": rep.rounds,
+                    "virtual_wall_ms": rep.virtual_wall_ms,
+                    "ttft_ms": rep.ttft_ms, "itl_ms": rep.itl_ms,
+                    "queue_delay_ms": rep.queue_delay_ms,
+                    "ttft_ms_by_priority": rep.ttft_ms_by_priority,
+                    "goodput_tokens_per_s": rep.goodput_tokens_per_s},
+        "byte_identical_reports": rep.to_json() == b["report"].to_json(),
+        "report_bytes": len(rep.to_json()),
+        "obs_off_same_tokens": rep_off.tokens == rep.tokens,
+        "obs_off_same_launches": off["launches"] == a["launches"],
+        "launches": {n: c for n, c in a["launches"].items() if c},
+        "host_syncs_one_window": syncs,
+        "slo": {"tracker": OBS_SLO,
+                "same_tokens_as_fifo": rep_slo.tokens == rep.tokens,
+                "against_fifo": slo_diff,
+                "overtakes": rep_slo.slo_overtakes,
+                "prefill_yields": rep_slo.slo_yields,
+                "rounds": rep_slo.rounds, "ttft_ms": rep_slo.ttft_ms,
+                "ttft_ms_by_priority": rep_slo.ttft_ms_by_priority,
+                "itl_ms": rep_slo.itl_ms,
+                "objectives": [{k: o[k] for k in ("name", "current",
+                                                  "trips", "clears")}
+                               for o in rep_slo.slo["objectives"]]},
+        "spans": a["tracer"].span_names(),
+        "span_compiles": a["tracer"].compiles,
+        "warm_spans": len(warm),
+        "warm_spans_compiled": sum(sp.compiles > 0 for sp in warm),
+        "chrome_events": len(chrome["traceEvents"]),
+        "jsonl_lines": len(jsonl_events),
+        "flightrec": {"recorded": meta["recorded"],
+                      "dropped": meta["dropped"],
+                      "kinds": a["fr"].kinds()},
+        "obs_walls_s": {"slo_on_first": slo["wall_s"],
+                        "on": [a["wall_s"], b["wall_s"]],
+                        "off": [off["wall_s"], off2["wall_s"]]},
+        "obs_on_over_off": (a["wall_s"] + b["wall_s"])
+        / (off["wall_s"] + off2["wall_s"]),
+        "wall_clock": {"requests": len(wall_out), "generated_tokens": n_tok,
+                       "wall_s": wall_s, "tokens_per_s": n_tok / wall_s,
+                       "ttft_ms": _hist_q(reg, "serve.ttft_ms"),
+                       "itl_ms": _hist_q(reg, "serve.itl_ms"),
+                       "queue_delay_ms": _hist_q(reg,
+                                                 "serve.queue_delay_ms"),
+                       "windows": eng.decode_dispatches,
+                       "chunks": eng.prefill_dispatches,
+                       "prefix_hits": eng.stats()["prefix_hits"]},
+        "seconds": time.perf_counter() - t_phase}
+    emit(rec)
+    check(rep.completed == 32 and all(
+        len(rep.tokens[u]) == n for u, n in want_len.items())
+        and all(0 <= t < cfg.vocab_size for toks in rep.tokens.values()
+                for t in toks), "obs_serve: a request fell short")
+    check(rep.ttft_ms["count"] == 32 and rep.itl_ms["count"] > 0,
+          "obs_serve: the lifecycle did not see every request")
+    check(rec["byte_identical_reports"],
+          "obs_serve: two virtual-clock runs gave different reports")
+    check(rec["obs_off_same_tokens"] and rec["obs_off_same_launches"]
+          and off2["report"].tokens == rep.tokens
+          and off2["launches"] == a["launches"],
+          "obs_serve: obs off changed the tokens or the launches "
+          f"({off['launches']} vs {a['launches']})")
+    check(syncs["on"] == syncs["off"] and syncs["on"]["device_to_host"] == 1,
+          f"obs_serve: host syncs a window differ or are not one read: "
+          f"{syncs}")
+    check(rec["slo"]["same_tokens_as_fifo"],
+          f"obs_serve: SLO-aware admission changed tokens: {slo_diff}")
+    check(rep_slo.slo_overtakes + rep_slo.slo_yields >= 1,
+          "obs_serve: the SLO-aware run neither overtook nor yielded")
+    check(all(a["launches"][n] > 0 for n in SERVING),
+          f"obs_serve: a serving kernel never launched: {a['launches']}")
+    check(len(fr_events) == meta["recorded"] and meta["dropped"] == 0
+          and meta["schema"] == obs.SCHEMA
+          and chrome["otherData"]["schema"] == obs.SCHEMA
+          and len(chrome["traceEvents"]) == len(a["tracer"].spans)
+          + len(a["tracer"].events),
+          "obs_serve: the trace or the dump did not read back")
+    check(len(windows) == a["stats"]["decode_dispatches"] > 1
+          and warm and rec["warm_spans_compiled"] == 0,
+          "obs_serve: a span after the first window built or loaded a "
+          "library")
+    check(wall_launches["paged_fused_attention"] > 0
+          and len(wall_out) == 32, "obs_serve: the wall-clock run failed")
+    return a["launches"]
+
+
+def phase_obs_train(dev, params, b: int = 8, s: int = 1024, k: int = 4
+                    ) -> dict:
+    """One GPT-2 small O2 window (``_train_setup``, batch 8 x 1024, K =
+    4) with obs off and one from a fresh set-up with obs on: the losses
+    and scales bit for bit, the same launches; the obs-on window is one
+    ``train/dispatch`` span with K steps and a ``train.dispatch_ms``
+    sample; then ``save`` and ``restore`` of its carry, whose spans and
+    recorder events follow JAX's order, and the restored leaves bit for
+    bit the saved ones."""
+    t_phase = time.perf_counter()
+    metrics = {"loss": "last", "loss_scale": "last", "skipped": "sum"}
+    runs = {}
+    for on in (False, True):
+        obs.set_enabled(on)
+        obs.reset_default()
+        obs.reset_default_flightrec()
+        _, step, carry, _ = _train_setup(dev, params, b, s)
+        driver = FusedTrainDriver(step, steps_per_dispatch=k,
+                                  metrics=metrics,
+                                  per_step=("loss", "loss_scale"))
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        carry, res = driver.run_window(carry)
+        host = read_metrics(res)
+        runs[on] = {"per_step": host.per_step, "launches": launch_counts(),
+                    "wall_ms": driver.last_dispatch_ms}
+        if not on:
+            del step, carry, driver
+            torch.cuda.empty_cache()
+    tracer, reg, fr = (obs.default_tracer(), obs.default_registry(),
+                       obs.default_flightrec())
+    dispatch = [sp for sp in tracer.spans if sp.name == "train/dispatch"]
+    tmp = tempfile.mkdtemp(prefix="apex_tpu_torch_obs_ckpt_")
+    try:
+        driver.save(tmp, carry, k)
+        restored, at = driver.restore(tmp, carry)
+        torch.cuda.synchronize()
+        saved, got = _leaves(carry), _leaves(restored)
+        same = all(torch.equal(t, got[n]) for n, t in saved.items()
+                   if torch.is_tensor(t))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    names = [sp.name for sp in tracer.spans]
+    kinds = [e["kind"] for e in fr.events()]
+    rec = {"phase": "obs_train", "model": "GPT-2 small O2, dropout 0.1, "
+           "fused_adam", "batch": [b, s], "steps_per_window": k,
+           "losses_off": runs[False]["per_step"]["loss"],
+           "losses_on": runs[True]["per_step"]["loss"],
+           "scales_on": runs[True]["per_step"]["loss_scale"],
+           "same_losses_and_scales": runs[False]["per_step"]
+           == runs[True]["per_step"],
+           "same_launches": runs[False]["launches"]
+           == runs[True]["launches"],
+           "launches": {n: c for n, c in runs[True]["launches"].items()
+                        if c},
+           "dispatch_spans": [{"attrs": sp.attrs, "dur_ms": sp.dur * 1e-6,
+                               "compiles": sp.compiles} for sp in dispatch],
+           "dispatch_ms_off_on": [runs[False]["wall_ms"],
+                                  runs[True]["wall_ms"]],
+           "registry": {n: reg.get(n).snapshot() for n in reg.names()},
+           "spans": names, "flightrec_kinds": kinds,
+           "restored_step": at, "restored_bit_for_bit": same,
+           "seconds": time.perf_counter() - t_phase}
+    emit(rec)
+    check(rec["same_losses_and_scales"] and rec["same_launches"],
+          "obs_train: obs on changed the losses, scales or launches")
+    check(len(dispatch) == 1 and dispatch[0].attrs == {
+        "k": k, "microbatches": 1}
+        and reg.get("train.steps").value == k
+        and reg.get("train.dispatches").value == 1
+        and reg.get("train.dispatch_ms").count == 1,
+        "obs_train: the window is not one train/dispatch span of K steps")
+    check(names == ["train/dispatch", "train/checkpoint_save",
+                    "train/checkpoint_restore"] and kinds == names
+          and at == k and same,
+          f"obs_train: checkpoint spans {names} or records {kinds} out of "
+          "JAX's order, or the restore differs")
+    return runs[True]["launches"]
+
+
 class _Tee:
     """stdout that also writes to a log file."""
 
@@ -8506,6 +8898,16 @@ def _run() -> int:
           "seconds": time.perf_counter() - t_so2,
           "phases": ["scale_out2_world1", "tp_serve_gang",
                      "moe_compress_gang"]})
+    torch.cuda.empty_cache()
+    t_obs = time.perf_counter()
+    params = init_params(GPTConfig.small(), torch.Generator().manual_seed(0))
+    obs_serve_launches = phase_obs_serve(dev, params, smi)
+    torch.cuda.empty_cache()
+    obs_train_launches = phase_obs_train(dev, params)
+    del params
+    torch.cuda.empty_cache()
+    emit({"phase": "obs_time", "seconds": time.perf_counter() - t_obs,
+          "phases": ["obs_serve", "obs_train"]})
 
     # the summary rows: the serving kernels at the engine's decode-step
     # shape with the engine run's launches, the GPT training kernels at
@@ -8817,6 +9219,21 @@ def _run() -> int:
             "launches_of": f"{name} on rank 0 of 4, the engine mix on GPT-2 "
                            f"small over a (model 4) mesh, 3 heads a rank "
                            f"(tp_serve_gang)"}
+    # the obs phases: the obs-on virtual-clock run of the plan, and the
+    # obs-on training window
+    for name in ("layer_norm", "paged_fused_attention"):
+        by_name[name]["obs_serve_path"] = {
+            "launches": obs_serve_launches[name],
+            "launches_of": f"{name}, the obs plan (32 requests) through "
+                           "the engine phase's configuration on the "
+                           "virtual clock, obs on (obs_serve)"}
+    for name in ("layer_norm", "layer_norm_bwd", "flash_attention_fwd",
+                 "flash_attention_bwd", "softmax_xentropy_fwd",
+                 "softmax_xentropy_bwd"):
+        by_name[name]["obs_train_path"] = {
+            "launches": obs_train_launches[name],
+            "launches_of": f"{name}, one O2 training window of GPT-2 small, "
+                           "K = 4 steps of 8 x 1024, obs on (obs_train)"}
     for kind in ("fwd", "bwd"):
         by_name[f"flash_attention_{kind}_bias"]["encdec_path"].update(
             {k: ed_cases[kind][k] for k in (
@@ -8828,7 +9245,8 @@ def _run() -> int:
                             "ddp_path", "medium_path", "spec_path_d3", "spec_path_d7",
                             "spec_tree_path_w2d3", "spec_tree_path_w3d3",
                             "o1_path", "stash_path", "long_context_path",
-                            "tp_path", "tp_serve_path", *paths)
+                            "tp_path", "tp_serve_path", "obs_serve_path",
+                            "obs_train_path", *paths)
                   if p in r),
           f"a kernel never launched on its path: {rows}")
     print(smi, flush=True)
