@@ -48,7 +48,10 @@ structured sparsity (``contrib.sparsity``: the mask library, ``ASP`` and
 ``obs`` (metrics, spans, the request lifecycle, SLO tracking, the flight
 recorder and exporters) wired through ``ServeEngine`` (with SLO-aware
 admission) and ``FusedTrainDriver``, and the seeded load generator
-(``serve.loadgen``).
+(``serve.loadgen``); then ``data`` (the native C++ record loader, built
+with g++ at first use, ``window_batches`` and the pinned, side-stream
+``DevicePrefetcher``) with the ImageNet ResNet-50 example
+(``examples/imagenet.py``).
 Every kernel on those paths
 (LayerNorm forward and backward, paged attention, flash attention
 forward and backward with and without an additive bias and its gradient,

@@ -7,10 +7,12 @@ dtype discipline:
 - the images are cast to the compute dtype before the stem; the stem is
   the 7x7/2 convolution as space-to-depth(2) + a 4x4/1 convolution of the
   zero-padded 8x8 kernel (exact; the parameter keeps its (7, 7, 3, 64)
-  shape), or the plain 7x7/2 convolution on an odd input;
+  shape), or the plain 7x7/2 convolution on an odd input or with
+  ``space_to_depth_stem=False`` (the same parameter);
 - every convolution casts its input and kernel to the compute dtype;
   every BatchNorm is :class:`~apex_tpu_torch.parallel.SyncBatchNorm`
-  (fp32 statistics, output in its input's dtype);
+  (fp32 statistics, output in its input's dtype), with ``bn_eps`` and
+  ``bn_momentum`` (1e-5 and 0.1, the reference's);
 - max pool 3x3/2 with padding 1; bottlenecks 1x1 -> 3x3 (stride on the
   3x3, flax ``"SAME"`` padding) -> 1x1, a 1x1 strided projection where the
   shape changes, ``relu(y + residual)``;
@@ -32,8 +34,7 @@ XLA ran them in the JAX package); the ``conv_bn`` kernels are not wired
 in, as they are not in the JAX model.  ``sync_batchnorm=True`` makes
 every BatchNorm sum its statistics over a process group (the JAX model's
 ``sync_batchnorm`` over ``bn_axis_name``; see
-:mod:`apex_tpu_torch.parallel.sync_batchnorm`).  Not ported yet: the
-plain-stem and BatchNorm-hyperparameter options.
+:mod:`apex_tpu_torch.parallel.sync_batchnorm`).
 """
 from __future__ import annotations
 
@@ -135,35 +136,45 @@ class Bottleneck(nn.Module):
 
 
 class ResNet(nn.Module):
-    """ResNet-v1 with bottleneck blocks, NHWC, over RGB images, with the
-    space-to-depth stem and BatchNorm of eps 1e-5 and momentum 0.1.
+    """ResNet-v1 with bottleneck blocks, NHWC, over RGB images.
 
     Args:
       stage_sizes: blocks per stage (RN50: (3, 4, 6, 3)).
       num_classes: classifier width.
       width: the stem's features (64); stage i has width * 2**i.
+      space_to_depth_stem: the 7x7/2 stem through space-to-depth (exact;
+        False: the plain convolution, with the same parameter).
       compute_dtype: the convolutions' dtype (bf16 for O2/O3).
       sync_batchnorm: BatchNorm statistics summed over ``bn_group`` (None:
         the world group of the initialised process group, which must
         exist), or over this rank's subgroup of ``bn_groups`` (the JAX
         model's ``bn_axis_index_groups``).
+      bn_momentum, bn_eps: every BatchNorm's running-statistics momentum
+        and epsilon.
     """
 
     def __init__(self, stage_sizes: Sequence[int] = (3, 4, 6, 3),
                  num_classes: int = 1000, width: int = 64,
+                 space_to_depth_stem: bool = True,
                  compute_dtype: torch.dtype = torch.float32,
                  sync_batchnorm: bool = False, bn_group=None,
-                 bn_groups: Optional[Subgroups] = None):
+                 bn_groups: Optional[Subgroups] = None,
+                 bn_momentum: float = 0.1, bn_eps: float = 1e-5):
         super().__init__()
         self.stage_sizes = tuple(stage_sizes)
         self.compute_dtype = compute_dtype
-        norm = SyncBatchNorm
+        norm = functools.partial(SyncBatchNorm, momentum=bn_momentum,
+                                 eps=bn_eps)
         if sync_batchnorm:
             if bn_group is None and bn_groups is None:
                 bn_group = data_parallel_group()
-            norm = functools.partial(SyncBatchNorm, group=bn_group,
-                                     groups=bn_groups)
-        self.conv1 = SpaceToDepthStem(3, width, dtype=compute_dtype)
+            norm = functools.partial(norm, group=bn_group, groups=bn_groups)
+        if space_to_depth_stem:
+            self.conv1 = SpaceToDepthStem(3, width, dtype=compute_dtype)
+        else:
+            self.conv1 = Conv(3, width, (7, 7), (2, 2),
+                              padding=[(3, 3), (3, 3)], use_bias=False,
+                              dtype=compute_dtype)
         self.bn1 = norm(width)
         self.block_names = []
         c = width

@@ -107,7 +107,8 @@ line) on any failed check:
     block's last row tile skipped and, after the BN prologue, the padded
     rows left unmasked), two calls bit for bit equal, timed
     beside their bounds and the library chains; the cross-entropy at
-    RN50's (128, 1000) fp32 logits;
+    RN50's (128, 1000) fp32 logits and at the ImageNet example's
+    defaults, (64, 1000) bf16 (O1 autocast's logits);
 11. ResNet-50: fp32 (O0) logits, loss and the updated running
     statistics, and four gradients with training-mode and eval-mode
     BatchNorm (within fixed limits above their fp32 rounding floor, which
@@ -274,7 +275,31 @@ line) on any failed check:
     ``obs_train`` (one GPT-2 small O2 window bit for bit the obs-off
     one in losses, scales and launches, one ``train/dispatch`` span of
     K steps, the checkpoint spans and records in the reference's
-    order).
+    order);
+20. the input pipeline, after the ResNet phases, in a fresh process
+    (``--input-worker``: in a process that has run profiled training
+    windows the profiler stops delivering some device events, and these
+    phases read copies from it): ``data_loader`` (5,120
+    records of 224 x 224 x 3 uint8 and an int32 label written by
+    ``write_records``, 771 MB in a temporary directory: one epoch read
+    with 2 workers, batches/s and GB/s from the page cache; every record
+    once, the same order under 1 and 4 workers, another next epoch;
+    each window ``DevicePrefetcher`` stages bit for bit a plain copy,
+    its copies ``Memcpy HtoD (Pinned -> Device)`` on a stream apart
+    from the kernels', and its two stream hazards planted: a held side
+    stream read without ``wait_event`` and a held consumer's batch
+    reused without ``record_stream`` must fail, the real prefetcher
+    pass) and ``imagenet_example`` (the port's
+    ``examples/imagenet`` in process: (a) O2, -b 128, K = 10 from the
+    file, 4 windows: images/s beside ``resnet_train``'s, the host ms a
+    window in the loader wait, ``window_batches``, ``train/prefetch``
+    and ``train/dispatch``, window 2's busy share and gap, window 3's
+    host syncs,
+    peak memory, exact cross-entropy launches, falling losses; (b)
+    window 0 from plain copies of JAX's host transform bit for bit; (c)
+    the defaults: O1, -b 64, synthetic, 30 steps; (d) ``--sync_bn`` at
+    world 1 bit for bit (a)'s window 0; (e) ``--prof 0``'s trace names
+    the cross-entropy kernels).
 
 Then the ``nvidia-smi`` line, the ``{"kernels": [...]}`` summary and, as
 the last line, ``{"ok": true, "device": {...}}``.  Without a CUDA
@@ -332,6 +357,7 @@ from apex_tpu_torch.contrib.multihead_attn import EncdecMultiheadAttn
 from apex_tpu_torch.contrib.sparsity import ASP, sparse_masklib
 from apex_tpu_torch.contrib.xentropy import SoftmaxCrossEntropyLoss
 from apex_tpu_torch.examples import dcgan as dcgan_example
+from apex_tpu_torch.examples import imagenet as imagenet_example
 from apex_tpu_torch.models.gpt import tree_layout
 from apex_tpu_torch.multi_tensor import multi_tensor_l2norm
 from apex_tpu_torch.ops import _build, launch_counts, reset_launch_counts
@@ -495,44 +521,76 @@ def _kernel_events(prof):
     return [e for e in prof.events() if e.device_type == DeviceType.CUDA]
 
 
-def device_ms(fn, iters: int = 20) -> float:
-    """Device time of one ``fn()``: the durations of its device-side
-    events from a ``torch.profiler`` trace of ``iters`` calls (host gaps
-    excluded), or None when the profiler records none on this machine."""
+#: the kernel ``torch.cuda._sleep`` launches, which no timed function does
+SENTINEL = "spin_kernel"
+
+
+def own_device_events(fn, iters: int):
+    """``(events, calls)``: the device events of ``calls`` calls of
+    ``fn()`` (after one untraced call), from a ``torch.profiler`` session
+    in which a sentinel kernel runs before and after the calls.  The
+    session is refused unless its device events are all the calls' own:
+    both sentinels there, every other event between them, and each kernel
+    name seen a whole number of times per call (a dropped or a foreign
+    event breaks one of these).  The first session makes ``iters`` calls;
+    a refused one is tried once more with a quarter of them.  None when
+    both are refused."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    total_us = sum(e.time_range.elapsed_us() for e in _kernel_events(prof))
-    return total_us / iters / 1e3 if total_us > 0 else None
+    for calls in (iters, max(2, iters // 4)):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            torch.cuda._sleep(1000)
+            torch.cuda.synchronize()
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()  # every stream's work before the last
+            torch.cuda._sleep(1000)
+        events = _kernel_events(prof)
+        marks = sorted((e for e in events if SENTINEL in e.name),
+                       key=lambda e: e.time_range.start)
+        own = [e for e in events if SENTINEL not in e.name]
+        if len(marks) != 2 or not own:
+            continue
+        lo, hi = marks[0].time_range.end, marks[1].time_range.start
+        counts: dict = {}
+        for e in own:
+            counts[e.name] = counts.get(e.name, 0) + 1
+        if (all(lo <= e.time_range.start and e.time_range.end <= hi
+                for e in own)
+                and not any(n % calls for n in counts.values())):
+            return own, calls
+    return None
+
+
+def device_ms(fn, iters: int = 20) -> float:
+    """Device time of one ``fn()``: the durations of its device-side
+    events (host gaps excluded), or None when the profiler's sessions
+    are refused (:func:`own_device_events`)."""
+    got = own_device_events(fn, iters)
+    if got is None:
+        return None
+    own, calls = got
+    return sum(e.time_range.elapsed_us() for e in own) / calls / 1e3
 
 
 def device_ms_by_kernel(fn, iters: int = 10) -> dict:
     """Device time of one ``fn()`` by kernel (the first 60 characters of
-    its name), from a ``torch.profiler`` trace of ``iters`` calls."""
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
+    its name) (:func:`own_device_events`); {} when the sessions are
+    refused."""
+    own, calls = own_device_events(fn, iters) or ([], 1)
     out = {}
-    for e in _kernel_events(prof):
+    for e in own:
         out[e.name[:60]] = (out.get(e.name[:60], 0.0)
-                            + e.time_range.elapsed_us() / iters / 1e3)
+                            + e.time_range.elapsed_us() / calls / 1e3)
     return out
 
 
 def timings(fn, iters: int = 50, prof_iters: int = 20) -> dict:
-    """``ms``: device time per call (profiler, over ``prof_iters`` calls);
+    """``ms``: device time per call (profiler, over ``prof_iters`` calls;
+    the CUDA-event time when the profiler's sessions are refused);
     ``events_ms``: CUDA-event time per call over back-to-back calls, which
     includes the host's enqueue time wherever the host is the slower
     side."""
@@ -3326,62 +3384,76 @@ def phase_conv_bn(dev, shapes=RN50_1X1,
     return path, out
 
 
-def phase_xent_rn50(dev, rows: int = 128, v: int = 1000):
-    """The fused cross-entropy at RN50's loss shape: (128, 1000) fp32
-    logits ~ 3 N(0, 1) (rows 4000 bytes apart: the kernels' 16-byte
-    vector path), no smoothing.  Loss and lse within 2e-6 of max|want|,
-    dlogits within 1e-5 of max|want|.  Planted fault: the last 8 classes
-    left out of the lse."""
+def phase_xent_rn50(dev, v: int = 1000):
+    """The fused cross-entropy at RN50's loss shapes, logits ~ 3 N(0, 1),
+    no smoothing: (128, 1000) fp32 (the O2 paths) and (64, 1000) bf16
+    (the ImageNet example's defaults: O1 autocast leaves the classifier's
+    logits in bf16, at a vocabulary shorter than one 2048-wide tile);
+    rows 4000 and 2000 bytes apart, the kernels' 16-byte vector path.
+    Loss and lse within 2e-6 of max|want|, dlogits within 1e-5 of
+    max|want| (fp32) or 1 bf16 ulp plus 1e-9 (bf16).  Planted fault: the
+    last 8 classes left out of the lse.  Returns ``[(fwd, bwd)]`` in
+    that order."""
     gen = torch.Generator(device=dev).manual_seed(23)
-    logits = 3 * torch.randn(rows, v, device=dev, generator=gen)
-    labels = torch.randint(0, v - 8, (rows,), device=dev, generator=gen)
-    g = torch.rand(rows, device=dev, generator=gen)
-    loss, lse = softmax_cross_entropy_fwd(logits, labels, 0.0)
-    want_l, want_lse = softmax_cross_entropy_fwd_ref(logits, labels, 0.0)
-    d = softmax_cross_entropy_bwd(logits, labels, lse, g, 0.0)
-    want_d = softmax_cross_entropy_bwd_ref(logits, labels, lse, g, 0.0)
-    bad_l, _ = softmax_cross_entropy_fwd(logits[:, :v - 8], labels, 0.0)
-    torch.cuda.synchronize()
-    errs = [_err(loss, want_l), _err(lse, want_lse), _err(d, want_d)]
-    name = f"rows={rows} V={v} float32 smoothing=0.0"
-    check(_close(loss, want_l, 2e-6) and _close(lse, want_lse, 2e-6),
-          f"xent {name}: {errs}")
-    check(_close(d, want_d, 1e-5), f"xent dlogits {name}: {errs}")
-    fault = _err(bad_l, want_l)
-    check(not _close(bad_l, want_l, 2e-6),
-          f"xent {name}: the check misses the last classes dropped")
-    base = {"case": name, "rows": rows, "V": v, "dtype": "float32",
-            "smoothing": 0.0,
-            "planted_fault_errs": {"last_8_classes_dropped": fault}}
-    lg = logits.clone().requires_grad_()
+    cases = []
+    for rows, dt in ((128, torch.float32), (64, torch.bfloat16)):
+        logits = (3 * torch.randn(rows, v, device=dev, generator=gen)).to(dt)
+        labels = torch.randint(0, v - 8, (rows,), device=dev, generator=gen)
+        g = torch.rand(rows, device=dev, generator=gen)
+        loss, lse = softmax_cross_entropy_fwd(logits, labels, 0.0)
+        want_l, want_lse = softmax_cross_entropy_fwd_ref(logits, labels, 0.0)
+        d = softmax_cross_entropy_bwd(logits, labels, lse, g, 0.0)
+        want_d = softmax_cross_entropy_bwd_ref(logits, labels, lse, g, 0.0)
+        bad_l, _ = softmax_cross_entropy_fwd(logits[:, :v - 8], labels, 0.0)
+        torch.cuda.synchronize()
+        errs = [_err(loss, want_l), _err(lse, want_lse), _err(d, want_d)]
+        name = f"rows={rows} V={v} {_dt(dt)} smoothing=0.0"
+        check(_close(loss, want_l, 2e-6) and _close(lse, want_lse, 2e-6),
+              f"xent {name}: {errs}")
+        bf16 = dt == torch.bfloat16
+        d_ok = (bf16_ulp_ok(d, want_d, ulps=1, floor=1e-9) if bf16
+                else _close(d, want_d, 1e-5))
+        check(d_ok, f"xent dlogits {name}: {errs}")
+        fault = _err(bad_l, want_l)
+        check(not _close(bad_l, want_l, 2e-6),
+              f"xent {name}: the check misses the last classes dropped")
+        base = {"case": name, "rows": rows, "V": v, "dtype": _dt(dt),
+                "smoothing": 0.0,
+                "planted_fault_errs": {"last_8_classes_dropped": fault}}
+        lg = logits.clone().requires_grad_()
 
-    def ce_fwd_bwd():
-        out = F.cross_entropy(lg, labels, reduction="none")
-        torch.autograd.grad(out, lg, g)
+        def ce_fwd_bwd():
+            out = F.cross_entropy(lg, labels, reduction="none")
+            torch.autograd.grad(out, lg, g)
 
-    bound, by = _bound(rows * v * 4 + rows * 16, {FP32_FLOPS: 4 * rows * v})
-    fwd = {**base, "max_abs_err": max(errs[:2]), "tol": "2e-6 of max|want|",
-           **_merge(timings(lambda: softmax_cross_entropy_fwd(
-               logits, labels, 0.0)),
-               timings(lambda: softmax_cross_entropy_fwd_ref(
-                   logits, labels, 0.0), iters=10),
-               timings(lambda: F.cross_entropy(logits, labels,
-                                               reduction="none"))),
-           "bound_ms": bound, "bound_by": by,
-           "library": "F.cross_entropy(reduction='none')"}
-    emit({"phase": "kernel", "kernel": "softmax_xentropy_fwd", **fwd})
-    bound, by = _bound(2 * rows * v * 4 + rows * 16,
-                       {FP32_FLOPS: 4 * rows * v})
-    bwd = {**base, "max_abs_err": errs[2], "tol": "1e-5 of max|want|",
-           **_merge(timings(lambda: softmax_cross_entropy_bwd(
-               logits, labels, lse, g, 0.0)),
-               timings(lambda: softmax_cross_entropy_bwd_ref(
-                   logits, labels, lse, g, 0.0), iters=10),
-               timings(ce_fwd_bwd)),
-           "bound_ms": bound, "bound_by": by,
-           "library": "F.cross_entropy forward + backward"}
-    emit({"phase": "kernel", "kernel": "softmax_xentropy_bwd", **bwd})
-    return fwd, bwd
+        el = logits.element_size()
+        bound, by = _bound(rows * v * el + rows * 16,
+                           {FP32_FLOPS: 4 * rows * v})
+        fwd = {**base, "max_abs_err": max(errs[:2]),
+               "tol": "2e-6 of max|want|",
+               **_merge(timings(lambda: softmax_cross_entropy_fwd(
+                   logits, labels, 0.0)),
+                   timings(lambda: softmax_cross_entropy_fwd_ref(
+                       logits, labels, 0.0), iters=10),
+                   timings(lambda: F.cross_entropy(logits, labels,
+                                                   reduction="none"))),
+               "bound_ms": bound, "bound_by": by,
+               "library": "F.cross_entropy(reduction='none')"}
+        emit({"phase": "kernel", "kernel": "softmax_xentropy_fwd", **fwd})
+        bound, by = _bound(2 * rows * v * el + rows * 16,
+                           {FP32_FLOPS: 4 * rows * v})
+        bwd = {**base, "max_abs_err": errs[2],
+               "tol": "1 bf16 ulp + 1e-9" if bf16 else "1e-5 of max|want|",
+               **_merge(timings(lambda: softmax_cross_entropy_bwd(
+                   logits, labels, lse, g, 0.0)),
+                   timings(lambda: softmax_cross_entropy_bwd_ref(
+                       logits, labels, lse, g, 0.0), iters=10),
+                   timings(ce_fwd_bwd)),
+               "bound_ms": bound, "bound_by": by,
+               "library": "F.cross_entropy forward + backward"}
+        emit({"phase": "kernel", "kernel": "softmax_xentropy_bwd", **bwd})
+        cases.append((fwd, bwd))
+    return cases
 
 
 # -- phase 11: ResNet-50 ---------------------------------------------------------
@@ -8732,6 +8804,609 @@ def phase_obs_train(dev, params, b: int = 8, s: int = 1024, k: int = 4
     return runs[True]["launches"]
 
 
+# -- phase 20: the input pipeline (native loader, prefetcher, ImageNet) --------
+
+# the record file of both phases: 4 windows of K = 10 at batch 128 of
+# 224 x 224 x 3 uint8 images and int32 labels (771 MB)
+DL_RECORDS, DL_HW, DL_BATCH, DL_K = 5120, 224, 128, 10
+
+
+def _dl_write(path: str, n: int, hw: int, seed: int = 40):
+    """``n`` records through the port's ``write_records``: seeded uint8
+    noise whose first 4 bytes hold the record's index (int32), and
+    seeded labels in [0, 1000); returns the labels."""
+    import numpy as np
+
+    from apex_tpu_torch.data import write_records
+
+    rng = np.random.RandomState(seed)
+    labels = rng.randint(0, 1000, n).astype(np.int32)
+
+    def samples():
+        for lo in range(0, n, 256):
+            m = min(256, n - lo)
+            imgs = rng.randint(0, 256, (m, hw, hw, 3), dtype=np.uint8)
+            imgs.reshape(m, -1)[:, :4] = np.arange(
+                lo, lo + m, dtype="<i4")[:, None].view(np.uint8)
+            for j in range(m):
+                yield {"image": imgs[j], "label": labels[lo + j]}
+
+    write_records(path, samples(), imagenet_example.fields(hw))
+    return torch.from_numpy(labels)
+
+
+def _record_index(images: torch.Tensor) -> torch.Tensor:
+    """The index each record's image carries in its first 4 bytes."""
+    flat = images.reshape(images.shape[0], -1)[:, :4].contiguous()
+    return flat.view(torch.int32).reshape(-1).cpu()
+
+
+def _dl_order(path: str, workers: int, epoch: int):
+    """(record indices, labels) of one shuffled epoch, in batch order."""
+    from apex_tpu_torch.data import NativeDataLoader
+
+    loader = NativeDataLoader(path, imagenet_example.fields(DL_HW),
+                              DL_BATCH, shuffle=True, seed=0,
+                              num_workers=workers)
+    try:
+        idx, lab = [], []
+        for b in loader.epoch(epoch):
+            idx.append(_record_index(b["image"]))
+            lab.append(b["label"])
+        return torch.cat(idx), torch.cat(lab)
+    finally:
+        loader.close()
+
+
+#: 50 ms of ``torch.cuda._sleep`` on an H100 (at most 1.98 GHz)
+HOLD_CYCLES = 100_000_000
+
+
+def _prefetch_hazards(dev) -> dict:
+    """``DevicePrefetcher``'s two stream hazards, planted on the card.
+    Six batches of 8 x 224 x 224 x 3 seeded uint8 (1.2 MB each, their
+    own bytes) are staged, and the consumer copies each on its stream;
+    each copy is held bit for bit against its host batch.  (1) Each
+    staged copy held back 50 ms on the side stream (``torch.cuda._sleep``
+    before it), the consumer reading at once: the real prefetcher passes,
+    one handing over without ``wait_event`` must fail.  (2) The consumer
+    held back 50 ms before each read and dropping the batch before it
+    asks for the next: the real prefetcher passes, one that does not
+    ``record_stream`` must fail (the next copy gets the dropped batch's
+    memory and overwrites it before the read).  Returns, per case, each
+    batch's verdict."""
+    import numpy as np
+
+    from apex_tpu_torch.data import DevicePrefetcher
+
+    class HeldSide(DevicePrefetcher):
+        def _stage(self, batch):
+            with torch.cuda.stream(self._stream):
+                torch.cuda._sleep(HOLD_CYCLES)
+            return super()._stage(batch)
+
+    class HeldSideNoWait(HeldSide):
+        def _hand_over(self, staged, in_flight):
+            batch, done, host = staged
+            stream = torch.cuda.current_stream(self._device)
+            batch.record_stream(stream)
+            in_flight.append((done, host))
+            return batch
+
+    class NoRecord(DevicePrefetcher):
+        def _hand_over(self, staged, in_flight):
+            batch, done, host = staged
+            torch.cuda.current_stream(self._device).wait_event(done)
+            in_flight.append((done, host))
+            return batch
+
+    rng = np.random.RandomState(41)
+    host = [torch.from_numpy(rng.randint(0, 256, (8, DL_HW, DL_HW, 3),
+                                         dtype=np.uint8)) for _ in range(6)]
+
+    def run(cls, hold_consumer):
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        reads = []
+        for batch in cls(host, device=dev):
+            if hold_consumer:
+                torch.cuda._sleep(HOLD_CYCLES)
+            reads.append(batch.clone())
+            del batch
+        torch.cuda.synchronize()
+        return [bool(torch.equal(r.cpu(), h)) for r, h in zip(reads, host)]
+
+    return {"held_side_stream": run(HeldSide, False),
+            "held_side_stream_no_wait_event": run(HeldSideNoWait, False),
+            "held_consumer": run(DevicePrefetcher, True),
+            "held_consumer_no_record_stream": run(NoRecord, True)}
+
+
+def phase_data_loader(dev, tmp: str) -> str:
+    """The port's native loader on the record file of
+    :data:`DL_RECORDS` 224 x 224 images (771 MB), written with
+    ``write_records``: one epoch read with JAX's default 2 workers
+    (batches/s and GB/s, from the page cache: the file was just written,
+    so this is batch assembly and the copy out, not the disk); every
+    record once (5,120 = 40 batches, nothing dropped) with its label;
+    the same order under 1 and 4 workers and another for epoch 1.  Then
+    ``DevicePrefetcher`` on the card over ``window_batches(K = 10)``:
+    each staged window bit for bit a plain synchronous copy of the same
+    host window, and, from a ``torch.profiler`` trace of one staged
+    window, every host-to-device copy ``Memcpy HtoD (Pinned -> Device)``
+    on a stream that runs no kernel of the consumer.  Returns the
+    file's path."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from apex_tpu_torch.data import (DevicePrefetcher, NativeDataLoader,
+                                     window_batches)
+
+    t_phase = time.perf_counter()
+    path = os.path.join(tmp, "train.bin")
+    t0 = time.perf_counter()
+    labels = _dl_write(path, DL_RECORDS, DL_HW)
+    write_s = time.perf_counter() - t0
+    nbytes = os.path.getsize(path)
+    loader = NativeDataLoader(path, imagenet_example.fields(DL_HW),
+                              DL_BATCH, shuffle=True, seed=0)
+    t0 = time.perf_counter()
+    n = sum(1 for _ in loader.epoch(0))
+    read_s = time.perf_counter() - t0
+    order, got_labels = _dl_order(path, 2, 0)
+    once = torch.equal(torch.sort(order).values,
+                       torch.arange(DL_RECORDS, dtype=torch.int32))
+    labels_ok = torch.equal(got_labels, labels[order.long()])
+    same_order = {w: torch.equal(_dl_order(path, w, 0)[0], order)
+                  for w in (1, 4)}
+    next_epoch = _dl_order(path, 2, 1)[0]
+    reshuffled = not torch.equal(next_epoch, order)
+
+    def to_pair(b):
+        return b["image"], b["label"]
+
+    host = []
+
+    def keep(windows):
+        for w in windows:
+            host.append(to_pair(w))
+            yield w
+
+    staged_ok = []
+    for i, (img, lab) in enumerate(DevicePrefetcher(
+            keep(window_batches(loader.epoch(0), DL_K)), transform=to_pair,
+            device=dev)):
+        # compared on the consumer's stream at once: a batch read before
+        # its copy ended would differ
+        hi, hl = host[i]
+        staged_ok.append(bool(torch.equal(img, hi.to(dev)))
+                         and bool(torch.equal(lab, hl.to(dev))))
+        host[i] = None
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        pf = iter(DevicePrefetcher(window_batches(loader.epoch(1), DL_K),
+                                   transform=to_pair, device=dev))
+        img, _ = next(pf)  # windows 0 and 1 staged, window 0 handed over
+        imagenet_example.normalize(img).sum().item()
+        pf.close()
+        torch.cuda.synchronize()
+    loader.close()
+    hazards = _prefetch_hazards(dev)
+    # each device event's resource id is its stream
+    events = _kernel_events(prof)
+    copies = [e for e in events if "Memcpy HtoD" in e.name]
+    kernels = [e for e in events if "Memcpy" not in e.name
+               and "Memset" not in e.name]
+    copy_streams = sorted({e.device_resource_id for e in copies})
+    kernel_streams = sorted({e.device_resource_id for e in kernels})
+    copy_us = sum(e.time_range.elapsed_us() for e in copies)
+    window_bytes = DL_K * DL_BATCH * (DL_HW * DL_HW * 3 + 4)
+    rec = {"phase": "data_loader", "records": DL_RECORDS,
+           "record_bytes": DL_HW * DL_HW * 3 + 4, "file_bytes": nbytes,
+           "write_s": write_s, "batch": DL_BATCH, "workers": 2,
+           "batches": n, "read_s": read_s, "batches_per_s": n / read_s,
+           "gb_per_s": n * DL_BATCH * (DL_HW * DL_HW * 3 + 4) / read_s / 1e9,
+           "read_from": "the page cache (the file was just written): batch "
+                        "assembly and the copy out, not the disk",
+           "every_record_once": once, "labels_match": labels_ok,
+           "same_order_workers_1_4": same_order,
+           "epoch_1_reshuffled": reshuffled,
+           "staged_windows": len(staged_ok),
+           "staged_bitwise_plain_copy": staged_ok,
+           "htod_copies": [{"name": e.name, "stream": e.device_resource_id,
+                            "us": e.time_range.elapsed_us()}
+                           for e in copies],
+           "copy_streams": copy_streams, "kernel_streams": kernel_streams,
+           "copy_gb_per_s": (2 * window_bytes / (copy_us * 1e3)
+                             if copy_us else None),
+           "window_bytes": window_bytes,
+           "planted_stream_hazards": hazards,
+           "seconds": time.perf_counter() - t_phase}
+    emit(rec)
+    check(n == DL_RECORDS // DL_BATCH and once and labels_ok,
+          f"data_loader: {n} batches, every record once {once}, labels "
+          f"{labels_ok}")
+    check(all(same_order.values()) and reshuffled,
+          f"data_loader: order under 1/4 workers {same_order}, epoch 1 "
+          f"reshuffled {reshuffled}")
+    check(len(staged_ok) == DL_RECORDS // (DL_BATCH * DL_K)
+          and all(staged_ok),
+          f"data_loader: staged windows differ from plain copies "
+          f"{staged_ok}")
+    check(len(copies) == 4 and all("Pinned -> Device" in e.name
+                                   for e in copies)
+          and kernel_streams and not set(copy_streams) & set(kernel_streams),
+          f"data_loader: the staged copies are not pinned copies on a side "
+          f"stream: {rec['htod_copies']} kernels on {kernel_streams}")
+    check(all(hazards["held_side_stream"] + hazards["held_consumer"]),
+          f"data_loader: the prefetcher's batches differ under held "
+          f"streams: {hazards}")
+    check(not all(hazards["held_side_stream_no_wait_event"])
+          and not all(hazards["held_consumer_no_record_stream"]),
+          f"data_loader: the check misses a planted stream hazard: "
+          f"{hazards}")
+    return path
+
+
+class _Stop(Exception):
+    """Ends an example run from its window hook."""
+
+
+def _imagenet_args(path: str, *extra) -> list:
+    """``bench.py``'s RN50 configuration through the example, from the
+    record file."""
+    return ["--data", path, "--opt-level", "O2", "-b", str(DL_BATCH),
+            "--image-size", str(DL_HW), "--steps-per-dispatch", str(DL_K),
+            "--epochs", "1", *extra]
+
+
+def _device_intervals(prof) -> tuple:
+    """(union of the device events' intervals in ms, the first kernel's
+    start in ms from the trace's start, the first copy's)."""
+    evs = sorted((e.time_range.start, e.time_range.end, e.name)
+                 for e in _kernel_events(prof))
+    busy, end = 0.0, None
+    for s, e, _ in evs:
+        if end is None or s > end:
+            busy += e - s
+            end = e
+        elif e > end:
+            busy += e - end
+            end = e
+    first_kernel = next((s for s, _, n in evs if "Memcpy" not in n
+                         and "Memset" not in n), None)
+    first_copy = next((s for s, _, n in evs if "Memcpy HtoD" in n), None)
+    return (busy / 1e3, None if first_kernel is None else first_kernel / 1e3,
+            None if first_copy is None else first_copy / 1e3)
+
+
+def _span_ms(spans, name: str) -> list:
+    return [sp.dur / 1e6 for sp in spans if sp.name == name]
+
+
+def phase_imagenet_example(dev, path: str, rn_images_per_s: float,
+                           smi: str) -> dict:
+    """``examples/imagenet`` of the port on the card.
+
+    (a) In process, ``--data <file> --opt-level O2 -b 128 --image-size
+    224 --steps-per-dispatch 10 --epochs 1 --digest-file``: 4 windows of
+    ``bench.py``'s RN50 configuration fed by the loader, the prefetcher
+    and the normalisation on the card.  Images/s beside
+    ``resnet_train``'s fixed batch; per window the host ms in the loader
+    wait (``data/next_batch``), ``window_batches`` (``data/window``),
+    ``train/prefetch`` and ``train/dispatch`` spans; over window 2 (from
+    window 1's host read to its own, window 3 staged before it) the
+    device's busy share and the gap before its first kernel, from a
+    profiler trace of its device events (images/s also over windows 1
+    and 3 alone); the host syncs of window 3; the peak memory; the
+    cross-entropy launches (exactly K each a window, nothing else).
+    Gates: finite losses that fall (the last window's mean below the
+    first's), exact launches, the digests written.
+    (b) Window 0 again from a fresh build from the same seed, fed by
+    plain synchronous copies of JAX's host transform (numpy, then
+    ``.to``): the per-step losses, scale, skipped count and every master
+    after it bit for bit (a)'s (TF32 off, cuDNN's defaults, as
+    ``ddp_resnet``), and the normalised staged window bit for bit the
+    plain copy.
+    (c) The example's defaults: O1, ``-b 64``, synthetic data, K = 10,
+    30 steps (ResNet-50 under O1 autocast): finite losses, the last
+    window's below the first's, K cross-entropy launches each in the
+    first window.
+    (d) ``--sync_bn`` (an NCCL group of one) for one O2 window from the
+    file: its losses bit for bit (a)'s window 0.
+    (e) ``--prof 0``: the Chrome trace it writes names the cross-entropy
+    kernels, K each."""
+    import warnings
+
+    import numpy as np
+
+    from apex_tpu_torch.data import DevicePrefetcher, NativeDataLoader
+    from apex_tpu_torch.data import window_batches
+    from apex_tpu_torch.parallel import make_mesh
+
+    ex = imagenet_example
+    t_phase = time.perf_counter()
+    tracer = obs.default_tracer()
+    n0 = len(tracer.spans)
+    caught = warnings.catch_warnings(record=True)
+    seen = {}
+
+    def on_window(epoch, w, carry, m):
+        # window 2 (staging window 3 before it) under the profiler, its
+        # device events only; window 3 (nothing left to stage) under the
+        # sync debug mode
+        if w == 0:
+            seen["masters"] = {n: t.clone() for n, t in carry[0].items()}
+            seen["m0"] = m
+        elif w == 1:
+            from torch.profiler import ProfilerActivity, profile
+
+            seen["prof"] = profile(activities=[ProfilerActivity.CUDA])
+            seen["prof"].start()
+            seen["t1"] = time.perf_counter()
+        elif w == 2:
+            seen["wall"] = time.perf_counter() - seen["t1"]
+            seen["prof"].stop()
+            seen["w"] = caught.__enter__()
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+        elif w == 3:
+            torch.cuda.set_sync_debug_mode("default")
+            caught.__exit__(None, None, None)
+
+    # torch reports a synchronisation of its own the first time the sync
+    # debug mode is on in a process: spend it here
+    with warnings.catch_warnings(record=True):
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            torch.zeros(1, device=dev).add_(1)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+
+    digest = os.path.join(os.path.dirname(path), "digests.json")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    res = ex.run(ex.parse_args(_imagenet_args(path, "--digest-file",
+                                              digest)), on_window=on_window)
+    a_s = time.perf_counter() - t0
+    launches = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    spans = tracer.spans[n0:]
+    with open(digest) as fh:
+        digests = json.load(fh)
+    syncs = [w for w in seen.get("w", [])
+             if "synchroniz" in str(w.message)]
+    sync_sites: dict = {}
+    for w in syncs:
+        site = f"{os.path.relpath(w.filename)}:{w.lineno}"
+        sync_sites[site] = sync_sites.get(site, 0) + 1
+    busy_ms, first_kernel_ms, first_copy_ms = _device_intervals(seen["prof"])
+    wins = res["windows"]
+    unprofiled = [w["wall_s"] for w in wins if w["window"] in (1, 3)]
+    losses = [x for w in wins for x in
+              digests["losses"][w["window"] * DL_K:(w["window"] + 1) * DL_K]]
+    n_win = len(wins)
+    per_window = {
+        name: _span_ms(spans, name)
+        for name in ("data/next_batch", "data/window", "train/prefetch",
+                     "train/dispatch")}
+    loader_wait = [sum(per_window["data/next_batch"][i * DL_K:(i + 1) * DL_K])
+                   for i in range(n_win)]
+    want_launches = {n: 0 for n in launches}
+    want_launches.update({"softmax_xentropy_fwd": n_win * DL_K,
+                          "softmax_xentropy_bwd": n_win * DL_K})
+    first_mean = sum(losses[:DL_K]) / DL_K
+    last_mean = sum(losses[-DL_K:]) / DL_K
+    rec_a = {"phase": "imagenet_example", "part": "a",
+             "args": _imagenet_args("<file>", "--digest-file", "<json>"),
+             "nvidia_smi": smi, "world": res["world"], "windows": n_win,
+             "seconds": a_s, "images_per_s": res["images_per_s"],
+             "images_per_s_unprofiled": DL_BATCH * DL_K * len(unprofiled)
+             / sum(unprofiled),
+             "resnet_train_images_per_s": rn_images_per_s,
+             "window_walls_s": [w["wall_s"] for w in wins],
+             "losses_per_step": losses,
+             "scale": [w["scale"] for w in wins],
+             "skipped": [w["skipped"] for w in wins],
+             "host_ms_per_window": {
+                 "loader_wait": loader_wait,
+                 "window_batches": per_window["data/window"],
+                 "train_prefetch": per_window["train/prefetch"],
+                 "train_dispatch": per_window["train/dispatch"]},
+             "window_2_profiled": {
+                 "wall_ms": seen["wall"] * 1e3, "device_busy_ms": busy_ms,
+                 "device_busy_share": busy_ms / (seen["wall"] * 1e3),
+                 "gap_before_first_kernel_ms": first_kernel_ms,
+                 "first_htod_copy_ms": first_copy_ms},
+             "window_3_host_syncs": len(syncs),
+             "window_3_host_sync_sites": dict(sorted(sync_sites.items())),
+             "max_memory_allocated_bytes": peak,
+             "launches": launches,
+             "launches_expected": want_launches}
+    emit(rec_a)
+    check(len(losses) == n_win * DL_K == len(digests["losses"])
+          and n_win == DL_RECORDS // (DL_BATCH * DL_K)
+          and all(math.isfinite(x) for x in losses),
+          f"imagenet (a): {n_win} windows, losses {losses}")
+    check(last_mean < first_mean, f"imagenet (a): the loss did not fall "
+          f"({first_mean} -> {last_mean})")
+    check(launches == want_launches,
+          f"imagenet (a): launches {launches} != {want_launches}")
+
+    # (b) window 0 again, fed by plain copies of JAX's host transform
+    group_ok = init_distributed(
+        "nccl", init_method=f"tcp://127.0.0.1:{free_port()}", rank=0,
+        world_size=1, timeout_s=120)
+    check(group_ok, "imagenet (b): no NCCL group")
+    try:
+        net, carry = ex.build("O2", device=dev, seed=0)
+        driver = FusedTrainDriver(ex.make_step(net), steps_per_dispatch=DL_K,
+                                  metrics=ex.METRICS, per_step=("loss",),
+                                  mesh=make_mesh([("data", 1)]))
+        loader = NativeDataLoader(path, ex.fields(DL_HW), DL_BATCH,
+                                  shuffle=True, seed=0)
+        w0 = next(window_batches(loader.epoch(0), DL_K))
+        loader.close()
+        x = torch.from_numpy((w0["image"].numpy().astype(np.float32)
+                              - 127.5) / 127.5).to(dev)
+        y = w0["label"].to(dev)
+        staged = next(iter(DevicePrefetcher(
+            [(w0["image"], w0["label"])], device=dev)))
+        images_bitwise = bool(torch.equal(ex.normalize(staged[0]), x)) \
+            and bool(torch.equal(staged[1], y))
+        del staged
+        carry, r = driver.run_window(carry, (x, y))
+        m = read_metrics({**r.metrics, "losses": r.per_step["loss"]})
+        masters = carry[0]
+        window_bitwise = {
+            "losses": m["losses"] == seen["m0"]["losses"],
+            "scale": m["scale"] == seen["m0"]["scale"],
+            "skipped": m["skipped"] == seen["m0"]["skipped"],
+            "masters": _tensors_equal(masters, seen["masters"])}
+        max_diff = max(float((masters[n] - seen["masters"][n]).abs().max())
+                       for n in masters)
+        del net, carry, driver, masters, x, y
+    finally:
+        dist.destroy_process_group()
+    del seen["masters"]
+    torch.cuda.empty_cache()
+    emit({"phase": "imagenet_example", "part": "b",
+          "what": "window 0 from the same seed, plain synchronous copies "
+                  "of JAX's host transform",
+          "window_bitwise": window_bitwise, "masters_max_abs_diff": max_diff,
+          "staged_images_bitwise": images_bitwise})
+    check(images_bitwise, "imagenet (b): the staged, normalised window is "
+          "not the plain copy of JAX's transform bit for bit")
+    check(all(window_bitwise.values()),
+          f"imagenet (b): window 0 differs from (a)'s: {window_bitwise}, "
+          f"masters {max_diff}")
+
+    # (c) the example's defaults: O1, -b 64, synthetic data, K = 10 and
+    # its 30 steps (the loss climbs over the first window from a fresh
+    # start at lr 0.1, at O2 in (a) too, and comes back down after)
+    def first_window_launches(epoch, w, carry, m):
+        if w == 0:
+            seen["c"] = launch_counts()
+
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    res_c = ex.run(ex.parse_args([]), on_window=first_window_launches)
+    c_s = time.perf_counter() - t0
+    launches_c = seen.pop("c")
+    c_digests = res_c["digests"]
+    c_windows = [c_digests[i:i + DL_K] for i in range(0, len(c_digests),
+                                                      DL_K)]
+    emit({"phase": "imagenet_example", "part": "c",
+          "what": "the example's defaults: O1, -b 64, synthetic data, "
+                  "K = 10, 30 steps", "seconds": c_s,
+          "images_per_s": res_c["images_per_s"],
+          "window_walls_s": [w["wall_s"] for w in res_c["windows"]],
+          "losses_per_step": c_digests,
+          "scale": [w["scale"] for w in res_c["windows"]],
+          "skipped": [w["skipped"] for w in res_c["windows"]],
+          "launches_first_window": launches_c})
+    check(len(c_windows) == 3 and all(math.isfinite(x) for x in c_digests)
+          and sum(c_windows[-1]) < sum(c_windows[0]),
+          f"imagenet (c): O1 losses not finite and falling: {c_digests}")
+    check(launches_c == {n: (DL_K if n.startswith("softmax_xentropy")
+                             else 0) for n in launches_c},
+          f"imagenet (c): launches {launches_c}")
+
+    # (d) --sync_bn at world 1: window 0 bit for bit (a)'s
+    got_d = {}
+
+    def stop_after_first(epoch, w, carry, m):
+        got_d.update(m)
+        raise _Stop
+
+    try:
+        ex.run(ex.parse_args(_imagenet_args(path, "--sync_bn")),
+               on_window=stop_after_first)
+    except _Stop:
+        pass
+    check(not dist.is_initialized(), "imagenet (d): the example left its "
+          "process group behind")
+    d_bitwise = got_d.get("losses") == seen["m0"]["losses"]
+    emit({"phase": "imagenet_example", "part": "d",
+          "what": "--sync_bn, NCCL at world 1, window 0",
+          "losses_per_step": got_d.get("losses"),
+          "bitwise_a_window_0": d_bitwise})
+    check(d_bitwise, "imagenet (d): --sync_bn's window 0 is not (a)'s")
+
+    # (e) --prof 0: a trace that names the cross-entropy kernels
+    res_e = ex.run(ex.parse_args(_imagenet_args(path, "--prof", "0")))
+    trace = res_e["trace"]
+    with open(trace) as fh:
+        names = [e.get("name", "") for e in json.load(fh)["traceEvents"]
+                 if e.get("cat") == "kernel"]
+    trace_bytes = os.path.getsize(trace)
+    os.remove(trace)
+    xent = {k: sum(k in n for n in names)
+            for k in ("xent_fwd_kernel", "xent_bwd_kernel")}
+    emit({"phase": "imagenet_example", "part": "e",
+          "what": "--prof 0: the Chrome trace of window 0",
+          "trace_bytes": trace_bytes, "kernels": len(names),
+          "xent_kernels": xent,
+          "seconds": time.perf_counter() - t_phase})
+    check(xent == {"xent_fwd_kernel": DL_K, "xent_bwd_kernel": DL_K},
+          f"imagenet (e): the trace's cross-entropy kernels {xent}")
+    return {"a": launches, "c": launches_c}
+
+
+INPUT_TIMEOUT_S = 600
+
+
+def input_worker(out_dir: str) -> int:
+    """``data_loader`` and ``imagenet_example`` in a process of their
+    own (``chip_smoke.py --input-worker DIR``, spawned by
+    :func:`phase_input_pipeline`): DIR/config.json holds the card's
+    ``nvidia-smi`` line and ``resnet_train``'s images/s; the phases'
+    records go to stdout, the example's launches to DIR/launches.json,
+    and the record file into DIR."""
+    fp32_precision()
+    with open(os.path.join(out_dir, "config.json")) as fh:
+        conf = json.load(fh)
+    dev = torch.device("cuda")
+    path = phase_data_loader(dev, out_dir)
+    launches = phase_imagenet_example(dev, path, conf["rn_images_per_s"],
+                                      conf["nvidia_smi"])
+    with open(os.path.join(out_dir, "launches.json"), "w") as fh:
+        json.dump(launches, fh)
+    return 0
+
+
+def phase_input_pipeline(rn_images_per_s: float, smi: str) -> dict:
+    """Runs :func:`input_worker` in a fresh process and relays its
+    records.  In a process that has run profiled training windows (the
+    earlier phases here, or these phases themselves) the profiler stops
+    delivering some device events, kernels and copies alike, even to
+    sessions padded with idle time, while a fresh process delivers every
+    one (PERF.md, Findings, the ImageNet example's slice); these
+    phases' checks read the copies from the profiler.  Returns the example's launches ``{"a", "c"}``."""
+    out_dir = tempfile.mkdtemp(prefix="chip_smoke_input_")
+    try:
+        with open(os.path.join(out_dir, "config.json"), "w") as fh:
+            json.dump({"rn_images_per_s": rn_images_per_s,
+                       "nvidia_smi": smi}, fh)
+        proc = subprocess.run(
+            [sys.executable, os.path.abspath(__file__), "--input-worker",
+             out_dir], capture_output=True, text=True,
+            timeout=INPUT_TIMEOUT_S)
+        for line in proc.stdout.splitlines():
+            if line.startswith("{"):
+                print(line, flush=True)
+        check(proc.returncode == 0, f"input pipeline worker failed (exit "
+              f"{proc.returncode}):\n{proc.stdout[-3000:]}\n"
+              f"{proc.stderr[-3000:]}")
+        with open(os.path.join(out_dir, "launches.json")) as fh:
+            return json.load(fh)
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+
+
 class _Tee:
     """stdout that also writes to a log file."""
 
@@ -8756,11 +9431,15 @@ def main(argv=None) -> int:
                     help=argparse.SUPPRESS)  # a rank of ddp_gloo_card
     ap.add_argument("--sp-worker", metavar="DIR",
                     help=argparse.SUPPRESS)  # a rank of the scale-out gangs
+    ap.add_argument("--input-worker", metavar="DIR",
+                    help=argparse.SUPPRESS)  # the input-pipeline phases
     args = ap.parse_args(argv)
     if args.gloo_worker is not None:
         return gloo_worker(args.gloo_worker)
     if args.sp_worker is not None:
         return sp_worker(args.sp_worker)
+    if args.input_worker is not None:
+        return input_worker(args.input_worker)
     if args.log is None:
         return _run()
     os.makedirs(os.path.dirname(os.path.abspath(args.log)), exist_ok=True)
@@ -8841,6 +9520,7 @@ def _run() -> int:
     phase_resnet_parity(rn_params, rn_stats)
     rn_launches, step, carry, rn_first = phase_resnet_train(dev, rn_params,
                                                             rn_stats)
+    rn_rate = rn_first["images_per_s"]
     phase_step_profile(step, carry, "rn50_profile", "one O2 step, ResNet-50, "
                        "batch 128 x 224^2, fused_sgd")
     del step, carry
@@ -8849,6 +9529,11 @@ def _run() -> int:
     del rn_first, rn_params, rn_stats
     torch.cuda.empty_cache()
     phase_ddp_gloo_card(dev)
+    t_in = time.perf_counter()
+    in_launches = phase_input_pipeline(rn_rate, smi)
+    emit({"phase": "input_pipeline_time",
+          "seconds": time.perf_counter() - t_in,
+          "phases": ["data_loader", "imagenet_example"]})
 
     acc_cases = phase_flash_acc(dev)
     pb_cases = phase_flash_probs_bf16(dev)
@@ -9012,12 +9697,26 @@ def _run() -> int:
         by_name[name]["bert_path"] = other_path(name, bert_launches, c)
     # the cross-entropy is also on the RN50 path, at (128, 1000) fp32
     for name, c in zip(("softmax_xentropy_fwd", "softmax_xentropy_bwd"),
-                       xe_rn):
+                       xe_rn[0]):
         by_name[name]["rn50_path"] = other_path(name, rn_launches, c)
         by_name[name]["ddp_path"] = {
             "launches_of": f"{name}, one O2 training window of ResNet-50 "
                            "with DDP + SyncBN, NCCL at world 1 (ddp_resnet)",
             **other_path(name, ddp_launches, c)}
+    # and on the ImageNet example's paths: its O2 run from the record
+    # file at (128, 1000) fp32, and its defaults (O1, -b 64: bf16 logits)
+    for name, c, c_o1 in zip(("softmax_xentropy_fwd", "softmax_xentropy_bwd"),
+                             *xe_rn):
+        by_name[name]["imagenet_path"] = {
+            "launches_of": f"{name}, the ImageNet example's O2 run of 4 "
+                           "windows of K = 10 at 128 x 224^2 from the record "
+                           "file (imagenet_example (a))",
+            **other_path(name, in_launches["a"], c)}
+        by_name[name]["imagenet_o1_path"] = {
+            "launches_of": f"{name}, the first window of the ImageNet "
+                           "example at its defaults: O1, -b 64, K = 10, "
+                           "synthetic (imagenet_example (c))",
+            **other_path(name, in_launches["c"], c_o1)}
     # the paged row holds the decode step's case; every case beside it
     by_name["paged_fused_attention"]["cases"] = [
         {k: c[k] for k in ("case", "design", "max_abs_err", "ms", "plain_ms",
@@ -9249,6 +9948,10 @@ def _run() -> int:
                             "obs_train_path", *paths)
                   if p in r),
           f"a kernel never launched on its path: {rows}")
+    check(all(by_name[n][p]["launches"] > 0
+              for n in ("softmax_xentropy_fwd", "softmax_xentropy_bwd")
+              for p in ("imagenet_path", "imagenet_o1_path")),
+          "a kernel never launched on the ImageNet example's paths")
     print(smi, flush=True)
     emit({"kernels": rows})
     emit({"ok": True, "device": {"platform": "gpu",
