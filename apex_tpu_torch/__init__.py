@@ -51,7 +51,10 @@ admission) and ``FusedTrainDriver``, and the seeded load generator
 (``serve.loadgen``); then ``data`` (the native C++ record loader, built
 with g++ at first use, ``window_batches`` and the pinned, side-stream
 ``DevicePrefetcher``) with the ImageNet ResNet-50 example
-(``examples/imagenet.py``).
+(``examples/imagenet.py``); then disaggregated serving
+(``serve.handoff``: a prefill-only ``ServeEngine`` hands each request's
+KV pages to a decode engine, whole or streamed, on JAX's wire), prefix
+migration and live weight swaps (``ServeEngine.swap_weights``).
 Every kernel on those paths
 (LayerNorm forward and backward, paged attention, flash attention
 forward and backward with and without an additive bias and its gradient,

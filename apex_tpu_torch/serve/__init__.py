@@ -1,7 +1,9 @@
 """Serving of the port: contiguous and paged KV caches, the decoder with
 chain and tree self-speculative decoding, the continuous-batching engine
-with its telemetry and SLO-aware admission, tensor-parallel serving over
-a head-sharded cache, and the seeded open-loop load harness."""
+with its telemetry and SLO-aware admission, disaggregated prefill and
+decode over the serialized KV handoff (whole or streamed), prefix
+migration and live weight swaps, tensor-parallel serving over a
+head-sharded cache, and the seeded open-loop load harness."""
 from apex_tpu_torch.serve.decode import (  # noqa: F401
     DEFAULT_SPEC_HIST,
     DEFAULT_TOKENS_PER_DISPATCH,
@@ -13,6 +15,13 @@ from apex_tpu_torch.serve.decode import (  # noqa: F401
     sample_tokens,
 )
 from apex_tpu_torch.serve.engine import Request, ServeEngine  # noqa: F401
+from apex_tpu_torch.serve.handoff import (  # noqa: F401
+    CHUNK_SCHEMA,
+    HANDOFF_SCHEMA,
+    HandoffError,
+    KVHandoff,
+    KVHandoffChunk,
+)
 from apex_tpu_torch.serve.loadgen import (  # noqa: F401
     LoadGen,
     LoadReport,
@@ -38,10 +47,15 @@ from apex_tpu_torch.serve.kv_cache import (  # noqa: F401
 )
 
 __all__ = [
+    "CHUNK_SCHEMA",
     "DEFAULT_SPEC_HIST",
     "DEFAULT_TOKENS_PER_DISPATCH",
     "GPTDecoder",
+    "HANDOFF_SCHEMA",
+    "HandoffError",
     "KVCache",
+    "KVHandoff",
+    "KVHandoffChunk",
     "LoadGen",
     "LoadReport",
     "LoadRequest",

@@ -11,9 +11,10 @@ Counterpart of ``apex_tpu/serve/decode.py``:
   :func:`propose_ngram_tree`, its W-branch widening;
 - :class:`GPTDecoder`: ``init_cache``, ``prefill`` and ``decode_window``
   (contiguous), ``init_paged_cache``, ``prefill_chunk``,
-  ``paged_decode_window`` and ``copy_pages`` (paged), and the
-  speculative windows ``spec_decode_window``,
-  ``paged_spec_decode_window`` and ``paged_tree_spec_decode_window``;
+  ``paged_decode_window`` and ``copy_pages`` (paged), the speculative
+  windows ``spec_decode_window``, ``paged_spec_decode_window`` and
+  ``paged_tree_spec_decode_window``, the handoff's ``gather_pages`` and
+  ``adopt_pages``, and ``with_params`` (a clone serving new weights);
 - :func:`reference_generate`, the per-token full-recompute oracle.
 
 Tensor-parallel serving (``GPTDecoder(mesh=serve_mesh(tp))``): JAX wraps
@@ -25,7 +26,9 @@ the heads with one counted all-reduce (``models.gpt``).  The programs
 below run unchanged on the head shard: the contiguous prefill and
 window, the paged prefill chunk and window, the chain windows with
 either proposer, the tree window (``_tree_compact`` moves only this
-rank's heads) and ``copy_pages``.  Every host decision and every
+rank's heads) and ``copy_pages``; ``gather_pages`` all-gathers the head
+blocks and ``adopt_pages`` takes this rank's, so a handoff carries
+every head.  Every host decision and every
 sampling draw must then agree across the ranks, which
 ``serve.ServeEngine`` gets by running the same request stream with the
 same seed on each.
@@ -60,6 +63,7 @@ programs donate them instead).  Everything runs under
 """
 from __future__ import annotations
 
+import copy
 import dataclasses
 import math
 from typing import Callable, Dict, List, Optional, Sequence, Union
@@ -69,6 +73,7 @@ import torch
 
 from apex_tpu_torch.models.gpt import GPTConfig, GPTLM
 from apex_tpu_torch.ops._common import resolve_device
+from apex_tpu_torch.parallel.mesh import all_gather
 from apex_tpu_torch.serve.kv_cache import (
     KVCache,
     PagedKVCache,
@@ -382,12 +387,19 @@ class GPTDecoder:
                            else cfg.compute_dtype)
         self.cache_dtype = cache_dtype
         self.kv_int8 = bool(kv_int8) or cache_dtype == torch.int8
+        self.params = params
+        self.model = self._serving_model(params)
+
+    def _serving_model(self, params: Dict[str, torch.Tensor]) -> GPTLM:
+        """A :class:`GPTLM` of ``self.cfg`` on the device holding
+        ``params``, frozen and cast for serving."""
         with torch.device(self.device):
-            self.model = GPTLM(cfg)
-        self.model.load_state_dict(params)
-        self.model.requires_grad_(False)
-        self.model.eval()
-        self.model.cast_for_serving()
+            model = GPTLM(self.cfg)
+        model.load_state_dict(params)
+        model.requires_grad_(False)
+        model.eval()
+        model.cast_for_serving()
+        return model
 
     @property
     def tp_degree(self) -> int:
@@ -804,6 +816,86 @@ class GPTDecoder:
         if cache.k_scale is not None:
             cache.k_scale[dst] = cache.k_scale[src]
             cache.v_scale[dst] = cache.v_scale[src]
+
+    # -- handoff: the pages' contents to and from the host ----------------
+
+    @torch.no_grad()
+    def gather_pages(self, cache: PagedKVCache, pages):
+        """The contents of physical ``pages`` (logical order) on the host:
+        ``(k, v, k_scale, v_scale)`` CPU tensors of leading dim
+        ``len(pages)``, the scales None on fp32/bf16 pools.  The export
+        half of a handoff; the cache is only read, so the source keeps
+        serving.  JAX pads the ids to a power-of-two bucket to reuse its
+        compiled programs; the port compiles nothing and reads the exact
+        pages.  Under tensor parallelism each rank's head block is
+        all-gathered over the axis (tag ``tp_handoff``), so every rank
+        returns every head."""
+        if len(pages) < 1:
+            raise ValueError("gather_pages needs at least one page")
+        ids = self._ints(pages).long()
+        out = [cache.k[ids], cache.v[ids]]
+        if cache.k_scale is not None:
+            out += [cache.k_scale[ids], cache.v_scale[ids]]
+        axis = self.cfg.decode_tp_axis
+        if axis is not None and axis.size > 1:
+            out = [all_gather(t, axis, dim=2, tag="tp_handoff") for t in out]
+        out = [t.cpu() for t in out]
+        if len(out) == 2:
+            out += [None, None]
+        return tuple(out)
+
+    @torch.no_grad()
+    def adopt_pages(self, cache: PagedKVCache, pages, k, v, k_scale,
+                    v_scale, slot: int, length: int) -> None:
+        """Scatter transferred page contents (host tensors of every head,
+        as :meth:`gather_pages` returns them) into physical ``pages`` and
+        set ``slot``'s length to ``length`` on the device, in place: the
+        import half of a handoff.  A rank of a tensor-parallel decoder
+        takes its own head block.  The host copies are plain pageable
+        ones, done when the call returns, so the caller may drop the
+        container at once."""
+        ids = self._ints(pages).long()
+        h0, nh = 0, self.cfg.local_heads
+        if self.cfg.decode_tp_axis is not None:
+            h0 = self.cfg.decode_tp_axis.index * nh
+
+        def put(dst, src):
+            dst[ids] = src[:, :, h0:h0 + nh].to(self.device, dst.dtype)
+
+        put(cache.k, k)
+        put(cache.v, v)
+        if cache.k_scale is not None:
+            put(cache.k_scale, k_scale)
+            put(cache.v_scale, v_scale)
+        cache.lengths[int(slot)] = int(length)
+
+    def with_params(self, params: Dict[str, torch.Tensor]) -> "GPTDecoder":
+        """A clone of this decoder serving ``params``: its own
+        :class:`~apex_tpu_torch.models.GPTLM`, loaded and cast as the
+        constructor does, while this decoder keeps serving its weights
+        (two engines that share a decoder can swap one at a time).  The
+        new state dict must match the one this decoder was built from in
+        keys, shapes and dtypes, checked before anything is built: a
+        geometry change needs a new decoder."""
+        old = self.params
+        if set(old) != set(params):
+            missing = sorted(set(old) - set(params))
+            extra = sorted(set(params) - set(old))
+            raise ValueError(
+                f"with_params: the new state dict's keys differ from the "
+                f"served ones (missing {missing[:4]}, extra {extra[:4]}) — "
+                "a geometry change needs a new decoder")
+        for name in sorted(old):
+            a, b = old[name], params[name]
+            if tuple(a.shape) != tuple(b.shape) or a.dtype != b.dtype:
+                raise ValueError(
+                    f"with_params: leaf {name!r} changed from {a.dtype}"
+                    f"{tuple(a.shape)} to {b.dtype}{tuple(b.shape)} — a "
+                    "geometry change needs a new decoder")
+        clone = copy.copy(self)
+        clone.params = params
+        clone.model = self._serving_model(params)
+        return clone
 
 
 @torch.no_grad()

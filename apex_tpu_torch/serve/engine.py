@@ -61,23 +61,39 @@ budget burns, and prefill chunks yield the boundary to the decode window
 while the ITL budget burns.  Only the order changes: under greedy
 decoding every request streams the same tokens under both policies.
 
-Not ported yet: prefill-only engines, KV handoff, prefix migration,
-weight swaps and the fault injector.
+Disaggregated serving: a prefill-only engine (``prefill_only=True``)
+admits and chunk-prefills but runs no decode window; each finished
+prefill parks in its slot until :meth:`ServeEngine.export_handoff`
+packages its pages as a :class:`~apex_tpu_torch.serve.handoff.KVHandoff`
+that a decode engine's :meth:`ServeEngine.adopt` imports, and
+:meth:`ServeEngine.detach` frees the source slot.  The streamed variant
+ships a long prompt's full pages while its tail still prefills
+(:meth:`ServeEngine.export_prefill_chunk`, then
+:meth:`ServeEngine.export_handoff_tail`; the destination stages them,
+``adopt_stage_begin``/``_chunk``/``_commit``/``_abort``).  A registered
+prefix migrates ahead of demand (:meth:`ServeEngine.export_prefix`,
+:meth:`ServeEngine.import_prefix`), and :meth:`ServeEngine.swap_weights`
+serves new weights with no restart.  Every refusal returns None, the
+caller's signal to recompute.
+
+Not ported yet: the fault injector.
 """
 from __future__ import annotations
 
 import dataclasses
 import time
 from collections import deque
-from typing import Deque, Dict, List, Optional, Sequence
+from typing import Any, Deque, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
 
 from apex_tpu_torch import obs
+from apex_tpu_torch.checkpoint import state_digest
 from apex_tpu_torch.ops import launch_counts
 from apex_tpu_torch.parallel.mesh import collective_counts
 from apex_tpu_torch.serve.decode import GPTDecoder, SamplingParams, sample_tokens
+from apex_tpu_torch.serve.handoff import KVHandoff, KVHandoffChunk
 from apex_tpu_torch.serve.kv_cache import (TRASH_PAGE, PagePool, SlotAllocator,
                                            auto_page_len)
 
@@ -151,6 +167,9 @@ class ServeEngine:
       flightrec: the boundary-event recorder (None: the ambient
         :func:`~apex_tpu_torch.obs.default_flightrec`, a no-op with obs
         off), stamped by its own clock, not by ``clock``.
+      prefill_only: a disaggregated prefill engine: it admits and
+        chunk-prefills but never runs a decode window; finished prefills
+        park in their slots until they are exported and detached.
     """
 
     #: consumed verify steps between two auto-tuner decisions
@@ -177,8 +196,10 @@ class ServeEngine:
         slo_tracker: Optional[obs.SloTracker] = None,
         slo_admission: bool = False,
         flightrec: Optional[obs.FlightRecorder] = None,
+        prefill_only: bool = False,
     ):
         self.decoder = decoder
+        self.prefill_only = bool(prefill_only)
         self.max_len = int(decoder.cfg.max_position if max_len is None
                            else max_len)
         self.eos_id = eos_id
@@ -215,6 +236,10 @@ class ServeEngine:
         self._active: Dict[int, Request] = {}  # slot -> request
         # slot -> [request, context tokens, next chunk offset]
         self._prefilling: Dict[int, list] = {}
+        # slot -> {"next": next logical page index} of a streamed
+        # adoption in flight (the slot is allocated, so admission never
+        # takes it)
+        self._staging: Dict[int, Dict[str, int]] = {}
         self._last_token = np.zeros((slots,), np.int32)
         self._slot_len = np.zeros((slots,), np.int64)  # host mirror
         self._samp_t = np.zeros((slots,), np.float32)
@@ -281,6 +306,17 @@ class ServeEngine:
         self._c_slo_overtake = m.counter("serve.slo.overtakes")
         self._c_prefix_hits = m.counter("serve.prefix_hits")
         self._c_prefix_hit_tok = m.counter("serve.prefix_hit_tokens")
+        # disaggregation: requests adopted from a handoff, and detached to
+        # migrate elsewhere
+        self._c_adopted = m.counter("serve.adoptions")
+        self._c_detached = m.counter("serve.detached")
+        # weight swaps served, and in-flight requests that swaps to
+        # changed weights requeued for recompute
+        self._c_swaps = m.counter("serve.weight_swaps")
+        self._c_swap_recompute = m.counter("serve.swap_recomputed")
+        # the digest of the served weights: computed at its first read,
+        # then kept by swap_weights
+        self._weights_digest: Optional[str] = None
         # tokens materialized this boundary, flushed to the lifecycle in
         # batches so ITL amortizes over the fetch that produced them
         self._pending_tok: Dict[int, int] = {}
@@ -535,6 +571,436 @@ class ServeEngine:
             self._fr.record("serve/cancel", uid=uid, where=where)
         return list(r.tokens)
 
+    # -- live weight swaps ----------------------------------------------
+
+    @property
+    def weights_digest(self) -> str:
+        """SHA-256 of the served state dict
+        (:func:`apex_tpu_torch.checkpoint.state_digest`): computed at its
+        first read, then kept by :meth:`swap_weights`."""
+        if self._weights_digest is None:
+            self._weights_digest = state_digest(self.decoder.params)
+        return self._weights_digest
+
+    def swap_weights(self, bundle) -> Dict[str, Any]:
+        """Serve new weights from this boundary on, with no restart.
+
+        ``bundle`` is a state dict of the served one's keys, shapes and
+        dtypes, or anything with ``.params`` (such a state dict) and
+        optionally ``.digest`` (computed when absent).  Two regimes, by
+        the digest:
+
+        - identical (a rollback to the running weights, a configuration
+          promotion): the decoder is rebound
+          (:meth:`GPTDecoder.with_params`) and nothing else moves: pages,
+          registry, queue and every in-flight request stay, and the
+          requests go on token for token;
+        - changed: the cached K/V encodes the old weights, so every
+          prefilling and active request goes back to the queue (lowest
+          uid at the head) to re-prefill its prompt and tokens so far
+          under the new weights, staged adoptions are aborted and the
+          prefix registry is dropped.
+
+        ``with_params`` validates before anything changes, so a refused
+        swap leaves the engine as it was.  Returns ``{"identical",
+        "recomputed", "kept", "digest", "prefixes_dropped"}``."""
+        params = getattr(bundle, "params", bundle)
+        digest = getattr(bundle, "digest", None)
+        if digest is None:
+            digest = state_digest(params)
+        decoder = self.decoder.with_params(params)  # raises before changes
+        identical = digest == self.weights_digest
+        recomputed = 0
+        dropped = 0
+        if not identical:
+            inflight = [e[0] for e in self._prefilling.values()]
+            inflight += list(self._active.values())
+            # lowest uid at the queue's head
+            for r in sorted(inflight, key=lambda r: -r.uid):
+                self._release(r)
+                recomputed += 1
+                self._queue.appendleft(r)
+            if self.paged:
+                for stage in list(self._staging):
+                    self.adopt_stage_abort(stage)
+                dropped = self.pool.drop_prefixes()
+            self._c_swap_recompute.inc(recomputed)
+        self.decoder = decoder
+        self._weights_digest = digest
+        self._c_swaps.inc()
+        self._tracer.instant("serve/swap_weights", digest=digest[:12],
+                             identical=identical, recomputed=recomputed)
+        if self._fr.enabled:
+            self._fr.record("serve/swap_weights", digest=digest[:12],
+                            identical=identical, recomputed=recomputed,
+                            prefixes_dropped=dropped)
+        return {"identical": identical, "recomputed": recomputed,
+                "kept": len(self._active) + len(self._prefilling),
+                "digest": digest, "prefixes_dropped": dropped}
+
+    # -- disaggregated handoff ------------------------------------------
+
+    def _active_by_uid(self, uid: int) -> Request:
+        for r in self._active.values():
+            if r.uid == uid:
+                return r
+        raise KeyError(f"request {uid} is not active on this engine")
+
+    def _compatible(self, container) -> bool:
+        """A container's page_len and geometry against this pool; a
+        container carries every head, so a tensor-parallel rank's pool is
+        held against the model's head count."""
+        if container.page_len != self.page_len:
+            return False
+        ok, _why = container.compatible_with(
+            self.cache, heads=self.decoder.cfg.num_heads)
+        return ok
+
+    def export_handoff(self, uid: int) -> KVHandoff:
+        """An active request's KV pages for a decode engine: the slot's
+        page contents (:meth:`GPTDecoder.gather_pages`), the context they
+        encode and the sampled-but-uncommitted tokens.  A pure read: the
+        request keeps its slot until :meth:`detach`, so a transfer lost
+        on the way loses nothing here."""
+        if not self.paged:
+            raise ValueError("handoff export is paged-only")
+        r = self._active_by_uid(uid)
+        slot = r.slot
+        length = int(self._slot_len[slot])
+        n_pages = (length + self.page_len - 1) // self.page_len
+        pages = self.pool.export_slot(slot, n_pages)
+        with self._tracer.span("serve/handoff_export", uid=uid,
+                               pages=n_pages):
+            k, v, ks, vs = self.decoder.gather_pages(self.cache, pages)
+        full = r.prompt + r.tokens
+        return KVHandoff(tokens=full[:length], seed_tokens=list(r.tokens),
+                         length=length, page_len=self.page_len, k=k, v=v,
+                         k_scale=ks, v_scale=vs, corr=r.corr)
+
+    def _resume(self, slot: int, container, max_new_tokens: int,
+                temperature, top_k, top_p, min_p, priority, corr,
+                streamed: bool) -> int:
+        """Activate an adopted request in ``slot``, whose pages and device
+        length are in place: a new uid, the registry, the lifecycle, the
+        sampling params, the spec history from context + seed tokens, the
+        adoption's counter, instant and record."""
+        uid = self._next_uid
+        self._next_uid += 1
+        ctx = list(container.tokens)
+        # the correlation id rides the header: an explicit one wins
+        corr = corr if corr is not None else container.corr
+        r = Request(uid, ctx, int(max_new_tokens),
+                    tokens=list(container.seed_tokens), slot=slot,
+                    temperature=temperature, top_k=int(top_k),
+                    top_p=float(top_p), min_p=float(min_p),
+                    priority=int(priority), corr=corr)
+        # the imported prompt pages serve local prefix reuse
+        self.pool.register(slot, ctx)
+        t = self._clock()
+        self._lifecycle.submitted(uid, t, corr=corr)
+        self._lifecycle.admitted(uid, t)
+        self._active[slot] = r
+        self._slot_len[slot] = container.length
+        self._last_token[slot] = r.tokens[-1]
+        self._bind_samp(r, slot)
+        if self._spec:
+            h = self._hist.shape[1]
+            tail = (ctx + r.tokens)[-h:]
+            self._hist[slot] = -1
+            self._hist[slot, h - len(tail):] = tail
+        self._c_adopted.inc()
+        extra = {"streamed": True} if streamed else {}
+        self._tracer.instant("serve/adopt", uid=uid, slot=slot,
+                             length=container.length, **extra,
+                             seed=len(r.tokens), **self._corr_kw(r))
+        if self._fr.enabled:
+            self._fr.record("serve/adopt", uid=uid, slot=slot,
+                            length=container.length, **extra,
+                            **self._corr_kw(r))
+        return uid
+
+    def adopt(self, handoff: KVHandoff, max_new_tokens: int,
+              temperature: Optional[float] = None, top_k: int = 0,
+              top_p: float = 1.0, min_p: float = 0.0, priority: int = 0,
+              corr: Optional[str] = None) -> Optional[int]:
+        """Admit a request whose KV arrives as a :class:`KVHandoff`
+        instead of being prefilled: fresh pages imported, the contents
+        scattered and the slot's length set on the device
+        (:meth:`GPTDecoder.adopt_pages`), the prompt pages registered,
+        and decoding resumed from the last seed token.  Returns the new
+        uid, or None when this engine cannot take it now (paging off,
+        another page_len or geometry, no room for a token, a budget the
+        seed tokens already spend, more pages than a slot maps, no free
+        slot or pages); None is the caller's signal to recompute, and
+        leaves the pool as it was.  ``max_new_tokens`` counts the seed
+        tokens as generated."""
+        if not self.paged or not self._compatible(handoff):
+            return None
+        if handoff.length + 1 > self.max_len \
+                or max_new_tokens <= len(handoff.seed_tokens):
+            return None
+        n_pages = handoff.n_pages
+        if n_pages > self.pool.pages_per_slot:
+            return None
+        slot = self.alloc.allocate()
+        if slot is None:
+            return None
+        pages = self.pool.import_slot(slot, n_pages)
+        if pages is None:
+            self.alloc.free(slot)
+            return None
+        with self._tracer.span("serve/handoff_import", pages=n_pages):
+            self.decoder.adopt_pages(self.cache, pages, handoff.k, handoff.v,
+                                     handoff.k_scale, handoff.v_scale, slot,
+                                     handoff.length)
+        return self._resume(slot, handoff, max_new_tokens, temperature,
+                            top_k, top_p, min_p, priority, corr, False)
+
+    def detach(self, uid: int) -> List[int]:
+        """Free an active request's slot and pages without retiring it:
+        it migrates to another engine, where its lifecycle goes on (this
+        engine records neither a completion nor an abandonment).  Returns
+        the tokens generated here."""
+        r = self._active_by_uid(uid)
+        self._flush_tokens(uid)
+        self._release(r)
+        self._c_detached.inc()
+        self._tracer.instant("serve/detach", uid=uid, tokens=len(r.tokens),
+                             **self._corr_kw(r))
+        if self._fr.enabled:
+            self._fr.record("serve/detach", uid=uid, tokens=len(r.tokens),
+                            **self._corr_kw(r))
+        return list(r.tokens)
+
+    # -- the streamed handoff -------------------------------------------
+
+    def prefill_progress(self, uid: int):
+        """``(full pages written, prompt pages)`` of a request in chunked
+        prefill, or None once it has left that phase."""
+        pl = self.page_len
+        for r, ctx, base in self._prefilling.values():
+            if r.uid == uid:
+                return base // pl, (len(ctx) + pl - 1) // pl
+        return None
+
+    def export_prefill_chunk(self, uid: int, start_page: int,
+                             seq: int = 0) -> Optional[KVHandoffChunk]:
+        """The full pages a prefilling request has written at logical
+        indices ``[start_page, ...)``, as an interior
+        :class:`KVHandoffChunk`, while the rest of the prompt still
+        prefills.  The last prompt page is always held back for the final
+        chunk (:meth:`export_handoff_tail`), so the commit carries the
+        resume metadata and at least one page.  None when no new full
+        page is ready."""
+        if not self.paged:
+            raise ValueError("handoff export is paged-only")
+        pl = self.page_len
+        for slot, (r, ctx, base) in self._prefilling.items():
+            if r.uid != uid:
+                continue
+            total = (len(ctx) + pl - 1) // pl
+            full = min(base // pl, total - 1)  # hold back the last page
+            if full <= start_page:
+                return None
+            pages = []
+            for pidx in range(start_page, full):
+                page = int(self.pool.tables[slot, pidx])
+                if page == TRASH_PAGE:
+                    raise ValueError(f"slot {slot} logical page {pidx} "
+                                     "unmapped mid-prefill — cannot stream")
+                pages.append(page)
+            with self._tracer.span("serve/handoff_export", uid=uid,
+                                   pages=len(pages), chunk=seq):
+                k, v, ks, vs = self.decoder.gather_pages(self.cache, pages)
+            return KVHandoffChunk(seq=int(seq), page_offset=int(start_page),
+                                  page_len=pl, k=k, v=v, k_scale=ks,
+                                  v_scale=vs, corr=r.corr)
+        return None
+
+    def export_handoff_tail(self, uid: int, start_page: int,
+                            seq: int = 0) -> KVHandoffChunk:
+        """The final chunk of a streamed handoff: the pages from
+        ``start_page`` to the end of an active request's written KV, with
+        :meth:`export_handoff`'s resume metadata.  A pure read."""
+        if not self.paged:
+            raise ValueError("handoff export is paged-only")
+        r = self._active_by_uid(uid)
+        slot = r.slot
+        length = int(self._slot_len[slot])
+        pl = self.page_len
+        n_total = (length + pl - 1) // pl
+        if start_page >= n_total:
+            raise ValueError(f"stream already covers all {n_total} page(s) "
+                             f"of uid {uid} — the tail must carry at least "
+                             "one")
+        pages = self.pool.export_slot(slot, n_total)[start_page:]
+        with self._tracer.span("serve/handoff_export", uid=uid,
+                               pages=len(pages), chunk=seq, final=True):
+            k, v, ks, vs = self.decoder.gather_pages(self.cache, pages)
+        full = r.prompt + r.tokens
+        return KVHandoffChunk(seq=int(seq), page_offset=int(start_page),
+                              page_len=pl, k=k, v=v, k_scale=ks, v_scale=vs,
+                              tokens=full[:length],
+                              seed_tokens=list(r.tokens), length=length,
+                              corr=r.corr)
+
+    def adopt_stage_begin(self) -> Optional[int]:
+        """Reserve a slot for an incoming streamed handoff.  Returns the
+        stage id (the slot), or None when no slot is free (the caller
+        then streams nothing and hands off whole at the end)."""
+        if not self.paged:
+            return None
+        slot = self.alloc.allocate()
+        if slot is None:
+            return None
+        self._staging[slot] = {"next": 0}
+        self._tracer.instant("serve/adopt_stage", slot=slot)
+        return slot
+
+    def adopt_stage_chunk(self, stage: int, chunk: KVHandoffChunk) -> bool:
+        """Import one interior chunk into a staged slot: fresh pages at the
+        chunk's logical offset, the contents scattered, the provisional
+        device length set to the pages imported.  The staged slot is not
+        active, so every window gives its row the trash page.  False (the
+        stage as it was) on a chunk out of sequence, of another geometry,
+        leaving no page for the tail, or finding no pages; the caller
+        then aborts the stage."""
+        st = self._staging.get(stage)
+        if st is None or chunk.final or chunk.n_pages < 1:
+            return False
+        if chunk.page_offset != st["next"] or not self._compatible(chunk):
+            return False
+        end = chunk.page_offset + chunk.n_pages
+        if end >= self.pool.pages_per_slot:
+            return False  # must leave room for the tail chunk
+        pages = self.pool.import_pages(stage, chunk.page_offset,
+                                       chunk.n_pages)
+        if pages is None:
+            return False
+        with self._tracer.span("serve/handoff_import", pages=len(pages),
+                               chunk=chunk.seq):
+            self.decoder.adopt_pages(self.cache, pages, chunk.k, chunk.v,
+                                     chunk.k_scale, chunk.v_scale, stage,
+                                     end * self.page_len)
+        st["next"] = end
+        return True
+
+    def adopt_stage_commit(
+            self, stage: int, chunk: KVHandoffChunk, max_new_tokens: int,
+            temperature: Optional[float] = None, top_k: int = 0,
+            top_p: float = 1.0, min_p: float = 0.0, priority: int = 0,
+            corr: Optional[str] = None) -> Optional[int]:
+        """Land a stream's final chunk and activate the request
+        (:meth:`adopt`'s epilogue over pages that mostly arrived
+        already).  Returns the new uid, or None (the stage as it was; the
+        caller aborts) when the final validation fails."""
+        st = self._staging.get(stage)
+        if st is None or not chunk.final:
+            return None
+        if chunk.page_offset != st["next"] or chunk.n_pages < 1 \
+                or not self._compatible(chunk):
+            return None
+        if chunk.length + 1 > self.max_len \
+                or max_new_tokens <= len(chunk.seed_tokens):
+            return None
+        if chunk.page_offset + chunk.n_pages > self.pool.pages_per_slot:
+            return None
+        pages = self.pool.import_pages(stage, chunk.page_offset,
+                                       chunk.n_pages)
+        if pages is None:
+            return None
+        with self._tracer.span("serve/handoff_import", pages=len(pages),
+                               chunk=chunk.seq, final=True):
+            self.decoder.adopt_pages(self.cache, pages, chunk.k, chunk.v,
+                                     chunk.k_scale, chunk.v_scale, stage,
+                                     chunk.length)
+        del self._staging[stage]
+        return self._resume(stage, chunk, max_new_tokens, temperature,
+                            top_k, top_p, min_p, priority, corr, True)
+
+    def adopt_stage_abort(self, stage: int) -> None:
+        """Tear a staged adoption down (a damaged or lost chunk, a failed
+        commit): its pages are freed and the slot goes back to the
+        allocator."""
+        st = self._staging.pop(stage, None)
+        if st is None:
+            return
+        self.pool.release_slot(stage)
+        self.alloc.free(stage)
+        self._tracer.instant("serve/adopt_abort", slot=stage,
+                             staged_pages=st["next"])
+        if self._fr.enabled:
+            self._fr.record("serve/adopt_abort", slot=stage,
+                            staged_pages=st["next"])
+
+    # -- prefix migration -----------------------------------------------
+
+    def export_prefix(self, tokens: List[int]) -> Optional[KVHandoffChunk]:
+        """The registered pages covering a page-aligned token prefix, as
+        an interior :class:`KVHandoffChunk` (no resume metadata: a prefix
+        migrates, not a request).  A pure read; None when the pool does
+        not cover the whole prefix."""
+        if not self.paged:
+            return None
+        pl = self.page_len
+        if not tokens or len(tokens) % pl:
+            return None
+        n = len(tokens) // pl
+        pages, pos = self.pool.match_prefix(list(tokens))
+        if pos < len(tokens):
+            return None
+        pages = pages[:n]
+        with self._tracer.span("serve/prefix_export", pages=n):
+            k, v, ks, vs = self.decoder.gather_pages(self.cache, pages)
+        return KVHandoffChunk(seq=0, page_offset=0, page_len=pl, k=k, v=v,
+                              k_scale=ks, v_scale=vs)
+
+    def import_prefix(self, chunk: KVHandoffChunk,
+                      tokens: List[int]) -> Optional[List[int]]:
+        """Adopt a migrated prefix ahead of demand: anchor pages allocated
+        and registered with no slot owning them, the contents scattered
+        by :meth:`GPTDecoder.adopt_pages`.  Returns the anchored pages,
+        which the caller owns and must :meth:`release_prefix` in the end.
+        None when the geometry differs, the tokens do not match the
+        chunk, the prefix is registered already, no slot is free, or the
+        import would leave less than one slot's worth of free pages (a
+        fill ahead of demand must never starve admission)."""
+        if not self.paged or not self._compatible(chunk):
+            return None
+        pl = self.page_len
+        if not tokens or len(tokens) % pl \
+                or len(tokens) // pl != chunk.n_pages:
+            return None
+        headroom = -(-self.max_len // pl)  # one slot's worth of pages
+        if self.pool.n_free < chunk.n_pages + headroom:
+            return None
+        # the scatter borrows a free slot and leaves its device length
+        # stale: the slot is not active, so every window gives its row the
+        # trash page (step), and its next admission sets the length anew
+        slot = self.alloc.allocate()
+        if slot is None:
+            return None
+        self.alloc.free(slot)
+        pages = self.pool.adopt_prefix(list(tokens))
+        if pages is None:
+            return None
+        with self._tracer.span("serve/prefix_import", pages=len(pages)):
+            self.decoder.adopt_pages(self.cache, pages, chunk.k, chunk.v,
+                                     chunk.k_scale, chunk.v_scale, slot,
+                                     len(tokens))
+        self._tracer.instant("serve/prefix_adopt", pages=len(pages),
+                             tokens=len(tokens))
+        if self._fr.enabled:
+            self._fr.record("serve/prefix_adopt", pages=len(pages),
+                            tokens=len(tokens))
+        return list(pages)
+
+    def release_prefix(self, pages: List[int]) -> None:
+        """Drop an :meth:`import_prefix` anchor (pages that live slots
+        still share survive until their last reader)."""
+        if self.paged and pages:
+            self.pool.release_prefix([int(p) for p in pages])
+
     # -- contiguous admission -------------------------------------------
 
     def _admit(self) -> None:
@@ -776,6 +1242,11 @@ class ServeEngine:
                 self._admit()
         if self.paged:
             self._prefill_chunks()
+        if self.prefill_only:
+            # a prefill engine runs no window: its active slots hold
+            # finished prefills that wait for their handoff
+            self._boundary_counters()
+            return bool(self._queue or self._prefilling or self._active)
         if not self._active:
             self._boundary_counters()
             return bool(self._queue or self._prefilling)

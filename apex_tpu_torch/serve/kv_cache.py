@@ -246,7 +246,11 @@ class PagePool:
       copy-on-write, returning the ``(src, dst)`` page copies the caller
       runs on the device before its write;
     - freeing decrements refcounts; a page back on the free list leaves
-      the prefix registry.
+      the prefix registry;
+    - a handoff exports a slot's pages as content (:meth:`export_slot`)
+      and imports them into fresh pages of refcount 1
+      (:meth:`import_slot`, :meth:`import_pages`); a migrated prefix is
+      anchored in the registry without a slot (:meth:`adopt_prefix`).
 
     Registry keys are full token prefixes: causal attention makes a
     page's K/V a function of every token up to its coverage, so equal
@@ -392,6 +396,117 @@ class PagePool:
     def slot_pages(self, slot: int) -> List[int]:
         """Physical pages currently mapped by ``slot``."""
         return [int(p) for p in self.tables[slot] if p != TRASH_PAGE]
+
+    # -- disaggregated handoff ------------------------------------------
+
+    def export_slot(self, slot: int, n_pages: int) -> List[int]:
+        """The slot's first ``n_pages`` physical pages in logical order:
+        the page-table half of a handoff's export.  A pure read: the
+        refcounts and the registry stay (the source keeps serving the
+        pages until the transfer lands; shared and copy-on-write pages
+        export their content, never their ownership)."""
+        pages = []
+        for pidx in range(int(n_pages)):
+            page = int(self.tables[slot, pidx])
+            if page == TRASH_PAGE:
+                raise ValueError(f"slot {slot} logical page {pidx} unmapped "
+                                 f"— cannot export {n_pages} page(s)")
+            pages.append(page)
+        return pages
+
+    def import_slot(self, slot: int, n_pages: int) -> Optional[List[int]]:
+        """Map ``n_pages`` fresh pages of refcount 1 as the slot's first
+        logical pages (the caller scatters the transferred contents into
+        them).  All or nothing: None, with the pool as it was, when the
+        free list cannot supply the run."""
+        if any(self.tables[slot, :]):
+            raise ValueError(f"slot {slot} already mapped")
+        if n_pages < 1 or n_pages > self.pages_per_slot:
+            raise ValueError(f"import of {n_pages} page(s) outside [1, "
+                             f"{self.pages_per_slot}]")
+        pages: List[int] = []
+        for pidx in range(int(n_pages)):
+            page = self._alloc()
+            if page is None:
+                for p in pages:  # roll back: nothing stays half-mapped
+                    self._decref(p)
+                self.tables[slot, :] = TRASH_PAGE
+                return None
+            self.tables[slot, pidx] = page
+            pages.append(page)
+        return pages
+
+    def import_pages(self, slot: int, start_pidx: int,
+                     n_pages: int) -> Optional[List[int]]:
+        """The streamed variant of :meth:`import_slot`: map ``n_pages``
+        fresh pages at logical indices ``[start_pidx, start_pidx +
+        n_pages)`` of ``slot``, whose earlier chunks stay mapped.  All or
+        nothing for this chunk: None (this chunk rolled back) when the
+        free list runs dry; the caller aborts the stage."""
+        if n_pages < 1 or start_pidx < 0 \
+                or start_pidx + n_pages > self.pages_per_slot:
+            raise ValueError(f"chunk of {n_pages} page(s) at {start_pidx} "
+                             f"outside [0, {self.pages_per_slot})")
+        if any(self.tables[slot, start_pidx:start_pidx + n_pages]):
+            raise ValueError(f"slot {slot} logical pages [{start_pidx}, "
+                             f"{start_pidx + n_pages}) already mapped")
+        pages: List[int] = []
+        for pidx in range(start_pidx, start_pidx + int(n_pages)):
+            page = self._alloc()
+            if page is None:
+                for i, p in enumerate(pages):
+                    self.tables[slot, start_pidx + i] = TRASH_PAGE
+                    self._decref(p)
+                return None
+            self.tables[slot, pidx] = page
+            pages.append(page)
+        return pages
+
+    # -- prefix migration -----------------------------------------------
+
+    def adopt_prefix(self, tokens: List[int]) -> Optional[List[int]]:
+        """Allocate fresh anchor pages for a page-aligned token prefix and
+        publish them in the registry without mapping them to a slot (the
+        destination half of a prefix migration): later arrivals
+        :meth:`match_prefix` into them, and :meth:`release_prefix` drops
+        the anchor.  Returns the pages (the caller scatters the contents
+        into them), or None when the prefix is already registered or the
+        free list cannot supply the run (nothing mapped)."""
+        pl = self.page_len
+        if not tokens or len(tokens) % pl:
+            raise ValueError(f"adopt_prefix needs a page-aligned prefix, got "
+                             f"{len(tokens)} token(s) at page_len {pl}")
+        keys = [tuple(tokens[:(i + 1) * pl]) for i in range(len(tokens) // pl)]
+        if any(k in self._prefix for k in keys):
+            return None
+        pages: List[int] = []
+        for _ in keys:
+            page = self._alloc()
+            if page is None:
+                for p in pages:
+                    self._decref(p)
+                return None
+            pages.append(page)
+        for key, page in zip(keys, pages):
+            self._prefix[key] = page
+            self._rev[page] = key
+        return pages
+
+    def release_prefix(self, pages: List[int]) -> None:
+        """Drop the anchor refs of :meth:`adopt_prefix` (pages that live
+        slots still share survive until their last reader)."""
+        for page in pages:
+            self._decref(int(page))
+
+    def drop_prefixes(self) -> int:
+        """Unpublish every registry key; returns how many.  After a swap
+        to changed weights the cached pages encode the old weights, so no
+        later prompt may match into them; pages that slots or anchors
+        hold keep their refs."""
+        n = len(self._prefix)
+        self._prefix.clear()
+        self._rev.clear()
+        return n
 
     # -- out-of-band reservations ---------------------------------------
 

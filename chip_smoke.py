@@ -256,8 +256,13 @@ line) on any failed check:
     the one-rank engine's tokens and every logits tensor bit for bit, the
     fp32 mix with ``reference_generate``'s tokens, the chain, tree and
     int8 mixes with the one-rank engines', a quarter of the pool bytes,
-    the one-rank launches, 12 head all-reduces a forward; planted: a
-    head block at the wrong offset, a dead rank) and ``moe_compress_gang``
+    the one-rank launches, 12 head all-reduces a forward; the KV handoff
+    both ways: a (model 4) prefill-only source's full-head containers
+    adopted by a one-rank decode engine, and one-rank containers adopted
+    by a (model 4) decode engine, each with the one-rank handoff's tokens
+    and the one-rank containers bit for bit, the all-gathers under their
+    own tag ``tp_handoff``; planted: a head block at the wrong offset, a
+    dead rank) and ``moe_compress_gang``
     (Switch-Base-8's FFN over expert 4 against the same layer at n = 1;
     bf16 and int8 DDP, int8 ZeRO, bf16 FSDP and Adasum over data 4 at
     GPT-2 small's width, 2 layers, against the same policies on the CPU
@@ -299,7 +304,34 @@ line) on any failed check:
     window 0 from plain copies of JAX's host transform bit for bit; (c)
     the defaults: O1, -b 64, synthetic, 30 steps; (d) ``--sync_bn`` at
     world 1 bit for bit (a)'s window 0; (e) ``--prof 0``'s trace names
-    the cross-entropy kernels).
+    the cross-entropy kernels);
+21. disaggregated serving, after the obs phases: ``serve_handoff`` (GPT-2
+    small, page_len 16, K = 8): (a) fp32, a prefill-only engine and a
+    decode engine of 4 slots: an anchor, its duplicate (shared pages, a
+    copy-on-written partial tail) and two more, each exported, through
+    ``to_bytes``/``from_bytes``, adopted and detached: the tokens
+    ``reference_generate``'s, the source's refcounts unchanged by the
+    export and the anchor's again after the detach, the adopted pages of
+    refcount 1 and bit for bit the containers', no window on the source
+    and no chunk on the destination, the exact launches on each; (b)
+    bf16, the engine mix disaggregated on 8 slots a side, every adopted
+    page bit for bit (its tokens against the engine phase's reported,
+    not gated), and four requests exported before any window whose
+    source goes on in place: the same tokens as their adopted copies;
+    (c) a 768-token prompt streamed in chunks of 128 tokens, each
+    chunk's pages bit for bit, the commit with the whole handoff's
+    tokens; planted: a flipped byte must raise and its abort put the
+    pages back, a chunk out of order must be refused; (d) the mix's
+    256-token prefix migrated: one hit of 256 tokens on the
+    destination, the tokens of an engine that prefills it whole, the
+    release back to the free count; (e) an identical-digest swap
+    mid-decode (no requeue, the unswapped run's tokens, no library built
+    or loaded), a wrong-shape leaf refused with the engine as it was,
+    and a swap to reseeded weights at fp32 (the in-flight requests
+    requeued, the registry empty, every later token
+    ``reference_generate``'s under the new weights); (f) the timing
+    line: payload bytes a request, export and adopt ms, the bytes' MB/s,
+    the disaggregated wall beside the engine phase's.
 
 Then the ``nvidia-smi`` line, the ``{"kernels": [...]}`` summary and, as
 the last line, ``{"ok": true, "device": {...}}``.  Without a CUDA
@@ -317,6 +349,7 @@ import math
 import os
 import re
 import shutil
+import statistics
 import subprocess
 import sys
 import tempfile
@@ -433,7 +466,8 @@ from apex_tpu_torch.parallel import (
 )
 from apex_tpu_torch.parallel.multiproc import free_port
 from apex_tpu_torch.reparameterization import apply_weight_norm, compute_weights
-from apex_tpu_torch.serve import LoadGen, TrafficPlan
+from apex_tpu_torch.serve import (HandoffError, KVHandoff, KVHandoffChunk,
+                                  LoadGen, TrafficPlan)
 from apex_tpu_torch.train import build_opt_step
 
 # published H100 SXM peaks (NVIDIA data sheet, dense, 700 W)
@@ -1116,13 +1150,11 @@ def phase_parity(params):
 SERVING = ("layer_norm", "paged_fused_attention")
 
 
-def _run_engine_mix(eng, vocab: int):
-    """The engine phase's 16 seeded requests through ``eng``, 64 new
-    tokens each: a 256-token shared prefix (the second request extends
-    the first through its partial tail page, so it maps the shared pages
-    and its first write copy-on-writes the shared tail) and 14 prompts of
-    64-768 tokens.  The launch counts are set to 0 just before.  Returns
-    (prompt lengths, tokens by request, wall seconds, launches)."""
+def _engine_mix_prompts() -> list:
+    """The engine phase's 16 seeded prompts: a 256-token shared prefix
+    (the first prompt is it and 8 more tokens; the second extends the
+    first through its partial tail page by 40 tokens) and 14 prompts of
+    64-768 tokens."""
     rng = torch.Generator().manual_seed(4)
 
     def toks(n):
@@ -1132,14 +1164,24 @@ def _run_engine_mix(eng, vocab: int):
     first = shared + toks(8)
     second = first + toks(40)
     lens = torch.randint(64, 769, (14,), generator=rng).tolist()
+    return [first, second] + [toks(n) for n in lens]
+
+
+def _run_engine_mix(eng, vocab: int):
+    """The engine phase's 16 seeded requests (:func:`_engine_mix_prompts`)
+    through ``eng``, 64 new tokens each: the first lands its pages before
+    the rest are submitted, so the second maps the shared pages and its
+    first write copy-on-writes the shared tail.  The launch counts are
+    set to 0 just before.  Returns (prompt lengths, tokens by request,
+    wall seconds, launches)."""
+    prompts = _engine_mix_prompts()
     torch.cuda.synchronize()
     reset_launch_counts()
     t0 = time.perf_counter()
-    uids = [eng.submit(first, max_new_tokens=64)]
+    uids = [eng.submit(prompts[0], max_new_tokens=64)]
     while eng._prefilling or eng._queue:  # the first prompt's pages land
         eng.step()
-    uids.append(eng.submit(second, max_new_tokens=64))
-    uids += [eng.submit(toks(n), max_new_tokens=64) for n in lens]
+    uids += [eng.submit(p, max_new_tokens=64) for p in prompts[1:]]
     out = eng.run()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
@@ -1154,7 +1196,7 @@ def _run_engine_mix(eng, vocab: int):
           f"a serving kernel never launched: {launches}")
     check(all(c == 0 for n, c in launches.items() if n not in SERVING),
           f"a training kernel launched while serving: {launches}")
-    return [len(first), len(second)] + lens, got, wall, launches
+    return [len(p) for p in prompts], got, wall, launches
 
 
 def _engine_record(stats, n_tok, wall):
@@ -1181,7 +1223,7 @@ def phase_engine(dev, params):
           "requests": len(got), "prompt_lens": lens,
           **_engine_record(eng.stats(), sum(map(len, got)), wall),
           "launches": launches})
-    return launches, dec
+    return launches, dec, {"tokens": got, "wall_s": wall}
 
 
 def _profile_window(dec, steps: int) -> dict:
@@ -7623,15 +7665,55 @@ class _LogitsTap:
         return go
 
 
-def _so2_engine(dec, paged: bool = True, slots: int = 8, chunk: int = 128):
+def _so2_engine(dec, paged: bool = True, slots: int = 8, chunk: int = 128,
+                **kw):
     return ServeEngine(dec, slots=slots, max_len=1024, page_len=16,
-                       prefill_chunk=chunk, seed=0, paged=paged)
+                       prefill_chunk=chunk, seed=0, paged=paged, **kw)
 
 
 def _so2_run(eng, prompts, new: int) -> list:
     uids = [eng.submit(p, max_new_tokens=new) for p in prompts]
     out = eng.run()
     return [out[u] for u in uids]
+
+
+def _so2_handoff(dev, params, mesh=None) -> dict:
+    """The handoff legs of the TP gang (``mesh`` None: the one-rank
+    references), bf16, the four-request mix: ``tp_to_one``, a prefill-only
+    source over ``mesh`` whose containers carry every head (its head
+    blocks all-gathered, tag ``tp_handoff``) adopted by a one-rank decode
+    engine; ``one_to_tp``, a one-rank source's containers adopted by a
+    decode engine over ``mesh``, each rank taking its head block.  Each
+    leg's tokens, the sha256 of its blobs and its collectives."""
+    cfg = GPTConfig.small()
+    bf = dict(compute_dtype=torch.bfloat16, cache_dtype=torch.bfloat16,
+              tokens_per_dispatch=8, device=dev)
+    tp = GPTDecoder(cfg, params, mesh=mesh, **bf)
+    one = GPTDecoder(cfg, params, **bf)
+    mix, new = _so2_prompts(SO2_MIX4), SO2_MIX4["new"]
+    out = {}
+    for name, src_dec, dst_dec in (("tp_to_one", tp, one),
+                                   ("one_to_tp", one, tp)):
+        reset_collective_counts()
+        src = _so2_engine(src_dec, slots=4, prefill_only=True)
+        dst = _so2_engine(dst_dec, slots=4)
+        uids = [src.submit(p, max_new_tokens=new) for p in mix]
+        while src._queue or src._prefilling:
+            src.step()
+        digests, adopted = [], []
+        for u in uids:
+            blob = src.export_handoff(u).to_bytes()
+            digests.append(hashlib.sha256(blob).hexdigest())
+            adopted.append(dst.adopt(KVHandoff.from_bytes(blob),
+                                     max_new_tokens=new))
+            src.detach(u)
+        check(None not in adopted, f"tp_serve_gang: {name}: an adoption "
+              "was refused")
+        res = dst.run()
+        out[name] = {"tokens": [res[v] for v in adopted],
+                     "blob_sha256": digests,
+                     "collectives": collective_counts()}
+    return out
 
 
 def _so2_serve_runs(dev, params, mesh=None) -> dict:
@@ -7673,6 +7755,7 @@ def _so2_serve_runs(dev, params, mesh=None) -> dict:
                      ("int8", {"kv_int8": True})):
         d = GPTDecoder(cfg, params, **bf, **kw)
         out[name] = _so2_run(_so2_engine(d, slots=4), mix, SO2_MIX4["new"])
+    out["handoff"] = _so2_handoff(dev, params, mesh)
     return out
 
 
@@ -8314,6 +8397,15 @@ def phase_scale_out2_gangs(dev, worker_argv=None) -> dict:
             "window_all_reduces":
                 e["tensor_parallel"]["all_reduces_last_window"],
             "short_equal": s["short"] == ref["short"],
+            "handoff": {
+                leg: {"tokens_equal_one_rank":
+                      s["handoff"][leg]["tokens"] == ref["handoff"][leg]
+                      ["tokens"],
+                      "blobs_bit_for_bit_one_rank":
+                      s["handoff"][leg]["blob_sha256"]
+                      == ref["handoff"][leg]["blob_sha256"],
+                      "collectives": s["handoff"][leg]["collectives"]}
+                for leg in ("tp_to_one", "one_to_tp")},
             "fault_offset_caught": rk["fault_offset_tokens"]
                 != ref["short"],
             "engine_wall_s": e["wall_s"], "profile": rk["profile"]})
@@ -8375,6 +8467,18 @@ def phase_scale_out2_gangs(dev, worker_argv=None) -> dict:
               f"tp_serve_gang: head all-reduces: {s}")
         check(s["fault_offset_caught"],
               "tp_serve_gang: a misplaced head block passed the token gate")
+        ho = s["handoff"]
+        check(all(h["tokens_equal_one_rank"]
+                  and h["blobs_bit_for_bit_one_rank"] for h in ho.values()),
+              f"tp_serve_gang: the handoff legs differ from one rank's: "
+              f"{ho}")
+        check(ho["tp_to_one"]["collectives"].get("tp_handoff")
+              == 2 * SO2_MIX4["n"]
+              and "tp_handoff" not in ho["one_to_tp"]["collectives"],
+              f"tp_serve_gang: the handoff's all-gathers: {ho}")
+    check(ref["handoff"]["tp_to_one"]["tokens"]
+          == ref["handoff"]["one_to_tp"]["tokens"],
+          "tp_serve_gang: the one-rank handoff references differ")
     check(all(c["equals_12_head_slice"] for c in h3),
           f"tp_serve_gang: the H=3 paged kernel is not the 12-head slice")
     check(dead == {"reaped": True, "guilty_ranks": [2],
@@ -9407,6 +9511,533 @@ def phase_input_pipeline(rn_images_per_s: float, smi: str) -> dict:
         shutil.rmtree(out_dir, ignore_errors=True)
 
 
+# -- phase 21: KV handoff, streamed handoff, prefix migration, weight swaps --
+
+#: new tokens a request in the fp32 legs (a) and (e)
+HANDOFF_NEW = 32
+#: the streamed leg's prompt: 768 tokens (48 pages), prefill chunks of 128
+STREAM_PROMPT, STREAM_CHUNK = 768, 128
+
+
+def _serve_engine(dec, slots: int, chunk: int = 128, **kw):
+    """The engine phase's geometry: ``max_len`` 1024, page_len 16."""
+    return ServeEngine(dec, slots=slots, max_len=1024, page_len=16,
+                       prefill_chunk=chunk, seed=0, **kw)
+
+
+def _sync_ms(fn):
+    """``(fn(), its wall in ms)`` between two device syncs."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def _slot_of(eng, uid: int) -> int:
+    return next(s for s, r in eng._active.items() if r.uid == uid)
+
+
+def _pages_bits_equal(eng, pages, container) -> bool:
+    """``pages`` of ``eng``'s pool bit for bit the container's arrays."""
+    got = eng.decoder.gather_pages(eng.cache, pages)
+    want = (container.k, container.v, container.k_scale, container.v_scale)
+    return all((g is None and w is None) or _bits_equal(g, w)
+               for g, w in zip(got, want))
+
+
+def _hop(src, dst, uid: int, max_new: int):
+    """One monolithic handoff: ``uid`` exported from ``src`` (gather and
+    host copy), through ``to_bytes``/``from_bytes``, adopted by ``dst``,
+    its pages there checked bit for bit against the container, then
+    detached from ``src``.  Returns ``(new uid, record)``; the uid is
+    None, and the request stays on ``src``, when ``dst`` cannot take it
+    now."""
+    before = [int(src.pool.ref[p])
+              for p in src.pool.slot_pages(_slot_of(src, uid))]
+    ho, export_ms = _sync_ms(lambda: src.export_handoff(uid))
+    after = [int(src.pool.ref[p])
+             for p in src.pool.slot_pages(_slot_of(src, uid))]
+    t0 = time.perf_counter()
+    blob = ho.to_bytes()
+    t1 = time.perf_counter()
+    back = KVHandoff.from_bytes(blob)
+    t2 = time.perf_counter()
+    new, adopt_ms = _sync_ms(lambda: dst.adopt(back, max_new_tokens=max_new))
+    rec = {"payload_bytes": ho.payload_bytes, "blob_bytes": len(blob),
+           "pages": ho.n_pages, "export_ms": export_ms,
+           "to_bytes_s": t1 - t0, "from_bytes_s": t2 - t1,
+           "adopt_ms": adopt_ms, "source_refs_unchanged": before == after}
+    if new is None:
+        return None, rec
+    pages = dst.pool.slot_pages(_slot_of(dst, new))
+    rec["pages_bit_for_bit"] = _pages_bits_equal(dst, pages, ho)
+    rec["destination_refs_one"] = all(int(dst.pool.ref[p]) == 1
+                                      for p in pages)
+    src.detach(uid)
+    return new, rec
+
+
+def _window_launches(eng, k: int = 8) -> dict:
+    """The kernels a forward count, 25 LayerNorms and 12 paged calls of
+    GPT-2 small, times the forwards ``eng`` ran: one a prefill chunk, K
+    a window."""
+    fwd = eng.prefill_dispatches + k * eng.decode_dispatches
+    return {"layer_norm": 25 * fwd, "paged_fused_attention": 12 * fwd}
+
+
+def _handoff_fp32(dev, params, dec32) -> dict:
+    """(a): a prefill-only source and a decode engine, 4 slots each,
+    page_len 16, fp32 compute and pool; an anchor prompt of 100 tokens (6
+    full pages and a partial one), its duplicate (the full pages shared,
+    the partial tail copy-on-written by the re-run last token) and two
+    more; the duplicate handed off first, then the rest, each through
+    bytes and detached at the source."""
+    rng = torch.Generator().manual_seed(21)
+    anchor = torch.randint(0, 50257, (100,), generator=rng).tolist()
+    prompts = [anchor, list(anchor)] + [
+        torch.randint(0, 50257, (n,), generator=rng).tolist()
+        for n in (200, 57)]
+    src = _serve_engine(dec32, 4, chunk=64, prefill_only=True)
+    dst = _serve_engine(dec32, 4, chunk=64)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    ua = src.submit(anchor, max_new_tokens=HANDOFF_NEW)
+    while not src._active:
+        src.step()
+    uids = [ua] + [src.submit(p, max_new_tokens=HANDOFF_NEW)
+                   for p in prompts[1:]]
+    while src._queue or src._prefilling:
+        src.step()
+    torch.cuda.synchronize()
+    src_launches = launch_counts()
+    hits, cow = src.pool.prefix_hits, src.pool.cow_copies
+    anchor_pages = src.pool.slot_pages(_slot_of(src, ua))
+    dup_pages = src.pool.slot_pages(_slot_of(src, uids[1]))
+    shared_refs = [int(src.pool.ref[p]) for p in anchor_pages]
+    new, recs = {}, {}
+    for i in (1, 0, 2, 3):  # the duplicate first, while the anchor holds
+        new[i], recs[i] = _hop(src, dst, uids[i], HANDOFF_NEW)
+        check(new[i] is not None, f"serve_handoff (a): request {i} refused")
+        if i == 1:
+            anchor_refs = [int(src.pool.ref[p]) for p in anchor_pages]
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    out = dst.run()
+    torch.cuda.synchronize()
+    dst_launches = launch_counts()
+    tokens = [out[new[i]] for i in range(4)]
+    cfg32 = dataclasses.replace(GPTConfig.small(),
+                                compute_dtype=torch.float32)
+    ref = [reference_generate(cfg32, params, p, HANDOFF_NEW, device=dev)
+           for p in prompts[1:]]
+    ref = [ref[0]] + ref
+    want_src, want_dst = _window_launches(src), _window_launches(dst)
+    return {
+        "prompt_lens": [len(p) for p in prompts],
+        "pages_a_request": [recs[i]["pages"] for i in range(4)],
+        "prefix_hits": hits, "cow_copies": cow,
+        "shared_pages": sum(p in anchor_pages for p in dup_pages),
+        "shared_refs_before_export": shared_refs,
+        "anchor_refs_after_detach": anchor_refs,
+        "tokens_equal_reference_generate": tokens == ref,
+        "source_refs_unchanged": all(r["source_refs_unchanged"]
+                                     for r in recs.values()),
+        "destination_refs_one": all(r["destination_refs_one"]
+                                    for r in recs.values()),
+        "pages_bit_for_bit": all(r["pages_bit_for_bit"]
+                                 for r in recs.values()),
+        "source_windows": src.decode_dispatches,
+        "source_chunks": src.prefill_dispatches,
+        "destination_chunks": dst.prefill_dispatches,
+        "destination_windows": dst.decode_dispatches,
+        "source_launches": {n: c for n, c in src_launches.items() if c},
+        "destination_launches": {n: c for n, c in dst_launches.items() if c},
+        "launches_exact": (
+            src_launches == {n: want_src.get(n, 0) for n in src_launches}
+            and dst_launches == {n: want_dst.get(n, 0)
+                                 for n in dst_launches})}
+
+
+def _handoff_mix(dec16, engine_run: dict) -> dict:
+    """(b) and (f): the engine phase's 16-request mix disaggregated, 8
+    slots on both sides: the first prompt lands on the prefill-only
+    source before the rest are submitted (so the second shares its
+    pages there), and at each boundary every parked request the decode
+    engine can take hops over, each adopted page checked bit for bit.
+    Timed, with the launches of the run; the tokens against the engine
+    phase's are reported, not gated (the chunk batching differs)."""
+    prompts = _engine_mix_prompts()
+    src = _serve_engine(dec16, 8, prefill_only=True)
+    dst = _serve_engine(dec16, 8)
+    index, recs = {}, []
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    index[src.submit(prompts[0], max_new_tokens=64)] = 0
+    while not src._active:
+        src.step()
+    for i, p in enumerate(prompts[1:], 1):
+        index[src.submit(p, max_new_tokens=64)] = i
+    adopted = {}
+    while src._queue or src._prefilling or src._active or dst._active:
+        src.step()
+        for r in sorted(src._active.values(), key=lambda r: r.uid):
+            new, rec = _hop(src, dst, r.uid, 64)
+            if new is None:
+                break  # the decode engine is full: the rest wait
+            adopted[new] = index[r.uid]
+            recs.append(rec)
+        dst.step()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = launch_counts()
+    tokens = [None] * len(prompts)
+    for new, i in adopted.items():
+        tokens[i] = dst.results[new].tokens
+    n_bytes = sum(r["payload_bytes"] for r in recs)
+    check(len(adopted) == len(prompts)
+          and all(t is not None and len(t) == 64 for t in tokens),
+          "serve_handoff (b): a request of the mix fell short")
+    same = sum(a == b for a, b in zip(tokens, engine_run["tokens"]))
+    return {
+        "requests": len(recs), "hits_on_source": src.pool.prefix_hits,
+        "pages_bit_for_bit": all(r["pages_bit_for_bit"] for r in recs),
+        "source_refs_unchanged": all(r["source_refs_unchanged"]
+                                     for r in recs),
+        "source_windows": src.decode_dispatches,
+        "destination_chunks": dst.prefill_dispatches,
+        "launches": launches,
+        "tokens_equal_engine_phase": same,
+        "timing": {
+            "payload_bytes_a_request": n_bytes / len(recs),
+            "payload_bytes_min_max": [min(r["payload_bytes"] for r in recs),
+                                      max(r["payload_bytes"] for r in recs)],
+            "export_ms_median": statistics.median(r["export_ms"]
+                                                  for r in recs),
+            "export_ms_max": max(r["export_ms"] for r in recs),
+            "to_bytes_mb_per_s": n_bytes / 1e6
+            / sum(r["to_bytes_s"] for r in recs),
+            "from_bytes_mb_per_s": n_bytes / 1e6
+            / sum(r["from_bytes_s"] for r in recs),
+            "adopt_ms_median": statistics.median(r["adopt_ms"]
+                                                 for r in recs),
+            "adopt_ms_max": max(r["adopt_ms"] for r in recs),
+            "disaggregated_wall_s": wall,
+            "engine_phase_wall_s": engine_run["wall_s"],
+            "generated_tokens": sum(map(len, tokens)),
+            "tokens_per_s": sum(map(len, tokens)) / wall}}
+
+
+def _in_place_vs_adopted(dec16) -> dict:
+    """(b): four requests of the mix prefilled on a prefill-only engine,
+    exported before any window and adopted elsewhere; then the source
+    goes on in place (``prefill_only`` off) while the destination decodes
+    the adopted copies, 8 slots each: the same tokens, since a window's
+    products have the same rows whatever slots are active and the paged
+    kernel reads each slot alone."""
+    prompts = _engine_mix_prompts()[2:6]
+    src = _serve_engine(dec16, 8, prefill_only=True)
+    dst = _serve_engine(dec16, 8)
+    uids = [src.submit(p, max_new_tokens=64) for p in prompts]
+    while src._queue or src._prefilling:
+        src.step()
+    check(src.decode_dispatches == 0, "serve_handoff (b): a window ran on "
+          "the prefill-only source")
+    adopted = [dst.adopt(KVHandoff.from_bytes(src.export_handoff(u)
+                                              .to_bytes()),
+                         max_new_tokens=64) for u in uids]
+    check(None not in adopted, "serve_handoff (b): an adoption was refused")
+    src.prefill_only = False  # the source goes on in place
+    a, b = src.run(), dst.run()
+    equal = [a[u] == b[v] for u, v in zip(uids, adopted)]
+    return {"requests": len(uids), "prompt_lens": [len(p) for p in prompts],
+            "tokens_equal": equal,
+            "first_difference": [next((j for j, (x, y) in enumerate(
+                zip(a[u], b[v])) if x != y), None)
+                for u, v in zip(uids, adopted)]}
+
+
+def _handoff_streamed(dec16) -> dict:
+    """(c): one 768-token prompt chunk-prefilled 128 tokens a boundary on
+    a prefill-only source, each full page streamed as it lands (the last
+    page held back for the tail), staged on a destination with every
+    chunk's pages checked bit for bit, committed and decoded; the same
+    request handed off whole to another engine must give the same
+    tokens.  Planted: a chunk with one flipped byte must raise, and the
+    abort put the destination's pages back; a chunk out of order must be
+    refused."""
+    rng = torch.Generator().manual_seed(22)
+    prompt = torch.randint(0, 50257, (STREAM_PROMPT,), generator=rng).tolist()
+    src = _serve_engine(dec16, 2, chunk=STREAM_CHUNK, prefill_only=True)
+    dst, mono = _serve_engine(dec16, 2), _serve_engine(dec16, 2)
+    uid = src.submit(prompt, max_new_tokens=HANDOFF_NEW)
+    chunks, nxt = [], 0
+    while True:
+        src.step()
+        c = src.export_prefill_chunk(uid, nxt, len(chunks))
+        if c is not None:
+            chunks.append(c)
+            nxt += c.n_pages
+        if src.prefill_progress(uid) is None:
+            break
+    tail = src.export_handoff_tail(uid, nxt, len(chunks))
+    stage = dst.adopt_stage_begin()
+    staged, bits = [], []
+    for c in chunks + [tail]:
+        back = KVHandoffChunk.from_bytes(c.to_bytes())
+        if c is tail:
+            iu = dst.adopt_stage_commit(stage, back,
+                                        max_new_tokens=HANDOFF_NEW)
+            staged.append(iu is not None)
+        else:
+            staged.append(dst.adopt_stage_chunk(stage, back))
+        row = dst.pool.tables[stage]
+        bits.append(_pages_bits_equal(
+            dst, [int(p) for p in row[c.page_offset:c.page_offset
+                                      + c.n_pages]], c))
+    streamed = dst.run()[iu]
+    whole = mono.adopt(KVHandoff.from_bytes(src.export_handoff(uid)
+                                            .to_bytes()),
+                       max_new_tokens=HANDOFF_NEW)
+    whole_tokens = mono.run()[whole]
+    before = dst.pool.in_use
+    stage = dst.adopt_stage_begin()
+    first_ok = dst.adopt_stage_chunk(stage, chunks[0])
+    mid = dst.pool.in_use
+    blob = bytearray(chunks[1].to_bytes())
+    blob[-100] ^= 0x10
+    try:
+        KVHandoffChunk.from_bytes(bytes(blob))
+        flipped = "parsed"
+    except HandoffError as e:
+        flipped = str(e)
+    dst.adopt_stage_abort(stage)
+    after = dst.pool.in_use
+    stage = dst.adopt_stage_begin()
+    out_of_order = dst.adopt_stage_chunk(stage, chunks[1])
+    dst.adopt_stage_abort(stage)
+    return {"prompt": STREAM_PROMPT, "chunk": STREAM_CHUNK,
+            "chunks": [(c.seq, c.page_offset, c.n_pages)
+                       for c in chunks + [tail]],
+            "staged": staged, "pages_bit_for_bit": bits,
+            "tokens_equal_whole_handoff": streamed == whole_tokens,
+            "planted_flipped_byte": flipped,
+            "abort_in_use": [before, mid, after], "first_chunk_ok": first_ok,
+            "planted_out_of_order_refused": out_of_order is False}
+
+
+def _handoff_prefix(dec16) -> dict:
+    """(d): the mix's 256-token shared prefix exported from an engine
+    that serves its first prompt, imported ahead of demand by another;
+    the second prompt (which extends it) must hit it there, 256 tokens,
+    and stream the tokens of an engine that prefills it whole; the
+    release returns the pool to its free count."""
+    prompts = _engine_mix_prompts()
+    shared = prompts[0][:256]
+    src = _serve_engine(dec16, 2)
+    src.submit(prompts[0], max_new_tokens=64)
+    while not src._active:
+        src.step()
+    chunk = src.export_prefix(shared)
+    dst = _serve_engine(dec16, 8)
+    free0 = dst.pool.n_free
+    pages = dst.import_prefix(chunk, shared)
+    check(pages is not None, "serve_handoff (d): the prefix was refused")
+    again = dst.import_prefix(chunk, shared)  # registered already: None
+    bits = _pages_bits_equal(dst, pages, chunk)
+    hits0 = (dst.pool.prefix_hits, dst.pool.prefix_hit_tokens)
+    u = dst.submit(prompts[1], max_new_tokens=64)
+    got = dst.run()[u]
+    hits = (dst.pool.prefix_hits - hits0[0],
+            dst.pool.prefix_hit_tokens - hits0[1])
+    whole = _serve_engine(dec16, 8)
+    v = whole.submit(prompts[1], max_new_tokens=64)
+    want = whole.run()[v]
+    held = dst.pool.n_free
+    dst.release_prefix(pages)
+    return {"prefix_tokens": len(shared), "pages": len(pages),
+            "pages_bit_for_bit": bits, "hits": hits[0],
+            "hit_tokens": hits[1], "tokens_equal_whole_prefill": got == want,
+            "free_pages": [free0, held, dst.pool.n_free],
+            "registered_again_refused": again is None}
+
+
+def _handoff_swaps(dev, params, dec16, dec32) -> dict:
+    """(e): an identical-digest swap mid-decode (bf16, four requests of
+    the mix): nothing requeued, the tokens bit for bit an unswapped
+    run's, no library built or loaded; a leaf of the wrong shape refused
+    with the digest, queue and slots as they were; and a swap to a
+    reseeded GPT-2 small mid-decode at fp32 (five requests on four
+    slots): every prefilling and active request requeued, the prefix
+    registry empty after it (the requeue frees most pages, and with them
+    their keys; ``drop_prefixes`` takes the rest), and each request's later tokens ``reference_generate``'s
+    under the new weights from its prompt and tokens so far."""
+    mix = _engine_mix_prompts()[2:6]
+    eng, base = _serve_engine(dec16, 4), _serve_engine(dec16, 4)
+    uids = [eng.submit(p, max_new_tokens=HANDOFF_NEW) for p in mix]
+    buids = [base.submit(p, max_new_tokens=HANDOFF_NEW) for p in mix]
+    for _ in range(6):
+        eng.step()
+    heard = []
+
+    def listen(kind, name):
+        heard.append((kind, name))
+
+    _build.add_build_listener(listen)
+    try:
+        same = eng.swap_weights(params)
+    finally:
+        _build.remove_build_listener(listen)
+    a, b = eng.run(), base.run()
+    identical = {"summary": {k: v for k, v in same.items() if k != "digest"},
+                 "tokens_equal_unswapped": [a[u] for u in uids]
+                 == [b[u] for u in buids],
+                 "builds_or_loads": heard}
+
+    new_params = init_params(GPTConfig.small(),
+                             torch.Generator().manual_seed(1))
+    rng = torch.Generator().manual_seed(23)
+    prompts = [torch.randint(0, 50257, (n,), generator=rng).tolist()
+               for n in (40, 150, 90, 64, 120)]
+    eng = _serve_engine(dec32, 4, chunk=64)
+    uids = [eng.submit(p, max_new_tokens=HANDOFF_NEW) for p in prompts]
+    for _ in range(3):
+        eng.step()
+    state = (eng.weights_digest, len(eng._queue),
+             {s: r.uid for s, r in eng._active.items()},
+             {s: e[0].uid for s, e in eng._prefilling.items()})
+    bad = dict(new_params)
+    bad["wpe.weight"] = torch.zeros(tuple(bad["wpe.weight"].shape[:1])
+                                    + (bad["wpe.weight"].shape[1] + 1,))
+    try:
+        eng.swap_weights(bad)
+        refused = "accepted"
+    except ValueError as e:
+        refused = str(e)
+    kept = state == (eng.weights_digest, len(eng._queue),
+                     {s: r.uid for s, r in eng._active.items()},
+                     {s: e[0].uid for s, e in eng._prefilling.items()})
+    before = {u: list(t) for u, (t, _) in eng.progress().items()}
+    inflight = len(eng._active) + len(eng._prefilling)
+    registered = len(eng.pool._prefix)
+    changed = eng.swap_weights(new_params)
+    registry_after = len(eng.pool._prefix)
+    out = eng.run()
+    cfg32 = dataclasses.replace(GPTConfig.small(),
+                                compute_dtype=torch.float32)
+    later_ok = []
+    for u, p in zip(uids, prompts):
+        so_far = before[u]
+        rest = reference_generate(cfg32, new_params, p + so_far,
+                                  HANDOFF_NEW - len(so_far), device=dev)
+        later_ok.append(out[u] == so_far + rest)
+    return {"identical": identical,
+            "planted_bad_leaf": {"refused": refused,
+                                 "engine_unchanged": kept},
+            "changed": {"summary": {k: v for k, v in changed.items()
+                                    if k != "digest"},
+                        "inflight": inflight,
+                        "registry_before_after": [registered,
+                                                  registry_after],
+                        "tokens_so_far": [len(before[u]) for u in uids],
+                        "later_tokens_equal_reference": later_ok,
+                        "digests_differ": changed["digest"]
+                        != same["digest"]}}
+
+
+def phase_serve_handoff(dev, params, engine_run: dict, smi: str) -> dict:
+    """Disaggregated serving of GPT-2 small on the card: (a) fp32 handoff
+    between a prefill-only and a decode engine, (b) the bf16 engine mix
+    disaggregated and in place against adopted, (c) the streamed handoff,
+    (d) prefix migration, (e) weight swaps, (f) the timing line.  Returns
+    the mix run's launches."""
+    t_phase = time.perf_counter()
+    cfg = GPTConfig.small()
+    dec32 = GPTDecoder(cfg, params, compute_dtype=torch.float32,
+                       cache_dtype=torch.float32, tokens_per_dispatch=8,
+                       device=dev)
+    dec16 = GPTDecoder(cfg, params, compute_dtype=torch.bfloat16,
+                       cache_dtype=torch.bfloat16, tokens_per_dispatch=8,
+                       device=dev)
+    a = _handoff_fp32(dev, params, dec32)
+    mix = _handoff_mix(dec16, engine_run)
+    inplace = _in_place_vs_adopted(dec16)
+    streamed = _handoff_streamed(dec16)
+    prefix = _handoff_prefix(dec16)
+    swaps = _handoff_swaps(dev, params, dec16, dec32)
+    timing = {"card": smi, **mix.pop("timing")}
+    rec = {"phase": "serve_handoff", "nvidia_smi": smi,
+           "model": "GPT-2 small, random weights (seed 0), page_len 16, "
+                    "chunks of 128 (64 at fp32), K = 8",
+           "fp32": a, "mix_bf16": {k: v for k, v in mix.items()
+                                   if k != "launches"},
+           "mix_launches": {n: c for n, c in mix["launches"].items() if c},
+           "in_place_vs_adopted": inplace, "streamed": streamed,
+           "prefix": prefix, "swaps": swaps, "timing": timing,
+           "seconds": time.perf_counter() - t_phase}
+    emit(rec)
+    emit({"phase": "serve_handoff_timing", **timing})
+    check(a["tokens_equal_reference_generate"],
+          f"serve_handoff (a): adopted tokens differ from "
+          f"reference_generate: {a}")
+    check(a["prefix_hits"] == 1 and a["cow_copies"] >= 1
+          and a["shared_pages"] == 6
+          and a["shared_refs_before_export"] == [2] * 6 + [1]
+          and a["anchor_refs_after_detach"] == [1] * 7,
+          f"serve_handoff (a): the source's pages: {a}")
+    check(a["source_refs_unchanged"] and a["destination_refs_one"]
+          and a["pages_bit_for_bit"],
+          f"serve_handoff (a): refcounts or pages: {a}")
+    check(a["source_windows"] == 0 and a["destination_chunks"] == 0
+          and a["launches_exact"],
+          f"serve_handoff (a): windows, chunks or launches: {a}")
+    check(mix["pages_bit_for_bit"] and mix["source_refs_unchanged"]
+          and mix["source_windows"] == 0 and mix["destination_chunks"] == 0
+          and mix["hits_on_source"] >= 1,
+          f"serve_handoff (b): the mix's handoffs: {rec['mix_bf16']}")
+    check(all(mix["launches"][n] > 0 for n in SERVING)
+          and all(c == 0 for n, c in mix["launches"].items()
+                  if n not in SERVING),
+          f"serve_handoff (b): launches {mix['launches']}")
+    check(all(inplace["tokens_equal"]),
+          f"serve_handoff (b): in place and adopted differ: {inplace}")
+    check(all(streamed["staged"]) and all(streamed["pages_bit_for_bit"])
+          and streamed["tokens_equal_whole_handoff"]
+          and len(streamed["chunks"]) == STREAM_PROMPT // STREAM_CHUNK,
+          f"serve_handoff (c): {streamed}")
+    check("CRC" in streamed["planted_flipped_byte"]
+          and streamed["first_chunk_ok"]
+          and streamed["abort_in_use"][0] == streamed["abort_in_use"][2]
+          < streamed["abort_in_use"][1]
+          and streamed["planted_out_of_order_refused"],
+          f"serve_handoff (c): a planted fault passed: {streamed}")
+    check(prefix["pages_bit_for_bit"] and prefix["hits"] == 1
+          and prefix["hit_tokens"] == 256
+          and prefix["tokens_equal_whole_prefill"]
+          and prefix["free_pages"][0] == prefix["free_pages"][2]
+          == prefix["free_pages"][1] + prefix["pages"]
+          and prefix["registered_again_refused"],
+          f"serve_handoff (d): {prefix}")
+    ident, bad, ch = swaps["identical"], swaps["planted_bad_leaf"], \
+        swaps["changed"]
+    check(ident["summary"]["identical"]
+          and ident["summary"]["recomputed"] == 0
+          and ident["tokens_equal_unswapped"]
+          and ident["builds_or_loads"] == [],
+          f"serve_handoff (e): the identical swap: {ident}")
+    check("geometry change" in bad["refused"] and bad["engine_unchanged"],
+          f"serve_handoff (e): a wrong-shape leaf: {bad}")
+    check(not ch["summary"]["identical"]
+          and ch["summary"]["recomputed"] == ch["inflight"] >= 1
+          and ch["registry_before_after"][0] >= 1
+          and ch["registry_before_after"][1] == 0
+          and all(ch["later_tokens_equal_reference"])
+          and ch["digests_differ"],
+          f"serve_handoff (e): the changed swap: {ch}")
+    return mix["launches"]
+
+
 class _Tee:
     """stdout that also writes to a log file."""
 
@@ -9474,7 +10105,7 @@ def _run() -> int:
 
     params = init_params(GPTConfig.small(), torch.Generator().manual_seed(0))
     phase_parity(params)
-    launches, dec = phase_engine(dev, params)
+    launches, dec, engine_run = phase_engine(dev, params)
     plain_profile = phase_profile(dec)
     del dec
     torch.cuda.empty_cache()
@@ -9589,10 +10220,15 @@ def _run() -> int:
     obs_serve_launches = phase_obs_serve(dev, params, smi)
     torch.cuda.empty_cache()
     obs_train_launches = phase_obs_train(dev, params)
-    del params
     torch.cuda.empty_cache()
     emit({"phase": "obs_time", "seconds": time.perf_counter() - t_obs,
           "phases": ["obs_serve", "obs_train"]})
+    t_ho = time.perf_counter()
+    handoff_launches = phase_serve_handoff(dev, params, engine_run, smi)
+    del params, engine_run
+    torch.cuda.empty_cache()
+    emit({"phase": "serve_handoff_time",
+          "seconds": time.perf_counter() - t_ho})
 
     # the summary rows: the serving kernels at the engine's decode-step
     # shape with the engine run's launches, the GPT training kernels at
@@ -9926,6 +10562,14 @@ def _run() -> int:
             "launches_of": f"{name}, the obs plan (32 requests) through "
                            "the engine phase's configuration on the "
                            "virtual clock, obs on (obs_serve)"}
+    # the disaggregated run of the engine mix: both engines' launches
+    for name in ("layer_norm", "paged_fused_attention"):
+        by_name[name]["serve_handoff_path"] = {
+            "launches": handoff_launches[name],
+            "launches_of": f"{name}, the engine mix disaggregated: a "
+                           "prefill-only engine and a decode engine, 8 "
+                           "slots each, every request handed off through "
+                           "bytes (serve_handoff)"}
     for name in ("layer_norm", "layer_norm_bwd", "flash_attention_fwd",
                  "flash_attention_bwd", "softmax_xentropy_fwd",
                  "softmax_xentropy_bwd"):
@@ -9945,7 +10589,7 @@ def _run() -> int:
                             "spec_tree_path_w2d3", "spec_tree_path_w3d3",
                             "o1_path", "stash_path", "long_context_path",
                             "tp_path", "tp_serve_path", "obs_serve_path",
-                            "obs_train_path", *paths)
+                            "obs_train_path", "serve_handoff_path", *paths)
                   if p in r),
           f"a kernel never launched on its path: {rows}")
     check(all(by_name[n][p]["launches"] > 0

@@ -18,7 +18,15 @@ head shard, against JAX's ``GPTDecoder(mesh=serve_mesh(2))`` under
   (prefill chunks and window steps) and nothing else, and
   ``stats()["tensor_parallel"]`` a window's share; each rank's pool
   bytes exactly half the one-rank pool's;
-- ``num_heads`` that do not divide by the axis raise, as in JAX.
+- ``num_heads`` that do not divide by the axis raise, as in JAX;
+- the KV handoff both ways: a rank-sharded prefill-only source exports
+  every head (its head blocks all-gathered, counted under
+  ``tp_handoff``) to a one-rank decode engine, and a one-rank source's
+  containers are adopted by a rank-sharded decode engine, each rank
+  taking its head block.  The tokens equal JAX's tensor-parallel
+  handoff's both ways, the containers' headers equal JAX's apart from
+  the CRC and their pages within 1e-5, and the sharded source's blobs
+  are the one-rank source's byte for byte.
 """
 import os
 import sys
@@ -50,6 +58,7 @@ if __name__ != "__main__":  # the gang's workers import no JAX
     from apex_tpu.models.gpt import GPTConfig as JaxConfig
     from apex_tpu.models.gpt import GPTLM as JaxGPTLM
     from apex_tpu.serve import GPTDecoder as JaxDecoder
+    from apex_tpu.serve import KVHandoff as JaxKVHandoff
     from apex_tpu.serve import ServeEngine as JaxEngine
     from apex_tpu.serve import serve_mesh as jax_serve_mesh
     from apex_tpu_torch.weights import from_jax_params
@@ -70,6 +79,31 @@ def _run(eng, prompts):
     uids = [eng.submit(p, max_new_tokens=n) for p, n in zip(prompts, BUDGETS)]
     out = eng.run()
     return [out[u] for u in uids]
+
+
+def _handoff(eng_cls, ho_cls, src_dec, dst_dec, prompts):
+    """Each prompt chunk-prefilled on a prefill-only source, exported
+    whole through bytes and detached there, and adopted by a decode
+    engine (whose windows run while its slots are full); then the decode
+    engine drains.  Returns (the blobs, the tokens by prompt)."""
+    src = eng_cls(src_dec, slots=SLOTS, max_len=MAX_LEN, paged=True,
+                  page_len=PAGE_LEN, prefill_chunk=CHUNK, prefill_only=True)
+    dst = _engine(eng_cls, dst_dec, True)
+    blobs, uids = [], []
+    for p, n in zip(prompts, BUDGETS):
+        u = src.submit(p, max_new_tokens=n)
+        while not src._active:
+            src.step()
+        blobs.append(src.export_handoff(u).to_bytes())
+        src.detach(u)
+        for _ in range(64):
+            uid = dst.adopt(ho_cls.from_bytes(blobs[-1]), max_new_tokens=n)
+            if uid is not None:
+                break
+            dst.step()
+        uids.append(uid)
+    out = dst.run()
+    return blobs, [out[u] for u in uids]
 
 
 def _chunks(pool):
@@ -125,6 +159,24 @@ def _case_chunks(sd, pool, mesh):
             "v": cache.v.numpy().copy()}
 
 
+def _case_handoff(sd, pool, mesh):
+    from apex_tpu_torch.models import GPTConfig
+    from apex_tpu_torch.parallel import (collective_counts,
+                                         reset_collective_counts)
+    from apex_tpu_torch.serve import GPTDecoder, KVHandoff, ServeEngine
+    cfg = GPTConfig.tiny(compute_dtype=torch.float32)
+    tp = GPTDecoder(cfg, sd, tokens_per_dispatch=K, device="cpu", mesh=mesh)
+    one = GPTDecoder(cfg, sd, tokens_per_dispatch=K, device="cpu")
+    out = {}
+    for name, src, dst in (("tp_to_one", tp, one), ("one_to_tp", one, tp)):
+        reset_collective_counts()
+        blobs, tokens = _handoff(ServeEngine, KVHandoff, src, dst,
+                                 _prompts(pool))
+        out[name] = {"blobs": blobs, "tokens": tokens,
+                     "counts": collective_counts()}
+    return out
+
+
 def _case_raise(sd, mesh):
     import dataclasses
     from apex_tpu_torch.models import GPTConfig
@@ -152,6 +204,7 @@ def _worker(out_dir: str) -> None:
     mesh = serve_mesh(W)
     results = {"engines": _case_engines(sd, pool, mesh),
                "chunks": _case_chunks(sd, pool, mesh),
+               "handoff": _case_handoff(sd, pool, mesh),
                "raise": _case_raise(sd, mesh)}
     torch.save(results, os.path.join(out_dir, f"rank{rank}.pt"))
     dist.destroy_process_group()
@@ -215,6 +268,12 @@ def both(tmp_path_factory, lm):
         logits.append(np.asarray(lg))
     want["chunks"] = {"logits": logits, "k": np.asarray(cache.k),
                       "v": np.asarray(cache.v)}
+    tp = JaxDecoder(cfg, params, tokens_per_dispatch=K, mesh=mesh)
+    one = JaxDecoder(cfg, params, tokens_per_dispatch=K)
+    want["handoff"] = {
+        name: _handoff(JaxEngine, JaxKVHandoff, src, dst, _prompts(pool))
+        for name, src, dst in (("tp_to_one", tp, one), ("one_to_tp", one,
+                                                        tp))}
     th.join()
     if err:
         raise err[0]
@@ -268,6 +327,44 @@ def test_pool_bytes_are_half_a_rank(both):
     for r in range(W):
         for name, e in both[0][r]["engines"].items():
             assert e["bytes"][0] * W == e["bytes"][1], name
+
+
+def _header(blob: bytes) -> dict:
+    import json
+    head = json.loads(blob[:blob.index(b"\n")].decode())
+    head.pop("crc32")
+    return head
+
+
+@pytest.mark.parametrize("leg", ["tp_to_one", "one_to_tp"])
+def test_handoff_equals_jax_tensor_parallel(both, leg):
+    got, want = both
+    blobs, tokens = want["handoff"][leg]
+    for r in range(W):
+        g = got[r]["handoff"][leg]
+        assert g["tokens"] == tokens, (leg, r)
+        assert g["blobs"] == got[0]["handoff"][leg]["blobs"]
+        for a, b in zip(g["blobs"], blobs):
+            assert _header(a) == _header(b)
+            ha, hb = JaxKVHandoff.from_bytes(a), JaxKVHandoff.from_bytes(b)
+            assert ha.k.shape[2] == 2  # every head of the model
+            for x, y in ((ha.k, hb.k), (ha.v, hb.v)):
+                np.testing.assert_allclose(x, y, atol=1e-5, rtol=0)
+    assert tokens == want["paged"]  # JAX's handoff: its engine's tokens
+    # a sharded source's containers are the one-rank source's bit for bit
+    assert got[0]["handoff"]["tp_to_one"]["blobs"] == \
+        got[0]["handoff"]["one_to_tp"]["blobs"]
+
+
+def test_handoff_collectives_have_their_own_tag(both):
+    """Each sharded export all-gathers k and v once (``tp_handoff``); the
+    one-rank source exports with none, and the head all-reduces stay
+    ``tp_heads``."""
+    for r in range(W):
+        e = both[0][r]["handoff"]
+        assert e["tp_to_one"]["counts"]["tp_handoff"] == 2 * len(QUEUE)
+        assert "tp_handoff" not in e["one_to_tp"]["counts"]
+        assert set(e["one_to_tp"]["counts"]) == {"tp_heads"}
 
 
 def test_heads_that_do_not_divide_raise(both):
