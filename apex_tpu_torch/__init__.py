@@ -54,7 +54,11 @@ with g++ at first use, ``window_batches`` and the pinned, side-stream
 (``examples/imagenet.py``); then disaggregated serving
 (``serve.handoff``: a prefill-only ``ServeEngine`` hands each request's
 KV pages to a decode engine, whole or streamed, on JAX's wire), prefix
-migration and live weight swaps (``ServeEngine.swap_weights``).
+migration and live weight swaps (``ServeEngine.swap_weights``); then
+fault injection and self-healing (``resilience``: seeded fault plans
+injected at the engine's and the driver's host boundaries, and the
+``ResilientServeEngine`` and ``ResilientTrainDriver`` that retry, roll
+back, restart and replay).
 Every kernel on those paths
 (LayerNorm forward and backward, paged attention, flash attention
 forward and backward with and without an additive bias and its gradient,

@@ -869,6 +869,18 @@ class GPTDecoder:
             put(cache.v_scale, v_scale)
         cache.lengths[int(slot)] = int(length)
 
+    def reset_programs(self) -> None:
+        """The restart hook of :mod:`apex_tpu_torch.resilience` (JAX's
+        drops the decoder's jit cache, so a restarted process re-traces).
+        The eager port keeps no compiled program and no other host state
+        per decoder: the model, its weights and the settings are what a
+        restarted process would build again, so there is nothing to drop
+        and this does nothing.  The kernel libraries are loaded once per
+        process (:mod:`apex_tpu_torch.ops._build`) and stay loaded, so a
+        restart inside one process builds and loads nothing.  Engine
+        crash recovery keeps the decoder and does not call this;
+        :meth:`with_params` clones share what they shared before."""
+
     def with_params(self, params: Dict[str, torch.Tensor]) -> "GPTDecoder":
         """A clone of this decoder serving ``params``: its own
         :class:`~apex_tpu_torch.models.GPTLM`, loaded and cast as the

@@ -76,7 +76,18 @@ prefix migrates ahead of demand (:meth:`ServeEngine.export_prefix`,
 serves new weights with no restart.  Every refusal returns None, the
 caller's signal to recompute.
 
-Not ported yet: the fault injector.
+Fault injection (``fault_injector=``, a
+:class:`~apex_tpu_torch.resilience.FaultInjector`): the engine polls it
+at JAX's host sites, each before the phase changes any state:
+``serve/boundary`` at every :meth:`ServeEngine.step` (after its
+recorder event, before admission), ``serve/prefill`` before admission,
+``serve/prefill_chunk`` before the chunk plan and ``serve/decode_window``
+before the window's mask and tables.  An injected fault raises before
+its phase launches or moves anything (the boundary's earlier phases stay
+done), so a caller that retries the boundary
+(:class:`~apex_tpu_torch.resilience.ResilientServeEngine`) admits,
+prefills or decodes nothing twice.  With no injector the engine is
+unchanged.
 """
 from __future__ import annotations
 
@@ -170,6 +181,9 @@ class ServeEngine:
       prefill_only: a disaggregated prefill engine: it admits and
         chunk-prefills but never runs a decode window; finished prefills
         park in their slots until they are exported and detached.
+      fault_injector: a :class:`~apex_tpu_torch.resilience.FaultInjector`
+        polled at the host sites of the module docstring (None: no
+        polls, one attribute check a site).
     """
 
     #: consumed verify steps between two auto-tuner decisions
@@ -197,6 +211,7 @@ class ServeEngine:
         slo_admission: bool = False,
         flightrec: Optional[obs.FlightRecorder] = None,
         prefill_only: bool = False,
+        fault_injector=None,
     ):
         self.decoder = decoder
         self.prefill_only = bool(prefill_only)
@@ -270,6 +285,7 @@ class ServeEngine:
         self.obs_registry = (obs.MetricsRegistry() if registry is None
                              else registry)
         self._tracer = obs.default_tracer() if tracer is None else tracer
+        self._inj = fault_injector
         self._fr = obs.default_flightrec() if flightrec is None \
             else flightrec
         self._clock = time.perf_counter_ns if clock is None else clock
@@ -1006,6 +1022,10 @@ class ServeEngine:
     def _admit(self) -> None:
         """Fill free slots from the queue with ONE batched prefill, the
         prompts right-padded to a power-of-two bucket."""
+        if self._inj is not None:
+            # before any state mutation: a raised fault leaves the queue
+            # and the slots untouched, so retrying the boundary is safe
+            self._inj.before_dispatch("serve/prefill")
         batch: List[Request] = []
         while self._queue and self.alloc.n_free:
             r = self._queue[self._admit_order()[0]]
@@ -1079,6 +1099,8 @@ class ServeEngine:
         budget burns: then the first of the next :data:`OVERTAKE_SCAN`
         candidates that fits is admitted instead.  Shared-prefix pages
         are mapped here; prefill starts at the first non-shared token."""
+        if self._inj is not None:
+            self._inj.before_dispatch("serve/prefill")
         t_admit = self._clock()
         ttft_burn = self._slo_burning("ttft_ms")
         while self._queue and self.alloc.n_free:
@@ -1142,6 +1164,8 @@ class ServeEngine:
             self._tracer.instant("serve/slo_yield",
                                  prefilling=len(self._prefilling))
             return
+        if self._inj is not None:
+            self._inj.before_dispatch("serve/prefill_chunk")
         pending = []
         pairs = []
         with self._tracer.span("serve/cow_plan", phase="prefill"):
@@ -1232,9 +1256,14 @@ class ServeEngine:
         one decode window, retire.  Returns False once everything is
         drained."""
         if self._fr.enabled:
+            # the boundary first, so an injected crash's postmortem shows
+            # the boundaries that led up to it
             self._fr.record("serve/boundary", active=len(self._active),
                             queued=len(self._queue),
                             prefilling=len(self._prefilling))
+        if self._inj is not None:
+            # crash and page-pressure events land here
+            self._inj.at_boundary(self)
         with self._tracer.span("serve/admit"):
             if self.paged:
                 self._admit_paged()
@@ -1259,6 +1288,8 @@ class ServeEngine:
         if self._fr.enabled:
             self._fr.record("serve/decode_window", k=k,
                             active=len(self._active))
+        if self._inj is not None:
+            self._inj.before_dispatch("serve/decode_window")
         active = np.zeros((self.cache.slots,), bool)
         active[list(self._active)] = True
         if self.paged:

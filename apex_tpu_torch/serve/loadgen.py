@@ -35,10 +35,11 @@ policy: two runs of the same plan give byte-identical
 :class:`LoadReport`\\ s, and a policy A/B (FIFO against SLO-aware
 admission) is noise-free.
 
-The target is the port's :class:`~apex_tpu_torch.serve.ServeEngine`.
-JAX's harness also drives a ``FleetRouter`` and a
-``ResilientServeEngine``; their modules are not ported yet, and such a
-target raises ``TypeError``.
+The target is the port's :class:`~apex_tpu_torch.serve.ServeEngine` or
+a :class:`~apex_tpu_torch.resilience.ResilientServeEngine` (its
+deadlines then fire at deterministic virtual times, so abandonment
+replays too).  JAX's harness also drives a ``FleetRouter``; its module
+is not ported yet, and such a target raises ``TypeError``.
 """
 from __future__ import annotations
 
@@ -294,19 +295,28 @@ class TrafficPlan:
 # execution
 # ---------------------------------------------------------------------------
 
-def _serve_engine(target) -> None:
-    """Raise ``TypeError`` for a target this harness cannot drive yet:
-    JAX's harness reads a fleet router's per-host registries and a
-    resilient engine's own registry; the port has neither module."""
+def _registries(target) -> List:
+    """The metrics registries holding ``target``'s lifecycle histograms:
+    a ``ServeEngine``'s own, or a ``ResilientServeEngine``'s (shared by
+    every inner engine it built).  A fleet router's per-host registries
+    wait for the port of ``apex_tpu/fleet``: ``TypeError``."""
     if hasattr(target, "obs_registry"):       # ServeEngine
-        return
+        return [target.obs_registry]
     if hasattr(target, "hosts"):
         raise TypeError(f"{type(target).__name__}: a FleetRouter target "
                         "waits for the port of apex_tpu/fleet")
-    if hasattr(target, "registry"):
-        raise TypeError(f"{type(target).__name__}: a ResilientServeEngine "
-                        "target waits for the port of apex_tpu/resilience")
+    if hasattr(target, "registry"):           # ResilientServeEngine
+        return [target.registry]
     raise TypeError(f"no metrics registry on {type(target).__name__}")
+
+
+def _results(target) -> Dict[int, List[int]]:
+    """``{uid: tokens}``: a ``ServeEngine``'s finished requests, or a
+    ``ResilientServeEngine``'s records (abandoned ones included)."""
+    r = getattr(target, "results")
+    if callable(r):
+        return r()
+    return {uid: list(req.tokens) for uid, req in r.items()}
 
 
 def _merged_quantiles(regs, name: str) -> dict:
@@ -441,7 +451,7 @@ class LoadGen:
         their virtual timestamp has passed; the loop steps the target
         once per ``step_cost_ms`` of virtual time and jumps idle
         gaps."""
-        _serve_engine(target)
+        regs = _registries(target)
         if target._clock is not self.clock:
             raise ValueError(
                 "target does not share this LoadGen's virtual clock — "
@@ -492,10 +502,9 @@ class LoadGen:
             if v is not None:
                 by_prio.setdefault(r.priority, []).append(v)
 
-        regs = [target.obs_registry]
-        results = target.results
-        tokens = {r.uid: list(results[uid_map[r.uid]].tokens)
-                  if uid_map[r.uid] in results else [] for r in reqs}
+        results = _results(target)
+        tokens = {r.uid: list(results.get(uid_map[r.uid], []))
+                  for r in reqs}
         sums = [target.lifecycle_summary()]
         completed = sum(s["completed"] for s in sums)
         abandoned = sum(s["abandoned"] for s in sums)

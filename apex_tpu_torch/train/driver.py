@@ -316,6 +316,20 @@ class FusedTrainDriver:
                 on_window(done, res)
         return carry, done
 
+    def reset_programs(self) -> None:
+        """The restart hook of :mod:`apex_tpu_torch.resilience` (JAX's
+        drops the compiled window programs, so a restarted process
+        re-traces).  The eager window has no compiled program, and the
+        step function, the meters' declarations and the mesh are what a
+        restarted process would build again; the only per-driver host
+        state is the newest window's record, which this clears.  The
+        kernel libraries stay loaded in the process
+        (:mod:`apex_tpu_torch.ops._build`), so a restart inside one
+        process builds and loads nothing."""
+        self.last_dispatch_ms = None
+        self.last_dispatch_compiles = 0
+        self.last_window_k = 0
+
     # -- checkpointing (window-boundary resume) -------------------------
 
     def carry_spec_for(self, carry: Any) -> Any:

@@ -331,7 +331,27 @@ line) on any failed check:
     requeued, the registry empty, every later token
     ``reference_generate``'s under the new weights); (f) the timing
     line: payload bytes a request, export and adopt ms, the bytes' MB/s,
-    the disaggregated wall beside the engine phase's.
+    the disaggregated wall beside the engine phase's;
+22. fault injection and self-healing, last: ``resilience_serve``
+    (``ResilientServeEngine`` on the engine phase's configuration, the
+    engine mix: (a) fp32 under two engine crashes, a failed decode window,
+    a failed admission and a page-pressure spike, the clean run's tokens
+    per request with 2 restarts and 2 retries; (b) bf16 under failed
+    dispatches alone, the clean run's tokens bit for bit, and the crash
+    plan through chain speculation D = 3 over int8 pages, each differing
+    request's first differing position reported; (c) no library built or
+    loaded during a faulted run; (d) the recorder's postmortem read back:
+    reason ``engine_crash``, the fault after a boundary; (e) recovery ms,
+    the replays' extra launches, walls and peak memory) and
+    ``resilience_train`` (GPT-2 small O2, its dropout generator in the
+    carry, 4 windows of K = 4 through ``ResilientTrainDriver`` under a
+    loader stall, a failed dispatch, a straggler, NaN meters and a
+    preemption, with ``on_restore`` calling ``copy_to_model``: masters,
+    optimizer and scaler state, generator and the model's half copy bit
+    for bit an unprotected clean run's, the exact launches of the 6
+    windows run, no library built or loaded, checkpoint bytes and save
+    and restore seconds; planted: the same plan without ``on_restore``
+    must differ).
 
 Then the ``nvidia-smi`` line, the ``{"kernels": [...]}`` summary and, as
 the last line, ``{"ok": true, "device": {...}}``.  Without a CUDA
@@ -2199,10 +2219,15 @@ def phase_train_parity(params, b: int = 2, s: int = 256):
 
 # -- phase 7: train ------------------------------------------------------------
 
-def _train_setup(dev, params, b, s, tx=None, on_grads=None):
+def _train_setup(dev, params, b, s, tx=None, on_grads=None,
+                 gen_in_carry=False):
     """GPT-2 small O2 with ``tx`` (default ``fused_adam(6e-4,
     weight_decay=0.1)``); ``on_grads(grads, masters, state)`` sees each
-    step's scaled grads before the optimizer does."""
+    step's scaled grads before the optimizer does.  With
+    ``gen_in_carry`` the dropout generator is the carry's third leaf and
+    the step reads it from there (a checkpoint restore then rewinds it),
+    and the model and the optimizer are returned too (the resume step's
+    ``copy_to_model``)."""
     amp_ = amp.initialize("O2")
     cfg = GPTConfig.small(compute_dtype=amp_.policy.compute_dtype)
     model = GPTLM(cfg)
@@ -2220,8 +2245,9 @@ def _train_setup(dev, params, b, s, tx=None, on_grads=None):
     plant = {"inf": False}
 
     def step(carry, _batch):
-        masters, state = carry
-        _, loss = model(ids, labels, deterministic=False, generator=gen)
+        masters, state = carry[:2]
+        g_drop = carry[2] if gen_in_carry else gen
+        _, loss = model(ids, labels, deterministic=False, generator=g_drop)
         grads = dict(zip(names, torch.autograd.grad(
             amp_.scale_loss(loss, state.scaler[0]), ps)))
         if plant["inf"]:
@@ -2231,10 +2257,12 @@ def _train_setup(dev, params, b, s, tx=None, on_grads=None):
         if on_grads is not None:
             on_grads(grads, masters, state)
         masters, state, stats = opt.step(grads, state, masters, model=model)
-        return (masters, state), {"loss": loss.detach(),
-                                  "loss_scale": stats.loss_scale,
-                                  "skipped": stats.found_inf.float()}
+        return (masters, state) + tuple(carry[2:]), {
+            "loss": loss.detach(), "loss_scale": stats.loss_scale,
+            "skipped": stats.found_inf.float()}
 
+    if gen_in_carry:
+        return cfg, step, (masters, state, gen), plant, model, opt
     return cfg, step, (masters, state), plant
 
 
@@ -10038,6 +10066,379 @@ def phase_serve_handoff(dev, params, engine_run: dict, smi: str) -> dict:
     return mix["launches"]
 
 
+# -- phase 22: fault injection and self-healing (resilience) -----------------
+
+#: the fp32 crash plan: two engine crashes at boundaries, a failed decode
+#: window and a failed admission (retried), and a page-pressure spike
+RES_SERVE_CRASH = (
+    ("serve/boundary", 3, "engine_crash", 0.0),
+    ("serve/decode_window", 2, "dispatch_error", 0.0),
+    ("serve/prefill", 5, "dispatch_error", 0.0),
+    ("serve/boundary", 6, "page_pressure", 48.0),
+    ("serve/boundary", 9, "engine_crash", 0.0))
+#: the bf16 retry-only plan: every fault fires before any launch
+RES_SERVE_RETRY = (
+    ("serve/decode_window", 1, "dispatch_error", 0.0),
+    ("serve/prefill", 2, "dispatch_error", 0.0),
+    ("serve/prefill_chunk", 3, "dispatch_error", 0.0),
+    ("serve/decode_window", 4, "dispatch_error", 0.0))
+#: the train plan, windows of K = 4, a checkpoint every 2 windows: a
+#: loader stall, a failed dispatch (retried), a straggler, NaN meters
+#: after window 2 (rolled back to boundary 2) and a preemption before
+#: window 3 (restarted from boundary 2)
+RES_TRAIN = (
+    ("train/loader", 1, "loader_stall", 0.01),
+    ("train/dispatch", 1, "dispatch_error", 0.0),
+    ("train/dispatch", 3, "straggler", 0.01),
+    ("train/meters", 2, "nan_meters", 0.0),
+    ("train/dispatch", 5, "preemption", 0.0))
+
+
+def _fault_plan(events):
+    from apex_tpu_torch.resilience import FaultEvent, FaultPlan
+
+    return FaultPlan([FaultEvent(*e) for e in events])
+
+
+def _first_diff(a, b):
+    return next((j for j, (x, y) in enumerate(zip(a, b)) if x != y),
+                None if len(a) == len(b) else min(len(a), len(b)))
+
+
+def _resilient_mix(dec, events, dump_dir=None) -> dict:
+    """The engine mix (:func:`_engine_mix_prompts`, 64 new tokens each)
+    through a ``ResilientServeEngine`` of the engine phase's configuration
+    under ``events`` (None: no plan), with its own registry, tracer and
+    recorder; the first prompt lands its pages before the rest are
+    submitted, as in the engine phase.  The launch counts and the peak
+    memory are reset just before; every library build or load during the
+    run is heard."""
+    from apex_tpu_torch.resilience import ResilientServeEngine
+
+    reg = obs.MetricsRegistry()
+    tracer = obs.Tracer(enabled=True)
+    fr = obs.FlightRecorder(capacity=512, enabled=True, dump_dir=dump_dir)
+    heard = []
+
+    def listen(kind, name):
+        heard.append((kind, name))
+
+    prompts = _engine_mix_prompts()
+    eng = ResilientServeEngine(
+        dec, fault_plan=None if events is None else _fault_plan(events),
+        registry=reg, tracer=tracer, flightrec=fr, backoff_s=0.0,
+        slots=8, max_len=1024, page_len=16, prefill_chunk=128, seed=0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    _build.add_build_listener(listen)
+    try:
+        t0 = time.perf_counter()
+        uids = [eng.submit(prompts[0], max_new_tokens=64)]
+        while eng.engine._prefilling or eng.engine._queue:
+            eng.step()
+        uids += [eng.submit(p, max_new_tokens=64) for p in prompts[1:]]
+        out = eng.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        _build.remove_build_listener(listen)
+    tracer.close()
+    launches = launch_counts()
+    restarts = [sp for sp in tracer.spans
+                if sp.name == "resilience/engine_restart"]
+    rec_ms = reg.get("resilience.recovery_ms")
+    return {"tokens": [out[u] for u in uids], "wall_s": wall,
+            "launches": {n: c for n, c in launches.items() if c},
+            "restarts": eng.restarts, "retries": eng.retries,
+            "faults_fired": len(eng.injector.plan.fired)
+            if eng.injector is not None else 0,
+            "injected": {n: reg.get(n).value for n in reg.names()
+                         if n.startswith("resilience.injected.")},
+            "recovery_ms": ({"count": rec_ms.count,
+                             "p50": rec_ms.quantile(0.5),
+                             "max": rec_ms.quantile(1.0)}
+                            if rec_ms is not None and rec_ms.count else None),
+            "builds_or_loads": heard,
+            "engine_restart_spans": [{"dur_ms": sp.dur * 1e-6,
+                                      "compiles": sp.compiles}
+                                     for sp in restarts],
+            "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+            "recorder": fr}
+
+
+def phase_resilience_serve(dev, params, smi: str) -> dict:
+    """Self-healing serving of GPT-2 small (random weights, seed 0) on the
+    engine phase's configuration: 8 slots, page_len 16, chunks of 128,
+    K = 8, the engine mix.  (a) fp32: a clean run and a run under
+    :data:`RES_SERVE_CRASH` stream the same tokens per request, with 2
+    restarts and 2 retries; (b) bf16: the retry-only plan
+    :data:`RES_SERVE_RETRY` gives the clean run's tokens bit for bit, and
+    the crash plan through chain speculation (D = 3) over int8 pages is
+    reported, not gated (each differing request's first differing
+    position: a bf16 re-prefill of prompt + generated runs prefill tiles
+    where the clean run ran decode steps, so a greedy near-tie can flip);
+    (c) no library built or loaded during any faulted run (all of them
+    after their clean runs), none inside a ``resilience/engine_restart``
+    span; (d) the recorder's postmortem written and read back: reason
+    ``engine_crash``, the fault, the boundaries before it; (e) recovery
+    ms, the replay's extra launches, the walls and the peak memory of
+    both fp32 runs.  Returns the fp32 crash run's launches."""
+    from apex_tpu_torch.resilience import ENGINE_CRASH
+
+    t_phase = time.perf_counter()
+    cfg = GPTConfig.small()
+    dec32 = GPTDecoder(cfg, params, compute_dtype=torch.float32,
+                       cache_dtype=torch.float32, tokens_per_dispatch=8,
+                       device=dev)
+    dump = tempfile.mkdtemp(prefix="apex_tpu_torch_flightrec_")
+    try:
+        clean32 = _resilient_mix(dec32, None)
+        crash32 = _resilient_mix(dec32, RES_SERVE_CRASH, dump_dir=dump)
+        meta, events = obs.read_flightrec(dump)
+    finally:
+        shutil.rmtree(dump, ignore_errors=True)
+    del dec32
+    torch.cuda.empty_cache()
+    fault = [i for i, e in enumerate(events) if e["kind"] == "fault"
+             and e["attrs"]["kind"] == ENGINE_CRASH]
+    boundaries = [e for e in events[:fault[-1]]
+                  if e["kind"] == "serve/boundary"] if fault else []
+    postmortem = {"reason": meta.get("reason"), "events": len(events),
+                  "recorded": meta.get("recorded"),
+                  "fault_index": fault[-1] if fault else None,
+                  "boundaries_before_fault": len(boundaries),
+                  "event_before_fault": (events[fault[-1] - 1]["kind"]
+                                         if fault else None)}
+    dec16 = GPTDecoder(cfg, params, compute_dtype=torch.bfloat16,
+                       cache_dtype=torch.bfloat16, tokens_per_dispatch=8,
+                       device=dev)
+    clean16 = _resilient_mix(dec16, None)
+    retry16 = _resilient_mix(dec16, RES_SERVE_RETRY)
+    del dec16
+    torch.cuda.empty_cache()
+    spec = GPTDecoder(cfg, params, compute_dtype=torch.bfloat16,
+                      kv_int8=True, tokens_per_dispatch=8, spec_tokens=3,
+                      device=dev)
+    clean_spec = _resilient_mix(spec, None)
+    crash_spec = _resilient_mix(spec, RES_SERVE_CRASH)
+    del spec
+    torch.cuda.empty_cache()
+    spec_diff = {i: _first_diff(a, b) for i, (a, b) in enumerate(
+        zip(crash_spec["tokens"], clean_spec["tokens"])) if a != b}
+
+    def summary(run):
+        return {k: v for k, v in run.items()
+                if k not in ("tokens", "recorder")}
+
+    def extra(run, clean):
+        return {n: run["launches"].get(n, 0) - clean["launches"].get(n, 0)
+                for n in SERVING}
+
+    rec = {"phase": "resilience_serve", "nvidia_smi": smi,
+           "model": "GPT-2 small, random weights (seed 0), 8 slots, "
+                    "page_len 16, chunks of 128, K = 8, the engine mix",
+           "crash_plan": RES_SERVE_CRASH, "retry_plan": RES_SERVE_RETRY,
+           "fp32": {"clean": summary(clean32), "crash": summary(crash32),
+                    "tokens_equal": crash32["tokens"] == clean32["tokens"],
+                    "requests_differing": sum(
+                        a != b for a, b in zip(crash32["tokens"],
+                                               clean32["tokens"])),
+                    "extra_launches": extra(crash32, clean32)},
+           "postmortem": postmortem,
+           "bf16_retry": {"clean": summary(clean16),
+                          "retry": summary(retry16),
+                          "tokens_bit_for_bit": retry16["tokens"]
+                          == clean16["tokens"],
+                          "extra_launches": extra(retry16, clean16)},
+           "bf16_spec_d3_int8_crash": {
+               "clean": summary(clean_spec), "crash": summary(crash_spec),
+               "requests_differing": len(spec_diff),
+               "first_differing_position": spec_diff,
+               "extra_launches": extra(crash_spec, clean_spec)},
+           "seconds": time.perf_counter() - t_phase}
+    emit(rec)
+    check(rec["fp32"]["tokens_equal"],
+          f"resilience_serve (a): fp32 crash-plan tokens differ from the "
+          f"clean run's in {rec['fp32']['requests_differing']} requests")
+    check(crash32["restarts"] == 2 and crash32["retries"] == 2
+          and crash32["faults_fired"] == len(RES_SERVE_CRASH)
+          and clean32["restarts"] == clean32["retries"] == 0,
+          f"resilience_serve (a): recovery counts {summary(crash32)}")
+    check(rec["bf16_retry"]["tokens_bit_for_bit"]
+          and retry16["retries"] == len(RES_SERVE_RETRY)
+          and retry16["restarts"] == 0,
+          f"resilience_serve (b): the bf16 retry-only run: "
+          f"{rec['bf16_retry']}")
+    check(all(not r["builds_or_loads"] for r in (crash32, retry16,
+                                                 crash_spec))
+          and all(sp["compiles"] == 0 for r in (crash32, crash_spec)
+                  for sp in r["engine_restart_spans"]),
+          "resilience_serve (c): a library was built or loaded during "
+          "recovery")
+    check(postmortem["reason"] == "engine_crash" and fault
+          and postmortem["boundaries_before_fault"] >= 1
+          and postmortem["event_before_fault"] == "serve/boundary",
+          f"resilience_serve (d): the postmortem {postmortem}")
+    check(all(crash32["launches"].get(n, 0) > 0 for n in SERVING)
+          and all(c == 0 for n, c in crash32["launches"].items()
+                  if n not in SERVING),
+          f"resilience_serve: launches {crash32['launches']}")
+    return launch_dict(crash32["launches"])
+
+
+def launch_dict(counts: dict) -> dict:
+    """Every kernel's count, 0 where the run launched none."""
+    return {n: counts.get(n, 0) for n in launch_counts()}
+
+
+def _carry_state(carry, model) -> dict:
+    """The carry's leaves (masters, ``AmpOptState``, the generator's
+    state) and the model's half copy, cloned."""
+    out = {n: t.clone() for n, t in _leaves(carry).items()}
+    out.update({f"model.{n}": p.detach().clone()
+                for n, p in model.named_parameters()})
+    return out
+
+
+def phase_resilience_train(dev, params, b: int = 8, s: int = 1024,
+                           k: int = 4, windows: int = 4) -> dict:
+    """Self-healing training of GPT-2 small O2 (``_train_setup``, batch 8
+    x 1024, dropout 0.1, ``fused_adam``, its dropout generator in the
+    carry), K = 4, 4 windows: an unprotected clean run, then
+    ``ResilientTrainDriver`` (a checkpoint every 2 windows, in a temporary
+    directory removed after) under :data:`RES_TRAIN` with ``on_restore``
+    calling ``copy_to_model``: the final masters, ``AmpOptState`` (scale
+    included), the generator's state and the model's bf16 half copy bit
+    for bit the clean run's, 1 retry, 1 rollback and 1 restart, the
+    launches of exactly the windows run, no library built or loaded
+    during the run.  Planted: the same plan without ``on_restore`` must
+    fail the bitwise check.  Returns the faulted run's launches."""
+    from apex_tpu_torch.resilience import ResilientTrainDriver
+
+    t_phase = time.perf_counter()
+    metrics = {"loss": "last", "loss_scale": "last", "skipped": "sum"}
+
+    def setup():
+        _, step, carry, _, model, opt = _train_setup(dev, params, b, s,
+                                                     gen_in_carry=True)
+        return FusedTrainDriver(step, steps_per_dispatch=k,
+                                metrics=metrics), carry, model, opt
+
+    driver, carry, model, opt = setup()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(windows):
+        carry, res = driver.run_window(carry)
+        read_metrics(res.metrics)
+    torch.cuda.synchronize()
+    clean_wall = time.perf_counter() - t0
+    want = _carry_state(carry, model)
+    del driver, carry, model, opt
+    torch.cuda.empty_cache()
+
+    runs = {}
+    for name, hook in (("on_restore", True), ("planted_no_on_restore",
+                                              False)):
+        driver, carry, model, opt = setup()
+        reg = obs.MetricsRegistry()
+        heard = []
+
+        def listen(kind, lib):
+            heard.append((kind, lib))
+
+        tmp = tempfile.mkdtemp(prefix="apex_tpu_torch_resilience_")
+        saves, restores = [], []
+        save, restore = driver.save, driver.restore
+
+        def timed_save(*a, **kw):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = save(*a, **kw)
+            saves.append(time.perf_counter() - t)
+            return out
+
+        def timed_restore(*a, **kw):
+            t = time.perf_counter()
+            out = restore(*a, **kw)
+            torch.cuda.synchronize()
+            restores.append(time.perf_counter() - t)
+            return out
+
+        driver.save, driver.restore = timed_save, timed_restore
+        r = ResilientTrainDriver(
+            driver, tmp, checkpoint_every=2, backoff_s=0.0,
+            fault_plan=_fault_plan(RES_TRAIN), registry=reg,
+            tracer=obs.Tracer(enabled=True),
+            flightrec=obs.FlightRecorder(enabled=True),
+            on_restore=(lambda c, m=model, o=opt: o.copy_to_model(m, c[0]))
+            if hook else None)
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        _build.add_build_listener(listen)
+        try:
+            t0 = time.perf_counter()
+            carry, report = r.run(carry, windows)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            step_dir = os.path.join(tmp, str(windows * k))
+            disk = sum(os.path.getsize(os.path.join(step_dir, f))
+                       for f in os.listdir(step_dir))
+        finally:
+            _build.remove_build_listener(listen)
+            shutil.rmtree(tmp, ignore_errors=True)
+        launches = launch_counts()
+        got = _carry_state(carry, model)
+        differing = sorted(n for n, t in want.items()
+                           if not (t.dtype == got[n].dtype
+                                   and torch.equal(t, got[n])))
+        rec_ms = reg.get("resilience.recovery_ms")
+        runs[name] = {"report": report, "wall_s": wall,
+                      "leaves": len(want), "leaves_differing": len(differing),
+                      "differing_sample": differing[:6],
+                      "recovery_ms": {"count": rec_ms.count,
+                                      "p50": rec_ms.quantile(0.5),
+                                      "max": rec_ms.quantile(1.0)},
+                      "save_s": saves, "restore_s": restores,
+                      "checkpoint_bytes_on_disk": disk,
+                      "builds_or_loads": heard,
+                      "launches": {n: c for n, c in launches.items() if c}}
+        del driver, carry, model, opt, r, got
+        torch.cuda.empty_cache()
+    good = runs["on_restore"]
+    # windows run: 0, 1, 2 (NaN meters), 2 again (the rollback's replay),
+    # then 2 and 3 (the restart's replay from boundary 2)
+    ran = 6
+    per_step = {"layer_norm": 25, "layer_norm_bwd": 25,
+                "flash_attention_fwd": 12, "flash_attention_bwd": 12,
+                "softmax_xentropy_fwd": 1, "softmax_xentropy_bwd": 1}
+    want_launches = {n: ran * k * c for n, c in per_step.items()}
+    rec = {"phase": "resilience_train", "nvidia_smi": nvidia_smi_line(),
+           "model": "GPT-2 small O2, dropout 0.1 (the generator in the "
+                    "carry), fused_adam", "batch": [b, s],
+           "steps_per_window": k, "windows": windows, "plan": RES_TRAIN,
+           "checkpoint_every": 2, "clean_wall_s": clean_wall,
+           "windows_run": ran, **runs,
+           "seconds": time.perf_counter() - t_phase}
+    emit(rec)
+    check(good["leaves_differing"] == 0,
+          f"resilience_train: the faulted run differs from the clean run "
+          f"in {good['leaves_differing']} leaves: {good['differing_sample']}")
+    rep = good["report"]
+    check((rep["retries"], rep["rollbacks"], rep["restarts"]) == (1, 1, 1),
+          f"resilience_train: recovery counts {rep}")
+    check(good["launches"] == want_launches,
+          f"resilience_train: launches {good['launches']}, not "
+          f"{want_launches}")
+    check(not good["builds_or_loads"]
+          and not runs["planted_no_on_restore"]["builds_or_loads"],
+          "resilience_train: a library was built or loaded during recovery")
+    check(runs["planted_no_on_restore"]["leaves_differing"] > 0,
+          "resilience_train: the planted fault (no copy_to_model after the "
+          "restores) passed the bitwise check")
+    return launch_dict(good["launches"])
+
+
 class _Tee:
     """stdout that also writes to a log file."""
 
@@ -10225,10 +10626,18 @@ def _run() -> int:
           "phases": ["obs_serve", "obs_train"]})
     t_ho = time.perf_counter()
     handoff_launches = phase_serve_handoff(dev, params, engine_run, smi)
-    del params, engine_run
+    del engine_run
     torch.cuda.empty_cache()
     emit({"phase": "serve_handoff_time",
           "seconds": time.perf_counter() - t_ho})
+    t_res = time.perf_counter()
+    res_serve_launches = phase_resilience_serve(dev, params, smi)
+    torch.cuda.empty_cache()
+    res_train_launches = phase_resilience_train(dev, params)
+    del params
+    torch.cuda.empty_cache()
+    emit({"phase": "resilience_time", "seconds": time.perf_counter() - t_res,
+          "phases": ["resilience_serve", "resilience_train"]})
 
     # the summary rows: the serving kernels at the engine's decode-step
     # shape with the engine run's launches, the GPT training kernels at
@@ -10570,6 +10979,25 @@ def _run() -> int:
                            "prefill-only engine and a decode engine, 8 "
                            "slots each, every request handed off through "
                            "bytes (serve_handoff)"}
+    # the resilience phases: the fp32 crash-plan run of the engine mix
+    # (its replays included) and the faulted O2 training run (its
+    # replayed windows included)
+    for name in ("layer_norm", "paged_fused_attention"):
+        by_name[name]["resilience_serve_path"] = {
+            "launches": res_serve_launches[name],
+            "launches_of": f"{name}, the engine mix at fp32 through "
+                           "ResilientServeEngine under two engine crashes, "
+                           "two failed dispatches and a page-pressure "
+                           "spike, replays included (resilience_serve (a))"}
+    for name in ("layer_norm", "layer_norm_bwd", "flash_attention_fwd",
+                 "flash_attention_bwd", "softmax_xentropy_fwd",
+                 "softmax_xentropy_bwd"):
+        by_name[name]["resilience_train_path"] = {
+            "launches": res_train_launches[name],
+            "launches_of": f"{name}, GPT-2 small O2 through "
+                           "ResilientTrainDriver, 4 windows of K = 4 at 8 x "
+                           "1024 under a retry, a rollback and a restart: 6 "
+                           "windows run (resilience_train)"}
     for name in ("layer_norm", "layer_norm_bwd", "flash_attention_fwd",
                  "flash_attention_bwd", "softmax_xentropy_fwd",
                  "softmax_xentropy_bwd"):
@@ -10589,7 +11017,9 @@ def _run() -> int:
                             "spec_tree_path_w2d3", "spec_tree_path_w3d3",
                             "o1_path", "stash_path", "long_context_path",
                             "tp_path", "tp_serve_path", "obs_serve_path",
-                            "obs_train_path", "serve_handoff_path", *paths)
+                            "obs_train_path", "serve_handoff_path",
+                            "resilience_serve_path", "resilience_train_path",
+                            *paths)
                   if p in r),
           f"a kernel never launched on its path: {rows}")
     check(all(by_name[n][p]["launches"] > 0

@@ -17,8 +17,9 @@ package, on the CPU.
   the ``stats()`` keys both engines have.
   SLO-aware admission streams FIFO's tokens per uid.
 - Two port runs of a plan give byte-identical reports; the harness
-  refuses an engine on another clock and targets whose modules are not
-  ported yet.
+  refuses an engine on another clock and a fleet router, whose module
+  is not ported yet (a ``ResilientServeEngine`` target runs:
+  ``tests/test_torch_resilience.py``).
 """
 import jax
 import jax.numpy as jnp
@@ -249,8 +250,7 @@ class TestHarness:
         with pytest.raises(ValueError):
             serve.LoadGen(_plan(serve), step_cost_ms=0.0)
 
-    @pytest.mark.parametrize("attr,module", [("hosts", "fleet"),
-                                             ("registry", "resilience")])
+    @pytest.mark.parametrize("attr,module", [("hosts", "fleet")])
     def test_unported_targets_raise(self, attr, module):
         target = type("Target", (), {attr: {}})()
         with pytest.raises(TypeError, match=module):
