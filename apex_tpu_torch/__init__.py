@@ -58,7 +58,10 @@ migration and live weight swaps (``ServeEngine.swap_weights``); then
 fault injection and self-healing (``resilience``: seeded fault plans
 injected at the engine's and the driver's host boundaries, and the
 ``ResilientServeEngine`` and ``ResilientTrainDriver`` that retry, roll
-back, restart and replay).
+back, restart and replay); then the serving fleet (``fleet``: the
+per-host preflight, ``FleetHost`` and ``FleetRouter`` with health
+checks, host-loss recovery, prefix affinity, prefill/decode roles over
+the KV handoff, autoscaling and host rolls).
 Every kernel on those paths
 (LayerNorm forward and backward, paged attention, flash attention
 forward and backward with and without an additive bias and its gradient,

@@ -19,8 +19,9 @@ formats, one tracer:
   summaries with exact nearest-rank quantile labels) and the live
   :class:`~apex_tpu_torch.obs.slo.SloReport` objectives as labeled
   gauges, ``# EOF`` terminated, names sorted so two identical
-  registries expose byte-identical text.  JAX's per-host ``labels=``,
-  ``eof=`` and the compiled-program ``census=`` serve its fleet
+  registries expose byte-identical text.  ``labels=`` stamps a base
+  label set (a fleet host's ``host`` and ``role``) on every series.
+  JAX's ``eof=`` and compiled-program ``census=`` serve its live fleet
   aggregator and cost census, not ported yet.
 """
 from __future__ import annotations
@@ -238,15 +239,21 @@ def _om_num(v) -> str:
     return repr(f)
 
 
-def _om_labels(labels: dict) -> str:
+def _om_labels(base: Optional[dict], extra: Optional[dict] = None) -> str:
+    """A merged ``{k="v",...}`` label block ('' without labels)."""
+    items = list((base or {}).items()) + list((extra or {}).items())
+    if not items:
+        return ""
+
     def esc(v) -> str:
         return str(v).replace("\\", "\\\\").replace('"', '\\"')
 
-    return "{" + ",".join(f'{k}="{esc(v)}"' for k, v in labels.items()) + "}"
+    return "{" + ",".join(f'{k}="{esc(v)}"' for k, v in items) + "}"
 
 
 def to_openmetrics(registry: Optional[MetricsRegistry] = None,
-                   slo_report=None, prefix: str = "apex_tpu_") -> str:
+                   slo_report=None, prefix: str = "apex_tpu_",
+                   labels: Optional[dict] = None) -> str:
     """Render a registry snapshot (+ optional
     :class:`~apex_tpu_torch.obs.slo.SloReport`) in the OpenMetrics text
     format: counters as ``<name>_total``, gauges as gauges (running max
@@ -254,9 +261,11 @@ def to_openmetrics(registry: Optional[MetricsRegistry] = None,
     ``quantile`` labels plus ``_count``/``_sum``, SLO objectives as
     labeled ``slo_*`` gauges (current window quantile, threshold, burn
     rates, alert state) and the lifecycle summary as
-    ``slo_lifecycle_*`` gauges.  Names sort, so the text is
-    deterministic."""
+    ``slo_lifecycle_*`` gauges.  ``labels`` stamps a base label set on
+    every series, merged with per-series labels such as ``quantile``.
+    Names sort, so the text is deterministic."""
     lines = []
+    ls = _om_labels(labels)
     if registry is not None:
         for name in registry.names():
             m = registry.get(name)
@@ -265,28 +274,28 @@ def to_openmetrics(registry: Optional[MetricsRegistry] = None,
             kind = snap.get("type")
             if kind == "counter":
                 lines.append(f"# TYPE {om} counter")
-                lines.append(f"{om}_total {_om_num(snap['value'])}")
+                lines.append(f"{om}_total{ls} {_om_num(snap['value'])}")
             elif kind == "gauge":
                 lines.append(f"# TYPE {om} gauge")
-                lines.append(f"{om} {_om_num(snap['value'])}")
+                lines.append(f"{om}{ls} {_om_num(snap['value'])}")
                 lines.append(f"# TYPE {om}_max gauge")
-                lines.append(f"{om}_max {_om_num(snap['max'])}")
+                lines.append(f"{om}_max{ls} {_om_num(snap['max'])}")
             elif kind == "histogram":
                 lines.append(f"# TYPE {om} summary")
                 if snap.get("count"):
                     for q in _QUANTILES:
-                        ql = _om_labels({"quantile": f"{q:g}"})
+                        ql = _om_labels(labels, {"quantile": f"{q:g}"})
                         lines.append(f"{om}{ql} {_om_num(m.quantile(q))}")
-                    lines.append(f"{om}_sum {_om_num(snap['sum'])}")
-                lines.append(f"{om}_count {snap.get('count', 0)}")
+                    lines.append(f"{om}_sum{ls} {_om_num(snap['sum'])}")
+                lines.append(f"{om}_count{ls} {snap.get('count', 0)}")
     if slo_report is not None:
         base = prefix + "slo_objective"
         for field in ("current", "threshold", "burn_fast", "burn_slow",
                       "alerting", "window_count"):
             lines.append(f"# TYPE {base}_{field} gauge")
             for row in slo_report.objectives:
-                rl = _om_labels({"objective": row["name"],
-                                 "metric": row["metric"]})
+                rl = _om_labels(labels, {"objective": row["name"],
+                                         "metric": row["metric"]})
                 v = row.get(field)
                 if field == "alerting":
                     v = 1 if v else 0
@@ -297,19 +306,19 @@ def to_openmetrics(registry: Optional[MetricsRegistry] = None,
         for k in sorted(lc):
             om = _om_name("slo_lifecycle_" + k, prefix)
             lines.append(f"# TYPE {om} gauge")
-            lines.append(f"{om} {_om_num(lc[k])}")
+            lines.append(f"{om}{ls} {_om_num(lc[k])}")
     lines.append("# EOF")
     return "\n".join(lines) + "\n"
 
 
 def write_openmetrics(path: str,
                       registry: Optional[MetricsRegistry] = None,
-                      slo_report=None) -> str:
+                      slo_report=None, labels: Optional[dict] = None) -> str:
     """Write :func:`to_openmetrics` output to ``path`` atomically (tmp +
     ``os.replace``); returns ``path``."""
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
     tmp = path + ".tmp"
     with open(tmp, "w") as f:
-        f.write(to_openmetrics(registry, slo_report))
+        f.write(to_openmetrics(registry, slo_report, labels=labels))
     os.replace(tmp, path)
     return path

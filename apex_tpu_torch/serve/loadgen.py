@@ -35,11 +35,13 @@ policy: two runs of the same plan give byte-identical
 :class:`LoadReport`\\ s, and a policy A/B (FIFO against SLO-aware
 admission) is noise-free.
 
-The target is the port's :class:`~apex_tpu_torch.serve.ServeEngine` or
-a :class:`~apex_tpu_torch.resilience.ResilientServeEngine` (its
-deadlines then fire at deterministic virtual times, so abandonment
-replays too).  JAX's harness also drives a ``FleetRouter``; its module
-is not ported yet, and such a target raises ``TypeError``.
+The target is the port's :class:`~apex_tpu_torch.serve.ServeEngine`, a
+:class:`~apex_tpu_torch.resilience.ResilientServeEngine` (its deadlines
+then fire at deterministic virtual times, so abandonment replays too)
+or a :class:`~apex_tpu_torch.fleet.FleetRouter` (every host's registry
+merged, drained hosts' lifecycle summaries counted, the routing
+attribution in the report); targets differ only in which ``submit``
+keywords they take, which :class:`LoadGen` inspects once.
 """
 from __future__ import annotations
 
@@ -297,17 +299,33 @@ class TrafficPlan:
 
 def _registries(target) -> List:
     """The metrics registries holding ``target``'s lifecycle histograms:
-    a ``ServeEngine``'s own, or a ``ResilientServeEngine``'s (shared by
-    every inner engine it built).  A fleet router's per-host registries
-    wait for the port of ``apex_tpu/fleet``: ``TypeError``."""
+    a ``ServeEngine``'s own, a ``ResilientServeEngine``'s (shared by
+    every inner engine it built), or every fleet host's."""
     if hasattr(target, "obs_registry"):       # ServeEngine
         return [target.obs_registry]
-    if hasattr(target, "hosts"):
-        raise TypeError(f"{type(target).__name__}: a FleetRouter target "
-                        "waits for the port of apex_tpu/fleet")
+    if hasattr(target, "hosts"):              # FleetRouter
+        return [h.registry for h in target.hosts.values()]
     if hasattr(target, "registry"):           # ResilientServeEngine
         return [target.registry]
     raise TypeError(f"no metrics registry on {type(target).__name__}")
+
+
+def _lifecycle_summaries(target) -> List[dict]:
+    """An engine's lifecycle summary, or each fleet host's (a
+    ``FleetHost`` sums its released engine generations too, so a drained
+    host keeps its counts)."""
+    if hasattr(target, "lifecycle_summary"):
+        return [target.lifecycle_summary()]
+    if hasattr(target, "hosts"):
+        out = []
+        for h in target.hosts.values():
+            fn = getattr(h, "lifecycle_summary", None)
+            if fn is not None:
+                out.append(fn())
+            elif h.engine is not None:
+                out.append(h.engine.lifecycle_summary())
+        return out
+    return []
 
 
 def _results(target) -> Dict[int, List[int]]:
@@ -390,8 +408,9 @@ class LoadReport:
     slo_overtakes: int
     slo: Optional[dict]
     tokens: Dict[int, List[int]]
-    # per-host routing attribution of a fleet target; None for an
-    # engine (kept so the report's bytes match JAX's)
+    # per-host routing attribution of a fleet target (requests, affinity
+    # hits, fallback reasons, handoffs, prefix economics: counts only);
+    # None for an engine
     routing: Optional[Dict[str, dict]] = None
 
     def to_dict(self) -> dict:
@@ -451,8 +470,13 @@ class LoadGen:
         their virtual timestamp has passed; the loop steps the target
         once per ``step_cost_ms`` of virtual time and jumps idle
         gaps."""
-        regs = _registries(target)
-        if target._clock is not self.clock:
+        if hasattr(target, "hosts"):  # FleetRouter: per-host engines
+            clocks = [h.engine._clock for h in target.hosts.values()
+                      if h.engine is not None]
+        else:
+            c = getattr(target, "_clock", None)
+            clocks = [] if c is None else [c]
+        if any(c is not self.clock for c in clocks):
             raise ValueError(
                 "target does not share this LoadGen's virtual clock — "
                 "construct it with clock=gen.clock or replayability "
@@ -502,10 +526,11 @@ class LoadGen:
             if v is not None:
                 by_prio.setdefault(r.priority, []).append(v)
 
+        regs = _registries(target)
         results = _results(target)
         tokens = {r.uid: list(results.get(uid_map[r.uid], []))
                   for r in reqs}
-        sums = [target.lifecycle_summary()]
+        sums = _lifecycle_summaries(target)
         completed = sum(s["completed"] for s in sums)
         abandoned = sum(s["abandoned"] for s in sums)
         completed_tokens = sum(s["completed_tokens"] for s in sums)
@@ -516,6 +541,10 @@ class LoadGen:
             rep = rep_fn()
             if rep is not None:
                 slo = rep.to_dict()
+        routing = None
+        attr_fn = getattr(target, "routing_attribution", None)
+        if attr_fn is not None:
+            routing = attr_fn()
         return LoadReport(
             plan_meta=dict(self.plan.meta),
             rounds=rounds,
@@ -543,4 +572,5 @@ class LoadGen:
             slo_overtakes=_counter_sum(regs, "serve.slo.overtakes"),
             slo=slo,
             tokens=tokens,
+            routing=routing,
         )

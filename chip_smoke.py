@@ -232,7 +232,7 @@ line) on any failed check:
     model's attention shape against the unsharded kernels, every ring
     block's dropout mask bit for bit the unsharded one's, the first layer
     on the kernels against their plain versions; then
-    ``examples/gpt_long_context`` at GPT-2 small's width, 12 layers,
+    ``examples/gpt_long_context`` at GPT-2 small's width, 6 layers,
     S 4096, M = 2, ``dots_saveable``, ZeRO, two O2 steps against the same
     model on one rank over the whole sequence and batch, beside that
     run's floor on the kernels' plain versions; exact launches, r + 1
@@ -240,7 +240,7 @@ line) on any failed check:
     wall and busy share; planted: a wrong column offset, the causal mask
     off the diagonal, a dead rank) and ``tp_pipeline_gang`` (four gloo
     processes, a (pipe 2, model 2) mesh: ``examples/transformer_parallel``
-    at GPT-2 small's width, 12 blocks as two stages of 6, S 1024, M = 4
+    at GPT-2 small's width, 6 blocks as two stages of 3, S 1024, M = 4
     of 2, two O2 steps against the unsharded model on one rank with the
     merged weights; exact launches and collectives; planted: a
     row-parallel backward without its cotangent sum);
@@ -270,7 +270,7 @@ line) on any failed check:
     residual kept at a planted overflow; a ZeRO carry of data 4 restored
     as FSDP on (data 2, model 2) with the parameters bit for bit);
 19. the obs plane: ``obs_serve`` (the engine phase's configuration
-    under a seeded 32-request ``TrafficPlan`` on the load harness's
+    under a seeded 16-request ``TrafficPlan`` on the load harness's
     virtual clock: two obs-on runs' ``LoadReport``s byte for byte, obs
     off the same tokens and launches, a warm window the same host syncs
     on and off with one device-to-host read, SLO-aware admission FIFO's
@@ -351,7 +351,29 @@ line) on any failed check:
     for bit an unprotected clean run's, the exact launches of the 6
     windows run, no library built or loaded, checkpoint bytes and save
     and restore seconds; planted: the same plan without ``on_restore``
-    must differ).
+    must differ);
+23. the serving fleet, run right after ``spec_profile`` (4): ``fleet_serve``
+    (``FleetRouter`` over hosts that share one GPT-2 small decoder, each
+    with its own page pool, on the engine phase's geometry: the engine
+    mix through one fp32 ``ServeEngine`` first, then (a) three mixed hosts at
+    fp32 admitted through the port's preflight (its four checks pass on
+    the card), the engine mix under a seeded host plan (a loss
+    mid-decode, a two-beat stall that evicts, a dropped heartbeat, a
+    restart readmitted after preflight): the single-engine fp32 run's
+    tokens for every request, requests recovered, no library built or
+    loaded from the loss on, exactly 25 LayerNorms and 12 paged calls per
+    forward the hosts ran; recovery ms, walls and peak memory; (b)
+    planted preflight faults (one more device read, the pool
+    reallocated every window, ``exp`` of a bf16 tensor), each failing
+    its own check alone, and the router refusing the host; (c) one
+    prefill and two decode hosts, the handoff whole, streamed and with
+    corrupted bytes (recompute): the fp32 tokens, one handoff a request,
+    no window on the prefill host; bf16 reported beside the engine
+    phase; (d) prefix affinity off and on over shared-prefix traffic
+    from the mix: a higher fleet prefix hit rate on, the same tokens;
+    (e) autoscaling under ``LoadGen`` on its virtual clock, twice: the
+    same scale-up and drain decisions and recorder dumps byte for byte,
+    a static fleet's tokens), then its ``fleet_serve_time`` line.
 
 Then the ``nvidia-smi`` line, the ``{"kernels": [...]}`` summary and, as
 the last line, ``{"ok": true, "device": {...}}``.  Without a CUDA
@@ -361,6 +383,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import copy
 import dataclasses
 import hashlib
 import importlib
@@ -539,6 +562,19 @@ def ptxas_by_function(log: str) -> list:
             for r, name in zip(out, names):
                 r["function"] = name
     return out
+
+
+_SEEDED: dict = {}
+
+
+def seeded_params(init, cfg, seed: int) -> dict:
+    """``init(cfg, torch.Generator().manual_seed(seed))``, made once a
+    process and cloned at each call: drawing GPT-2 small's or BERT-large's
+    weights on the host takes seconds, a clone a fraction of one."""
+    key = (init.__name__, repr(cfg), seed)
+    if key not in _SEEDED:
+        _SEEDED[key] = init(cfg, torch.Generator().manual_seed(seed))
+    return {k: v.clone() for k, v in _SEEDED[key].items()}
 
 
 def nvidia_smi_line() -> str:
@@ -1187,9 +1223,9 @@ def _engine_mix_prompts() -> list:
     return [first, second] + [toks(n) for n in lens]
 
 
-def _run_engine_mix(eng, vocab: int):
+def _run_engine_mix(eng, vocab: int, new: int = 64):
     """The engine phase's 16 seeded requests (:func:`_engine_mix_prompts`)
-    through ``eng``, 64 new tokens each: the first lands its pages before
+    through ``eng``, ``new`` new tokens each: the first lands its pages before
     the rest are submitted, so the second maps the shared pages and its
     first write copy-on-writes the shared tail.  The launch counts are
     set to 0 just before.  Returns (prompt lengths, tokens by request,
@@ -1198,16 +1234,16 @@ def _run_engine_mix(eng, vocab: int):
     torch.cuda.synchronize()
     reset_launch_counts()
     t0 = time.perf_counter()
-    uids = [eng.submit(prompts[0], max_new_tokens=64)]
+    uids = [eng.submit(prompts[0], max_new_tokens=new)]
     while eng._prefilling or eng._queue:  # the first prompt's pages land
         eng.step()
-    uids += [eng.submit(p, max_new_tokens=64) for p in prompts[1:]]
+    uids += [eng.submit(p, max_new_tokens=new) for p in prompts[1:]]
     out = eng.run()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = launch_counts()
     got = [out[u] for u in uids]
-    check(all(len(t) == 64 for t in got), "a request fell short")
+    check(all(len(t) == new for t in got), "a request fell short")
     check(all(0 <= t < vocab for r in got for t in r), "token out of range")
     stats = eng.stats()
     check(stats["prefix_hits"] >= 1 and stats["cow_copies"] >= 1,
@@ -6781,16 +6817,19 @@ def phase_rnn(dev, configs=RNN_CONFIGS, parity=RNN_PARITY, repeats: int = 3):
 
 # -- phase 17: scale-out (meshes, sequence, tensor and pipeline parallelism) --
 
-#: the long-context gang: GPT-2 small's width, 12 GPTLayers, a (data 2,
-#: seq 2) mesh of gloo ranks on the one card, global S 4096 (2048 a
-#: rank), batch 1 a data rank, O2, attention dropout, dots_saveable, M = 2
-#: microbatches, 2 steps of DistributedFusedAdam
-LC = dict(layers=12, hidden=768, heads=12, data=2, seq=2, s_local=2048,
+#: the long-context gang: GPT-2 small's width, 6 GPTLayers (the depth cut
+#: to half: the whole script's time limit forces it, and each layer runs
+#: the same ring, flash and ZeRO steps), a (data 2, seq 2) mesh of gloo
+#: ranks on the one card, global S 4096 (2048 a rank), batch 1 a data
+#: rank, O2, attention dropout, dots_saveable, M = 2 microbatches, 2 steps
+#: of DistributedFusedAdam
+LC = dict(layers=6, hidden=768, heads=12, data=2, seq=2, s_local=2048,
           b_local=1, m=2, steps=2, rate=0.1, remat="dots_saveable")
 #: the tensor/pipeline gang: transformer_parallel at GPT-2 small's width
-#: (12 heads: 6 a rank; MLP 3072: 1536 a rank), 12 blocks as 2 stages of
-#: 6 on a (pipe 2, model 2) mesh, S 1024, M = 4 microbatches of 2, 2 steps
-TPP = dict(pipe=2, model=2, blocks=6, d_model=768, d_ff=3072, heads=12,
+#: (12 heads: 6 a rank; MLP 3072: 1536 a rank), 6 blocks as 2 stages of
+#: 3 (the depth cut to half, as the long-context gang's) on a (pipe 2,
+#: model 2) mesh, S 1024, M = 4 microbatches of 2, 2 steps
+TPP = dict(pipe=2, model=2, blocks=3, d_model=768, d_ff=3072, heads=12,
            head_dim=64, seq=1024, m=4, mb=2, steps=2)
 SP_GANG = 4
 SP_TIMEOUT_S = 300
@@ -7438,7 +7477,7 @@ def phase_long_context_gang(dev, cfg=None, worker_argv=None) -> dict:
 def phase_tp_pipeline_gang(dev, cfg=None, worker_argv=None) -> dict:
     """Four gloo ranks on the one card, a (pipe 2, model 2) mesh:
     examples/transformer_parallel at GPT-2 small's width (:data:`TPP`),
-    12 blocks as two stages of 6, two O2 steps, against the unsharded
+    6 blocks as two stages of 3, two O2 steps, against the unsharded
     model on one rank with the merged weights: the losses within 1e-3
     relative a step, every rank's masters' movement within
     :data:`SP_TRAIN_TOL`; the launches (LayerNorm and flash forward and
@@ -7623,6 +7662,11 @@ def phase_sp_world1(dev, cfg=None) -> dict:
 
 # -- phase 18: scale-out, part 2 (TP serving, MoE, compression, restore) -----
 
+#: new tokens a request of the engine mix in the TP gang (the engine
+#: phase's 64 cut to 32, a depth cut that the whole script's time limit
+#: forces: the prefill chunks, the shared prefix's copy-on-write and
+#: every decode window's head all-reduces still run)
+SO2_MIX_NEW = 32
 #: the four-request mix of the spec and int8 checks: prompts of 64-256
 #: tokens, 16 new tokens each
 SO2_MIX4 = dict(seed=8, n=4, lo=64, hi=256, new=16)
@@ -7757,7 +7801,8 @@ def _so2_serve_runs(dev, params, mesh=None) -> dict:
     tap = _LogitsTap(dec.model)
     eng = tap.engine = _so2_engine(dec)
     reset_collective_counts()
-    lens, got, wall, launches = _run_engine_mix(eng, cfg.vocab_size)
+    lens, got, wall, launches = _run_engine_mix(eng, cfg.vocab_size,
+                                                new=SO2_MIX_NEW)
     st = eng.stats()
     out["engine"] = {
         "tokens": got, "wall_s": wall, "launches": launches,
@@ -8244,8 +8289,7 @@ def phase_scale_out2_world1(dev) -> dict:
                      rank=0, world_size=1)
     rec = {"phase": "scale_out2_world1", "card": nvidia_smi_line()}
     try:
-        params = init_params(GPTConfig.small(),
-                             torch.Generator().manual_seed(0))
+        params = seeded_params(init_params, GPTConfig.small(), 0)
         prompts = _so2_prompts(SO2_MIX4)
         toks, digests = {}, {}
         for name, mesh in (("plain", None), ("tp1", serve_mesh(1))):
@@ -8368,7 +8412,7 @@ def phase_scale_out2_gangs(dev, worker_argv=None) -> dict:
     kernel at H = 3) and ``moe_compress_gang`` (MoE over expert 4,
     compression and Adasum over data 4 against the CPU, the ZeRO carry
     of data 4 restored as FSDP on (data 2, model 2))."""
-    params = init_params(GPTConfig.small(), torch.Generator().manual_seed(0))
+    params = seeded_params(init_params, GPTConfig.small(), 0)
     t_ref = time.perf_counter()
     ref = _so2_serve_runs(dev, params)
     cfg32 = dataclasses.replace(GPTConfig.small(),
@@ -8444,8 +8488,9 @@ def phase_scale_out2_gangs(dev, worker_argv=None) -> dict:
            "model": "GPT-2 small, random weights (seed 0), bf16 compute and "
                     "pages, 3 heads a rank",
            "traffic": "the engine phase's mix: 16 requests, 64-768-token "
-                      "prompts, 64 new tokens, two sharing a 256-token "
-                      "prefix, 8 slots, page_len 16, chunks of 128, K = 8",
+                      f"prompts, {SO2_MIX_NEW} new tokens, two sharing a "
+                      "256-token prefix, 8 slots, page_len 16, chunks of "
+                      "128, K = 8",
            "one_rank_launches": e1["launches"],
            "one_rank_engine_wall_s": e1["wall_s"], "references_s": ref_s,
            "paged_h3": h3, "ranks": serve, "gang_s": wall,
@@ -8559,11 +8604,13 @@ def phase_scale_out2_gangs(dev, worker_argv=None) -> dict:
 
 # -- phase 19: the obs plane -------------------------------------------------
 
-#: the obs_serve phase's traffic: 32 requests, bursty arrivals (4x the base
+#: the obs_serve phase's traffic: 16 requests, bursty arrivals (4x the base
 #: rate while on), half the prompts fronted by one of four Zipf-weighted
 #: 256-token prefixes, Pareto prompt lengths (unique 192-512 tokens,
 #: shared 256 + 64-512), outputs 16-64 tokens, 20 % at priority 1
-OBS_PLAN = dict(requests=32, rate_rps=8.0, arrival="bursty",
+#: (16 requests, a depth cut that the whole script's time limit forces:
+#: the SLO leg still yields, and the FIFO and SLO-aware legs still agree)
+OBS_PLAN = dict(requests=16, rate_rps=8.0, arrival="bursty",
                 burst_factor=4.0, burst_on_s=0.4, burst_off_s=1.6,
                 vocab_size=50257, n_prefixes=4, prefix_len=256, zipf_s=1.2,
                 shared_frac=0.5, prompt_min=64, prompt_scale=64.0,
@@ -8819,11 +8866,12 @@ def phase_obs_serve(dev, params, smi: str) -> dict:
                        "prefix_hits": eng.stats()["prefix_hits"]},
         "seconds": time.perf_counter() - t_phase}
     emit(rec)
-    check(rep.completed == 32 and all(
+    n_req = OBS_PLAN["requests"]
+    check(rep.completed == n_req and all(
         len(rep.tokens[u]) == n for u, n in want_len.items())
         and all(0 <= t < cfg.vocab_size for toks in rep.tokens.values()
                 for t in toks), "obs_serve: a request fell short")
-    check(rep.ttft_ms["count"] == 32 and rep.itl_ms["count"] > 0,
+    check(rep.ttft_ms["count"] == n_req and rep.itl_ms["count"] > 0,
           "obs_serve: the lifecycle did not see every request")
     check(rec["byte_identical_reports"],
           "obs_serve: two virtual-clock runs gave different reports")
@@ -8852,7 +8900,7 @@ def phase_obs_serve(dev, params, smi: str) -> dict:
           "obs_serve: a span after the first window built or loaded a "
           "library")
     check(wall_launches["paged_fused_attention"] > 0
-          and len(wall_out) == 32, "obs_serve: the wall-clock run failed")
+          and len(wall_out) == n_req, "obs_serve: the wall-clock run failed")
     return a["launches"]
 
 
@@ -8941,6 +8989,10 @@ def phase_obs_train(dev, params, b: int = 8, s: int = 1024, k: int = 4
 # the record file of both phases: 4 windows of K = 10 at batch 128 of
 # 224 x 224 x 3 uint8 images and int32 labels (771 MB)
 DL_RECORDS, DL_HW, DL_BATCH, DL_K = 5120, 224, 128, 10
+#: steps in the window that ``--prof 0`` traces in (e): a depth cut that
+#: the whole script's time limit forces (a window of 10 gave a 96 MB
+#: trace of 40,183 kernels to write and read back)
+DL_PROF_K = 2
 
 
 def _dl_write(path: str, n: int, hw: int, seed: int = 40):
@@ -9246,8 +9298,8 @@ def phase_imagenet_example(dev, path: str, rn_images_per_s: float,
     first window.
     (d) ``--sync_bn`` (an NCCL group of one) for one O2 window from the
     file: its losses bit for bit (a)'s window 0.
-    (e) ``--prof 0``: the Chrome trace it writes names the cross-entropy
-    kernels, K each."""
+    (e) ``--prof 0`` at K = :data:`DL_PROF_K`: the Chrome trace it writes
+    names the cross-entropy kernels, K each."""
     import warnings
 
     import numpy as np
@@ -9469,7 +9521,8 @@ def phase_imagenet_example(dev, path: str, rn_images_per_s: float,
     check(d_bitwise, "imagenet (d): --sync_bn's window 0 is not (a)'s")
 
     # (e) --prof 0: a trace that names the cross-entropy kernels
-    res_e = ex.run(ex.parse_args(_imagenet_args(path, "--prof", "0")))
+    res_e = ex.run(ex.parse_args(_imagenet_args(
+        path, "--prof", "0", "--steps-per-dispatch", str(DL_PROF_K))))
     trace = res_e["trace"]
     with open(trace) as fh:
         names = [e.get("name", "") for e in json.load(fh)["traceEvents"]
@@ -9479,11 +9532,13 @@ def phase_imagenet_example(dev, path: str, rn_images_per_s: float,
     xent = {k: sum(k in n for n in names)
             for k in ("xent_fwd_kernel", "xent_bwd_kernel")}
     emit({"phase": "imagenet_example", "part": "e",
-          "what": "--prof 0: the Chrome trace of window 0",
+          "what": f"--prof 0: the Chrome trace of window 0 (K = "
+                  f"{DL_PROF_K})",
           "trace_bytes": trace_bytes, "kernels": len(names),
           "xent_kernels": xent,
           "seconds": time.perf_counter() - t_phase})
-    check(xent == {"xent_fwd_kernel": DL_K, "xent_bwd_kernel": DL_K},
+    check(xent == {"xent_fwd_kernel": DL_PROF_K,
+                   "xent_bwd_kernel": DL_PROF_K},
           f"imagenet (e): the trace's cross-entropy kernels {xent}")
     return {"a": launches, "c": launches_c}
 
@@ -10439,6 +10494,453 @@ def phase_resilience_train(dev, params, b: int = 8, s: int = 1024,
     return launch_dict(good["launches"])
 
 
+# -- phase 23: the serving fleet ---------------------------------------------
+
+#: the fleet's host geometry: the engine phase's
+FLEET_KW = dict(slots=8, max_len=1024, page_len=16, prefill_chunk=128,
+                seed=0)
+#: (e)'s host geometry: JAX's autoscale tests' (two slots a host, so the
+#: bursts queue and the fleet TTFT burns)
+AUTOSCALE_KW = dict(slots=2, max_len=64, page_len=8, prefill_chunk=16)
+#: (a)'s host chaos, ``FaultPlan.from_seed(FLEET_CHAOS_SEED, horizon=12,
+#: hosts=3, rates=FLEET_CHAOS_RATES, stall_beats=2)``: a heartbeat drop
+#: and a two-beat stall on host 2 (evicted), host 0 lost mid-decode at
+#: round 8 and restarted at round 11
+FLEET_CHAOS_SEED = 11852
+FLEET_CHAOS_RATES = {"host_loss": 0.03, "host_stall": 0.03,
+                     "heartbeat_drop": 0.03, "restart": 0.06}
+
+
+def _fleet_chaos_plan():
+    from apex_tpu_torch.resilience import FaultPlan
+
+    return FaultPlan.from_seed(FLEET_CHAOS_SEED, horizon=12, hosts=3,
+                               rates=FLEET_CHAOS_RATES, stall_beats=2)
+
+
+def _ctr(reg, name: str) -> int:
+    c = reg.get(name)
+    return int(c.value) if c is not None else 0
+
+
+def _fleet_forwards(router, k: int) -> int:
+    """Forwards the fleet's hosts ran: prefill chunks and K a window,
+    from each host's registry (it outlives a lost engine)."""
+    return sum(_ctr(h.registry, "serve.prefill_dispatches")
+               + k * _ctr(h.registry, "serve.decode_dispatches")
+               for h in router.hosts.values())
+
+
+def _fleet(dec, roles=("mixed",) * 3, fr=None, **router_kw):
+    """A fleet over one shared decoder, each host with its own registry,
+    tracer, page pool and the engine phase's geometry."""
+    from apex_tpu_torch.fleet import FleetHost, FleetRouter
+
+    hosts = [FleetHost(i, dec, role=r, **FLEET_KW)
+             for i, r in enumerate(roles)]
+    return FleetRouter(
+        hosts, registry=obs.MetricsRegistry(),
+        tracer=obs.Tracer(enabled=True),
+        flightrec=fr or obs.FlightRecorder(capacity=512, enabled=True),
+        **router_kw)
+
+
+def _fleet_mix(router, max_new: int = 64) -> list:
+    """The engine mix through ``router`` as the engine phase submits it
+    (the first prompt's first token lands before the rest are
+    submitted); returns the tokens by request."""
+    prompts = _engine_mix_prompts()
+    uids = [router.submit(prompts[0], max_new_tokens=max_new)]
+    while not router.progress()[uids[0]][0]:
+        router.step()
+    uids += [router.submit(p, max_new_tokens=max_new) for p in prompts[1:]]
+    out = router.run()
+    return [out[u] for u in uids]
+
+
+def _planted_decoder(dec, fault: str):
+    """A copy of ``dec`` (the same model, a qualification cache of its
+    own) whose paged window carries a planted preflight fault: one more
+    device read (``transfers``), the pool reallocated (``donation``) or
+    ``exp`` of a bf16 tensor (``precision``)."""
+    bad = copy.copy(dec)
+    bad.__dict__.pop("_preflight_cache", None)
+    real = dec.paged_decode_window
+
+    def window(cache, tables, tokens, active, *args, **kwargs):
+        if fault == "donation":
+            cache.k = cache.k.clone()
+            cache.v = cache.v.clone()
+        buf = real(cache, tables, tokens, active, *args, **kwargs)
+        if fault == "transfers":
+            buf.sum().item()
+        elif fault == "precision":
+            torch.exp(buf.to(torch.bfloat16))
+        return buf
+
+    bad.paged_decode_window = window
+    return bad
+
+
+def _affinity_traffic(hosts=(0, 1, 2)):
+    """Staggered shared-prefix traffic on the engine mix: family A is
+    the mix's 256-token shared prefix, family B the head of the first
+    mix prompt whose head the hash ring places on another host, each
+    with a long-lived anchor, short sharers and one unique request:
+    (anchors, the rest).  A family's anchor is routed by its first page
+    and its sharers by the whole prefix: both keys land on one host for
+    each family, checked here."""
+    from apex_tpu_torch.fleet.serve import _Ring
+
+    ring = _Ring.from_ids(hosts)
+    pl = FLEET_KW["page_len"]
+    prompts = _engine_mix_prompts()
+
+    def home(p):
+        a, b = ring.lookup(tuple(p[:pl])), ring.lookup(tuple(p))
+        return a if a == b else None
+
+    pa = prompts[0][:256]
+    check(home(pa) is not None, "fleet_serve (d): the shared prefix's "
+          "two keys land on two hosts")
+    pb = next((p[:n] for p in prompts[2:] for n in range(256, 15, -pl)
+               if len(p) >= n + 64 and home(p[:n]) not in (None, home(pa))),
+              None)
+    check(pb is not None, "fleet_serve (d): no second prefix family")
+    tails = [p[-16:] for p in prompts[2:]]
+    anchors = [(pa + tails[0], 24), (pb + tails[1], 24)]
+    return anchors, [(pa + tails[2], 6), (pb + tails[3], 6),
+                     (tails[4] * 4, 6), (pa + tails[5], 6),
+                     (pb + tails[6], 6), (pa + tails[0], 6)]
+
+
+def _autoscale_plan():
+    """JAX's autoscale postmortem plan (``tests/test_flightrec.py``) at
+    GPT-2's vocabulary: 36 bursty requests, prompts of at most 24 tokens
+    and outputs of at most 12.  Seed 21: at this vocabulary JAX's seed 17
+    draws all 36 arrivals into one 63 ms burst, which never calms, so no
+    host drains; seed 21's span 188 ms in bursts, and both scale-ups
+    drain."""
+    return TrafficPlan.from_seed(
+        21, requests=36, rate_rps=60.0, arrival="bursty",
+        burst_factor=10.0, burst_on_s=0.3, burst_off_s=1.2,
+        vocab_size=50257, n_prefixes=2, prefix_len=8, zipf_s=1.2,
+        shared_frac=0.5, prompt_min=2, prompt_scale=4.0,
+        prompt_alpha=1.3, prompt_cap=24, output_min=2, output_scale=4.0,
+        output_alpha=1.2, output_cap=12)
+
+
+def _autoscale_leg(dec, dump_dir, autoscale: bool = True) -> dict:
+    """(e): the plan through ``LoadGen`` on its virtual clock into a fleet
+    of one host and two standby hosts on :data:`AUTOSCALE_KW`,
+    autoscaled on the fleet TTFT (p90 < 12 virtual ms over 64), or into
+    a static fleet of three."""
+    from apex_tpu_torch.fleet import FleetHost, FleetRouter
+
+    gen = LoadGen(_autoscale_plan(), step_cost_ms=4.0)
+    mk = lambda i: FleetHost(i, dec, clock=gen.clock, **AUTOSCALE_KW)  # noqa: E731
+    fr = obs.FlightRecorder(capacity=256, enabled=True, dump_dir=dump_dir)
+    if autoscale:
+        tracker = obs.SloTracker(
+            [obs.SloObjective("ttft_ms", 0.9, 12.0, 64.0)], clock=gen.clock)
+        router = FleetRouter(
+            [mk(0)], standby=[mk(1), mk(2)], registry=obs.MetricsRegistry(),
+            tracer=obs.Tracer(enabled=True), clock=gen.clock, flightrec=fr,
+            autoscale=True, autoscale_tracker=tracker,
+            scale_cooldown_rounds=2, drain_after_rounds=3)
+    else:
+        router = FleetRouter([mk(i) for i in range(3)],
+                             registry=obs.MetricsRegistry(),
+                             tracer=obs.Tracer(enabled=True),
+                             clock=gen.clock, flightrec=fr)
+    t0 = time.perf_counter()
+    rep = gen.run(router)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    path = fr.dump(reason="autoscale_audit")
+    with open(path, "rb") as fh:
+        dump = fh.read()
+    st = router.stats()
+    kinds = fr.kinds()
+    return {"report": rep, "dump": dump, "wall_s": wall,
+            "scale_ups": st["scale_ups"], "drains": st["drains"],
+            "decisions": [(e["kind"], e["attrs"].get("host"),
+                           e["attrs"].get("round"))
+                          for e in fr.events()
+                          if e["kind"] in ("fleet/scale_up", "fleet/drain",
+                                           "fleet/drained")],
+            "recorder_kinds": kinds, "rounds": rep.rounds}
+
+
+def phase_fleet_serve(dev, params, engine_run: dict, smi: str) -> dict:
+    """The serving fleet (``apex_tpu_torch.fleet``) on GPT-2 small
+    (random weights, seed 0), every host on the engine phase's geometry
+    (8 slots, page_len 16, chunks of 128, K = 8), all hosts sharing one
+    decoder (one copy of the weights) with a page pool each:
+
+    (a) three mixed hosts at fp32 admitted through ``preflight=True``
+    (every check of the shared decoder's report passes on the card),
+    the engine mix under :func:`_fleet_chaos_plan`: every request's
+    tokens those of the engine phase's clean run at fp32 (one
+    ``ServeEngine``, run first), requests recovered, no library built or
+    loaded from the loss on, LayerNorm and paged attention launched
+    exactly 25 and 12 times per forward the hosts ran (prefill chunks
+    and K a window, replays included); recovery ms, walls, peak memory;
+    (b) planted preflight faults, each failing its own check and only
+    it, and the router refusing the host; (c) one prefill and two decode
+    hosts, the handoff whole and streamed, at fp32 the clean tokens, a
+    corrupted handoff falling back to recompute with the same tokens,
+    one handoff a request, no decode window on the prefill host; bf16
+    (whole) beside the engine phase's bf16 tokens, reported; (d) prefix
+    affinity on and off on shared-prefix traffic from the mix: the
+    fleet's prefix hit rate higher with it on, the same tokens; (e)
+    autoscaling through ``LoadGen`` on its virtual clock, twice: the
+    same scale-up and drain decisions and the recorder dumps byte for
+    byte, the tokens a static fleet's, on :data:`AUTOSCALE_KW` (JAX's
+    autoscale geometry: two slots a host, so bursts queue).  Returns
+    (a)'s launches."""
+    from apex_tpu_torch.fleet import FleetHost, FleetRouter, run_preflight
+    from apex_tpu_torch.serve import handoff as ho_mod
+
+    t_phase = time.perf_counter()
+    cfg = GPTConfig.small()
+    k = 8
+    dec32 = GPTDecoder(cfg, params, compute_dtype=torch.float32,
+                       cache_dtype=torch.float32, tokens_per_dispatch=k,
+                       device=dev)
+    geom = {n: FLEET_KW[n] for n in ("slots", "max_len", "page_len")}
+    # the reference: the engine phase's clean run at fp32
+    _, clean32, clean_wall, _ = _run_engine_mix(
+        ServeEngine(dec32, **FLEET_KW), cfg.vocab_size)
+
+    # (a) chaos on three mixed hosts, through the port's preflight
+    plan = _fleet_chaos_plan()
+    heard = []
+    router = _fleet(dec32, fault_plan=plan)
+    report = router.hosts[0].preflight
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    _build.add_build_listener(
+        listen := lambda kind, name: heard.append((router.rounds, kind,
+                                                   name)))
+    try:
+        t0 = time.perf_counter()
+        got = _fleet_mix(router)
+        torch.cuda.synchronize()
+        chaos_wall = time.perf_counter() - t0
+    finally:
+        _build.remove_build_listener(listen)
+    launches = launch_counts()
+    fwd = _fleet_forwards(router, k)
+    st = router.stats()
+    loss_round = next((ev.index + 1 for ev in plan.fired
+                       if ev.kind == "host_loss"), None)
+    rec_ms = router.registry.get("fleet.recovery_ms")
+    resumed = [e["attrs"]["resumed"] for e in router._fr.events()
+               if e["kind"] == "fleet/route" and e["attrs"]["resumed"]]
+    chaos = {
+        "preflight": json.loads(report.to_json()),
+        "plan": json.loads(plan.to_json()),
+        "fired": [(ev.site, ev.index, ev.kind) for ev in plan.fired],
+        "requests_differing": sum(a != b for a, b in zip(got, clean32)),
+        "wall_s": chaos_wall, "single_engine_wall_s": clean_wall,
+        "rounds": st["rounds"],
+        "host_losses": st["host_losses"], "evictions": st["evictions"],
+        "readmissions": st["readmissions"],
+        "requests_recovered": st["requests_recovered"],
+        "recovered_resumed_tokens": resumed,
+        "recovery_ms": ({"count": rec_ms.count, "p50": rec_ms.quantile(0.5),
+                         "max": rec_ms.quantile(1.0)}
+                        if rec_ms is not None and rec_ms.count else None),
+        "hosts": {h: {"state": s["state"], "beats": s["beats"],
+                      "decode_p99_ms": s["decode_p99_ms"]}
+                  for h, s in st["hosts"].items()},
+        "forwards": fwd, "launches": {n: c for n, c in launches.items()
+                                      if c},
+        "builds_or_loads": heard, "loss_round": loss_round,
+        "max_memory_allocated_bytes": torch.cuda.max_memory_allocated()}
+    del router
+    torch.cuda.empty_cache()
+
+    # (b) planted preflight faults: each fails its own check alone, and
+    # the router admits no host whose report fails
+    planted = {}
+    for fault in ("transfers", "donation", "precision"):
+        bad = _planted_decoder(dec32, fault)
+        rep = run_preflight(bad, host_id=f"planted-{fault}", **geom)
+        r = FleetRouter([FleetHost(0, bad, **FLEET_KW)],
+                        registry=obs.MetricsRegistry(),
+                        tracer=obs.Tracer(enabled=True),
+                        flightrec=obs.FlightRecorder(enabled=True))
+        planted[fault] = {
+            "failed": [c.name for c in rep.failures()],
+            "detail": {c.name: c.detail for c in rep.failures()},
+            "wall_s": rep.wall_s,
+            "admitted": [h.host_id for h in r.admitted()],
+            "host_state": r.hosts[0].state,
+            "preflight_failures": r.stats()["preflight_failures"]}
+        del bad, r
+    torch.cuda.empty_cache()
+
+    # (c) prefill/decode roles over the KV handoff
+    roles = ("prefill", "decode", "decode")
+
+    def roles_leg(dec, **kw):
+        r = _fleet(dec, roles=roles, **kw)
+        t0 = time.perf_counter()
+        toks = _fleet_mix(r)
+        torch.cuda.synchronize()
+        s = r.stats()
+        return {"tokens": toks, "wall_s": time.perf_counter() - t0,
+                "handoffs": s["handoffs"],
+                "handoff_fallbacks": s["handoff_fallbacks"],
+                "handoff_chunks": s["handoff_chunks"],
+                "handoff_chunk_aborts": s["handoff_chunk_aborts"],
+                "prefill_host_windows": _ctr(
+                    r.hosts[0].registry, "serve.decode_dispatches"),
+                "decode_host_windows": [_ctr(
+                    r.hosts[i].registry, "serve.decode_dispatches")
+                    for i in (1, 2)]}
+
+    legs = {"whole": roles_leg(dec32),
+            "streamed": roles_leg(dec32, stream_handoff=True)}
+    real = ho_mod.KVHandoff.from_bytes.__func__
+    ho_mod.KVHandoff.from_bytes = classmethod(
+        lambda cls, blob: real(cls, blob[:-4] + b"XXXX"))
+    try:
+        legs["corrupt"] = roles_leg(dec32)
+    finally:
+        ho_mod.KVHandoff.from_bytes = classmethod(real)
+    dec16 = GPTDecoder(cfg, params, compute_dtype=torch.bfloat16,
+                       cache_dtype=torch.bfloat16, tokens_per_dispatch=k,
+                       device=dev)
+    legs["bf16"] = roles_leg(dec16)
+    del dec16
+    torch.cuda.empty_cache()
+    roles_rec = {}
+    for name, leg in legs.items():
+        want = engine_run["tokens"] if name == "bf16" else clean32
+        diff = {i: _first_diff(a, b) for i, (a, b) in enumerate(
+            zip(leg["tokens"], want)) if a != b}
+        roles_rec[name] = {**{n: v for n, v in leg.items()
+                              if n != "tokens"},
+                           "requests_differing": len(diff),
+                           "first_differing_position": diff}
+    roles_rec["bf16"]["compared_with"] = "the engine phase's bf16 tokens"
+
+    # (d) prefix affinity on and off
+    anchors, rest = _affinity_traffic()
+    aff = {}
+    for on in (False, True):
+        r = _fleet(dec32, affinity=on)
+        uids = [r.submit(p, max_new_tokens=n) for p, n in anchors]
+        # the anchors' pages land before the sharers arrive
+        while not all(r.progress()[u][0] for u in uids):
+            r.step()
+        uids += [r.submit(p, max_new_tokens=n) for p, n in rest]
+        out = r.run()
+        s = r.stats()
+        aff["on" if on else "off"] = {
+            "tokens": [out[u] for u in uids],
+            "fleet_prefix_hit_rate": s["fleet_prefix_hit_rate"],
+            "affinity_hits": s["affinity_hits"],
+            "affinity_fallbacks": s["affinity_fallbacks"],
+            "requests_by_host": {h: a["requests"] for h, a in
+                                 r.routing_attribution().items()}}
+    aff_rec = {"requests": len(anchors) + len(rest),
+               "tokens_equal": aff["on"]["tokens"] == aff["off"]["tokens"],
+               **{n: {m: v for m, v in leg.items() if m != "tokens"}
+                  for n, leg in aff.items()}}
+
+    # (e) autoscaling through the load generator, twice, and a static
+    # fleet
+    dumps = tempfile.mkdtemp(prefix="apex_tpu_torch_fleet_")
+    try:
+        auto = [_autoscale_leg(dec32, os.path.join(dumps, n))
+                for n in ("a", "b")]
+        static = _autoscale_leg(dec32, os.path.join(dumps, "s"),
+                                autoscale=False)
+    finally:
+        shutil.rmtree(dumps, ignore_errors=True)
+    del dec32
+    torch.cuda.empty_cache()
+    auto_rec = {
+        "runs": [{n: v for n, v in a.items() if n not in ("report", "dump")}
+                 for a in auto],
+        "reports_equal": auto[0]["report"].to_json()
+        == auto[1]["report"].to_json(),
+        "dumps_equal": auto[0]["dump"] == auto[1]["dump"],
+        "dump_bytes": len(auto[0]["dump"]),
+        "completed": auto[0]["report"].completed,
+        "submitted": auto[0]["report"].submitted,
+        "tokens_equal_static": auto[0]["report"].tokens
+        == static["report"].tokens,
+        "static_wall_s": static["wall_s"],
+        "routing": auto[0]["report"].routing}
+
+    rec = {"phase": "fleet_serve", "nvidia_smi": smi,
+           "model": "GPT-2 small, random weights (seed 0), 8 slots a host, "
+                    "page_len 16, chunks of 128, K = 8, one shared decoder",
+           "a_chaos_fp32": chaos, "b_planted_preflight": planted,
+           "c_roles": roles_rec, "d_affinity": aff_rec,
+           "e_autoscale": auto_rec,
+           "seconds": time.perf_counter() - t_phase}
+    emit(rec)
+    check(report is not None and report.passed
+          and [c.name for c in report.checks]
+          == ["precision", "transfers", "donation", "warm_compile"],
+          f"fleet_serve (a): the preflight {report!r}: "
+          f"{report.to_json() if report is not None else None}")
+    check(chaos["requests_differing"] == 0,
+          f"fleet_serve (a): {chaos['requests_differing']} requests differ "
+          "from the single engine's fp32 run")
+    check(len(chaos["fired"]) == len(plan) == 4
+          and chaos["host_losses"] == 1 and chaos["evictions"] == 1
+          and chaos["readmissions"] == 1
+          and chaos["requests_recovered"] > 0 and resumed,
+          f"fleet_serve (a): the chaos ledger {chaos}")
+    check(not [h for h in heard if loss_round is None
+               or h[0] >= loss_round],
+          f"fleet_serve (a): a library built or loaded after the loss: "
+          f"{heard}")
+    check(launches == {n: {"layer_norm": 25 * fwd,
+                           "paged_fused_attention": 12 * fwd}.get(n, 0)
+                       for n in launches},
+          f"fleet_serve (a): launches {chaos['launches']} over {fwd} "
+          "forwards, not 25 LayerNorms and 12 paged calls each")
+    for fault, p in planted.items():
+        check(p["failed"] == [fault] and p["admitted"] == []
+              and p["host_state"] == "new" and p["preflight_failures"] == 1,
+              f"fleet_serve (b): the planted {fault} fault: {p}")
+    for name in ("whole", "streamed", "corrupt"):
+        leg = roles_rec[name]
+        check(leg["requests_differing"] == 0,
+              f"fleet_serve (c): the {name} handoff's tokens: {leg}")
+        check(leg["prefill_host_windows"] == 0
+              and min(leg["decode_host_windows"]) > 0,
+              f"fleet_serve (c): the {name} leg's windows: {leg}")
+    n_req = len(clean32)
+    check(roles_rec["whole"]["handoffs"] == n_req
+          and roles_rec["whole"]["handoff_fallbacks"] == 0
+          and roles_rec["streamed"]["handoffs"] == n_req
+          and roles_rec["streamed"]["handoff_chunks"] > 0
+          and roles_rec["corrupt"]["handoffs"] == 0
+          and roles_rec["corrupt"]["handoff_fallbacks"] == n_req,
+          f"fleet_serve (c): handoff counts {roles_rec}")
+    check(aff_rec["tokens_equal"]
+          and aff["on"]["fleet_prefix_hit_rate"]
+          > aff["off"]["fleet_prefix_hit_rate"],
+          f"fleet_serve (d): affinity {aff_rec}")
+    check(auto_rec["reports_equal"] and auto_rec["dumps_equal"]
+          and auto[0]["decisions"] == auto[1]["decisions"]
+          and auto[0]["scale_ups"] >= 1 and auto[0]["drains"] >= 1
+          and auto_rec["completed"] == auto_rec["submitted"]
+          and auto_rec["tokens_equal_static"],
+          f"fleet_serve (e): autoscale {auto_rec}")
+    return launch_dict(launches)
+
+
 class _Tee:
     """stdout that also writes to a log file."""
 
@@ -10504,7 +11006,7 @@ def _run() -> int:
     ln_cases = phase_layer_norm(dev)
     pa_cases = phase_paged_attention(dev)
 
-    params = init_params(GPTConfig.small(), torch.Generator().manual_seed(0))
+    params = seeded_params(init_params, GPTConfig.small(), 0)
     phase_parity(params)
     launches, dec, engine_run = phase_engine(dev, params)
     plain_profile = phase_profile(dec)
@@ -10515,6 +11017,10 @@ def _run() -> int:
     spec_launches = phase_spec_engine(dev, params)
     tree_launches = phase_spec_tree_engine(dev, params)
     phase_spec_profile(dev, params, plain_profile)
+    t_fl = time.perf_counter()
+    fleet_launches = phase_fleet_serve(dev, params, engine_run, smi)
+    torch.cuda.empty_cache()
+    emit({"phase": "fleet_serve_time", "seconds": time.perf_counter() - t_fl})
 
     lnb_cases = phase_layer_norm_bwd(dev)
     fl_cases = phase_flash(dev)
@@ -10529,8 +11035,7 @@ def _run() -> int:
 
     fb_cases = phase_flash_bias(dev)
     lamb_case = phase_lamb(dev)
-    bert_params = init_bert_params(BertConfig.large(),
-                                   torch.Generator().manual_seed(20))
+    bert_params = seeded_params(init_bert_params, BertConfig.large(), 20)
     phase_bert_parity(bert_params)
     bert_launches, step, carry, bert_rec = phase_bert_train(dev, bert_params)
     phase_step_profile(step, carry, "bert_profile", "one O2 step, BERT-large "
@@ -10583,9 +11088,8 @@ def _run() -> int:
     del step, carry, md_model, md_params
     torch.cuda.empty_cache()
 
-    params = init_params(GPTConfig.small(), torch.Generator().manual_seed(0))
-    bert_params = init_bert_params(BertConfig.large(),
-                                   torch.Generator().manual_seed(20))
+    params = seeded_params(init_params, GPTConfig.small(), 0)
+    bert_params = seeded_params(init_bert_params, BertConfig.large(), 20)
     phase_o1_parity(params, bert_params)
     del bert_params
     o1_launches = phase_o1_train(dev, params, o2_tokens_per_s)
@@ -10617,7 +11121,7 @@ def _run() -> int:
                      "moe_compress_gang"]})
     torch.cuda.empty_cache()
     t_obs = time.perf_counter()
-    params = init_params(GPTConfig.small(), torch.Generator().manual_seed(0))
+    params = seeded_params(init_params, GPTConfig.small(), 0)
     obs_serve_launches = phase_obs_serve(dev, params, smi)
     torch.cuda.empty_cache()
     obs_train_launches = phase_obs_train(dev, params)
@@ -10941,11 +11445,13 @@ def _run() -> int:
     # scale-out: rank 0's launches in the gangs' steps, beside every rank's
     for key, path, what in (
             ("long_context_path", lc_path, "two O2 steps of "
-             "examples/gpt_long_context, 12 GPTLayers at GPT-2 small's "
+             f"examples/gpt_long_context, {LC['layers']} GPTLayers at GPT-2 "
+             "small's "
              "width, ring attention over seq 2, S 4096, M = 2, "
              "dots_saveable, ZeRO over data 2 (long_context_gang)"),
             ("tp_path", tp_path, "two O2 steps of "
-             "examples/transformer_parallel, 12 blocks at GPT-2 small's "
+             f"examples/transformer_parallel, {TPP['pipe'] * TPP['blocks']} "
+             "blocks at GPT-2 small's "
              "width as 2 pipeline stages x 2 tensor-parallel shards, "
              "S 1024, M = 4 (tp_pipeline_gang)")):
         for name in ("layer_norm", "layer_norm_bwd", "flash_attention_fwd",
@@ -10968,7 +11474,8 @@ def _run() -> int:
     for name in ("layer_norm", "paged_fused_attention"):
         by_name[name]["obs_serve_path"] = {
             "launches": obs_serve_launches[name],
-            "launches_of": f"{name}, the obs plan (32 requests) through "
+            "launches_of": f"{name}, the obs plan ({OBS_PLAN['requests']} "
+                           "requests) through "
                            "the engine phase's configuration on the "
                            "virtual clock, obs on (obs_serve)"}
     # the disaggregated run of the engine mix: both engines' launches
@@ -10989,6 +11496,13 @@ def _run() -> int:
                            "ResilientServeEngine under two engine crashes, "
                            "two failed dispatches and a page-pressure "
                            "spike, replays included (resilience_serve (a))"}
+    for name in ("layer_norm", "paged_fused_attention"):
+        by_name[name]["fleet_serve_path"] = {
+            "launches": fleet_launches[name],
+            "launches_of": f"{name}, the engine mix at fp32 through a "
+                           "FleetRouter of three hosts under host chaos (a "
+                           "loss mid-decode, a stall, a dropped heartbeat, "
+                           "a restart), replays included (fleet_serve (a))"}
     for name in ("layer_norm", "layer_norm_bwd", "flash_attention_fwd",
                  "flash_attention_bwd", "softmax_xentropy_fwd",
                  "softmax_xentropy_bwd"):
@@ -11019,7 +11533,7 @@ def _run() -> int:
                             "tp_path", "tp_serve_path", "obs_serve_path",
                             "obs_train_path", "serve_handoff_path",
                             "resilience_serve_path", "resilience_train_path",
-                            *paths)
+                            "fleet_serve_path", *paths)
                   if p in r),
           f"a kernel never launched on its path: {rows}")
     check(all(by_name[n][p]["launches"] > 0

@@ -17,9 +17,11 @@ package, on the CPU.
   the ``stats()`` keys both engines have.
   SLO-aware admission streams FIFO's tokens per uid.
 - Two port runs of a plan give byte-identical reports; the harness
-  refuses an engine on another clock and a fleet router, whose module
-  is not ported yet (a ``ResilientServeEngine`` target runs:
-  ``tests/test_torch_resilience.py``).
+  refuses an engine on another clock.  A ``FleetRouter`` target (JAX's
+  autoscale plan over one host and two standby) reports what JAX's
+  does, byte for byte: registries merged across hosts, drained hosts'
+  generations counted, the routing attribution (a
+  ``ResilientServeEngine`` target: ``tests/test_torch_resilience.py``).
 """
 import jax
 import jax.numpy as jnp
@@ -250,8 +252,62 @@ class TestHarness:
         with pytest.raises(ValueError):
             serve.LoadGen(_plan(serve), step_cost_ms=0.0)
 
-    @pytest.mark.parametrize("attr,module", [("hosts", "fleet")])
-    def test_unported_targets_raise(self, attr, module):
-        target = type("Target", (), {attr: {}})()
-        with pytest.raises(TypeError, match=module):
-            serve.LoadGen(_plan(serve)).run(target)
+    def test_fleet_report_equals_jax(self, decoders):
+        """A ``FleetRouter`` target: JAX's autoscale plan (one host, two
+        standby, two slots each) through both packages' fleets.  The
+        reports are equal byte for byte: the hosts' registries merged,
+        the drained hosts' released generations counted, the routing
+        attribution recorded.  JAX's router admits through a passing
+        gate (its own preflight fails here: ROADMAP C), the port's runs
+        its preflight."""
+        from apex_tpu.fleet import FleetHost as JaxHost
+        from apex_tpu.fleet import FleetRouter as JaxRouter
+        from apex_tpu.fleet import PreflightCheck, PreflightReport
+        from apex_tpu_torch.fleet import FleetHost, FleetRouter
+
+        cfg, jdec, pdec = decoders
+
+        def gate(host):
+            return PreflightReport(host.host_id, [
+                PreflightCheck(n, True) for n in
+                ("precision", "transfers", "donation", "warm_compile")])
+
+        def leg(pkg, o, host, router, dec, preflight):
+            plan = pkg.TrafficPlan.from_seed(
+                17, requests=36, rate_rps=60.0, arrival="bursty",
+                burst_factor=10.0, burst_on_s=0.3, burst_off_s=1.2,
+                vocab_size=cfg.vocab_size, n_prefixes=2, prefix_len=8,
+                zipf_s=1.2, shared_frac=0.5, prompt_min=2,
+                prompt_scale=4.0, prompt_alpha=1.3, prompt_cap=24,
+                output_min=2, output_scale=4.0, output_alpha=1.2,
+                output_cap=12)
+            gen = pkg.LoadGen(plan, step_cost_ms=4.0)
+            hosts = [host(i, dec, slots=2, max_len=64, page_len=8,
+                          prefill_chunk=16, clock=gen.clock)
+                     for i in range(3)]
+            r = router(hosts[:1], standby=hosts[1:],
+                       registry=o.MetricsRegistry(), clock=gen.clock,
+                       flightrec=o.FlightRecorder(enabled=True),
+                       autoscale=True, preflight=preflight,
+                       autoscale_tracker=o.SloTracker(
+                           [o.SloObjective("ttft_ms", 0.9, 12.0, 64.0)],
+                           clock=gen.clock),
+                       scale_cooldown_rounds=2, drain_after_rounds=3)
+            return gen.run(r), r
+
+        rep, r = leg(serve, obs, FleetHost, FleetRouter, pdec, True)
+        ref, _ = leg(jserve, jobs, JaxHost, JaxRouter, jdec, gate)
+        assert rep.to_json() == ref.to_json()
+        st = r.stats()
+        assert st["scale_ups"] >= 1 and st["drains"] >= 1
+        assert any(h._lc_stash for h in r.hosts.values())
+        assert rep.completed == rep.submitted == 36
+        assert set(rep.routing) == {"0", "1", "2"}
+        assert sum(a["requests"] for a in rep.routing.values()) == 36
+        # a fleet target on another clock is refused like an engine
+        other = FleetRouter([FleetHost(0, pdec, slots=2, max_len=64,
+                                       page_len=8)],
+                            registry=obs.MetricsRegistry(),
+                            flightrec=obs.FlightRecorder(enabled=True))
+        with pytest.raises(ValueError, match="virtual clock"):
+            serve.LoadGen(_plan(serve)).run(other)

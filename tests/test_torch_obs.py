@@ -4,7 +4,9 @@
   identical snapshots, decimation past ``max_samples`` included.
 - The same observation stream on a synthetic clock gives the same
   ``SloReport`` (and ``WindowedHistogram`` snapshots, alert trips and
-  clears, OpenMetrics text) from both ``SloTracker``s.
+  clears, OpenMetrics text) from both ``SloTracker``s; with ``labels=``
+  (a fleet host's ``host`` and ``role``) the OpenMetrics text and file
+  are JAX's byte for byte.
 - Each package's ``read_flightrec`` and ``read_jsonl`` read the other's
   files; the same events dump byte-identically; the Chrome trace has
   JAX's keys.
@@ -166,6 +168,28 @@ class TestSlo:
                 == want.to_json())
         assert (obs.to_openmetrics(None, rep)
                 == jobs.to_openmetrics(None, want))
+
+    @pytest.mark.parametrize("labels", [
+        {"host": "3", "role": "prefill"}, {"host": 'a"b\\c'}, {}])
+    def test_labeled_openmetrics_equals_jax(self, labels, tmp_path):
+        """``labels=``: a fleet host's ``host``/``role`` stamped on every
+        series of the registry, the SLO objectives and the lifecycle
+        gauges, merged with the per-series labels, byte for byte JAX's
+        (text and file)."""
+        reg, ref = _feed_registry(obs, 64), _feed_registry(jobs, 64)
+        tr, ref_tr = _slo_stream(obs)[0], _slo_stream(jobs)[0]
+        life = {"completed": 3, "goodput_tokens_per_s": 1.5}
+        rep, want = tr.report(lifecycle=life), ref_tr.report(lifecycle=life)
+        text = obs.to_openmetrics(reg, rep, labels=labels)
+        assert text == jobs.to_openmetrics(ref, want, labels=labels)
+        if labels:  # every series carries them
+            assert all(line.startswith("#") or '{host="' in line
+                       for line in text.splitlines())
+        a = obs.write_openmetrics(str(tmp_path / "p.txt"), reg, rep,
+                                  labels=labels)
+        b = jobs.write_openmetrics(str(tmp_path / "j.txt"), ref, want,
+                                   labels=labels)
+        assert open(a).read() == open(b).read() == text
 
     def test_objectives_parse_like_jax(self):
         for spec in ("ttft_ms p99 < 50 over 15s", "itl_ms p99.9 < 2.5",
